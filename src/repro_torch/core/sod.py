@@ -1,0 +1,155 @@
+"""Sparse-on-Dense as a composable module: config, packing, apply.
+
+Twin of :mod:`repro.core.sod` for the ``tiled_csc`` static-serving slice:
+:class:`SoDConfig` says how projection weights are stored, :func:`pack_param`
+and :func:`sodify_params` prune and pack them, and :func:`apply` is the one
+matmul entry point every model layer calls — dense tensors bypass
+decompression, packed operands go to :func:`repro_torch.kernels.ops.sod_matmul`.
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any
+
+import torch
+
+from repro_torch.core import formats, pruning
+from repro_torch.core.formats import TiledCSC
+
+__all__ = ["SoDConfig", "DENSE", "prune_weight", "pack_param", "apply",
+           "sodify_params", "tree_weight_bytes"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SoDConfig:
+    """Storage/compute mode for the model's projection weights."""
+
+    mode: str = "dense"            # dense | tiled_csc
+    density: float = 1.0           # pruning target (1.0 = keep as-is)
+    tile: tuple[int, int] = (128, 128)
+    min_dim: int = 128             # matrices smaller than this stay dense
+    qmode: str = "none"
+
+    def __post_init__(self):
+        if self.mode == "block_csr":
+            raise NotImplementedError(
+                "mode='block_csr' is not ported yet: BlockCSR and "
+                "block_matmul come in the next slice of the port")
+        if self.mode not in ("dense", "tiled_csc"):
+            raise ValueError(f"unknown SoD mode {self.mode!r}")
+        if self.qmode != "none":
+            raise NotImplementedError(
+                f"qmode={self.qmode!r} is not ported yet: quantized value "
+                "storage comes in a later slice of the port")
+
+    @property
+    def enabled(self) -> bool:
+        """True when a Sparse-on-Dense mode is configured."""
+        return self.mode != "dense"
+
+
+DENSE = SoDConfig()
+
+
+def prune_weight(w: torch.Tensor, density: float) -> torch.Tensor:
+    """Prune one 2-D weight to ``density`` by magnitude (the N:M and block
+    pruners are not ported yet)."""
+    if density >= 1.0:
+        return w
+    return pruning.magnitude_prune(w, density)
+
+
+def pack_param(w: torch.Tensor, cfg: SoDConfig):
+    """Prune and pack one dense 2-D weight per the config; the dense tensor
+    comes back unchanged when the config is dense or the matrix is smaller
+    than ``cfg.min_dim``."""
+    if not cfg.enabled or w.ndim != 2 or min(w.shape) < cfg.min_dim:
+        return w
+    return formats.pack_tiled_csc(prune_weight(w, cfg.density), tile=cfg.tile)
+
+
+def apply(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ W`` through the Sparse-on-Dense datapath."""
+    from repro_torch.kernels import ops  # local import: kernels depend on core
+
+    return ops.sod_matmul(x, w, out_dtype=out_dtype)
+
+
+_SOD_PATHS = re.compile(
+    r"(wq|wk|wv|wo|w_gate|w_up|w_down|head|w_z|w_x|out_proj)$")
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _named_leaves(v, name)
+        else:
+            yield name, v
+
+
+def _get(tree, name):
+    for part in name.split("."):
+        tree = tree[part]
+    return tree
+
+
+def _set(tree, name, value):
+    *path, last = name.split(".")
+    for part in path:
+        tree = tree[part]
+    tree[last] = value
+
+
+def sodify_params(params: dict[str, Any], cfg: SoDConfig) -> dict[str, Any]:
+    """Prune and pack every eligible projection weight, layer by layer.
+
+    Mirrors the reference's stacked-leaf path: each projection is pruned
+    per layer, then the whole layer stack is packed with one shared ``cap``
+    (as ``lax.scan`` needs there), and each layer gets its slice.  Returns a
+    new tree; the input's tensors are not modified.
+    """
+    if not cfg.enabled:
+        return params
+    layers = params["layers"]
+    out_layers = [_copy(layer) for layer in layers]
+    for name, leaf in _named_leaves(layers[0]):
+        if not (_SOD_PATHS.search(name) and leaf.ndim == 2
+                and min(leaf.shape) >= cfg.min_dim):
+            continue
+        stack = torch.stack([prune_weight(_get(layer, name), cfg.density)
+                             for layer in layers])
+        packed = formats.pack_tiled_csc(stack, tile=cfg.tile)
+        for i, layer in enumerate(out_layers):
+            _set(layer, name, packed.layer(i))
+    return {**params, "layers": out_layers}
+
+
+def _copy(tree):
+    return {k: _copy(v) if isinstance(v, dict) else v for k, v in tree.items()}
+
+
+def _all_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _all_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _all_leaves(v)
+    else:
+        yield tree
+
+
+def tree_weight_bytes(params: Any) -> dict[str, int]:
+    """Compressed vs dense byte totals over a parameter tree (dense leaves
+    count 16 bits per element on both sides, as in the reference)."""
+    compressed = dense = 0
+    for leaf in _all_leaves(params):
+        if isinstance(leaf, TiledCSC):
+            compressed += leaf.nbytes_compressed()
+            dense += leaf.nbytes_dense()
+        elif isinstance(leaf, torch.Tensor):
+            compressed += leaf.numel() * 2
+            dense += leaf.numel() * 2
+    return {"compressed": compressed, "dense": dense}

@@ -1,0 +1,111 @@
+"""Build the CUDA kernels from ``csrc/`` at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C entry point — no PyTorch headers, so a build takes
+seconds.  Libraries go under ``build/repro_torch_kernels/`` at the root of
+the checkout (git-ignored), named by a hash of the CUDA sources, so an edited
+source rebuilds and an unchanged one is reused.  Nothing is built or loaded
+when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+__all__ = ["CSRC", "build_dir", "nvcc_path", "build_all", "load"]
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+KERNELS = ("sod_matmul",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> pathlib.Path:
+    """``build/repro_torch_kernels`` at the root of the checkout."""
+    return CSRC.parents[3] / "build" / "repro_torch_kernels"
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on PATH, or the
+    toolkit's default location."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(on_path)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels build from source on first use")
+
+
+def _sources_hash() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    return build_dir() / f"{name}-{_sources_hash()}.so"
+
+
+def _start(name: str):
+    """Start ``nvcc`` for one kernel into a temporary file; None if built."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> str:
+    if started is None:
+        return ""
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)          # atomic: a concurrent build sees all or nothing
+    out.with_suffix(".log").write_text(log)
+    return log
+
+
+def build_all() -> dict[str, str]:
+    """Build every kernel that is not built yet, one ``nvcc`` per source, all
+    started together.  Returns each kernel's compiler output (with the
+    ``-Xptxas -v`` register and shared-memory report; empty when reused)."""
+    with _lock:
+        started = {name: _start(name) for name in KERNELS}
+        return {name: _finish(name, s) for name, s in started.items()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            _loaded[name] = lib
+        return lib

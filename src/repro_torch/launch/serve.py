@@ -1,0 +1,145 @@
+"""Serving driver: batched prefill + greedy decode (static mode).
+
+Twin of :mod:`repro.launch.serve` without ``--engine``: one batch of
+synthetic prompts is prefilled in one forward, the KV cache grown to the
+generation horizon, and ``--gen`` greedy tokens decoded step by step.  Runs
+on CUDA unless ``--device cpu`` is given; with no GPU and no ``--device cpu``
+it raises.  The continuous-batching engine, ``--plan``, ``--autotune`` and
+``--quantize`` are not ported yet.
+
+Example:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+      --batch 4 --prompt-len 32 --gen 16 --sod tiled_csc --density 0.3
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.core.sod import SoDConfig, sodify_params, tree_weight_bytes
+from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.kernels import build
+from repro_torch.kernels import sod_matmul as sod_matmul_kernel
+from repro_torch.launch import steps as steps_mod
+from repro_torch.models.model import LM
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """Command-line flags of the static serve."""
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="llama3.2-1b", choices=configs.ARCH_NAMES)
+    ap.add_argument("--reduced", action="store_true",
+                    help="the architecture's tiny same-family variant")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--sod", choices=("tiled_csc",), default=None,
+                    help="prune and pack the projections (default: dense)")
+    ap.add_argument("--density", type=float, default=0.3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return ap.parse_args(argv)
+
+
+def resolve_device(name: str) -> torch.device:
+    """``cuda`` (the default) or ``cpu``; never a silent CPU fallback."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run on the CPU")
+    return torch.device(name)
+
+
+def prepare(args: argparse.Namespace):
+    """(model, params, prompt tokens (B, S) int64) on the requested device.
+
+    Weights come from a ``torch.Generator`` seeded with ``--seed`` on the
+    device; with ``--sod`` they are pruned and packed.  On CUDA the kernels
+    are built here, before anything is timed.
+    """
+    device = resolve_device(args.device)
+    cfg = configs.get_config(args.arch)
+    if args.reduced:
+        cfg = configs.reduced(cfg)
+    if args.sod:
+        cfg = cfg.with_(sod=SoDConfig(mode=args.sod, density=args.density,
+                                      min_dim=64))
+    if device.type == "cuda":
+        build.build_all()
+    model = LM(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = sodify_params(model.init(gen, device), cfg.sod)
+    data = SyntheticLMData(cfg, args.batch, args.prompt_len, seed=args.seed)
+    tokens = torch.from_numpy(data.batch(0)["tokens"]).long().to(device)
+    return model, params, tokens
+
+
+def prefill_cache(model: LM, params, tokens: torch.Tensor, max_len: int):
+    """(last-position logits, KV cache grown to ``max_len``, prompt length)."""
+    last_logits, cache = model.prefill(params, tokens)
+    return last_logits, model.grow_cache(cache, max_len), tokens.shape[1]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> dict:
+    """CLI entry point: prints and returns a JSON summary of the run."""
+    args = parse_args(argv)
+    with torch.inference_mode():
+        model, params, tokens = prepare(args)
+        device = tokens.device
+        max_len = args.prompt_len + args.gen
+        launches0 = sod_matmul_kernel.launches
+
+        _sync(device)
+        t0 = time.perf_counter()
+        last_logits, cache, pos0 = prefill_cache(model, params, tokens, max_len)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+
+        decode = steps_mod.make_decode_step(model)
+        tok = last_logits.argmax(dim=-1).reshape(args.batch, 1)
+        logits = last_logits
+        outs = []
+        warmup_s = steady_s = 0.0
+        t0 = time.perf_counter()
+        for t in range(args.gen):
+            nxt, logits, cache = decode(params, cache, tok, pos0 + t)
+            tok = nxt.reshape(args.batch, 1)
+            outs.append(nxt)
+            if t == 0:   # the first step pays one-time costs: reported apart
+                _sync(device)
+                warmup_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+        _sync(device)
+        if args.gen > 1:
+            steady_s = time.perf_counter() - t0
+        launches = sod_matmul_kernel.launches - launches0
+
+    summary = {
+        "arch": model.cfg.name,
+        "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                   else "cpu"),
+        "batch": args.batch, "prompt_len": args.prompt_len,
+        "generated": args.gen,
+        "prefill_s": prefill_s,
+        "warmup_s": warmup_s,
+        "steady_tok_per_s": (args.batch * (args.gen - 1) / steady_s
+                             if steady_s > 0 else 0.0),
+        "sample": [int(o.reshape(-1)[0]) for o in outs[:8]],
+        "logits_finite": bool(torch.isfinite(logits).all()),
+        "kernel_launches": {"sod_matmul": launches},
+        "weight_bytes": tree_weight_bytes(params),
+    }
+    print(json.dumps(summary))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

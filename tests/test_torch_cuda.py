@@ -1,0 +1,96 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here needs an NVIDIA GPU and skips without one (a CUDA
+kernel has no CPU mode); this file imports no JAX, so it runs on a machine
+that has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
+
+Tolerance, as a fraction of the plain output's largest magnitude: 1e-4 in
+float32 (sums in another order); 2**-7 in bf16 (the output may round one
+bf16 step, 2**-8 relative, apart).
+"""
+import pytest
+import torch
+
+from repro_torch.core.formats import pack_tiled_csc
+from repro_torch.core.pruning import magnitude_prune
+from repro_torch.kernels import ref
+from repro_torch.kernels import sod_matmul as sm
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-7}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case(dev, k, n, m, dtype, density=0.3, tile=(128, 128), seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    w = magnitude_prune(torch.randn(k, n, generator=g, device=dev).to(dtype),
+                        density)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    return x, pack_tiled_csc(w, tile=tile)
+
+
+def _check(x, p, out_dtype=None):
+    before = sm.launches
+    y = sm.sod_matmul(x, p, out_dtype)
+    torch.cuda.synchronize()
+    assert sm.launches == before + 1
+    yr = ref.sod_matmul_ref(x, p, out_dtype)
+    assert y.shape == yr.shape and y.dtype == yr.dtype
+    tol = TOL[torch.bfloat16 if torch.bfloat16 in (x.dtype, y.dtype)
+              else torch.float32] * yr.float().abs().max().item()
+    assert (y.float() - yr.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,m", [
+    (2048, 2048, 4), (2048, 512, 4), (8192, 2048, 4),   # decode: split K
+    (2048, 8192, 128), (2048, 512, 128),                # prefill
+    (300, 260, 77), (129, 33, 1), (512, 384, 9),        # ragged edges
+])
+def test_kernel_matches_plain(cuda, k, n, m, dtype):
+    _check(*_case(cuda, k, n, m, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.bfloat16)])
+def test_kernel_out_dtype(cuda, dtype, out_dtype):
+    x, p = _case(cuda, 1024, 640, 16, dtype)
+    _check(x, p, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density,tile", [(0.05, (128, 128)), (0.9, (128, 128)),
+                                          (0.3, (64, 128)), (0.3, (128, 64))])
+def test_kernel_caps_and_tiles(cuda, density, tile):
+    """Small caps, caps above bk (every row stored), and other tiles."""
+    _check(*_case(cuda, 640, 384, 24, torch.float32, density, tile))
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_wide_tiles(cuda):
+    x, p = _case(cuda, 512, 512, 4, torch.float32, tile=(256, 128))
+    with pytest.raises(NotImplementedError):
+        sm.sod_matmul(x, p)
+
+
+@pytest.mark.cuda
+def test_reduced_serve_launches_the_kernel(cuda):
+    """Every packed projection of the serve path launches the kernel once:
+    2 layers × 7 projections × (prefill + 4 decode steps)."""
+    from repro_torch.launch import serve
+
+    sm.launches = 0
+    summary = serve.main(["--reduced", "--sod", "tiled_csc", "--density", "0.3",
+                          "--batch", "2", "--prompt-len", "16", "--gen", "4"])
+    assert sm.launches == summary["kernel_launches"]["sod_matmul"] == 2 * 7 * 5
+    assert summary["logits_finite"]
