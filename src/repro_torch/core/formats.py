@@ -1,9 +1,12 @@
-"""The executable Sparse-on-Dense format: :class:`TiledCSC` in PyTorch.
+"""The executable Sparse-on-Dense formats, :class:`TiledCSC` and
+:class:`BlockCSR`, in PyTorch.
 
-Twin of :mod:`repro.core.formats` for the element-granular, paper-faithful
-format.  The matrix is cut into (bk, bn) tiles; each tile column stores up to
-``cap`` non-zeros as (value, in-tile row index).  Padding slots carry value 0
-and the sentinel row ``-1``.
+Twin of :mod:`repro.core.formats` for its two executable formats.
+``TiledCSC`` is the element-granular, paper-faithful one: the matrix is cut
+into (bk, bn) tiles; each tile column stores up to ``cap`` non-zeros as
+(value, in-tile row index).  Padding slots carry value 0 and the sentinel row
+``-1``.  ``BlockCSR`` stores whole (br, bn) sub-blocks of each (bk, bn) macro
+tile, with in-tile block ids (``-1`` = padding) and a per-tile count.
 
 Packing is bit-for-bit the JAX package's: the same stable sorts on the same
 keys, so ``vals`` and ``rows`` come out equal, padding order included (with
@@ -11,8 +14,8 @@ keys, so ``vals`` and ``rows`` come out equal, padding order included (with
 so ``-1`` sentinels sit between real rows — no consumer may stop at the
 first ``-1``).
 
-BlockCSR, the Bitmap/CSC footprint formats and the quantized ``qmode`` value
-storage are not ported yet.
+The Bitmap/CSC footprint formats and the quantized ``qmode`` value storage
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,10 +24,12 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-__all__ = ["TiledCSC", "pack_tiled_csc", "padded_shape", "observed_tiled_cap"]
+__all__ = ["TiledCSC", "pack_tiled_csc", "padded_shape", "observed_tiled_cap",
+           "BlockCSR", "pack_block_csr", "observed_block_cap"]
 
-# Paper accounting: 16-bit values (qmode "none"), 8-bit row indices.
-VALUE_BITS, INDEX_BITS = 16, 8
+# Paper accounting: 16-bit values (qmode "none"), 8-bit row indices; BlockCSR
+# counts its block ids at 16 bits.
+VALUE_BITS, INDEX_BITS, BLOCK_ID_BITS = 16, 8, 16
 
 
 def padded_shape(shape: tuple[int, int], tile: tuple[int, int]) -> tuple[int, int]:
@@ -52,6 +57,26 @@ def observed_tiled_cap(w: torch.Tensor, tile: tuple[int, int]) -> int:
     kp, np_ = wp.shape[-2:]
     t = wp.reshape(wp.shape[0], kp // bk, bk, np_ // bn, bn)
     return int((t != 0).sum(dim=2).max())
+
+
+def observed_block_cap(w: torch.Tensor, tile: tuple[int, int], br: int) -> int:
+    """Max non-zero (br, bn) sub-block count per macro tile over a (possibly
+    stacked) matrix — the data-dependent bcap :func:`pack_block_csr` uses."""
+    if not w.numel():
+        return 0
+    bk, bn = tile
+    wp = _pad_to_tiles(w.reshape((-1,) + tuple(w.shape[-2:])), tile)
+    kp, np_ = wp.shape[-2:]
+    blk = wp.reshape(wp.shape[0], kp // bk, bk // br, br, np_ // bn, bn)
+    nz = (blk != 0).any(dim=5).any(dim=3)
+    return int(nz.sum(dim=2).max())
+
+
+def _n_lead(lead: tuple[int, ...]) -> int:
+    n = 1
+    for d in lead:
+        n *= int(d)
+    return n
 
 
 @dataclasses.dataclass
@@ -109,10 +134,7 @@ class TiledCSC:
     def nbytes_dense(self) -> int:
         """Dense-equivalent 16-bit bytes (lead dims included)."""
         kp, np_ = padded_shape(self.shape, self.tile)
-        n_lead = 1
-        for d in self.lead:
-            n_lead *= int(d)
-        return n_lead * kp * np_ * VALUE_BITS // 8
+        return _n_lead(self.lead) * kp * np_ * VALUE_BITS // 8
 
     def to_dense(self) -> torch.Tensor:
         """Scatter the stored slots back into a dense ``(*lead, K, N)``.
@@ -202,3 +224,153 @@ def pack_tiled_csc(w: torch.Tensor, tile: tuple[int, int] = (128, 128),
     index_dtype = torch.int8 if bk <= 128 else torch.int32
     return TiledCSC(vals=vals.contiguous(), rows=rows.to(index_dtype).contiguous(),
                     shape=shape, tile=(bk, bn))
+
+
+@dataclasses.dataclass
+class BlockCSR:
+    """Block-compressed rows of (bk, bn) macro tiles.
+
+    Each macro tile is cut along K into (br, bn) sub-blocks; up to ``bcap``
+    non-zero sub-blocks are stored with their in-tile block ids (``-1`` =
+    padding, value 0).  ``tile_nnz[kt, nt]`` counts the stored sub-blocks,
+    and :func:`pack_block_csr` stores them first, in ascending id order, so
+    the ids are ``>= 0`` exactly at slots ``s < tile_nnz``.  A macro tile with
+    ``tile_nnz == 0`` holds nothing and is skipped by the matmul kernel.
+    """
+
+    block_vals: torch.Tensor   # (*lead, Kt, Nt, bcap, br, bn)
+    block_ids: torch.Tensor    # (*lead, Kt, Nt, bcap) int32
+    tile_nnz: torch.Tensor     # (*lead, Kt, Nt) int32
+    shape: tuple[int, int]     # logical (K, N) before tile padding
+    tile: tuple[int, int]      # (bk, bn) macro tile
+    br: int                    # sub-block rows
+    qmode: str = "none"
+
+    @property
+    def bcap(self) -> int:
+        """Stored sub-blocks per macro tile."""
+        return self.block_vals.shape[-3]
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        """``(Kt, Nt)`` tile-grid extents."""
+        return self.block_vals.shape[-5], self.block_vals.shape[-4]
+
+    @property
+    def lead(self) -> tuple[int, ...]:
+        """Leading stack dims ahead of the grid."""
+        return tuple(self.block_vals.shape[:-5])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """Stored value dtype."""
+        return self.block_vals.dtype
+
+    @property
+    def device(self) -> torch.device:
+        """Device holding the buffers."""
+        return self.block_vals.device
+
+    def layer(self, i: int) -> "BlockCSR":
+        """Slice ``i`` of a stacked operand (first lead dim)."""
+        if not self.lead:
+            raise ValueError("operand has no stack dim to slice")
+        return BlockCSR(block_vals=self.block_vals[i], block_ids=self.block_ids[i],
+                        tile_nnz=self.tile_nnz[i], shape=self.shape,
+                        tile=self.tile, br=self.br, qmode=self.qmode)
+
+    def nbytes_compressed(self) -> int:
+        """Footprint: stored sub-block values plus 16-bit block ids."""
+        return (self.block_vals.numel() * VALUE_BITS
+                + self.block_ids.numel() * BLOCK_ID_BITS) // 8
+
+    def nbytes_dense(self) -> int:
+        """Dense-equivalent 16-bit bytes (lead dims included)."""
+        kp, np_ = padded_shape(self.shape, self.tile)
+        return _n_lead(self.lead) * kp * np_ * VALUE_BITS // 8
+
+    def to_dense(self) -> torch.Tensor:
+        """Scatter the stored sub-blocks back into a dense ``(*lead, K, N)``.
+
+        Id ``-1`` is masked before the scatter (torch would wrap it to the
+        tile's last sub-block): padding adds a zero into sub-block 0, which
+        is exact because real ids are unique per tile.
+        """
+        kt_n, nt_n = self.grid
+        bk, bn = self.tile
+        br, nb = self.br, bk // self.br
+        bv = self.block_vals.reshape((-1, kt_n, nt_n, self.bcap, br, bn))
+        ids = self.block_ids.reshape(bv.shape[:4]).long()
+        valid = (ids >= 0)[..., None, None]
+        dense = torch.zeros((bv.shape[0], kt_n, nt_n, nb, br, bn),
+                            dtype=bv.dtype, device=bv.device)
+        dense.scatter_add_(3, ids.clamp(min=0)[..., None, None].expand_as(bv),
+                           torch.where(valid, bv, torch.zeros_like(bv)))
+        dense = dense.permute(0, 1, 3, 4, 2, 5).reshape(
+            bv.shape[0], kt_n * bk, nt_n * bn)
+        k, n = self.shape
+        return dense[:, :k, :n].reshape(self.lead + (k, n))
+
+
+def pack_block_csr(w: torch.Tensor, tile: tuple[int, int] = (128, 128),
+                   br: int = 8, bcap: int | None = None) -> BlockCSR:
+    """Pack a dense matrix into :class:`BlockCSR`, as the JAX package does.
+
+    ``bcap=None`` takes the largest non-zero sub-block count of any macro
+    tile (lossless).  An explicit ``bcap`` below that keeps the
+    largest-L2 sub-blocks and clamps ``tile_nnz`` to what is stored.  Leading
+    dims (layer stacks) are packed with one shared ``bcap``.  Either way the
+    stored sub-blocks come first, in ascending id order.
+    """
+    bk, bn = tile
+    if bk % br:
+        raise ValueError(f"tile rows {bk} not divisible by block rows {br}")
+    if w.ndim > 2:
+        lead = tuple(w.shape[:-2])
+        flat = w.reshape((-1,) + tuple(w.shape[-2:]))
+        if bcap is None:
+            bcap = max(observed_block_cap(w, tile, br), 1)
+        packed = [pack_block_csr(flat[i], tile, br, bcap)
+                  for i in range(flat.shape[0])]
+
+        def stack(name):
+            t = torch.stack([getattr(p, name) for p in packed])
+            return t.reshape(lead + tuple(t.shape[1:]))
+
+        return BlockCSR(block_vals=stack("block_vals"), block_ids=stack("block_ids"),
+                        tile_nnz=stack("tile_nnz"), shape=tuple(w.shape[-2:]),
+                        tile=tuple(tile), br=br)
+    if w.ndim != 2:
+        raise ValueError(f"expected >=2-D matrix, got {tuple(w.shape)}")
+    shape = tuple(w.shape)
+    wp = _pad_to_tiles(w, tile)
+    kp, np_ = wp.shape
+    kt_n, nt_n = kp // bk, np_ // bn
+    nb = bk // br
+    blocks = wp.reshape(kt_n, nb, br, nt_n, bn).permute(0, 3, 1, 2, 4)
+    # (Kt, Nt, nb, br, bn)
+    nz = (blocks != 0).any(dim=4).any(dim=3)                 # (Kt, Nt, nb)
+    tile_nnz = nz.sum(dim=2).to(torch.int32)
+    if bcap is None:
+        bcap = max(int(tile_nnz.max()) if wp.numel() else 0, 1)
+    else:
+        tile_nnz = tile_nnz.clamp(max=bcap)    # count what is stored
+    # Largest-L2 sub-blocks first, then ascending id order within the kept
+    # set (padding last) — the reference's two stable sorts on its keys.
+    norms = (blocks.float() ** 2).sum(dim=(3, 4))
+    key = torch.where(nz, -norms, torch.full_like(norms, float("inf")))
+    sel = torch.argsort(key, dim=2, stable=True)[:, :, :bcap]
+    sel_valid = torch.gather(nz, 2, sel)
+    asc = torch.argsort(torch.where(sel_valid, sel, torch.full_like(sel, nb)),
+                        dim=2, stable=True)
+    order = torch.gather(sel, 2, asc)
+    valid = torch.gather(sel_valid, 2, asc)
+    idx = order[:, :, :, None, None].expand(-1, -1, -1, br, bn)
+    block_vals = torch.gather(blocks, 2, idx)
+    block_vals = torch.where(valid[:, :, :, None, None], block_vals,
+                             torch.zeros_like(block_vals)).to(w.dtype)
+    block_ids = torch.where(valid, order, torch.full_like(order, -1))
+    return BlockCSR(block_vals=block_vals.contiguous(),
+                    block_ids=block_ids.to(torch.int32).contiguous(),
+                    tile_nnz=tile_nnz.contiguous(), shape=shape, tile=(bk, bn),
+                    br=br)

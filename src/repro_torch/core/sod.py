@@ -1,10 +1,11 @@
 """Sparse-on-Dense as a composable module: config, packing, apply.
 
-Twin of :mod:`repro.core.sod` for the ``tiled_csc`` static-serving slice:
-:class:`SoDConfig` says how projection weights are stored, :func:`pack_param`
-and :func:`sodify_params` prune and pack them, and :func:`apply` is the one
-matmul entry point every model layer calls — dense tensors bypass
-decompression, packed operands go to :func:`repro_torch.kernels.ops.sod_matmul`.
+Twin of :mod:`repro.core.sod` for static serving in the ``tiled_csc`` and
+``block_csr`` modes: :class:`SoDConfig` says how projection weights are
+stored, :func:`pack_param` and :func:`sodify_params` prune and pack them, and
+:func:`apply` is the one matmul entry point every model layer calls — dense
+tensors bypass decompression, packed operands go to
+:func:`repro_torch.kernels.ops.sod_matmul`.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Any
 import torch
 
 from repro_torch.core import formats, pruning
-from repro_torch.core.formats import TiledCSC
+from repro_torch.core.formats import BlockCSR, TiledCSC
 
 __all__ = ["SoDConfig", "DENSE", "prune_weight", "pack_param", "apply",
            "sodify_params", "tree_weight_bytes"]
@@ -25,19 +26,18 @@ __all__ = ["SoDConfig", "DENSE", "prune_weight", "pack_param", "apply",
 class SoDConfig:
     """Storage/compute mode for the model's projection weights."""
 
-    mode: str = "dense"            # dense | tiled_csc
+    mode: str = "dense"            # dense | tiled_csc | block_csr
     density: float = 1.0           # pruning target (1.0 = keep as-is)
+    prune_method: str = "magnitude"  # magnitude | block
     tile: tuple[int, int] = (128, 128)
+    br: int = 8                    # BlockCSR sub-block rows
     min_dim: int = 128             # matrices smaller than this stay dense
     qmode: str = "none"
 
     def __post_init__(self):
-        if self.mode == "block_csr":
-            raise NotImplementedError(
-                "mode='block_csr' is not ported yet: BlockCSR and "
-                "block_matmul come in the next slice of the port")
-        if self.mode not in ("dense", "tiled_csc"):
+        if self.mode not in ("dense", "tiled_csc", "block_csr"):
             raise ValueError(f"unknown SoD mode {self.mode!r}")
+        _check_method(self.prune_method)
         if self.qmode != "none":
             raise NotImplementedError(
                 f"qmode={self.qmode!r} is not ported yet: quantized value "
@@ -49,15 +49,35 @@ class SoDConfig:
         return self.mode != "dense"
 
 
+def _check_method(method: str) -> None:
+    if method == "nm":
+        raise NotImplementedError(
+            "prune_method='nm' is not ported yet: nm_prune is still open in "
+            "ROADMAP.md, queue A item 3")
+    if method not in ("magnitude", "block"):
+        raise ValueError(f"unknown prune method {method!r}")
+
+
 DENSE = SoDConfig()
 
 
-def prune_weight(w: torch.Tensor, density: float) -> torch.Tensor:
-    """Prune one 2-D weight to ``density`` by magnitude (the N:M and block
-    pruners are not ported yet)."""
+def prune_weight(w: torch.Tensor, density: float, method: str = "magnitude",
+                 tile: tuple[int, int] = (128, 128), br: int = 8) -> torch.Tensor:
+    """Prune one 2-D weight to ``density`` with the named method: unstructured
+    magnitude, or whole (br, tile[1]) blocks by L2 norm."""
+    _check_method(method)
     if density >= 1.0:
         return w
+    if method == "block":
+        return pruning.block_prune(w, density, block=(br, tile[1]))
     return pruning.magnitude_prune(w, density)
+
+
+def _pack(w: torch.Tensor, cfg: SoDConfig):
+    """Pack a (possibly stacked) pruned weight in the config's format."""
+    if cfg.mode == "tiled_csc":
+        return formats.pack_tiled_csc(w, tile=cfg.tile)
+    return formats.pack_block_csr(w, tile=cfg.tile, br=cfg.br)
 
 
 def pack_param(w: torch.Tensor, cfg: SoDConfig):
@@ -66,7 +86,8 @@ def pack_param(w: torch.Tensor, cfg: SoDConfig):
     than ``cfg.min_dim``."""
     if not cfg.enabled or w.ndim != 2 or min(w.shape) < cfg.min_dim:
         return w
-    return formats.pack_tiled_csc(prune_weight(w, cfg.density), tile=cfg.tile)
+    return _pack(prune_weight(w, cfg.density, cfg.prune_method, cfg.tile, cfg.br),
+                 cfg)
 
 
 def apply(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -107,7 +128,8 @@ def sodify_params(params: dict[str, Any], cfg: SoDConfig) -> dict[str, Any]:
 
     Mirrors the reference's stacked-leaf path: each projection is pruned
     per layer, then the whole layer stack is packed with one shared ``cap``
-    (as ``lax.scan`` needs there), and each layer gets its slice.  Returns a
+    or ``bcap`` (as ``lax.scan`` needs there), and each layer gets its
+    slice.  Returns a
     new tree; the input's tensors are not modified.
     """
     if not cfg.enabled:
@@ -118,9 +140,10 @@ def sodify_params(params: dict[str, Any], cfg: SoDConfig) -> dict[str, Any]:
         if not (_SOD_PATHS.search(name) and leaf.ndim == 2
                 and min(leaf.shape) >= cfg.min_dim):
             continue
-        stack = torch.stack([prune_weight(_get(layer, name), cfg.density)
+        stack = torch.stack([prune_weight(_get(layer, name), cfg.density,
+                                          cfg.prune_method, cfg.tile, cfg.br)
                              for layer in layers])
-        packed = formats.pack_tiled_csc(stack, tile=cfg.tile)
+        packed = _pack(stack, cfg)
         for i, layer in enumerate(out_layers):
             _set(layer, name, packed.layer(i))
     return {**params, "layers": out_layers}
@@ -146,7 +169,7 @@ def tree_weight_bytes(params: Any) -> dict[str, int]:
     count 16 bits per element on both sides, as in the reference)."""
     compressed = dense = 0
     for leaf in _all_leaves(params):
-        if isinstance(leaf, TiledCSC):
+        if isinstance(leaf, (TiledCSC, BlockCSR)):
             compressed += leaf.nbytes_compressed()
             dense += leaf.nbytes_dense()
         elif isinstance(leaf, torch.Tensor):

@@ -12,9 +12,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core.formats import TiledCSC
+from repro_torch.core.formats import BlockCSR, TiledCSC
 
-__all__ = ["to_torch", "params_from_numpy", "tiled_csc_from_numpy"]
+__all__ = ["to_torch", "params_from_numpy", "tiled_csc_from_numpy",
+           "block_csr_from_numpy"]
 
 
 def to_torch(a, device: str | torch.device = "cuda") -> torch.Tensor:
@@ -73,3 +74,13 @@ def tiled_csc_from_numpy(vals, rows, shape, tile,
     return TiledCSC(vals=to_torch(vals, device), rows=to_torch(rows, device),
                     shape=(int(shape[0]), int(shape[1])),
                     tile=(int(tile[0]), int(tile[1])))
+
+
+def block_csr_from_numpy(block_vals, block_ids, tile_nnz, shape, tile, br,
+                         device: str | torch.device = "cuda") -> BlockCSR:
+    """One packed BlockCSR operand; ``block_ids`` and ``tile_nnz`` stay int32."""
+    ids, nnz = (to_torch(np.asarray(a, dtype=np.int32), device)
+                for a in (block_ids, tile_nnz))
+    return BlockCSR(block_vals=to_torch(block_vals, device), block_ids=ids,
+                    tile_nnz=nnz, shape=(int(shape[0]), int(shape[1])),
+                    tile=(int(tile[0]), int(tile[1])), br=int(br))

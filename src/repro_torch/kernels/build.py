@@ -1,7 +1,8 @@
 """Build the CUDA kernels from ``csrc/`` at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C entry point — no PyTorch headers, so a build takes
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers it
+includes) compiles with ``nvcc`` for ``sm_90a`` into a shared library with a
+plain C entry point — no PyTorch headers, so a build takes
 seconds.  Libraries go under ``build/repro_torch_kernels/`` at the root of
 the checkout (git-ignored), named by a hash of the CUDA sources, so an edited
 source rebuilds and an unchanged one is reused.  Nothing is built or loaded
@@ -21,7 +22,7 @@ import threading
 __all__ = ["CSRC", "build_dir", "nvcc_path", "build_all", "load"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-KERNELS = ("sod_matmul",)
+KERNELS = ("sod_matmul", "block_matmul", "decompress")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

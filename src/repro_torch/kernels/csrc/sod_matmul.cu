@@ -37,35 +37,14 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; plain C entry point, loaded with ctypes.
 
-#include <cstddef>
-#include <cstdint>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
-
-// acc[m] += v * x[m][r] for the BM rows of the staged x slice (row r of xs).
+// acc[m] += v * x[m][r] for a stored slot (r, v) of the tile; r < 0 is padding.
 template <int BM>
 __device__ __forceinline__ void slot_fma(float (&acc)[BM], const float* xs, int r, float v) {
-  if (r < 0) return;  // padding slot
-  const float4* xr = reinterpret_cast<const float4*>(xs + r * (BM + 4));
-#pragma unroll
-  for (int q = 0; q < BM / 4; ++q) {
-    const float4 xv = xr[q];
-    acc[4 * q + 0] += xv.x * v;
-    acc[4 * q + 1] += xv.y * v;
-    acc[4 * q + 2] += xv.z * v;
-    acc[4 * q + 3] += xv.w * v;
-  }
+  if (r >= 0) row_fma<BM>(acc, xs, r, v);
 }
 
 template <typename TIn, typename TOut, int BM>
@@ -127,17 +106,6 @@ __global__ void sod_matmul_kernel(const TIn* __restrict__ x, const TIn* __restri
   }
 }
 
-// out[i] = sum over splits, in split order, of partial[z][i].
-template <typename TOut>
-__global__ void reduce_splits_kernel(const float* __restrict__ partial, TOut* __restrict__ out,
-                                     int splits, size_t mn) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * mn + i];
-  out[i] = from_f32<TOut>(s);
-}
-
 template <typename TIn, typename TOut, int BM>
 void launch(const void* x, const void* vals, const void* rows, void* out, void* partial, int m,
             int k, int n, int kt, int nt, int cap, int bk, int bn, int splits,
@@ -150,11 +118,7 @@ void launch(const void* x, const void* vals, const void* rows, void* out, void* 
       static_cast<const TIn*>(x), static_cast<const TIn*>(vals),
       static_cast<const int8_t*>(rows), static_cast<TOut*>(out), part, m, k, n, kt, nt, cap, bk,
       kt_per_split);
-  if (splits > 1) {
-    const size_t mn = (size_t)m * n;
-    reduce_splits_kernel<TOut><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-        part, static_cast<TOut*>(out), splits, mn);
-  }
+  if (splits > 1) launch_reduce_splits<TOut>(part, out, splits, (size_t)m * n, stream);
 }
 
 template <typename TIn, typename TOut>

@@ -7,6 +7,10 @@ on CUDA unless ``--device cpu`` is given; with no GPU and no ``--device cpu``
 it raises.  The continuous-batching engine, ``--plan``, ``--autotune`` and
 ``--quantize`` are not ported yet.
 
+``--sod block_csr`` keeps the reference CLI's magnitude pruning; a caller
+that wants block pruning (as the reference's serving bench uses for this
+format) passes its own ``SoDConfig`` to :func:`main`.
+
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
       --batch 4 --prompt-len 32 --gen 16 --sod tiled_csc --density 0.3
@@ -22,6 +26,7 @@ import torch
 from repro_torch import configs
 from repro_torch.core.sod import SoDConfig, sodify_params, tree_weight_bytes
 from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.kernels import block_matmul as block_matmul_kernel
 from repro_torch.kernels import build
 from repro_torch.kernels import sod_matmul as sod_matmul_kernel
 from repro_torch.launch import steps as steps_mod
@@ -37,7 +42,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--sod", choices=("tiled_csc",), default=None,
+    ap.add_argument("--sod", choices=("tiled_csc", "block_csr"), default=None,
                     help="prune and pack the projections (default: dense)")
     ap.add_argument("--density", type=float, default=0.3)
     ap.add_argument("--seed", type=int, default=0)
@@ -52,20 +57,22 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
-def prepare(args: argparse.Namespace):
+def prepare(args: argparse.Namespace, sod: SoDConfig | None = None):
     """(model, params, prompt tokens (B, S) int64) on the requested device.
 
     Weights come from a ``torch.Generator`` seeded with ``--seed`` on the
-    device; with ``--sod`` they are pruned and packed.  On CUDA the kernels
-    are built here, before anything is timed.
+    device; with ``--sod`` (or ``sod``, which replaces the config the flags
+    build) they are pruned and packed.  On CUDA the kernels are built here,
+    before anything is timed.
     """
     device = resolve_device(args.device)
     cfg = configs.get_config(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
-    if args.sod:
-        cfg = cfg.with_(sod=SoDConfig(mode=args.sod, density=args.density,
-                                      min_dim=64))
+    if sod is None and args.sod:
+        sod = SoDConfig(mode=args.sod, density=args.density, min_dim=64)
+    if sod is not None:
+        cfg = cfg.with_(sod=sod)
     if device.type == "cuda":
         build.build_all()
     model = LM(cfg)
@@ -88,14 +95,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def main(argv=None) -> dict:
-    """CLI entry point: prints and returns a JSON summary of the run."""
+def _launches() -> dict[str, int]:
+    return {"sod_matmul": sod_matmul_kernel.launches,
+            "block_matmul": block_matmul_kernel.launches}
+
+
+def main(argv=None, sod: SoDConfig | None = None) -> dict:
+    """CLI entry point: prints and returns a JSON summary of the run.
+
+    ``sod`` replaces the storage config that ``--sod``/``--density`` build.
+    """
     args = parse_args(argv)
     with torch.inference_mode():
-        model, params, tokens = prepare(args)
+        model, params, tokens = prepare(args, sod)
         device = tokens.device
         max_len = args.prompt_len + args.gen
-        launches0 = sod_matmul_kernel.launches
+        launches0 = _launches()
 
         _sync(device)
         t0 = time.perf_counter()
@@ -120,7 +135,7 @@ def main(argv=None) -> dict:
         _sync(device)
         if args.gen > 1:
             steady_s = time.perf_counter() - t0
-        launches = sod_matmul_kernel.launches - launches0
+        launches = {k: v - launches0[k] for k, v in _launches().items()}
 
     summary = {
         "arch": model.cfg.name,
@@ -134,7 +149,7 @@ def main(argv=None) -> dict:
                              if steady_s > 0 else 0.0),
         "sample": [int(o.reshape(-1)[0]) for o in outs[:8]],
         "logits_finite": bool(torch.isfinite(logits).all()),
-        "kernel_launches": {"sod_matmul": launches},
+        "kernel_launches": launches,
         "weight_bytes": tree_weight_bytes(params),
     }
     print(json.dumps(summary))

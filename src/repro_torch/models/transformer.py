@@ -111,12 +111,20 @@ def project_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.T
     """Tied LM head: float32 logits over the padded vocabulary, padded ids
     masked to -1e30.
 
-    The product runs in x's dtype and is then widened: equal to the
-    reference's f32-accumulated dot in float32; in bfloat16 the logits are
-    rounded to bfloat16 first (the reference keeps the f32 accumulator).
+    As the reference's dot with ``preferred_element_type=float32``: operands
+    in x's dtype, products summed in float32, and the f32 sums are the
+    logits, never rounded to bfloat16 on the way.  On CUDA one cuBLAS call
+    does this (``aten::mm.dtype``); the CPU build has no such kernel, so the
+    operands are widened first, which gives the same sums of exact products.
     """
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = torch.matmul(x, params["embed"].to(x.dtype).T).float()
+    x2 = x.reshape(-1, x.shape[-1])
+    embed = params["embed"].to(x.dtype)
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        logits = torch.mm(x2, embed.T, out_dtype=torch.float32)
+    else:
+        logits = torch.mm(x2.float(), embed.float().T)
+    logits = logits.reshape(*x.shape[:-1], -1)
     v = cfg.padded_vocab
     if v != cfg.vocab:
         pad = torch.arange(v, device=logits.device) >= cfg.vocab

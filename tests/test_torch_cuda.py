@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the
-card.  Every test here needs an NVIDIA GPU and skips without one (a CUDA
+"""The hand-written CUDA kernels (sod_matmul, block_matmul, decompress)
+against their plain PyTorch versions, on the card.  Every test here needs an NVIDIA GPU and skips without one (a CUDA
 kernel has no CPU mode); this file imports no JAX, so it runs on a machine
 that has only the port's dependencies:
 
@@ -7,13 +7,15 @@ that has only the port's dependencies:
 
 Tolerance, as a fraction of the plain output's largest magnitude: 1e-4 in
 float32 (sums in another order); 2**-7 in bf16 (the output may round one
-bf16 step, 2**-8 relative, apart).
+bf16 step, 2**-8 relative, apart).  decompress is compared bit for bit.
 """
 import pytest
 import torch
 
-from repro_torch.core.formats import pack_tiled_csc
-from repro_torch.core.pruning import magnitude_prune
+from repro_torch.core.formats import pack_block_csr, pack_tiled_csc
+from repro_torch.core.pruning import block_prune, magnitude_prune
+from repro_torch.kernels import block_matmul as bmm
+from repro_torch.kernels import decompress as dk
 from repro_torch.kernels import ref
 from repro_torch.kernels import sod_matmul as sm
 
@@ -93,4 +95,103 @@ def test_reduced_serve_launches_the_kernel(cuda):
     summary = serve.main(["--reduced", "--sod", "tiled_csc", "--density", "0.3",
                           "--batch", "2", "--prompt-len", "16", "--gen", "4"])
     assert sm.launches == summary["kernel_launches"]["sod_matmul"] == 2 * 7 * 5
+    assert summary["logits_finite"]
+
+
+def _block_case(dev, k, n, m, dtype, density=0.3, tile=(128, 128), br=8, seed=0):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    w = block_prune(torch.randn(k, n, generator=g, device=dev).to(dtype),
+                    density, (br, tile[1]))
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    return x, pack_block_csr(w, tile=tile, br=br)
+
+
+def _check_block(x, p, out_dtype=None):
+    before = bmm.launches
+    y = bmm.block_matmul(x, p, out_dtype)
+    torch.cuda.synchronize()
+    assert bmm.launches == before + 1
+    yr = ref.block_matmul_ref(x, p, out_dtype)
+    assert y.shape == yr.shape and y.dtype == yr.dtype
+    tol = TOL[torch.bfloat16 if torch.bfloat16 in (x.dtype, y.dtype)
+              else torch.float32] * yr.float().abs().max().item()
+    assert (y.float() - yr.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,m", [
+    (2048, 2048, 4), (2048, 512, 4), (8192, 2048, 4),   # decode: split K
+    (2048, 8192, 128), (2048, 512, 128),                # prefill
+    (300, 260, 77), (129, 33, 1), (512, 384, 9),        # ragged edges
+])
+def test_block_kernel_matches_plain(cuda, k, n, m, dtype):
+    _check_block(*_block_case(cuda, k, n, m, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,out_dtype", [(torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.bfloat16)])
+def test_block_kernel_out_dtype(cuda, dtype, out_dtype):
+    x, p = _block_case(cuda, 1024, 640, 16, dtype)
+    _check_block(x, p, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("density,tile,br,bcap", [
+    (0.05, (128, 128), 8, None), (1.0, (128, 128), 8, None),
+    (0.3, (64, 128), 16, None), (0.3, (256, 64), 8, None),
+    (0.5, (128, 128), 8, 3),          # explicit bcap: largest sub-blocks kept
+])
+def test_block_kernel_caps_and_tiles(cuda, density, tile, br, bcap):
+    x, p = _block_case(cuda, 640, 384, 24, torch.float32, density, tile, br)
+    if bcap is not None:
+        p = pack_block_csr(p.to_dense(), tile=tile, br=br, bcap=bcap)
+    _check_block(x, p)
+
+
+@pytest.mark.cuda
+def test_block_kernel_skips_zero_tiles(cuda):
+    """A zero macro-tile row (tile_nnz 0 there) at full size: the product
+    still equals x @ w."""
+    x, p = _block_case(cuda, 8192, 2048, 4, torch.float32)
+    w = p.to_dense()
+    w[2048:4096] = 0
+    p = pack_block_csr(w)
+    assert int(p.tile_nnz[16:32].count_nonzero()) == 0
+    _check_block(x, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,density,tile", [
+    (2048, 2048, 0.3, (128, 128)), (2048, 8192, 0.3, (128, 128)),
+    (300, 260, 0.4, (128, 128)), (200, 130, 0.9, (64, 128)),
+    (129, 33, 0.05, (128, 128)),
+])
+def test_decompress_kernel_bit_equal(cuda, k, n, density, tile, dtype):
+    _, p = _case(cuda, k, n, 1, dtype, density, tile)
+    before = dk.launches
+    d = dk.decompress(p)
+    torch.cuda.synchronize()
+    assert dk.launches == before + 1
+    assert d.shape == (k, n) and d.dtype == dtype
+    assert torch.equal(d, ref.decompress_tiled_ref(p))
+
+
+@pytest.mark.cuda
+def test_reduced_block_serve_launches_the_kernel(cuda):
+    """Every packed projection of the block_csr serve launches the block
+    kernel once: 2 layers × 7 projections × (prefill + 4 decode steps)."""
+    from repro_torch.core.sod import SoDConfig
+    from repro_torch.launch import serve
+
+    bmm.launches = sm.launches = 0
+    summary = serve.main(["--reduced", "--batch", "2", "--prompt-len", "16",
+                          "--gen", "4"],
+                         sod=SoDConfig(mode="block_csr", density=0.3,
+                                       prune_method="block", min_dim=64))
+    assert summary["kernel_launches"] == {"sod_matmul": 0, "block_matmul": 2 * 7 * 5}
+    assert bmm.launches == 2 * 7 * 5 and sm.launches == 0
     assert summary["logits_finite"]

@@ -190,3 +190,35 @@ def test_attention_matches_reference(window, softcap):
     ot = tattn._attend_cached(to_torch(q1, "cpu"), to_torch(k, "cpu"),
                               to_torch(v, "cpu"), pos, ts, window)
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=ATOL, rtol=RTOL)
+
+
+def test_lm_head_keeps_f32_accumulator_in_bf16():
+    """In bfloat16 the tied head's logits are the f32 sums of the bf16
+    products, as the reference's dot with preferred_element_type=float32:
+    equal within float32 rounding (sums in another order), far inside the
+    half bf16 step (2**-9 relative) that rounding the logits to bf16 costs."""
+    from repro.models import transformer as jtransformer
+    from repro_torch.models import transformer as ttransformer
+
+    # a vocabulary that is not a multiple of the padding, so the mask shows
+    jcfg = jconfigs.reduced(jconfigs.get_config("llama3.2-1b")).with_(vocab=500)
+    tcfg = configs.reduced(configs.get_config("llama3.2-1b")).with_(vocab=500)
+    assert jcfg.dtype == tcfg.dtype == "bfloat16"
+    assert jcfg.padded_vocab == tcfg.padded_vocab > 500
+    rng = np.random.default_rng(12)
+    d, v = tcfg.d_model, tcfg.padded_vocab
+    bf16 = jnp.bfloat16
+    embed = jnp.asarray(rng.standard_normal((v, d)), jnp.float32).astype(bf16)
+    gamma = jnp.asarray(0.1 * rng.standard_normal(d), jnp.float32)
+    x = jnp.asarray(rng.standard_normal((2, 5, d)), jnp.float32).astype(bf16)
+    lj = np.asarray(jtransformer.project_logits(
+        {"embed": embed, "final_norm": gamma}, x, jcfg))
+    tparams = {"embed": to_torch(np.asarray(embed), "cpu"),
+               "final_norm": to_torch(np.asarray(gamma), "cpu")}
+    lt = ttransformer.project_logits(tparams, to_torch(np.asarray(x), "cpu"), tcfg)
+    assert lt.dtype == torch.float32 and lt.shape == lj.shape
+    live = slice(0, tcfg.vocab)
+    scale = np.abs(lj[..., live]).max()
+    np.testing.assert_allclose(lt.numpy()[..., live], lj[..., live], rtol=0,
+                               atol=1e-5 * scale)
+    np.testing.assert_array_equal(lt.numpy()[..., tcfg.vocab:], np.float32(-1e30))

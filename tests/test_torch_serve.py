@@ -31,7 +31,7 @@ def test_cli_runs_on_cpu_and_prints_summary():
     assert summary["logits_finite"] is True
     assert len(summary["sample"]) == 4
     # no CUDA kernel runs on the CPU: the wrappers take the plain version
-    assert summary["kernel_launches"] == {"sod_matmul": 0}
+    assert summary["kernel_launches"] == {"sod_matmul": 0, "block_matmul": 0}
     wb = summary["weight_bytes"]
     assert 0 < wb["compressed"] < wb["dense"]
 
@@ -49,7 +49,7 @@ def test_every_projection_goes_through_the_wrapper(monkeypatch):
     monkeypatch.setattr(ref, "sod_matmul_ref", counting)
     summary = serve.main([*ARGS, "--device", "cpu"])
     assert len(calls) == 2 * 7 * (1 + 4)
-    assert summary["kernel_launches"] == {"sod_matmul": 0}
+    assert summary["kernel_launches"] == {"sod_matmul": 0, "block_matmul": 0}
 
 
 def test_dense_serve_runs(capsys):
@@ -65,7 +65,7 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
         serve.main(ARGS)
 
 
-@pytest.mark.parametrize("kw", [{"mode": "block_csr"}, {"qmode": "int8"}])
+@pytest.mark.parametrize("kw", [{"prune_method": "nm"}, {"qmode": "int8"}])
 def test_unported_modes_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         SoDConfig(**{"mode": "tiled_csc", **kw})
