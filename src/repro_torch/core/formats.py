@@ -14,22 +14,59 @@ keys, so ``vals`` and ``rows`` come out equal, padding order included (with
 so ``-1`` sentinels sit between real rows — no consumer may stop at the
 first ``-1``).
 
-The Bitmap/CSC footprint formats and the quantized ``qmode`` value storage
-are not ported yet.
+Quantized value storage (``qmode``) is the reference's: ``"int8"`` and
+``"fp8"`` store codes with one f32 scale per (bk, bn) tile, ``"codebook"``
+stores int8 indices into one shared-value table per lead slice (entry 0 is
+0.0), fitted with the same numpy Lloyd k-means.  Quantization happens after
+packing (:func:`quantize_packed`); ``to_dense`` of a quantized operand
+dequantizes first and returns float32.
+
+The Bitmap/CSC footprint formats are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.plan import CODEBOOK_SIZE, QMODES, QVALUE_BITS, SCALE_BITS
+
 __all__ = ["TiledCSC", "pack_tiled_csc", "padded_shape", "observed_tiled_cap",
-           "BlockCSR", "pack_block_csr", "observed_block_cap"]
+           "BlockCSR", "pack_block_csr", "observed_block_cap",
+           "quantize_packed", "qvalue_bits", "fp8_dtype", "QMODES",
+           "CODEBOOK_SIZE"]
 
 # Paper accounting: 16-bit values (qmode "none"), 8-bit row indices; BlockCSR
 # counts its block ids at 16 bits.
 VALUE_BITS, INDEX_BITS, BLOCK_ID_BITS = 16, 8, 16
+
+
+def fp8_dtype() -> torch.dtype:
+    """The fp8 value dtype of qmode ``"fp8"``."""
+    return torch.float8_e4m3fn
+
+
+def qvalue_bits(qmode: str, ncodes: int = CODEBOOK_SIZE) -> int:
+    """Paper-accounting bits per stored value slot under ``qmode``: 16
+    unquantized, 8 for int8/fp8, the index width for codebook
+    (``ceil(log2(ncodes))``, 4 at the default table size)."""
+    if qmode == "codebook":
+        return max(int(np.ceil(np.log2(max(ncodes, 2)))), 1)
+    qmode = qmode or "none"
+    if qmode not in QVALUE_BITS:
+        raise ValueError(f"unknown qmode {qmode!r} (expected one of {QMODES})")
+    return QVALUE_BITS[qmode]
+
+
+def _check_qmode(qmode: str) -> str:
+    qmode = qmode or "none"
+    if qmode not in QMODES:
+        raise ValueError(f"unknown qmode {qmode!r} (expected one of {QMODES})")
+    return qmode
 
 
 def padded_shape(shape: tuple[int, int], tile: tuple[int, int]) -> tuple[int, int]:
@@ -72,11 +109,140 @@ def observed_block_cap(w: torch.Tensor, tile: tuple[int, int], br: int) -> int:
     return int(nz.sum(dim=2).max())
 
 
+def _slice(t: torch.Tensor | None, i: int) -> torch.Tensor | None:
+    return None if t is None else t[i]
+
+
+def _ncodes(codebook: torch.Tensor | None) -> int:
+    return CODEBOOK_SIZE if codebook is None else codebook.shape[-1]
+
+
 def _n_lead(lead: tuple[int, ...]) -> int:
     n = 1
     for d in lead:
         n *= int(d)
     return n
+
+
+def _fit_codebook(x: np.ndarray, ncodes: int) -> np.ndarray:
+    """EIE-style shared-value table via 1-D Lloyd k-means (deterministic).
+
+    Copied verbatim from the reference (numpy) so the tables come out equal.
+    Entry 0 is reserved for exactly 0.0 so padding slots (and pruned
+    positions inside stored blocks) round-trip to zero; the remaining
+    ``ncodes - 1`` centroids are quantile-initialised over the non-zero
+    values and refined for a few Lloyd iterations.
+    """
+    book = np.zeros((ncodes,), np.float32)
+    nz = np.asarray(x, np.float32).ravel()
+    nz = nz[nz != 0]
+    if nz.size == 0:
+        return book
+    k = ncodes - 1
+    cent = np.quantile(nz, np.linspace(0.0, 1.0, k))
+    # collapsed quantiles (few distinct values) would alias centroids;
+    # nudge them apart so argmin assignment stays well defined
+    cent = cent + np.arange(k) * 1e-12
+    for _ in range(8):
+        assign = np.argmin(np.abs(nz[:, None] - cent[None, :]), axis=1)
+        for i in range(k):
+            sel = assign == i
+            if sel.any():
+                cent[i] = nz[sel].mean()
+    book[1:] = np.sort(cent)
+    return book
+
+
+def _dequant_values(vals: torch.Tensor, scale, codebook, qmode: str,
+                    nval_dims: int) -> torch.Tensor:
+    """A packed value buffer dequantized to float32.
+
+    ``vals`` is ``(*lead, Kt, Nt, *value_dims)`` with ``nval_dims`` trailing
+    value dims (2 for TiledCSC's ``(cap, bn)``, 3 for BlockCSR's
+    ``(bcap, br, bn)``); ``scale`` is ``(*lead, Kt, Nt)``; ``codebook`` is
+    ``(*lead, ncodes)``.  int8/fp8: one f32 multiply ``code * scale``;
+    codebook: a table lookup.
+    """
+    if qmode in (None, "none"):
+        return vals
+    if qmode in ("int8", "fp8"):
+        return vals.float() * scale.reshape(tuple(scale.shape) + (1,) * nval_dims)
+    if qmode == "codebook":
+        lead_ndim = vals.ndim - 2 - nval_dims
+        idx = vals.long().reshape(tuple(vals.shape[:lead_ndim]) + (-1,))
+        return torch.gather(codebook.float(), -1, idx).reshape(vals.shape)
+    raise ValueError(f"unknown qmode {qmode!r}")
+
+
+def _quantize_values(vals: torch.Tensor, qmode: str, nval_dims: int, ncodes: int):
+    """Quantize a packed value buffer; returns ``(qvals, scale, codebook)``.
+
+    Shapes as in :func:`_dequant_values`.  As the reference: the scale is the
+    tile's f32 absmax over 127 (int8) or 448 (fp8), 1.0 for an empty tile;
+    int8 codes round half to even and clamp to ±127; fp8 codes are the
+    round-to-nearest-even cast of ``value / scale``.  Padding slots hold 0
+    and map to code 0 (or codebook entry 0) in every mode.
+    """
+    qmode = _check_qmode(qmode)
+    if qmode == "none":
+        return vals, None, None
+    vf = vals.float()
+    if qmode in ("int8", "fp8"):
+        tile_dims = tuple(range(vals.ndim - nval_dims, vals.ndim))
+        absmax = vf.abs().amax(dim=tile_dims)
+        qmax = 127.0 if qmode == "int8" else 448.0
+        scale = torch.where(absmax > 0, absmax / qmax, torch.ones_like(absmax))
+        q = vf / scale.reshape(tuple(scale.shape) + (1,) * nval_dims)
+        if qmode == "int8":
+            return torch.clamp(torch.round(q), -127, 127).to(torch.int8), scale, None
+        return q.to(fp8_dtype()), scale, None
+    # codebook: one shared-value table per lead slice, fitted on the host
+    # with numpy exactly as the reference does.  The slices are independent
+    # and numpy releases the GIL in its array loops, so they run in threads
+    # (a full-width layer's fit takes tens of seconds on one core).
+    lead = tuple(vals.shape[:vals.ndim - 2 - nval_dims])
+    v_np = vf.cpu().numpy().reshape((-1,) + tuple(vals.shape[len(lead):]))
+
+    def fit(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        book = _fit_codebook(v, ncodes)
+        return book, np.argmin(np.abs(v[..., None] - book), axis=-1).astype(np.int8)
+
+    workers = max(1, min(len(v_np), os.cpu_count() or 1, 8))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        books, idx = zip(*pool.map(fit, v_np))
+    books, idx = np.stack(books), np.stack(idx)
+    codebook = torch.from_numpy(books.reshape(lead + (ncodes,))).to(vals.device)
+    return torch.from_numpy(idx.reshape(vals.shape)).to(vals.device), None, codebook
+
+
+def _side_bytes(scale, codebook) -> int:
+    """Side band of a quantized operand: 16 bits per scale or table entry."""
+    return sum(t.numel() * SCALE_BITS // 8 for t in (scale, codebook)
+               if t is not None)
+
+
+def quantize_packed(packed, qmode: str, ncodes: int = CODEBOOK_SIZE):
+    """Quantize the value buffer of a packed operand (TiledCSC/BlockCSR).
+
+    Returns a new container with ``qmode`` set, ``vals``/``block_vals``
+    replaced by the codes and the ``scale``/``codebook`` side band filled.
+    ``qmode='none'`` (or the operand's own qmode) is the identity.
+    """
+    qmode = _check_qmode(qmode)
+    if qmode == packed.qmode:
+        return packed
+    if packed.qmode != "none":
+        raise ValueError(f"operand is already quantized ({packed.qmode}); "
+                         "re-pack from dense to change qmode")
+    if isinstance(packed, TiledCSC):
+        q, scale, codebook = _quantize_values(packed.vals, qmode, 2, ncodes)
+        return dataclasses.replace(packed, vals=q, scale=scale,
+                                   codebook=codebook, qmode=qmode)
+    if isinstance(packed, BlockCSR):
+        q, scale, codebook = _quantize_values(packed.block_vals, qmode, 3, ncodes)
+        return dataclasses.replace(packed, block_vals=q, scale=scale,
+                                   codebook=codebook, qmode=qmode)
+    raise TypeError(f"cannot quantize {type(packed).__name__}")
 
 
 @dataclasses.dataclass
@@ -86,13 +252,17 @@ class TiledCSC:
     ``vals[kt, nt, s, j]`` is the s-th stored slot of column ``j`` of tile
     ``(kt, nt)`` and ``rows[kt, nt, s, j]`` its in-tile row index; padding
     slots hold value 0 and row ``-1``.  Leading dims ahead of ``(Kt, Nt)``
-    are layer stacks packed with one shared ``cap``.
+    are layer stacks packed with one shared ``cap``.  Under a quantized
+    ``qmode`` ``vals`` holds the codes (int8, fp8, or int8 codebook indices)
+    and ``scale``/``codebook`` the dequantization side band.
     """
 
     vals: torch.Tensor   # (*lead, Kt, Nt, cap, bn)
     rows: torch.Tensor   # same shape, int8 (bk <= 128) or int32
     shape: tuple[int, int]   # logical (K, N) before tile padding
     tile: tuple[int, int]
+    scale: torch.Tensor | None = None      # (*lead, Kt, Nt) f32: int8, fp8
+    codebook: torch.Tensor | None = None   # (*lead, ncodes) f32: codebook
     qmode: str = "none"
 
     @property
@@ -125,25 +295,41 @@ class TiledCSC:
         if not self.lead:
             raise ValueError("operand has no stack dim to slice")
         return TiledCSC(vals=self.vals[i], rows=self.rows[i], shape=self.shape,
-                        tile=self.tile, qmode=self.qmode)
+                        tile=self.tile, scale=_slice(self.scale, i),
+                        codebook=_slice(self.codebook, i), qmode=self.qmode)
 
     def nbytes_compressed(self) -> int:
-        """Footprint under the paper's encoding (value + index per slot)."""
-        return self.vals.numel() * (VALUE_BITS + INDEX_BITS) // 8
+        """Footprint under the paper's encoding: value (the qmode's width) +
+        index per slot, plus the quantization side band."""
+        value_bits = qvalue_bits(self.qmode, _ncodes(self.codebook))
+        return (self.vals.numel() * (value_bits + INDEX_BITS) // 8
+                + _side_bytes(self.scale, self.codebook))
 
     def nbytes_dense(self) -> int:
         """Dense-equivalent 16-bit bytes (lead dims included)."""
         kp, np_ = padded_shape(self.shape, self.tile)
         return _n_lead(self.lead) * kp * np_ * VALUE_BITS // 8
 
+    def dequantize(self) -> "TiledCSC":
+        """The equivalent unquantized operand, values dequantized to
+        float32; the operand itself when it is not quantized."""
+        if self.qmode == "none":
+            return self
+        return TiledCSC(vals=_dequant_values(self.vals, self.scale, self.codebook,
+                                             self.qmode, 2),
+                        rows=self.rows, shape=self.shape, tile=self.tile)
+
     def to_dense(self) -> torch.Tensor:
-        """Scatter the stored slots back into a dense ``(*lead, K, N)``.
+        """Scatter the stored slots back into a dense ``(*lead, K, N)``, in
+        the value dtype (float32 for a quantized operand, dequantized first).
 
         The sentinel is masked before the scatter: torch would wrap row
         ``-1`` to the tile's last row, so padding slots scatter a zero into
         row 0 instead (exact: every real slot is non-zero and rows are unique
         per column).
         """
+        if self.qmode != "none":
+            return self.dequantize().to_dense()
         kt_n, nt_n = self.grid
         bk, bn = self.tile
         vals = self.vals.reshape((-1, kt_n, nt_n, self.cap, bn))
@@ -160,15 +346,19 @@ class TiledCSC:
 
 
 def pack_tiled_csc(w: torch.Tensor, tile: tuple[int, int] = (128, 128),
-                   cap: int | None = None) -> TiledCSC:
+                   cap: int | None = None, qmode: str = "none",
+                   ncodes: int = CODEBOOK_SIZE) -> TiledCSC:
     """Pack a dense matrix into :class:`TiledCSC`, as the JAX package does.
 
     ``cap=None`` takes the exact max column non-zero count over all tiles
     (lossless), rounded up to 8.  A smaller ``cap`` keeps the ``cap``
     largest-magnitude entries per tile column.  Leading dims (layer stacks)
     are packed with one shared cap.  Row indices are int8 for ``bk <= 128``
-    (int32 above).
+    (int32 above).  ``qmode`` quantizes the values after packing
+    (:func:`quantize_packed`), over the whole stack.
     """
+    if qmode != "none":
+        return quantize_packed(pack_tiled_csc(w, tile, cap), qmode, ncodes)
     if w.ndim > 2:
         lead = tuple(w.shape[:-2])
         flat = w.reshape((-1,) + tuple(w.shape[-2:]))
@@ -236,6 +426,8 @@ class BlockCSR:
     and :func:`pack_block_csr` stores them first, in ascending id order, so
     the ids are ``>= 0`` exactly at slots ``s < tile_nnz``.  A macro tile with
     ``tile_nnz == 0`` holds nothing and is skipped by the matmul kernel.
+    ``qmode``/``scale``/``codebook`` quantize ``block_vals`` as
+    :class:`TiledCSC` quantizes ``vals`` (scale per macro tile).
     """
 
     block_vals: torch.Tensor   # (*lead, Kt, Nt, bcap, br, bn)
@@ -244,6 +436,8 @@ class BlockCSR:
     shape: tuple[int, int]     # logical (K, N) before tile padding
     tile: tuple[int, int]      # (bk, bn) macro tile
     br: int                    # sub-block rows
+    scale: torch.Tensor | None = None      # (*lead, Kt, Nt) f32: int8, fp8
+    codebook: torch.Tensor | None = None   # (*lead, ncodes) f32: codebook
     qmode: str = "none"
 
     @property
@@ -277,25 +471,41 @@ class BlockCSR:
             raise ValueError("operand has no stack dim to slice")
         return BlockCSR(block_vals=self.block_vals[i], block_ids=self.block_ids[i],
                         tile_nnz=self.tile_nnz[i], shape=self.shape,
-                        tile=self.tile, br=self.br, qmode=self.qmode)
+                        tile=self.tile, br=self.br, scale=_slice(self.scale, i),
+                        codebook=_slice(self.codebook, i), qmode=self.qmode)
 
     def nbytes_compressed(self) -> int:
-        """Footprint: stored sub-block values plus 16-bit block ids."""
-        return (self.block_vals.numel() * VALUE_BITS
-                + self.block_ids.numel() * BLOCK_ID_BITS) // 8
+        """Footprint: stored sub-block values (the qmode's width), 16-bit
+        block ids, and the quantization side band."""
+        value_bits = qvalue_bits(self.qmode, _ncodes(self.codebook))
+        return (self.block_vals.numel() * value_bits // 8
+                + self.block_ids.numel() * BLOCK_ID_BITS // 8
+                + _side_bytes(self.scale, self.codebook))
 
     def nbytes_dense(self) -> int:
         """Dense-equivalent 16-bit bytes (lead dims included)."""
         kp, np_ = padded_shape(self.shape, self.tile)
         return _n_lead(self.lead) * kp * np_ * VALUE_BITS // 8
 
+    def dequantize(self) -> "BlockCSR":
+        """The equivalent unquantized operand (cf. ``TiledCSC.dequantize``)."""
+        if self.qmode == "none":
+            return self
+        return BlockCSR(block_vals=_dequant_values(self.block_vals, self.scale,
+                                                   self.codebook, self.qmode, 3),
+                        block_ids=self.block_ids, tile_nnz=self.tile_nnz,
+                        shape=self.shape, tile=self.tile, br=self.br)
+
     def to_dense(self) -> torch.Tensor:
-        """Scatter the stored sub-blocks back into a dense ``(*lead, K, N)``.
+        """Scatter the stored sub-blocks back into a dense ``(*lead, K, N)``,
+        in the value dtype (float32 for a quantized operand).
 
         Id ``-1`` is masked before the scatter (torch would wrap it to the
         tile's last sub-block): padding adds a zero into sub-block 0, which
         is exact because real ids are unique per tile.
         """
+        if self.qmode != "none":
+            return self.dequantize().to_dense()
         kt_n, nt_n = self.grid
         bk, bn = self.tile
         br, nb = self.br, bk // self.br
@@ -313,18 +523,22 @@ class BlockCSR:
 
 
 def pack_block_csr(w: torch.Tensor, tile: tuple[int, int] = (128, 128),
-                   br: int = 8, bcap: int | None = None) -> BlockCSR:
+                   br: int = 8, bcap: int | None = None, qmode: str = "none",
+                   ncodes: int = CODEBOOK_SIZE) -> BlockCSR:
     """Pack a dense matrix into :class:`BlockCSR`, as the JAX package does.
 
     ``bcap=None`` takes the largest non-zero sub-block count of any macro
     tile (lossless).  An explicit ``bcap`` below that keeps the
     largest-L2 sub-blocks and clamps ``tile_nnz`` to what is stored.  Leading
     dims (layer stacks) are packed with one shared ``bcap``.  Either way the
-    stored sub-blocks come first, in ascending id order.
+    stored sub-blocks come first, in ascending id order.  ``qmode``
+    quantizes ``block_vals`` after packing, over the whole stack.
     """
     bk, bn = tile
     if bk % br:
         raise ValueError(f"tile rows {bk} not divisible by block rows {br}")
+    if qmode != "none":
+        return quantize_packed(pack_block_csr(w, tile, br, bcap), qmode, ncodes)
     if w.ndim > 2:
         lead = tuple(w.shape[:-2])
         flat = w.reshape((-1,) + tuple(w.shape[-2:]))

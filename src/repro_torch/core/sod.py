@@ -1,8 +1,9 @@
 """Sparse-on-Dense as a composable module: config, packing, apply.
 
 Twin of :mod:`repro.core.sod` for static serving in the ``tiled_csc`` and
-``block_csr`` modes: :class:`SoDConfig` says how projection weights are
-stored, :func:`pack_param` and :func:`sodify_params` prune and pack them, and
+``block_csr`` modes, in every ``qmode``: :class:`SoDConfig` says how
+projection weights are stored, :func:`pack_param` and :func:`sodify_params`
+prune, pack and quantize them, and
 :func:`apply` is the one matmul entry point every model layer calls — dense
 tensors bypass decompression, packed operands go to
 :func:`repro_torch.kernels.ops.sod_matmul`.
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.core import formats, pruning
 from repro_torch.core.formats import BlockCSR, TiledCSC
+from repro_torch.core.plan import QMODES
 
 __all__ = ["SoDConfig", "DENSE", "prune_weight", "pack_param", "apply",
            "sodify_params", "tree_weight_bytes"]
@@ -32,16 +34,14 @@ class SoDConfig:
     tile: tuple[int, int] = (128, 128)
     br: int = 8                    # BlockCSR sub-block rows
     min_dim: int = 128             # matrices smaller than this stay dense
-    qmode: str = "none"
+    qmode: str = "none"            # none | int8 | fp8 | codebook
 
     def __post_init__(self):
         if self.mode not in ("dense", "tiled_csc", "block_csr"):
             raise ValueError(f"unknown SoD mode {self.mode!r}")
         _check_method(self.prune_method)
-        if self.qmode != "none":
-            raise NotImplementedError(
-                f"qmode={self.qmode!r} is not ported yet: quantized value "
-                "storage comes in a later slice of the port")
+        if self.qmode not in QMODES:
+            raise ValueError(f"unknown SoD qmode {self.qmode!r}")
 
     @property
     def enabled(self) -> bool:
@@ -74,10 +74,12 @@ def prune_weight(w: torch.Tensor, density: float, method: str = "magnitude",
 
 
 def _pack(w: torch.Tensor, cfg: SoDConfig):
-    """Pack a (possibly stacked) pruned weight in the config's format."""
+    """Pack a (possibly stacked) pruned weight in the config's format and
+    qmode (a stack is quantized as one: a scale per layer and tile, a
+    codebook per layer)."""
     if cfg.mode == "tiled_csc":
-        return formats.pack_tiled_csc(w, tile=cfg.tile)
-    return formats.pack_block_csr(w, tile=cfg.tile, br=cfg.br)
+        return formats.pack_tiled_csc(w, tile=cfg.tile, qmode=cfg.qmode)
+    return formats.pack_block_csr(w, tile=cfg.tile, br=cfg.br, qmode=cfg.qmode)
 
 
 def pack_param(w: torch.Tensor, cfg: SoDConfig):
@@ -124,13 +126,14 @@ def _set(tree, name, value):
 
 
 def sodify_params(params: dict[str, Any], cfg: SoDConfig) -> dict[str, Any]:
-    """Prune and pack every eligible projection weight, layer by layer.
+    """Prune, pack and quantize every eligible projection weight, layer by
+    layer.
 
     Mirrors the reference's stacked-leaf path: each projection is pruned
     per layer, then the whole layer stack is packed with one shared ``cap``
-    or ``bcap`` (as ``lax.scan`` needs there), and each layer gets its
-    slice.  Returns a
-    new tree; the input's tensors are not modified.
+    or ``bcap`` (as ``lax.scan`` needs there) and quantized, and each layer
+    gets its slice (with its scales and codebook).  Returns a new tree; the
+    input's tensors are not modified.
     """
     if not cfg.enabled:
         return params
@@ -165,8 +168,9 @@ def _all_leaves(tree):
 
 
 def tree_weight_bytes(params: Any) -> dict[str, int]:
-    """Compressed vs dense byte totals over a parameter tree (dense leaves
-    count 16 bits per element on both sides, as in the reference)."""
+    """Compressed vs dense byte totals over a parameter tree: packed leaves
+    at their qmode's width plus side band, dense leaves at 16 bits per
+    element on both sides, as in the reference."""
     compressed = dense = 0
     for leaf in _all_leaves(params):
         if isinstance(leaf, (TiledCSC, BlockCSR)):

@@ -1,9 +1,10 @@
 """Wrapper of the block Sparse-on-Dense matmul CUDA kernel
 (``csrc/block_matmul.cu``).
 
-Twin of :mod:`repro.kernels.block_matmul` (``block_matmul_pallas``).  A CPU
-tensor goes to the plain version :func:`repro_torch.kernels.ref.block_matmul_ref`;
-a CUDA tensor goes to the hand-written kernel, or the call raises.
+Twin of :mod:`repro.kernels.block_matmul` (``block_matmul_pallas``), in
+every qmode.  A CPU tensor goes to the plain version
+:func:`repro_torch.kernels.ref.block_matmul_ref`; a CUDA tensor goes to the
+hand-written kernel, or the call raises.
 
 The kernel walks only the slots ``s < tile_nnz[kt, nt]`` of each macro tile,
 which holds for every operand :func:`repro_torch.core.formats.pack_block_csr`
@@ -22,7 +23,7 @@ import torch
 from repro_torch.core.formats import BlockCSR
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.sod_matmul import (DTYPE_CODE, check_operands, pick_splits,
-                                            sm_count)
+                                            side_args, sm_count)
 
 __all__ = ["block_matmul", "launches"]
 
@@ -38,7 +39,7 @@ CTAS_PER_SM = 8
 @functools.lru_cache(maxsize=1)
 def _entry():
     fn = build.load("block_matmul").block_matmul_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -53,9 +54,10 @@ def block_matmul(x: torch.Tensor, packed: BlockCSR,
     """
     global launches
     out_dtype = out_dtype or x.dtype
-    check_operands("block_matmul", x, packed, out_dtype,
-                   {"block_vals": packed.block_vals, "block_ids": packed.block_ids,
-                    "tile_nnz": packed.tile_nnz})
+    side = check_operands("block_matmul", x, packed, out_dtype,
+                          {"block_vals": packed.block_vals,
+                           "block_ids": packed.block_ids,
+                           "tile_nnz": packed.tile_nnz})
     if packed.block_ids.dtype != torch.int32 or packed.tile_nnz.dtype != torch.int32:
         raise TypeError("block_ids and tile_nnz must be int32")
     if x.device.type == "cpu":
@@ -78,12 +80,13 @@ def block_matmul(x: torch.Tensor, packed: BlockCSR,
                          CTAS_PER_SM)
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
+    scale_ptr, book_ptr, qcode, ncodes = side_args(side, packed.qmode)
     err = _entry()(
         x.data_ptr(), packed.block_vals.data_ptr(), packed.block_ids.data_ptr(),
-        packed.tile_nnz.data_ptr(), out.data_ptr(),
+        packed.tile_nnz.data_ptr(), scale_ptr, book_ptr, out.data_ptr(),
         0 if partial is None else partial.data_ptr(),
         m, k, n, kt, nt, packed.bcap, packed.br, bk, bn, splits,
-        DTYPE_CODE[x.dtype], DTYPE_CODE[out_dtype],
+        DTYPE_CODE[x.dtype], DTYPE_CODE[out_dtype], qcode, ncodes,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"block_matmul kernel launch failed: cudaError {err}")

@@ -1,22 +1,137 @@
-// Device helpers shared by the Sparse-on-Dense matmul kernels: conversions
-// between the storage types and f32, the per-slot multiply-add over a staged
-// slice of x, and the fixed-order reduction of split-K partial sums.
+// Device helpers shared by the Sparse-on-Dense kernels: conversions between
+// the storage types and f32, the value paths of the four qmodes (how a stored
+// slot becomes its f32 weight), the dispatch of the C entry points' dtype and
+// qmode codes onto template instantiations, the per-slot multiply-add over a
+// staged slice of x, and the fixed-order reduction of split-K partial sums.
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }  // exact
+
+// A read-only global load issued where the source puts it: asm volatile is
+// neither moved across other asm volatile nor sunk into a branch that uses
+// its result, so a group of loads goes out together, before any is used.
+__device__ __forceinline__ unsigned ld_nc_u8(const void* p) {
+  unsigned v;
+  asm volatile("ld.global.nc.u8 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ unsigned ld_nc_u16(const void* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.u16 %0, [%1];" : "=h"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ unsigned ld_nc_u32(const void* p) {
+  unsigned v;
+  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ int8_t load_pinned(const int8_t* p) {
+  return static_cast<int8_t>(ld_nc_u8(p));
+}
+__device__ __forceinline__ __nv_fp8_e4m3 load_pinned(const __nv_fp8_e4m3* p) {
+  __nv_fp8_e4m3 v;
+  v.__x = static_cast<__nv_fp8_storage_t>(ld_nc_u8(p));
+  return v;
+}
+__device__ __forceinline__ __nv_bfloat16 load_pinned(const __nv_bfloat16* p) {
+  __nv_bfloat16_raw raw;
+  raw.x = static_cast<unsigned short>(ld_nc_u16(p));
+  return __nv_bfloat16(raw);
+}
+__device__ __forceinline__ float load_pinned(const float* p) {
+  return __uint_as_float(ld_nc_u32(p));
+}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch's cast
+}
+
+// qmode codes of the C entry points, as the wrappers pass them.
+enum QMode { kNone = 0, kInt8 = 1, kFp8 = 2, kCodebook = 3 };
+constexpr int kMaxCodes = 128;  // int8 codebook indices address at most 128 entries
+
+// The value paths.  Each has the stored type T; begin(), which every thread
+// of a CTA calls once before a __syncthreads(); tile(), called when the CTA
+// moves to tile t of the (Kt, Nt) grid; and operator(), which turns one
+// stored slot into its f32 weight.  The weight is bit-equal to the plain
+// version's dequantized value (formats._dequant_values): one f32 multiply
+// code * scale, or the table entry.  Padding holds code 0, which is 0.0 in
+// every mode.
+template <typename TV>
+struct Plain {  // qmode "none": the stored value itself
+  using T = TV;
+  __device__ __forceinline__ void begin(float*, const float*, int) {}
+  __device__ __forceinline__ void tile(const float*, size_t) {}
+  __device__ __forceinline__ float operator()(TV v) const { return to_f32(v); }
+};
+
+template <typename TC>
+struct Scaled {  // "int8" and "fp8": the code times its tile's f32 scale
+  using T = TC;
+  float s = 1.f;
+  __device__ __forceinline__ void begin(float*, const float*, int) {}
+  __device__ __forceinline__ void tile(const float* scale, size_t t) { s = scale[t]; }
+  __device__ __forceinline__ float operator()(TC c) const { return __fmul_rn(to_f32(c), s); }
+};
+
+struct Codebook {  // "codebook": the entry of the layer's shared-value table
+  using T = int8_t;
+  const float* table = nullptr;
+  // Stages the table into shared memory once per CTA, zero past ncodes, so
+  // that every int8 code (masked to 7 bits) reads inside it.
+  __device__ __forceinline__ void begin(float* smem, const float* codebook, int ncodes) {
+    for (int i = threadIdx.x; i < kMaxCodes; i += blockDim.x) smem[i] = i < ncodes ? codebook[i] : 0.f;
+    table = smem;
+  }
+  __device__ __forceinline__ void tile(const float*, size_t) {}
+  __device__ __forceinline__ float operator()(int8_t c) const { return table[c & (kMaxCodes - 1)]; }
+};
+
+template <typename T>
+struct Type {
+  using type = T;
+};
+
+// Calls f(Type<TIn>{}, Type<TOut>{}, Type<Deq>{}) for the dtype codes of the
+// activations and of the output (0 = float32, 1 = bfloat16) and the qmode
+// code; under qmode "none" the stored values have the activations' type.
+// Returns cudaErrorInvalidValue for a code out of range, else what f returns.
+template <typename F>
+int dispatch(int in_dtype, int out_dtype, int qmode, F&& f) {
+  if (in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1 || qmode < kNone ||
+      qmode > kCodebook) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto with_in = [&](auto tin) -> int {
+    using TIn = typename decltype(tin)::type;
+    auto with_out = [&](auto tout) -> int {
+      switch (qmode) {
+        case kInt8:
+          return f(tin, tout, Type<Scaled<int8_t>>{});
+        case kFp8:
+          return f(tin, tout, Type<Scaled<__nv_fp8_e4m3>>{});
+        case kCodebook:
+          return f(tin, tout, Type<Codebook>{});
+        default:
+          return f(tin, tout, Type<Plain<TIn>>{});
+      }
+    };
+    return out_dtype == 0 ? with_out(Type<float>{}) : with_out(Type<__nv_bfloat16>{});
+  };
+  return in_dtype == 0 ? with_in(Type<float>{}) : with_in(Type<__nv_bfloat16>{});
 }
 
 // acc[m] += v * xs[r][m] for the BM rows of a staged x slice whose rows are

@@ -2,7 +2,7 @@
 
 Twin of :mod:`repro.kernels.ops` without the kernel registry, the autotuner
 and SPMD routing (not ported yet): a dense weight flows straight to
-``torch.matmul`` (the paper's decompression bypass, Fig. 2c); a
+:func:`dense_matmul` (the paper's decompression bypass, Fig. 2c); a
 :class:`~repro_torch.core.formats.TiledCSC` goes to the fused kernel wrapper
 and a :class:`~repro_torch.core.formats.BlockCSR` to the block kernel
 wrapper, with the input flattened to 2-D.
@@ -16,7 +16,26 @@ from repro_torch.kernels import block_matmul as block_matmul_kernel
 from repro_torch.kernels import decompress as decompress_kernel
 from repro_torch.kernels import sod_matmul as sod_matmul_kernel
 
-__all__ = ["sod_matmul", "decompress"]
+__all__ = ["sod_matmul", "decompress", "dense_matmul"]
+
+
+def dense_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w`` for a dense 2-D ``w``, as the reference's ``jnp.dot(x, w,
+    preferred_element_type=float32).astype(out_dtype)``: the operands
+    promoted to one dtype (bf16 activations meet an f32 weight as f32),
+    products summed in float32, the sums cast once to ``out_dtype``.
+
+    On CUDA with 16-bit operands one cuBLAS call keeps the f32 sums
+    (``aten::mm.dtype``); the CPU build has no such kernel, so there the
+    operands are widened first, which gives the same sums of exact products.
+    """
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cuda" and dtype in (torch.bfloat16, torch.float16):
+        y = torch.mm(x2.to(dtype), w.to(dtype), out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), w.float())
+    return y.to(out_dtype).reshape(*x.shape[:-1], w.shape[-1])
 
 
 def sod_matmul(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -28,7 +47,7 @@ def sod_matmul(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torc
     elif isinstance(w, BlockCSR):
         kernel = block_matmul_kernel.block_matmul
     else:
-        return torch.matmul(x, w).to(out_dtype)
+        return dense_matmul(x, w, out_dtype)
     k, n = w.shape
     if x.shape[-1] != k:
         raise ValueError(f"x inner dim {x.shape[-1]} != W K {k}")
@@ -39,8 +58,9 @@ def sod_matmul(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torc
 
 def decompress(w) -> torch.Tensor:
     """Dense matrix of a packed operand at its logical shape: a ``TiledCSC``
-    through the decompression kernel, a ``BlockCSR`` through its scatter; a
-    dense tensor comes back unchanged."""
+    through the decompression kernel, a ``BlockCSR`` through its scatter,
+    each in its value dtype, or float32 when quantized (as the reference);
+    a dense tensor comes back unchanged."""
     if isinstance(w, TiledCSC):
         return decompress_kernel.decompress(w)
     if isinstance(w, BlockCSR):

@@ -1,8 +1,9 @@
 """Wrapper of the fused decompress + matmul CUDA kernel (``csrc/sod_matmul.cu``).
 
-Twin of :mod:`repro.kernels.sod_matmul` (``sod_matmul_pallas``).  A CPU
-tensor goes to the plain version :func:`repro_torch.kernels.ref.sod_matmul_ref`;
-a CUDA tensor goes to the hand-written kernel, or the call raises.
+Twin of :mod:`repro.kernels.sod_matmul` (``sod_matmul_pallas``), in every
+qmode.  A CPU tensor goes to the plain version
+:func:`repro_torch.kernels.ref.sod_matmul_ref`; a CUDA tensor goes to the
+hand-written kernel, or the call raises.
 
 ``launches`` counts the kernel launches this wrapper made (plain-version
 calls do not count), so a run can show that its matmuls went through the
@@ -19,12 +20,18 @@ from repro_torch.core.formats import TiledCSC
 from repro_torch.kernels import build, ref
 
 __all__ = ["sod_matmul", "launches", "pick_splits", "sm_count", "DTYPE_CODE",
-           "check_operands"]
+           "QMODE_CODE", "check_operands", "side_band", "side_args"]
 
 launches = 0
 
-# dtype codes of the kernels' C entry points (all three kernels share them)
+# dtype and qmode codes of the kernels' C entry points (all three kernels
+# share them), the stored code dtype of each quantized qmode, and the largest
+# codebook the kernels take (int8 indices address at most 128 entries)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+QMODE_CODE = {"none": 0, "int8": 1, "fp8": 2, "codebook": 3}
+CODE_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
+              "codebook": torch.int8}
+MAX_CODES = 128
 _CTAS_PER_SM = 2
 
 
@@ -37,7 +44,7 @@ def sm_count(device_index: int) -> int:
 @functools.lru_cache(maxsize=1)
 def _entry():
     fn = build.load("sod_matmul").sod_matmul_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -51,15 +58,51 @@ def pick_splits(kt: int, ctas: int, sms: int, per_sm: int = _CTAS_PER_SM) -> int
     return -(-kt // per)
 
 
+def side_band(packed) -> dict[str, torch.Tensor]:
+    """The quantization side band of one unstacked operand, checked: ``{}``
+    for qmode ``none``; else ``{"scale": (Kt, Nt) f32}`` (int8, fp8) or
+    ``{"codebook": (ncodes,) f32}`` (codebook), after checking the stored
+    codes' dtype.  Raises for an unknown qmode, codes of the wrong dtype, or
+    a side band of the wrong dtype or shape."""
+    qmode = packed.qmode
+    if qmode not in QMODE_CODE:
+        raise ValueError(f"unknown qmode {qmode!r} (expected one of "
+                         f"{tuple(QMODE_CODE)})")
+    if qmode == "none":
+        return {}
+    if packed.dtype != CODE_DTYPE[qmode]:
+        raise TypeError(f"qmode {qmode!r} stores {CODE_DTYPE[qmode]} codes, "
+                        f"got {packed.dtype}")
+    name = "codebook" if qmode == "codebook" else "scale"
+    t = getattr(packed, name)
+    if t is None or t.dtype != torch.float32:
+        raise TypeError(f"qmode {qmode!r} needs a float32 {name}, got "
+                        f"{None if t is None else t.dtype}")
+    if qmode == "codebook":
+        if t.ndim != 1 or not 1 <= t.numel() <= MAX_CODES:
+            raise ValueError(f"codebook of shape {tuple(t.shape)}: want "
+                             f"(ncodes,) with ncodes <= {MAX_CODES}")
+    elif tuple(t.shape) != tuple(packed.grid):
+        raise ValueError(f"scale of shape {tuple(t.shape)}: want the tile "
+                         f"grid {tuple(packed.grid)}")
+    return {name: t}
+
+
+def side_args(side: dict[str, torch.Tensor], qmode: str) -> tuple[int, int, int, int]:
+    """(scale pointer, codebook pointer, qmode code, ncodes) for a launch."""
+    scale, book = side.get("scale"), side.get("codebook")
+    return (0 if scale is None else scale.data_ptr(),
+            0 if book is None else book.data_ptr(), QMODE_CODE[qmode],
+            0 if book is None else book.numel())
+
+
 def check_operands(name: str, x: torch.Tensor, packed, out_dtype: torch.dtype,
-                   buffers: dict[str, torch.Tensor]) -> None:
-    """Raise for what the matmul kernel ``name`` does not take: a quantized
-    or stacked operand, mismatched shapes or dtypes, or buffers (the
-    operand's, named in ``buffers``) that are not contiguous on x's device."""
-    if packed.qmode != "none":
-        raise NotImplementedError(
-            f"qmode={packed.qmode!r}: the dequant branches of {name} are "
-            "not ported yet")
+                   buffers: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Raise for what the matmul kernel ``name`` does not take: a stacked
+    operand, mismatched shapes or dtypes, a bad quantization side band, or
+    buffers (the operand's, named in ``buffers``, and its side band) that
+    are not contiguous on x's device.  Returns the side band
+    (:func:`side_band`)."""
     if x.ndim != 2:
         raise ValueError(f"x must be 2-D (M, K), got {tuple(x.shape)}")
     if packed.lead:
@@ -70,13 +113,16 @@ def check_operands(name: str, x: torch.Tensor, packed, out_dtype: torch.dtype,
     if x.dtype not in DTYPE_CODE or out_dtype not in DTYPE_CODE:
         raise TypeError(f"x dtype {x.dtype} / out dtype {out_dtype}: float32 "
                         "and bfloat16 are supported")
-    if packed.dtype != x.dtype:
+    if packed.qmode == "none" and packed.dtype != x.dtype:
         raise TypeError(f"weight dtype {packed.dtype} != activation dtype "
                         f"{x.dtype}")
+    side = side_band(packed)
+    buffers = {**buffers, **side}
     if not (x.is_contiguous() and all(t.is_contiguous() for t in buffers.values())):
         raise ValueError(f"x, {', '.join(buffers)} must be contiguous")
     if any(t.device != x.device for t in buffers.values()):
         raise ValueError(f"x on {x.device}, W on {packed.device}")
+    return side
 
 
 def sod_matmul(x: torch.Tensor, packed: TiledCSC,
@@ -88,8 +134,8 @@ def sod_matmul(x: torch.Tensor, packed: TiledCSC,
     """
     global launches
     out_dtype = out_dtype or x.dtype
-    check_operands("sod_matmul", x, packed, out_dtype,
-                   {"vals": packed.vals, "rows": packed.rows})
+    side = check_operands("sod_matmul", x, packed, out_dtype,
+                          {"vals": packed.vals, "rows": packed.rows})
     if x.device.type == "cpu":
         return ref.sod_matmul_ref(x, packed, out_dtype)
     if x.device.type != "cuda":
@@ -109,11 +155,13 @@ def sod_matmul(x: torch.Tensor, packed: TiledCSC,
     splits = pick_splits(kt, nt * -(-m // bm), sm_count(x.device.index or 0))
     partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
                if splits > 1 else None)
+    scale_ptr, book_ptr, qcode, ncodes = side_args(side, packed.qmode)
     err = _entry()(
         x.data_ptr(), packed.vals.data_ptr(), packed.rows.data_ptr(),
-        out.data_ptr(), 0 if partial is None else partial.data_ptr(),
+        scale_ptr, book_ptr, out.data_ptr(),
+        0 if partial is None else partial.data_ptr(),
         m, k, n, kt, nt, packed.cap, bk, bn, splits,
-        DTYPE_CODE[x.dtype], DTYPE_CODE[out_dtype],
+        DTYPE_CODE[x.dtype], DTYPE_CODE[out_dtype], qcode, ncodes,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"sod_matmul kernel launch failed: cudaError {err}")

@@ -4,8 +4,9 @@ Twin of :mod:`repro.launch.serve` without ``--engine``: one batch of
 synthetic prompts is prefilled in one forward, the KV cache grown to the
 generation horizon, and ``--gen`` greedy tokens decoded step by step.  Runs
 on CUDA unless ``--device cpu`` is given; with no GPU and no ``--device cpu``
-it raises.  The continuous-batching engine, ``--plan``, ``--autotune`` and
-``--quantize`` are not ported yet.
+it raises.  ``--quantize int8|fp8|codebook`` stores the packed values
+quantized (it needs ``--sod``).  The continuous-batching engine, ``--plan``
+(and so ``--quantize auto``) and ``--autotune`` are not ported yet.
 
 ``--sod block_csr`` keeps the reference CLI's magnitude pruning; a caller
 that wants block pruning (as the reference's serving bench uses for this
@@ -13,7 +14,8 @@ format) passes its own ``SoDConfig`` to :func:`main`.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
-      --batch 4 --prompt-len 32 --gen 16 --sod tiled_csc --density 0.3
+      --batch 4 --prompt-len 32 --gen 16 --sod tiled_csc --density 0.3 \\
+      --quantize int8
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import time
 import torch
 
 from repro_torch import configs
+from repro_torch.configs import ModelConfig
 from repro_torch.core.sod import SoDConfig, sodify_params, tree_weight_bytes
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.kernels import block_matmul as block_matmul_kernel
@@ -45,9 +48,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sod", choices=("tiled_csc", "block_csr"), default=None,
                     help="prune and pack the projections (default: dense)")
     ap.add_argument("--density", type=float, default=0.3)
+    ap.add_argument("--quantize", default="none",
+                    choices=("none", "int8", "fp8", "codebook", "auto"),
+                    help="packed value quantization: int8/fp8 store "
+                         "per-tile-scaled codes, codebook a shared-value "
+                         "table per layer + 4-bit indices ('auto' needs the "
+                         "planner, not ported yet)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.quantize != "none" and not args.sod:
+        ap.error("--quantize requires Sparse-on-Dense packing "
+                 "(pass --sod tiled_csc|block_csr)")
+    if args.quantize == "auto":
+        ap.error("--quantize auto needs the planner (--plan auto), which is "
+                 "not ported yet")
+    return args
 
 
 def resolve_device(name: str) -> torch.device:
@@ -57,20 +73,24 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
-def prepare(args: argparse.Namespace, sod: SoDConfig | None = None):
+def prepare(args: argparse.Namespace, sod: SoDConfig | None = None,
+            cfg: ModelConfig | None = None):
     """(model, params, prompt tokens (B, S) int64) on the requested device.
 
     Weights come from a ``torch.Generator`` seeded with ``--seed`` on the
     device; with ``--sod`` (or ``sod``, which replaces the config the flags
-    build) they are pruned and packed.  On CUDA the kernels are built here,
-    before anything is timed.
+    build) they are pruned, packed and quantized.  ``cfg`` replaces the
+    model config that ``--arch``/``--reduced`` select (a caller's depth
+    cut).  On CUDA the kernels are built here, before anything is timed.
     """
     device = resolve_device(args.device)
-    cfg = configs.get_config(args.arch)
-    if args.reduced:
-        cfg = configs.reduced(cfg)
+    if cfg is None:
+        cfg = configs.get_config(args.arch)
+        if args.reduced:
+            cfg = configs.reduced(cfg)
     if sod is None and args.sod:
-        sod = SoDConfig(mode=args.sod, density=args.density, min_dim=64)
+        sod = SoDConfig(mode=args.sod, density=args.density, min_dim=64,
+                        qmode=args.quantize)
     if sod is not None:
         cfg = cfg.with_(sod=sod)
     if device.type == "cuda":
@@ -100,14 +120,17 @@ def _launches() -> dict[str, int]:
             "block_matmul": block_matmul_kernel.launches}
 
 
-def main(argv=None, sod: SoDConfig | None = None) -> dict:
+def main(argv=None, sod: SoDConfig | None = None, prepared=None) -> dict:
     """CLI entry point: prints and returns a JSON summary of the run.
 
-    ``sod`` replaces the storage config that ``--sod``/``--density`` build.
+    ``sod`` replaces the storage config that ``--sod``/``--density``/
+    ``--quantize`` build.  ``prepared`` is ``(model, params, tokens)`` from
+    :func:`prepare` on the same flags, which the run then serves instead of
+    building its own (a caller that keeps the weights packs them once).
     """
     args = parse_args(argv)
     with torch.inference_mode():
-        model, params, tokens = prepare(args, sod)
+        model, params, tokens = prepared or prepare(args, sod)
         device = tokens.device
         max_len = args.prompt_len + args.gen
         launches0 = _launches()

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sod
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 
@@ -113,18 +114,10 @@ def project_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.T
 
     As the reference's dot with ``preferred_element_type=float32``: operands
     in x's dtype, products summed in float32, and the f32 sums are the
-    logits, never rounded to bfloat16 on the way.  On CUDA one cuBLAS call
-    does this (``aten::mm.dtype``); the CPU build has no such kernel, so the
-    operands are widened first, which gives the same sums of exact products.
+    logits, never rounded to bfloat16 on the way (:func:`ops.dense_matmul`).
     """
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    x2 = x.reshape(-1, x.shape[-1])
-    embed = params["embed"].to(x.dtype)
-    if x.device.type == "cuda" and x.dtype != torch.float32:
-        logits = torch.mm(x2, embed.T, out_dtype=torch.float32)
-    else:
-        logits = torch.mm(x2.float(), embed.float().T)
-    logits = logits.reshape(*x.shape[:-1], -1)
+    logits = ops.dense_matmul(x, params["embed"].to(x.dtype).T, torch.float32)
     v = cfg.padded_vocab
     if v != cfg.vocab:
         pad = torch.arange(v, device=logits.device) >= cfg.vocab

@@ -231,8 +231,12 @@ def test_wrapper_rejects_bad_inputs():
     stacked = formats.pack_block_csr(torch.stack([to_torch(w, "cpu")] * 2))
     with pytest.raises(ValueError):          # stacked operand
         bm.block_matmul(x, stacked)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown qmode"):
+        bm.block_matmul(x, dataclasses.replace(p, qmode="int4"))
+    with pytest.raises(TypeError):           # int8 qmode over float values
         bm.block_matmul(x, dataclasses.replace(p, qmode="int8"))
+    q = formats.quantize_packed(p, "fp8")    # a quantized operand runs
+    assert bm.block_matmul(x, q).shape == (8, 256)
 
 
 @pytest.mark.parametrize("kt,nt,m", [(16, 16, 4), (16, 4, 4), (64, 16, 4),

@@ -7,12 +7,15 @@ that has only the port's dependencies:
 
 Tolerance, as a fraction of the plain output's largest magnitude: 1e-4 in
 float32 (sums in another order); 2**-7 in bf16 (the output may round one
-bf16 step, 2**-8 relative, apart).  decompress is compared bit for bit.
+bf16 step, 2**-8 relative, apart).  decompress is compared bit for bit, in
+every qmode.
 """
+import dataclasses
+
 import pytest
 import torch
 
-from repro_torch.core.formats import pack_block_csr, pack_tiled_csc
+from repro_torch.core.formats import pack_block_csr, pack_tiled_csc, quantize_packed
 from repro_torch.core.pruning import block_prune, magnitude_prune
 from repro_torch.kernels import block_matmul as bmm
 from repro_torch.kernels import decompress as dk
@@ -194,4 +197,110 @@ def test_reduced_block_serve_launches_the_kernel(cuda):
                                        prune_method="block", min_dim=64))
     assert summary["kernel_launches"] == {"sod_matmul": 0, "block_matmul": 2 * 7 * 5}
     assert bmm.launches == 2 * 7 * 5 and sm.launches == 0
+    assert summary["logits_finite"]
+
+
+# ---------------------------------------------------------------------------
+# quantized operands (qmode int8, fp8, codebook)
+# ---------------------------------------------------------------------------
+QMODES = ("int8", "fp8", "codebook")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", QMODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,m", [
+    (2048, 512, 4),          # decode: split K
+    (1024, 640, 128),        # prefill-sized M
+    (300, 260, 77),          # ragged edges
+])
+def test_quantized_kernel_matches_plain(cuda, k, n, m, dtype, qmode):
+    x, p = _case(cuda, k, n, m, dtype)
+    _check(x, quantize_packed(p, qmode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", QMODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,m", [(2048, 512, 4), (1024, 640, 128), (300, 260, 77)])
+def test_quantized_block_kernel_matches_plain(cuda, k, n, m, dtype, qmode):
+    x, p = _block_case(cuda, k, n, m, dtype)
+    _check_block(x, quantize_packed(p, qmode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", QMODES)
+def test_quantized_kernels_out_dtype(cuda, qmode):
+    x, p = _case(cuda, 640, 384, 24, torch.bfloat16)
+    _check(x, quantize_packed(p, qmode), torch.float32)
+    x, p = _block_case(cuda, 640, 384, 24, torch.bfloat16)
+    _check_block(x, quantize_packed(p, qmode), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", QMODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,density,tile", [
+    (2048, 2048, 0.3, (128, 128)), (300, 260, 0.4, (128, 128)),
+    (200, 130, 0.9, (64, 128)),
+])
+def test_quantized_decompress_bit_equal(cuda, k, n, density, tile, dtype, qmode):
+    """float32 by default (bit-equal to to_dense), and bf16 on request
+    (bit-equal to to_dense cast to bf16)."""
+    _, p = _case(cuda, k, n, 1, dtype, density, tile)
+    q = quantize_packed(p, qmode)
+    before = dk.launches
+    d = dk.decompress(q)
+    db = dk.decompress(q, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert dk.launches == before + 2
+    assert d.shape == (k, n) and d.dtype == torch.float32
+    assert torch.equal(d, ref.decompress_tiled_ref(q))
+    assert torch.equal(db, ref.decompress_tiled_ref(q, torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_quantized_wrappers_reject_bad_side_bands(cuda):
+    x, p = _case(cuda, 512, 256, 4, torch.bfloat16)
+    q = quantize_packed(p, "int8")
+    for bad in (dataclasses.replace(q, scale=q.scale.double()),   # wrong dtype
+                dataclasses.replace(q, scale=None)):              # missing
+        with pytest.raises(TypeError):
+            sm.sod_matmul(x, bad)
+        with pytest.raises(TypeError):
+            dk.decompress(bad)
+    with pytest.raises(ValueError):                               # wrong shape
+        sm.sod_matmul(x, dataclasses.replace(q, scale=q.scale[:1]))
+    c = quantize_packed(p, "codebook")
+    with pytest.raises(TypeError):
+        sm.sod_matmul(x, dataclasses.replace(c, codebook=c.codebook.half()))
+    with pytest.raises(ValueError):                               # > 128 entries
+        sm.sod_matmul(x, dataclasses.replace(c, codebook=c.codebook.repeat(9)))
+    xb, pb = _block_case(cuda, 512, 256, 4, torch.bfloat16)
+    qb = quantize_packed(pb, "fp8")
+    with pytest.raises(TypeError):
+        bmm.block_matmul(xb, dataclasses.replace(qb, scale=qb.scale.bfloat16()))
+    with pytest.raises(TypeError):     # fp8 qmode over int8 codes
+        bmm.block_matmul(xb, dataclasses.replace(qb, block_vals=qb.block_vals.view(torch.int8)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,qmode", [("tiled_csc", "int8"), ("tiled_csc", "codebook"),
+                                       ("block_csr", "fp8")])
+def test_reduced_quantized_serve_launches_the_kernel(cuda, fmt, qmode):
+    """Every packed projection of a quantized serve launches its kernel once:
+    2 layers × 7 projections × (prefill + 4 decode steps)."""
+    from repro_torch.core.sod import SoDConfig
+    from repro_torch.launch import serve
+
+    bmm.launches = sm.launches = 0
+    summary = serve.main(["--reduced", "--batch", "2", "--prompt-len", "16",
+                          "--gen", "4"],
+                         sod=SoDConfig(mode=fmt, density=0.3, min_dim=64, qmode=qmode,
+                                       prune_method="block" if fmt == "block_csr"
+                                       else "magnitude"))
+    want = {"sod_matmul": 0, "block_matmul": 0}
+    want["sod_matmul" if fmt == "tiled_csc" else "block_matmul"] = 2 * 7 * 5
+    assert summary["kernel_launches"] == want
+    assert (sm.launches, bmm.launches) == (want["sod_matmul"], want["block_matmul"])
     assert summary["logits_finite"]

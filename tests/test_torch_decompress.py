@@ -103,7 +103,11 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):          # stacked operand
         dk.decompress(formats.pack_tiled_csc(torch.stack([w, w])))
     p = formats.pack_tiled_csc(w)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown qmode"):
+        dk.decompress(dataclasses.replace(p, qmode="int4"))
+    with pytest.raises(TypeError):           # int8 qmode over float values
         dk.decompress(dataclasses.replace(p, qmode="int8"))
+    q = formats.quantize_packed(p, "codebook")   # a quantized operand runs
+    assert dk.decompress(q).dtype == torch.float32
     with pytest.raises(TypeError):
         dk.decompress(dataclasses.replace(p, vals=p.vals.double()))

@@ -9,6 +9,7 @@ atol 5e-4 / rtol 1e-4 is the bound the JAX package's own kernel tests use
 import dataclasses
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -84,8 +85,34 @@ def test_wrapper_rejects_bad_inputs():
     stacked = formats.pack_tiled_csc(torch.stack([to_torch(w, "cpu")] * 2))
     with pytest.raises(ValueError):          # stacked operand
         sm.sod_matmul(to_torch(x, "cpu"), stacked)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown qmode"):
+        sm.sod_matmul(to_torch(x, "cpu"), dataclasses.replace(p, qmode="int4"))
+    with pytest.raises(TypeError):           # int8 qmode over float values
         sm.sod_matmul(to_torch(x, "cpu"), dataclasses.replace(p, qmode="int8"))
+    q = formats.quantize_packed(p, "int8")   # a quantized operand runs
+    assert sm.sod_matmul(to_torch(x, "cpu"), q).shape == (8, 256)
+
+
+@pytest.mark.parametrize("x_dtype,w_dtype,out_dtype", [
+    ("bfloat16", "bfloat16", "float32"),   # the f32 sums are the output
+    ("bfloat16", "float32", "bfloat16"),   # bf16 activations meet an f32 weight
+    ("bfloat16", "float32", "float32"),
+])
+def test_dense_bypass_matches_reference(x_dtype, w_dtype, out_dtype):
+    """The dense bypass is the reference's ``jnp.dot(x, w,
+    preferred_element_type=float32).astype(out_dtype)``: operands promoted,
+    f32 sums, one cast.  Exact up to the order of the f32 sums."""
+    dt = {"float32": (np.float32, jnp.float32, torch.float32),
+          "bfloat16": (ml_dtypes.bfloat16, jnp.bfloat16, torch.bfloat16)}
+    w, x = _case((256, 192), 8, 0.5, seed=9)
+    x, w = x.astype(dt[x_dtype][0]), w.astype(dt[w_dtype][0])
+    yj = np.asarray(jops.sod_matmul(jnp.asarray(x), jnp.asarray(w),
+                                    out_dtype=dt[out_dtype][1]))
+    yt = ops.sod_matmul(to_torch(x, "cpu"), to_torch(w, "cpu"),
+                        out_dtype=dt[out_dtype][2])
+    assert yt.dtype == dt[out_dtype][2]
+    np.testing.assert_allclose(yt.float().numpy(), yj.astype(np.float32),
+                               atol=1e-5, rtol=1e-5 if out_dtype == "float32" else 2**-8)
 
 
 def test_cpu_path_is_the_plain_version_and_launches_nothing():
