@@ -12,10 +12,12 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (nvcc, sm_90a), all at once, and report ptxas registers and spills;
 3. kernels — each kernel in each qmode (``none``, ``int8``, ``fp8``,
    ``codebook``) against its plain PyTorch version at the serving paths'
-   shapes (and ragged ones), in bf16 and f32 (``decompress`` bit for bit),
-   plus timings: kernel, plain version, one ``torch.matmul`` on the dense
-   bf16 weight (the yardstick of the two matmuls), and the bound
-   max(bytes / 3.35 TB/s, operations / peak rate);
+   shapes (and ragged ones), in bf16 and f32 (``decompress`` bit for bit;
+   ``sod_matmul`` run twice, bit-equal across the calls, with its launch
+   plan: splits, ring stages, shared memory), plus timings: kernel, plain
+   version, one ``torch.matmul`` on the dense bf16 weight (the yardstick of
+   the two matmuls), and the bound max(bytes / 3.35 TB/s, operations /
+   peak rate);
 4. slice  — ``repro_torch.launch.serve`` at the full width of llama3.2-1b
    (bf16, batch 4, prompt 32, 16 greedy tokens) in five cells: ``tiled_csc``
    and ``tiled_csc_int8`` (magnitude-pruned to density 0.3; the second is
@@ -27,8 +29,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    run, then its prefill is held against the same weights densified
    (through ``ops.decompress``) and run through the dense matmul;
 5. profile — one decode step of four cells under ``torch.profiler``: device
-   time by kernel and the device's idle share; and the tied LM head's GEMM
-   with f32 output against the same GEMM with bf16 output.
+   time by kernel, the device's idle share, and the calls of the separate
+   split-K reduce kernel (none in a ``tiled_csc*`` cell: ``sod_matmul``
+   reduces its splits inside its launch); and the tied LM head's GEMM with
+   f32 output against the same GEMM with bf16 output.
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
@@ -317,7 +321,14 @@ def phase_kernels() -> dict:
                            / (p.tile_nnz.numel() * (p.tile[0] // p.br)),
                            empty_tiles=int((p.tile_nnz == 0).sum()))
             else:
-                row.update(cap=p.cap)
+                y2 = kernel()           # a second call: bit-equal, however it splits
+                torch.cuda.synchronize()
+                plan = sm.plan_of(x, p)
+                row.update(cap=p.cap, bm=plan.bm, splits=plan.splits, stages=plan.stages,
+                           x_tiles=plan.x_tiles, smem_bytes=plan.smem_bytes,
+                           ctas_per_sm=plan.ctas_per_sm,
+                           bit_equal_across_calls=torch.equal(y, y2))
+                ok = ok and row["bit_equal_across_calls"]
         if not ok:
             log(row)
             raise AssertionError(f"{name}[{qmode}] disagrees with its plain "
@@ -480,13 +491,18 @@ def phase_profile(cell: str, model, params, tokens) -> None:
     rows = sorted(((us, k, n) for k, (us, n) in per_kernel.items()), reverse=True)
     total_ms = sum(r[0] for r in rows) / 1e3
     step = statistics.median(step_ms)
+    reduce_calls = sum(n for k, (_, n) in per_kernel.items() if "reduce_splits_kernel" in k)
     log({"phase": "profile", "cell": cell,
          "what": "one decode step, batch 4, full width",
          "step_ms_median_of_7": step, "profiled_wall_ms": wall_ms,
          "device_ms": total_ms if rows else "not measured",
          "device_idle_share": (1 - total_ms / step) if rows else "not measured",
+         "reduce_splits_calls": reduce_calls,
          "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": c}
                  for us, k, c in rows[:12]]})
+    if CELLS[cell][2] == "sod_matmul" and reduce_calls:
+        raise AssertionError(f"{cell}: {reduce_calls} reduce_splits_kernel calls in a "
+                             "decode step; sod_matmul reduces its splits in its launch")
 
 
 def phase_head(params, batch: int) -> None:
@@ -507,16 +523,19 @@ def phase_head(params, batch: int) -> None:
 
 def _entry(name: str, qmode: str, kern: dict, launches: int) -> dict:
     """One kernel's line in one qmode: the seven projections of one layer
-    (M = 4 at decode for the matmuls), bf16 activations, summed from the
-    per-shape medians."""
-    tag = "path" if name == "decompress" else "decode"
-    rows = [(row, PATH_SHAPES[(k, n)][1])
-            for (kn, q, k, n, t), row in kern["timed"].items()
-            if kn == name and q == qmode and t == tag]
-    total = {key: sum(r[key] * c for r, c in rows)
-             for key in ("kernel_ms", "plain_ms", "bound_ms")}
-    lib = (None if name == "decompress"
-           else sum(r["library_ms"] * c for r, c in rows))
+    (M = 4 at decode for the matmuls, and M = 128 at prefill beside it),
+    bf16 activations, summed from the per-shape medians."""
+    def layer(tag: str) -> tuple[list, dict]:
+        rows = [(row, PATH_SHAPES[(k, n)][1])
+                for (kn, q, k, n, t), row in kern["timed"].items()
+                if kn == name and q == qmode and t == tag]
+        keys = ("kernel_ms", "plain_ms", "bound_ms") + (
+            () if name == "decompress" else ("library_ms",))
+        return rows, {key: sum(r[key] * c for r, c in rows) for key in keys}
+
+    rows, total = layer("path" if name == "decompress" else "decode")
+    lib = total.get("library_ms")
+    prefill = {} if name == "decompress" else layer("prefill")[1]
     source, replaces = SOURCES[name]
     out = "float32" if qmode != "none" else "bf16"
     return {
@@ -528,9 +547,12 @@ def _entry(name: str, qmode: str, kern: dict, launches: int) -> dict:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r, _ in rows)
         else "operations",
         "library_ms": lib,
+        "prefill_ms": prefill.get("kernel_ms"),
+        "prefill_library_ms": prefill.get("library_ms"),
         "work": (f"one layer's 7 projections densified ({out} out), summed"
                  if name == "decompress" else
-                 "one layer's 7 projections at decode (M=4, bf16), summed"),
+                 "one layer's 7 projections at decode (M=4, bf16), summed; "
+                 "prefill_*: the same at M=128"),
     }
 
 

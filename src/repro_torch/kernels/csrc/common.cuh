@@ -168,3 +168,66 @@ void launch_reduce_splits(const float* partial, void* out, int splits, size_t mn
 }
 
 }  // namespace
+
+// Bulk copies from global into shared memory that complete on an mbarrier
+// (Hopper's cp.async.bulk, the TMA's raw-bytes mode: one thread asks for the
+// copy, the hardware moves the bytes and counts them off the barrier).
+// Source and destination must be 16-byte aligned and the size a multiple of
+// 16.  A barrier completes a phase when its one expected arrival
+// (arrive_expect_tx) has come and every byte it was told to expect has
+// landed; waiters name the phase by its parity.
+namespace {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One thread initialises; the fence makes the barrier visible to the copy
+// engine, and a __syncthreads() before any other thread waits on it.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(arrivals)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// Arrive once and add `bytes` to the phase's expected transaction count.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of the given parity has completed; the bytes of its
+// copies are then visible to the calling thread.  A phase that has not
+// completed after 2^26 polls (seconds; a slab lands in microseconds) can
+// only mean a wrong byte count: the kernel traps, and the launch fails
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// dst (shared) <- src (global), `bytes` of them, completing on `bar`.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+}  // namespace

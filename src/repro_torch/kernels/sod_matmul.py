@@ -5,6 +5,20 @@ qmode.  A CPU tensor goes to the plain version
 :func:`repro_torch.kernels.ref.sod_matmul_ref`; a CUDA tensor goes to the
 hand-written kernel, or the call raises.
 
+How a call is launched is one pure function, :func:`plan_launch`: the M
+block, the K splits (:func:`pick_splits`), the stages of the kernel's ring
+of tile slabs in shared memory, how much of x it stages at once, and the
+dynamic shared memory that takes, within the card's budget.  The kernel
+fills its ring with bulk copies, which need ``vals`` and ``rows`` to start
+16-byte aligned: a misaligned operand (a view into a stacked tensor at an
+odd offset) raises (:func:`check_bulk_aligned`); there is no other path.
+
+Split-K is reduced inside the launch.  The CTA that arrives last at its
+output tile sums the splits; it learns that from an int32 arrival counter
+in a buffer this module keeps per (device, stream) (:func:`split_counters`),
+zeroed once when it is made, grown by reallocation to the largest
+``nt * m_blocks`` seen, and left zero by every launch.
+
 ``launches`` counts the kernel launches this wrapper made (plain-version
 calls do not count), so a run can show that its matmuls went through the
 kernel.  Callers reset it by assigning 0.
@@ -12,6 +26,7 @@ kernel.  Callers reset it by assigning 0.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -20,7 +35,8 @@ from repro_torch.core.formats import TiledCSC
 from repro_torch.kernels import build, ref
 
 __all__ = ["sod_matmul", "launches", "pick_splits", "sm_count", "DTYPE_CODE",
-           "QMODE_CODE", "check_operands", "side_band", "side_args"]
+           "QMODE_CODE", "check_operands", "side_band", "side_args", "LaunchPlan",
+           "plan_launch", "plan_of", "check_bulk_aligned", "split_counters"]
 
 launches = 0
 
@@ -34,6 +50,20 @@ CODE_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
 MAX_CODES = 128
 _CTAS_PER_SM = 2
 
+# Shared memory of an H100 SM (bytes): 228 KB in all, at most 227 KB for one
+# CTA, and 1 KB of each CTA's share kept by the runtime.  The kernel's static
+# shared memory (the codebook table, the ring's barriers) stays under
+# STATIC_SMEM.  Its ring has at most MAX_STAGES stages; a bulk copy needs
+# BULK_ALIGN-byte aligned operands.
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 232448
+SMEM_RESERVED = 1024
+STATIC_SMEM = 1024
+MAX_STAGES = 8
+BULK_ALIGN = 16
+
+_counters: dict[tuple[int, int], torch.Tensor] = {}
+
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device_index: int) -> int:
@@ -44,7 +74,7 @@ def sm_count(device_index: int) -> int:
 @functools.lru_cache(maxsize=1)
 def _entry():
     fn = build.load("sod_matmul").sod_matmul_launch
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 17
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -56,6 +86,86 @@ def pick_splits(kt: int, ctas: int, sms: int, per_sm: int = _CTAS_PER_SM) -> int
     want = max(1, min(kt, -(-per_sm * sms // max(ctas, 1))))
     per = -(-kt // want)
     return -(-kt // per)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call launches: M block ``bm``, K ``splits``, ring ``stages``,
+    K tiles of x staged at once (``x_tiles``), dynamic shared memory bytes,
+    and the CTAs per SM the budget was planned for."""
+    bm: int
+    splits: int
+    stages: int
+    x_tiles: int
+    smem_bytes: int
+    ctas_per_sm: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_launch(m: int, kt: int, nt: int, cap: int, tile: tuple[int, int],
+                value_bytes: int, x_bytes: int, sms: int) -> LaunchPlan:
+    """The launch plan of an (M, K) x of ``x_bytes`` per element against a
+    (kt, nt)-tile operand of ``cap`` slots per tile column, ``value_bytes``
+    per stored value, on a card of ``sms`` SMs.  Cached: a model calls it
+    with a handful of argument sets, every step.
+
+    The M block is 4, 8 or 32 rows.  A stage of the ring holds one tile's
+    slab, ``cap * bn * (value_bytes + 1)`` bytes; staging x takes ``bk * bm
+    * x_bytes`` bytes a K tile, plus one zero row of ``bm * x_bytes``.  Two
+    CTAs per SM are planned (one if two stages do not fit beside each
+    other); the K splits follow from that (:func:`pick_splits`).  x is
+    staged for the whole split where that leaves room for two stages, else
+    a tile at a time; the ring then takes as many stages as the split has
+    tiles, up to what fits and MAX_STAGES, and never fewer than 2.  Raises
+    ValueError when even one CTA per SM cannot hold two stages."""
+    bk, bn = tile
+    bm = 4 if m <= 4 else 8 if m <= 8 else 32
+    stage = cap * bn * (value_bytes + 1)
+    x_tile, zero_row = bk * bm * x_bytes, bm * x_bytes
+    for per_sm in range(_CTAS_PER_SM, 0, -1):
+        budget = (min(SMEM_PER_BLOCK, SMEM_PER_SM // per_sm - SMEM_RESERVED)
+                  - STATIC_SMEM - zero_row)
+        splits = pick_splits(kt, nt * -(-m // bm), sms, per_sm)
+        tiles = -(-kt // splits)
+        x_tiles = tiles if budget - tiles * x_tile >= 2 * stage else 1
+        fit = (budget - x_tiles * x_tile) // stage
+        if fit >= 2:
+            stages = max(2, min(fit, tiles, MAX_STAGES))
+            return LaunchPlan(bm, splits, stages, x_tiles,
+                              stages * stage + x_tiles * x_tile + zero_row, per_sm)
+    raise ValueError(
+        f"sod_matmul: two stages of {stage} bytes (cap {cap}, tile {tile}, "
+        f"{value_bytes}-byte values) and x do not fit in one CTA's "
+        f"{SMEM_PER_BLOCK - STATIC_SMEM} bytes of shared memory")
+
+
+def plan_of(x: torch.Tensor, packed: TiledCSC) -> LaunchPlan:
+    """:func:`plan_launch` for these operands on x's card."""
+    return plan_launch(x.shape[0], *packed.grid, packed.cap, tuple(packed.tile),
+                       packed.vals.element_size(), x.element_size(),
+                       sm_count(x.device.index or 0))
+
+
+def check_bulk_aligned(buffers: dict[str, torch.Tensor]) -> None:
+    """Raise ValueError unless every buffer starts BULK_ALIGN-byte aligned,
+    as the kernel's bulk copies need."""
+    bad = {name: t.data_ptr() % BULK_ALIGN for name, t in buffers.items()
+           if t.data_ptr() % BULK_ALIGN}
+    if bad:
+        raise ValueError(f"{', '.join(bad)} must start {BULK_ALIGN}-byte aligned "
+                         f"for the kernel's bulk copies (offsets {bad}); pass a "
+                         "contiguous copy")
+
+
+def split_counters(device: torch.device, stream: int, size: int) -> torch.Tensor:
+    """The int32 arrival counters of in-launch split-K for one (device,
+    stream): at least ``size`` of them, all zero between launches."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(size, dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
 
 
 def side_band(packed) -> dict[str, torch.Tensor]:
@@ -146,23 +256,27 @@ def sod_matmul(x: torch.Tensor, packed: TiledCSC,
         raise NotImplementedError(
             f"tile {packed.tile} with {packed.rows.dtype} rows: the kernel "
             "takes int8 rows (bk <= 128) and bn a multiple of 32 up to 1024")
+    check_bulk_aligned({"vals": packed.vals, "rows": packed.rows})
     m, (k, n) = x.shape[0], packed.shape
     kt, nt = packed.grid
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    bm = 8 if m <= 8 else 32            # the kernel's M block (csrc/sod_matmul.cu)
-    splits = pick_splits(kt, nt * -(-m // bm), sm_count(x.device.index or 0))
-    partial = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
+    plan = plan_of(x, packed)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partial = counters = None
+    if plan.splits > 1:
+        partial = torch.empty((plan.splits, m, n), dtype=torch.float32, device=x.device)
+        counters = split_counters(x.device, stream, nt * -(-m // plan.bm))
     scale_ptr, book_ptr, qcode, ncodes = side_args(side, packed.qmode)
     err = _entry()(
         x.data_ptr(), packed.vals.data_ptr(), packed.rows.data_ptr(),
         scale_ptr, book_ptr, out.data_ptr(),
         0 if partial is None else partial.data_ptr(),
-        m, k, n, kt, nt, packed.cap, bk, bn, splits,
-        DTYPE_CODE[x.dtype], DTYPE_CODE[out_dtype], qcode, ncodes,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        0 if counters is None else counters.data_ptr(),
+        m, k, n, kt, nt, packed.cap, bk, bn, plan.bm, plan.splits, plan.stages,
+        plan.x_tiles, plan.smem_bytes,
+        DTYPE_CODE[x.dtype], DTYPE_CODE[out_dtype], qcode, ncodes, stream)
     if err != 0:
         raise RuntimeError(f"sod_matmul kernel launch failed: cudaError {err}")
     launches += 1

@@ -304,3 +304,105 @@ def test_reduced_quantized_serve_launches_the_kernel(cuda, fmt, qmode):
     assert summary["kernel_launches"] == want
     assert (sm.launches, bmm.launches) == (want["sod_matmul"], want["block_matmul"])
     assert summary["logits_finite"]
+
+
+# ---------------------------------------------------------------------------
+# sod_matmul's ring of tile slabs and its split-K reduced inside the launch
+# ---------------------------------------------------------------------------
+ALL_QMODES = ("none", *QMODES)
+
+
+def _operand(p, qmode):
+    return p if qmode == "none" else quantize_packed(p, qmode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,one_split", [(128, 2048, True), (2048, 512, False),
+                                           (8192, 2048, False)])
+def test_decode_splits_every_qmode(cuda, k, n, one_split, dtype, qmode):
+    """Decode (M = 4) with one K split (the sums go straight out) and with
+    several (the last CTA to arrive sums the partials)."""
+    x, p = _case(cuda, k, n, 4, dtype)
+    q = _operand(p, qmode)
+    assert (sm.plan_of(x, q).splits == 1) == one_split
+    _check(x, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+@pytest.mark.parametrize("k,n,m", [(2048, 512, 4), (8192, 2048, 4), (2048, 2048, 128),
+                                   (300, 260, 77)])
+def test_two_calls_bit_equal(cuda, k, n, m, qmode):
+    """Split-K sums in split order whichever CTA arrives last."""
+    x, p = _case(cuda, k, n, m, torch.bfloat16)
+    q = _operand(p, qmode)
+    y1, y2 = sm.sod_matmul(x, q), sm.sod_matmul(x, q)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+def test_stacked_layer_slice(cuda, qmode):
+    """packed.layer(i) is a view into the stacked buffers, as the model
+    passes it; a view at an offset a bulk copy cannot take raises."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    w = magnitude_prune(torch.randn(3, 2048, 512, generator=g, device=cuda), 0.3)
+    stacked = _operand(pack_tiled_csc(w.bfloat16()), qmode)
+    x = torch.randn(4, 2048, generator=g, device=cuda).bfloat16()
+    for i in range(3):
+        layer = stacked.layer(i)
+        assert layer.vals.data_ptr() == stacked.vals.data_ptr() + i * layer.vals.nbytes
+        _check(x, layer)
+    layer = stacked.layer(1)
+    flat = torch.empty(layer.vals.numel() + 1, dtype=layer.vals.dtype, device=cuda)
+    off = flat[1:].view(layer.vals.shape)
+    off.copy_(layer.vals)
+    with pytest.raises(ValueError, match="aligned"):
+        sm.sod_matmul(x, dataclasses.replace(layer, vals=off))
+
+
+def _shape_sequence(dev):
+    """Calls of different shapes (splits and output tiles) back to back."""
+    cases = [(2048, 512, 4), (8192, 2048, 4), (2048, 8192, 4), (2048, 512, 4),
+             (2048, 2048, 128), (300, 260, 77), (8192, 2048, 4)]
+    return [_case(dev, k, n, m, torch.bfloat16, seed=i) for i, (k, n, m) in enumerate(cases)]
+
+
+@pytest.mark.cuda
+def test_back_to_back_shapes_one_stream(cuda):
+    """No synchronisation between calls: each launch leaves its counters at
+    0 for the next, whatever its shape."""
+    cases = _shape_sequence(cuda)
+    torch.cuda.synchronize()
+    ys = [sm.sod_matmul(x, p) for x, p in cases]
+    torch.cuda.synchronize()
+    for (x, p), y in zip(cases, ys):
+        yr = ref.sod_matmul_ref(x, p)
+        assert (y.float() - yr.float()).abs().max().item() <= TOL[torch.bfloat16] * yr.float().abs().max().item()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not sm._counters[(cuda.index or 0, stream)].any()
+
+
+@pytest.mark.cuda
+def test_back_to_back_shapes_two_streams(cuda):
+    """Two streams at once: each has its own counters."""
+    cases = _shape_sequence(cuda)
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    ys = [[], []]
+    for _ in range(3):
+        for s, out in zip(streams, ys):
+            with torch.cuda.stream(s):
+                out.extend(sm.sod_matmul(x, p) for x, p in cases)
+    torch.cuda.synchronize()
+    want = [ref.sod_matmul_ref(x, p) for x, p in cases]
+    for out in ys:
+        for y, yr in zip(out, want * 3):
+            assert (y.float() - yr.float()).abs().max().item() <= TOL[torch.bfloat16] * yr.float().abs().max().item()
+    bufs = [sm._counters[(cuda.index or 0, s.cuda_stream)] for s in streams]
+    assert bufs[0].data_ptr() != bufs[1].data_ptr()
+    assert not any(b.any() for b in bufs)

@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import neither JAX nor the JAX package."""
+"""The port, chip_smoke.py and the port's probe script import neither JAX
+nor the JAX package."""
 import ast
 import os
 import pathlib
@@ -8,7 +9,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "sod_matmul_probe.py"]
 
 
 def _forbidden(module: str) -> bool:

@@ -135,3 +135,90 @@ def test_pick_splits_leaves_no_split_empty(kt, ctas, sms):
     assert (s - 1) * per < kt       # the last split starts inside K
     if ctas >= 2 * sms:             # the card is full without splitting K
         assert s == 1
+
+
+@pytest.mark.parametrize("kt,ctas,sms,per_sm,splits", [
+    (16, 16, 132, 2, 16), (16, 4, 132, 2, 16), (16, 64, 132, 2, 4),
+    (64, 16, 132, 2, 16), (16, 256, 132, 2, 2), (64, 4, 132, 2, 64),
+    (16, 300, 132, 2, 1), (3, 1, 132, 2, 3), (1, 1, 132, 2, 1),
+    (16, 16, 132, 8, 16), (16, 4, 132, 8, 16), (64, 16, 132, 8, 64),
+    (16, 64, 132, 8, 16), (64, 64, 132, 8, 16), (16, 1024, 132, 8, 2),
+    (16, 16, 132, 1, 8), (64, 16, 132, 1, 8), (16, 64, 78, 2, 3),
+])
+def test_pick_splits_values_unchanged(kt, ctas, sms, per_sm, splits):
+    """block_matmul (8 CTAs per SM) and the launch plan both split K with
+    pick_splits; its values stay those it has always given."""
+    assert sm.pick_splits(kt, ctas, sms, per_sm) == splits
+
+
+# (K, N) of the serving path's projections (chip_smoke.PATH_SHAPES)
+PATH_SHAPES = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+
+
+@pytest.mark.parametrize("act_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("qmode", ["none", "int8", "fp8", "codebook"])
+@pytest.mark.parametrize("kn", PATH_SHAPES)
+def test_launch_plan_fits_the_smem_budget(kn, qmode, act_dtype):
+    """For caps 8-128 and M from decode to prefill: dynamic shared memory
+    within one CTA's 227 KB, the planned CTAs per SM fitting in the SM's
+    228 KB together, a ring of at least 2 stages, and the bytes the plan
+    reports being the ring, the staged x and its zero row."""
+    bk, bn = tile = (128, 128)
+    kt, nt = kn[0] // bk, kn[1] // bn
+    xb = act_dtype.itemsize
+    vb = xb if qmode == "none" else 1
+    for cap in range(8, 129, 8):
+        for m in (1, 4, 5, 8, 9, 77, 128):
+            plan = sm.plan_launch(m, kt, nt, cap, tile, vb, xb, 132)
+            tiles = -(-kt // plan.splits)
+            assert plan.bm == (4 if m <= 4 else 8 if m <= 8 else 32)
+            assert plan.splits == sm.pick_splits(kt, nt * -(-m // plan.bm), 132,
+                                                 plan.ctas_per_sm)
+            assert 2 <= plan.stages <= sm.MAX_STAGES
+            assert plan.x_tiles in (1, tiles)
+            assert plan.smem_bytes == (plan.stages * cap * bn * (vb + 1)
+                                       + (plan.x_tiles * bk + 1) * plan.bm * xb)
+            assert plan.smem_bytes + sm.STATIC_SMEM <= sm.SMEM_PER_BLOCK
+            assert plan.ctas_per_sm * (plan.smem_bytes + sm.STATIC_SMEM
+                                       + sm.SMEM_RESERVED) <= sm.SMEM_PER_SM
+            if vb < 4 and cap <= 72:          # the path's caps: two CTAs per SM
+                assert plan.ctas_per_sm == 2
+            if vb == 1 and cap <= 72 and m <= 8:   # every slab of a split in flight
+                assert plan.stages >= tiles
+
+
+def test_launch_plan_raises_over_budget():
+    with pytest.raises(ValueError, match="do not fit"):
+        sm.plan_launch(4, 16, 16, 128, (128, 1024), 2, 2, 132)
+
+
+def test_bulk_alignment_check_raises_on_offset_view():
+    w, _ = _case((256, 256), 1, 0.3, seed=10)
+    p = formats.pack_tiled_csc(to_torch(w, "cpu").bfloat16())
+    sm.check_bulk_aligned({"vals": p.vals, "rows": p.rows})
+    flat = torch.empty(p.vals.numel() + 1, dtype=p.vals.dtype)
+    off = flat[1:].view(p.vals.shape)             # one element past an aligned start
+    off.copy_(p.vals)
+    with pytest.raises(ValueError, match="vals must start 16-byte aligned"):
+        sm.check_bulk_aligned({"vals": off, "rows": p.rows})
+    # a layer of a stacked operand starts a whole number of slabs in: aligned
+    stacked = formats.pack_tiled_csc(torch.stack([to_torch(w, "cpu").bfloat16()] * 3))
+    layer = stacked.layer(1)
+    assert layer.vals.data_ptr() != stacked.vals.data_ptr()
+    sm.check_bulk_aligned({"vals": layer.vals, "rows": layer.rows})
+
+
+def test_split_counters_keyed_by_stream_and_grown():
+    dev = torch.device("cpu")
+    try:
+        a = sm.split_counters(dev, 1, 4)
+        assert a.dtype == torch.int32 and a.numel() == 4 and not a.any()
+        assert sm.split_counters(dev, 1, 3) is a          # large enough: reused
+        b = sm.split_counters(dev, 2, 4)                  # another stream
+        assert b.data_ptr() != a.data_ptr()
+        c = sm.split_counters(dev, 1, 9)                  # grown by reallocation
+        assert c.numel() == 9 and not c.any()
+        assert sm.split_counters(dev, 1, 9) is c
+    finally:
+        for key in [k for k in sm._counters if k[0] is None]:
+            del sm._counters[key]
