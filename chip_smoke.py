@@ -13,11 +13,14 @@ Phases, each of which raises on failure (so the script exits non-zero):
 3. kernels — each kernel in each qmode (``none``, ``int8``, ``fp8``,
    ``codebook``) against its plain PyTorch version at the serving paths'
    shapes (and ragged ones), in bf16 and f32 (``decompress`` bit for bit;
-   ``sod_matmul`` run twice, bit-equal across the calls, with its launch
-   plan: splits, ring stages, shared memory), plus timings: kernel, plain
-   version, one ``torch.matmul`` on the dense bf16 weight (the yardstick of
-   the two matmuls), and the bound max(bytes / 3.35 TB/s, operations /
-   peak rate);
+   ``sod_matmul`` and ``block_matmul`` run twice, bit-equal across the
+   calls, with their launch plans: splits, ring stages, shared memory),
+   plus timings: kernel, plain version, one ``torch.matmul`` on the dense
+   bf16 weight (the yardstick of the two matmuls), and the bound max(bytes
+   / 3.35 TB/s, operations / peak rate).  Each timed call starts with a
+   clean L2: a 512 MB buffer is read, not written, so no dirty line of the
+   flush drains inside the timed call; a spin kernel then keeps the card
+   busy while the host enqueues the call, so no host time is timed;
 4. slice  — ``repro_torch.launch.serve`` at the full width of llama3.2-1b
    (bf16, batch 4, prompt 32, 16 greedy tokens) in five cells: ``tiled_csc``
    and ``tiled_csc_int8`` (magnitude-pruned to density 0.3; the second is
@@ -29,9 +32,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    run, then its prefill is held against the same weights densified
    (through ``ops.decompress``) and run through the dense matmul;
 5. profile — one decode step of four cells under ``torch.profiler``: device
-   time by kernel, the device's idle share, and the calls of the separate
-   split-K reduce kernel (none in a ``tiled_csc*`` cell: ``sod_matmul``
-   reduces its splits inside its launch); and the tied LM head's GEMM with
+   time by kernel, the device's idle share, and the calls of a separate
+   split-K reduce kernel (none in any cell: both matmul kernels reduce
+   their splits inside their launch); and the tied LM head's GEMM with
    f32 output against the same GEMM with bf16 output.
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
@@ -117,6 +120,8 @@ PATH_M = {"decode": 4, "prefill": 128}
 RAGGED = [((300, 260), 77), ((2048, 512), 77), ((8192, 2048), 5)]
 REPS = 25
 FLUSH_BYTES = 512 << 20   # > 50 MB L2: every timed launch reads from HBM
+SPIN_HZ = 2e9             # spin cycles a second: at least the H100's top SM clock
+PLANS = {"sod_matmul": sm.plan_of, "block_matmul": bmm.plan_of}
 COUNTERS = {"sod_matmul": sm, "block_matmul": bmm, "decompress": dk}
 SOURCES = {"sod_matmul": ("src/repro_torch/kernels/csrc/sod_matmul.cu",
                           "src/repro/kernels/sod_matmul.py:135"),
@@ -188,12 +193,28 @@ def _weights(k: int, n: int, m: int, dtype, seed: int, block: bool):
     return x, w
 
 
+def _flush_buffer() -> torch.Tensor:
+    return torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+
 def _time_ms(fn, flush: torch.Tensor) -> float:
-    """Median device time of one call, L2 flushed before each, CUDA events."""
+    """Median device time of one call, CUDA events.  Before each, L2 is
+    left clean: reading the flush buffer (a reduction, which writes one
+    scalar) evicts every line, and dirty ones are written back there, not
+    inside the timed call.  A spin kernel after it keeps the card busy
+    while the host enqueues the call (at least 1 ms, and 4x the host time
+    of one call), so the events hold the call's device time and no host
+    time."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    cycles = int(SPIN_HZ * max(1e-3, 4 * host_s))
     times = []
     for _ in range(REPS):
-        flush.zero_()
+        flush.sum()
+        torch.cuda._sleep(cycles)
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
         fn()
@@ -291,7 +312,7 @@ def _run_case(name, qmode, k, n, m, tag, dtype, seed, qpacks):
 
 
 def phase_kernels() -> dict:
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = _flush_buffer()
     cases = _kernel_cases()
     t0 = time.perf_counter()
     qpacks = _quantized_packs(cases)
@@ -321,14 +342,16 @@ def phase_kernels() -> dict:
                            / (p.tile_nnz.numel() * (p.tile[0] // p.br)),
                            empty_tiles=int((p.tile_nnz == 0).sum()))
             else:
-                y2 = kernel()           # a second call: bit-equal, however it splits
-                torch.cuda.synchronize()
-                plan = sm.plan_of(x, p)
-                row.update(cap=p.cap, bm=plan.bm, splits=plan.splits, stages=plan.stages,
-                           x_tiles=plan.x_tiles, smem_bytes=plan.smem_bytes,
-                           ctas_per_sm=plan.ctas_per_sm,
-                           bit_equal_across_calls=torch.equal(y, y2))
-                ok = ok and row["bit_equal_across_calls"]
+                row.update(cap=p.cap)
+            y2 = kernel()               # a second call: bit-equal, however it splits
+            torch.cuda.synchronize()
+            plan = PLANS[name](x, p)
+            row.update(bm=plan.bm, m_groups=plan.m_groups, splits=plan.splits,
+                       stages=plan.stages,
+                       x_tiles=plan.x_tiles, smem_bytes=plan.smem_bytes,
+                       ctas_per_sm=plan.ctas_per_sm,
+                       bit_equal_across_calls=torch.equal(y, y2))
+            ok = ok and row["bit_equal_across_calls"]
         if not ok:
             log(row)
             raise AssertionError(f"{name}[{qmode}] disagrees with its plain "
@@ -500,15 +523,16 @@ def phase_profile(cell: str, model, params, tokens) -> None:
          "reduce_splits_calls": reduce_calls,
          "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": c}
                  for us, k, c in rows[:12]]})
-    if CELLS[cell][2] == "sod_matmul" and reduce_calls:
+    if reduce_calls:
         raise AssertionError(f"{cell}: {reduce_calls} reduce_splits_kernel calls in a "
-                             "decode step; sod_matmul reduces its splits in its launch")
+                             "decode step; the matmul kernels reduce their splits in "
+                             "their launch")
 
 
 def phase_head(params, batch: int) -> None:
     """The tied LM head's GEMM at decode: f32 output (what project_logits
     runs) against bf16 output widened after (what it ran before)."""
-    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    flush = _flush_buffer()
     embed = params["embed"]
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
@@ -549,6 +573,7 @@ def _entry(name: str, qmode: str, kern: dict, launches: int) -> dict:
         "library_ms": lib,
         "prefill_ms": prefill.get("kernel_ms"),
         "prefill_library_ms": prefill.get("library_ms"),
+        "prefill_bound_ms": prefill.get("bound_ms"),
         "work": (f"one layer's 7 projections densified ({out} out), summed"
                  if name == "decompress" else
                  "one layer's 7 projections at decode (M=4, bf16), summed; "

@@ -167,10 +167,10 @@ def _all_leaves(tree):
         yield tree
 
 
-def tree_weight_bytes(params: Any) -> dict[str, int]:
+def tree_weight_bytes(params: Any) -> dict[str, float]:
     """Compressed vs dense byte totals over a parameter tree: packed leaves
     at their qmode's width plus side band, dense leaves at 16 bits per
-    element on both sides, as in the reference."""
+    element on both sides, and compressed / dense, as in the reference."""
     compressed = dense = 0
     for leaf in _all_leaves(params):
         if isinstance(leaf, (TiledCSC, BlockCSR)):
@@ -179,4 +179,5 @@ def tree_weight_bytes(params: Any) -> dict[str, int]:
         elif isinstance(leaf, torch.Tensor):
             compressed += leaf.numel() * 2
             dense += leaf.numel() * 2
-    return {"compressed": compressed, "dense": dense}
+    return {"compressed": compressed, "dense": dense,
+            "ratio": compressed / max(dense, 1)}

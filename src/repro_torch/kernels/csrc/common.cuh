@@ -1,8 +1,10 @@
 // Device helpers shared by the Sparse-on-Dense kernels: conversions between
 // the storage types and f32, the value paths of the four qmodes (how a stored
 // slot becomes its f32 weight), the dispatch of the C entry points' dtype and
-// qmode codes onto template instantiations, the per-slot multiply-add over a
-// staged slice of x, and the fixed-order reduction of split-K partial sums.
+// qmode codes onto template instantiations, the multiply-add of one weight
+// into a row of staged x, bulk copies into shared memory on mbarriers, the
+// launch configuration of a kernel with a large ring, and split-K reduced
+// inside the launch.
 #pragma once
 
 #include <cstddef>
@@ -17,41 +19,6 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 v) { return static_cast<float>(v); }  // exact
-
-// A read-only global load issued where the source puts it: asm volatile is
-// neither moved across other asm volatile nor sunk into a branch that uses
-// its result, so a group of loads goes out together, before any is used.
-__device__ __forceinline__ unsigned ld_nc_u8(const void* p) {
-  unsigned v;
-  asm volatile("ld.global.nc.u8 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ unsigned ld_nc_u16(const void* p) {
-  unsigned short v;
-  asm volatile("ld.global.nc.u16 %0, [%1];" : "=h"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ unsigned ld_nc_u32(const void* p) {
-  unsigned v;
-  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ int8_t load_pinned(const int8_t* p) {
-  return static_cast<int8_t>(ld_nc_u8(p));
-}
-__device__ __forceinline__ __nv_fp8_e4m3 load_pinned(const __nv_fp8_e4m3* p) {
-  __nv_fp8_e4m3 v;
-  v.__x = static_cast<__nv_fp8_storage_t>(ld_nc_u8(p));
-  return v;
-}
-__device__ __forceinline__ __nv_bfloat16 load_pinned(const __nv_bfloat16* p) {
-  __nv_bfloat16_raw raw;
-  raw.x = static_cast<unsigned short>(ld_nc_u16(p));
-  return __nv_bfloat16(raw);
-}
-__device__ __forceinline__ float load_pinned(const float* p) {
-  return __uint_as_float(ld_nc_u32(p));
-}
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -134,39 +101,6 @@ int dispatch(int in_dtype, int out_dtype, int qmode, F&& f) {
   return in_dtype == 0 ? with_in(Type<float>{}) : with_in(Type<__nv_bfloat16>{});
 }
 
-// acc[m] += v * xs[r][m] for the BM rows of a staged x slice whose rows are
-// BM + 4 floats apart (the padding keeps each row 16-byte aligned).
-template <int BM>
-__device__ __forceinline__ void row_fma(float (&acc)[BM], const float* xs, int r, float v) {
-  const float4* xr = reinterpret_cast<const float4*>(xs + r * (BM + 4));
-#pragma unroll
-  for (int q = 0; q < BM / 4; ++q) {
-    const float4 xv = xr[q];
-    acc[4 * q + 0] += xv.x * v;
-    acc[4 * q + 1] += xv.y * v;
-    acc[4 * q + 2] += xv.z * v;
-    acc[4 * q + 3] += xv.w * v;
-  }
-}
-
-// out[i] = sum over splits, in split order, of partial[z][i].
-template <typename TOut>
-__global__ void reduce_splits_kernel(const float* __restrict__ partial, TOut* __restrict__ out,
-                                     int splits, size_t mn) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * mn + i];
-  out[i] = from_f32<TOut>(s);
-}
-
-template <typename TOut>
-void launch_reduce_splits(const float* partial, void* out, int splits, size_t mn,
-                          cudaStream_t stream) {
-  reduce_splits_kernel<TOut><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-      partial, static_cast<TOut*>(out), splits, mn);
-}
-
 }  // namespace
 
 // Bulk copies from global into shared memory that complete on an mbarrier
@@ -228,6 +162,183 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+}  // namespace
+
+namespace {
+
+constexpr int kMaxStages = 8;          // stages of a kernel's ring of slabs
+constexpr int kSmemPerBlock = 232448;  // 227 KB: the most one CTA may hold on an H100
+constexpr int kMaxDevices = 64;
+
+// acc[m] += v * xr[m] for the BM values of one row of a staged x slice,
+// held in x's own dtype: one 16-byte shared-memory load per four f32 or
+// eight bf16 values (an 8-byte load for four bf16).  A bf16 value widens to
+// f32 exactly (a shift), so the products are those of the f32 slice.
+template <int BM>
+__device__ __forceinline__ void row_fma_x(float (&acc)[BM], const float* row, float v) {
+  const float4* xr = reinterpret_cast<const float4*>(row);
+#pragma unroll
+  for (int q = 0; q < BM / 4; ++q) {
+    const float4 xv = xr[q];
+    acc[4 * q + 0] += xv.x * v;
+    acc[4 * q + 1] += xv.y * v;
+    acc[4 * q + 2] += xv.z * v;
+    acc[4 * q + 3] += xv.w * v;
+  }
+}
+__device__ __forceinline__ void bf16x2_fma(float& lo, float& hi, uint32_t w, float v) {
+  lo += __uint_as_float(w << 16) * v;
+  hi += __uint_as_float(w & 0xffff0000u) * v;
+}
+template <int BM>
+__device__ __forceinline__ void row_fma_x(float (&acc)[BM], const __nv_bfloat16* row, float v) {
+  if constexpr (BM == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(row);
+    bf16x2_fma(acc[0], acc[1], w.x, v);
+    bf16x2_fma(acc[2], acc[3], w.y, v);
+  } else {
+    const uint4* xr = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+    for (int q = 0; q < BM / 8; ++q) {
+      const uint4 w = xr[q];
+      bf16x2_fma(acc[8 * q + 0], acc[8 * q + 1], w.x, v);
+      bf16x2_fma(acc[8 * q + 2], acc[8 * q + 3], w.y, v);
+      bf16x2_fma(acc[8 * q + 4], acc[8 * q + 5], w.z, v);
+      bf16x2_fma(acc[8 * q + 6], acc[8 * q + 7], w.w, v);
+    }
+  }
+}
+
+// Raise the kernel's dynamic shared memory limit to what a CTA may hold and
+// prefer the largest shared-memory carveout, once per device (`done` is the
+// instantiation's own record).
+template <typename K>
+cudaError_t configure(K kernel, bool (&done)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess || (dev < kMaxDevices && done[dev])) return e;
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemPerBlock - (int)attr.sharedSizeBytes);
+  }
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  }
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return e;
+}
+
+// A fence at device scope with acquire-release semantics.  After a
+// __syncthreads(), one thread's fence releases (or, after an atomic that
+// observed the other CTAs' arrivals, acquires) the writes of the whole CTA,
+// as CUTLASS's split-K barrier does: cheaper than a sequentially consistent
+// __threadfence() in every thread.
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
+
+// The end of a CTA of a split-K launch (one CTA per (N tile, M block, K
+// split); a thread owns output columns col0 .. col0 + CP - 1, some of which
+// may lie past n, and acc[c][i] is its sum for column col0 + c and row
+// m0 + i).  With one split (partial == nullptr) the sums are the output.
+// Otherwise each CTA writes its f32 partials, releases them and bumps the
+// arrival counter `slot` of its (N tile, M block); the CTA that arrives last
+// sums partial[0..splits-1] in split order (deterministic, whichever CTA is
+// last), reading them through L2 (__ldcg: L1 is not coherent), casts to the
+// output type, and resets the counter to 0 for the next launch on the
+// stream.  At BM <= 8 the loads of 64 / BM splits of the BM rows go out
+// together; at BM = 32 a row at a time (batching 32 rows' loads doubled the
+// time of a 2048 x 512 prefill).  Every thread of the CTA calls it.
+template <int BM, int CP, typename TOut>
+__device__ __forceinline__ void finish_splits(const float (&acc)[CP][BM],
+                                              TOut* __restrict__ out,
+                                              float* __restrict__ partial,
+                                              int* __restrict__ counters, int m, int n, int m0,
+                                              int col0, int slot) {
+  __shared__ int last;
+  if (partial == nullptr) {
+#pragma unroll
+    for (int c = 0; c < CP; ++c) {
+      if (col0 + c >= n) break;
+#pragma unroll
+      for (int i = 0; i < BM; ++i) {
+        if (m0 + i < m) out[(size_t)(m0 + i) * n + col0 + c] = from_f32<TOut>(acc[c][i]);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < CP; ++c) {
+    if (col0 + c >= n) break;
+#pragma unroll
+    for (int i = 0; i < BM; ++i) {
+      if (m0 + i < m) partial[((size_t)blockIdx.z * m + m0 + i) * n + col0 + c] = acc[c][i];
+    }
+  }
+  __syncthreads();  // every thread's partials are written; thread 0 releases them
+  if (threadIdx.x == 0) {
+    fence_acq_rel_gpu();
+    last = atomicAdd(&counters[slot], 1) == (int)gridDim.z - 1;
+    if (last) fence_acq_rel_gpu();  // acquires every other CTA's partials
+  }
+  __syncthreads();
+  if (!last) return;
+#pragma unroll
+  for (int c = 0; c < CP; ++c) {
+    const int col = col0 + c;
+    if (col >= n) break;
+    if constexpr (BM <= 8) {
+      constexpr int kZ = 64 / BM;  // splits whose loads go out together
+      float sum[BM];
+#pragma unroll
+      for (int i = 0; i < BM; ++i) sum[i] = 0.f;
+      for (int z0 = 0; z0 < (int)gridDim.z; z0 += kZ) {
+        float v[kZ][BM];
+#pragma unroll
+        for (int z = 0; z < kZ; ++z) {
+#pragma unroll
+          for (int i = 0; i < BM; ++i) {
+            v[z][i] = z0 + z < (int)gridDim.z && m0 + i < m
+                          ? __ldcg(&partial[((size_t)(z0 + z) * m + m0 + i) * n + col])
+                          : 0.f;
+          }
+        }
+#pragma unroll
+        for (int z = 0; z < kZ; ++z) {
+#pragma unroll
+          for (int i = 0; i < BM; ++i) sum[i] += v[z][i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BM; ++i) {
+        if (m0 + i < m) out[(size_t)(m0 + i) * n + col] = from_f32<TOut>(sum[i]);
+      }
+    } else {
+      for (int i = 0; i < BM; ++i) {
+        const int row = m0 + i;
+        if (row >= m) break;
+        float sum = 0.f;
+        for (int z = 0; z < (int)gridDim.z; ++z) sum += __ldcg(&partial[((size_t)z * m + row) * n + col]);
+        out[(size_t)row * n + col] = from_f32<TOut>(sum);
+      }
+    }
+  }
+  if (threadIdx.x == 0) counters[slot] = 0;  // ready for the next launch on this stream
+}
+
+// The same for a thread that owns one column.
+template <int BM, typename TOut>
+__device__ __forceinline__ void finish_splits(const float (&acc)[BM], TOut* __restrict__ out,
+                                              float* __restrict__ partial,
+                                              int* __restrict__ counters, int m, int n, int m0,
+                                              int col, int slot) {
+  finish_splits<BM, 1>(reinterpret_cast<const float(&)[1][BM]>(acc), out, partial, counters, m,
+                       n, m0, col, slot);
 }
 
 }  // namespace

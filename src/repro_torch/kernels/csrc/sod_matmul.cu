@@ -59,18 +59,11 @@
 //  * One CTA per (N tile, M block, K split).  A small N (wq: 16 tiles) gives
 //    far fewer CTAs than the 132 SMs, so the wrapper splits the K tiles over
 //    gridDim.z, aiming at two CTAs per SM.  Split-K is reduced inside the
-//    launch: each CTA writes its f32 partials, fences them and bumps the
-//    arrival counter of its (N tile, M block); the CTA that arrives last sums
-//    partial[0..splits-1] in split order (deterministic, the order of the
-//    separate reduce kernel it replaces), reading them through L2 (__ldcg:
-//    L1 is not coherent), casts to the output type, and resets the counter
-//    to 0 for the next launch on the stream.  The counters are an int32
-//    buffer the wrapper keeps per (device, stream), zeroed once when made.
+//    launch by the CTA that arrives last at its output tile
+//    (common.cuh:finish_splits): sums in split order, deterministic, with
+//    the counters the wrapper keeps per (device, stream).
 //  * One body for every M block: BM = 4 (M <= 4, decode at batch 4),
-//    BM = 8 (M <= 8) and BM = 32 share the ring and the slot walk.  Only
-//    the last CTA's reduction differs: at BM <= 8 every split's loads of the
-//    BM rows go out together, at BM = 32 a row at a time (batching 32 rows
-//    doubled the time of a 2048 x 512 prefill).
+//    BM = 8 (M <= 8) and BM = 32 share the ring and the slot walk.
 //
 // Rules the wrapper's launch plan (sod_matmul.py:plan_launch) keeps and this
 // entry point checks.  A bulk copy needs 16-byte aligned source and
@@ -91,49 +84,6 @@
 #include "common.cuh"
 
 namespace {
-
-constexpr int kMaxStages = 8;
-constexpr int kSmemPerBlock = 232448;  // 227 KB: the most one CTA may hold on an H100
-constexpr int kMaxDevices = 64;
-
-// acc[m] += v * xr[m] for the BM values of one row of a staged x slice,
-// held in x's own dtype: one 16-byte shared-memory load per four f32 or
-// eight bf16 values (an 8-byte load for four bf16).  A bf16 value widens to
-// f32 exactly (a shift), so the products are those of the f32 slice.
-template <int BM>
-__device__ __forceinline__ void row_fma_x(float (&acc)[BM], const float* row, float v) {
-  const float4* xr = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int q = 0; q < BM / 4; ++q) {
-    const float4 xv = xr[q];
-    acc[4 * q + 0] += xv.x * v;
-    acc[4 * q + 1] += xv.y * v;
-    acc[4 * q + 2] += xv.z * v;
-    acc[4 * q + 3] += xv.w * v;
-  }
-}
-__device__ __forceinline__ void bf16x2_fma(float& lo, float& hi, uint32_t w, float v) {
-  lo += __uint_as_float(w << 16) * v;
-  hi += __uint_as_float(w & 0xffff0000u) * v;
-}
-template <int BM>
-__device__ __forceinline__ void row_fma_x(float (&acc)[BM], const __nv_bfloat16* row, float v) {
-  if constexpr (BM == 4) {
-    const uint2 w = *reinterpret_cast<const uint2*>(row);
-    bf16x2_fma(acc[0], acc[1], w.x, v);
-    bf16x2_fma(acc[2], acc[3], w.y, v);
-  } else {
-    const uint4* xr = reinterpret_cast<const uint4*>(row);
-#pragma unroll
-    for (int q = 0; q < BM / 8; ++q) {
-      const uint4 w = xr[q];
-      bf16x2_fma(acc[8 * q + 0], acc[8 * q + 1], w.x, v);
-      bf16x2_fma(acc[8 * q + 2], acc[8 * q + 3], w.y, v);
-      bf16x2_fma(acc[8 * q + 4], acc[8 * q + 5], w.z, v);
-      bf16x2_fma(acc[8 * q + 6], acc[8 * q + 7], w.w, v);
-    }
-  }
-}
 
 // acc[m] += v * x[m][r] for the stored slots (r, v) of one tile column
 // (rows rp[s * bn], values vp[s * bn]); r < 0 is padding and adds nothing.
@@ -184,7 +134,6 @@ __global__ void sod_matmul_kernel(const TIn* __restrict__ x,
   extern __shared__ __align__(16) unsigned char smem[];  // ring of vals, ring of rows, x
   __shared__ float table[kMaxCodes];
   __shared__ __align__(8) uint64_t full[kMaxStages];
-  __shared__ int last;
   const int j = threadIdx.x;
   const int bn = blockDim.x;
   const int nt = blockIdx.x;
@@ -251,57 +200,8 @@ __global__ void sod_matmul_kernel(const TIn* __restrict__ x,
     }
   }
 
-  const int col = nt * bn + j;
-  const bool has_col = col < n;
-  if (partial == nullptr) {  // one split: the sums are the output
-    if (has_col) {
-#pragma unroll
-      for (int i = 0; i < BM; ++i) {
-        if (m0 + i < m) out[(size_t)(m0 + i) * n + col] = from_f32<TOut>(acc[i]);
-      }
-    }
-    return;
-  }
-  if (has_col) {
-#pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      if (m0 + i < m) partial[((size_t)blockIdx.z * m + m0 + i) * n + col] = acc[i];
-    }
-  }
-  __threadfence();  // this thread's partials are visible device-wide ...
-  __syncthreads();  // ... for every thread of the CTA, before it arrives
-  const int slot = blockIdx.y * nt_total + nt;
-  if (j == 0) last = atomicAdd(&counters[slot], 1) == (int)gridDim.z - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  if (has_col) {  // each sum in split order, as the separate reduce kernel did
-    if constexpr (BM <= 8) {  // every split's loads of the BM rows in flight together
-      float sum[BM];
-#pragma unroll
-      for (int i = 0; i < BM; ++i) sum[i] = 0.f;
-#pragma unroll 4
-      for (int z = 0; z < (int)gridDim.z; ++z) {
-#pragma unroll
-        for (int i = 0; i < BM; ++i) {
-          if (m0 + i < m) sum[i] += __ldcg(&partial[((size_t)z * m + m0 + i) * n + col]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < BM; ++i) {
-        if (m0 + i < m) out[(size_t)(m0 + i) * n + col] = from_f32<TOut>(sum[i]);
-      }
-    } else {  // BM = 32: a row at a time (batching 32 rows' loads doubled the time)
-      for (int i = 0; i < BM; ++i) {
-        const int row = m0 + i;
-        if (row >= m) break;
-        float sum = 0.f;
-        for (int z = 0; z < (int)gridDim.z; ++z) sum += __ldcg(&partial[((size_t)z * m + row) * n + col]);
-        out[(size_t)row * n + col] = from_f32<TOut>(sum);
-      }
-    }
-  }
-  if (j == 0) counters[slot] = 0;  // ready for the next launch on this stream
+  finish_splits<BM>(acc, out, partial, counters, m, n, m0, nt * bn + j,
+                    blockIdx.y * nt_total + nt);
 }
 
 struct Args {
@@ -315,28 +215,6 @@ struct Args {
   void* counters;
   int m, k, n, kt, nt, cap, bk, bn, bm, splits, stages, x_tiles, smem, ncodes;
 };
-
-// Raise the kernel's dynamic shared memory limit to what a CTA may hold and
-// prefer the largest shared-memory carveout, once per device (`done` is the
-// instantiation's own record).
-template <typename K>
-cudaError_t configure(K kernel, bool (&done)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess || (dev < kMaxDevices && done[dev])) return e;
-  cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, kernel);
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmemPerBlock - (int)attr.sharedSizeBytes);
-  }
-  if (e == cudaSuccess) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  }
-  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
-  return e;
-}
 
 template <typename TIn, typename TOut, int BM, typename Deq>
 int launch(const Args& a, cudaStream_t stream) {

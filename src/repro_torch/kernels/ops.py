@@ -9,6 +9,8 @@ wrapper, with the input flattened to 2-D.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core.formats import BlockCSR, TiledCSC
@@ -40,7 +42,8 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> to
 
 def sod_matmul(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x @ W`` for ``x`` of shape (..., K); returns (..., N) in
-    ``out_dtype`` (default: ``x.dtype``)."""
+    ``out_dtype`` (default: ``x.dtype``).  A packed W whose values have
+    another dtype than x is computed in the promoted dtype (``_promote``)."""
     out_dtype = out_dtype or x.dtype
     if isinstance(w, TiledCSC):
         kernel = sod_matmul_kernel.sod_matmul
@@ -51,9 +54,24 @@ def sod_matmul(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torc
     k, n = w.shape
     if x.shape[-1] != k:
         raise ValueError(f"x inner dim {x.shape[-1]} != W K {k}")
+    x, w = _promote(x, w)
     lead = x.shape[:-1]
     y = kernel(x.reshape(-1, k).contiguous(), w, out_dtype)
     return y.reshape(*lead, n)
+
+
+def _promote(x: torch.Tensor, w):
+    """x and a packed qmode-``none`` w whose value dtype differs from x's,
+    both in their promoted dtype, as the reference's ``jnp.dot`` promotes
+    them (bf16 meets f32 as f32; both widenings are exact).  The kernels
+    take one dtype, so the values are widened in a copy, once per call: no
+    serving path mixes dtypes.  Quantized codes are left to the kernel
+    wrapper, which checks them."""
+    if w.qmode != "none" or w.dtype == x.dtype:
+        return x, w
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    field = "vals" if isinstance(w, TiledCSC) else "block_vals"
+    return x.to(dtype), dataclasses.replace(w, **{field: getattr(w, field).to(dtype)})
 
 
 def decompress(w) -> torch.Tensor:

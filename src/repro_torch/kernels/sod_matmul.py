@@ -17,7 +17,10 @@ Split-K is reduced inside the launch.  The CTA that arrives last at its
 output tile sums the splits; it learns that from an int32 arrival counter
 in a buffer this module keeps per (device, stream) (:func:`split_counters`),
 zeroed once when it is made, grown by reallocation to the largest
-``nt * m_blocks`` seen, and left zero by every launch.
+``nt * m_blocks`` seen, and left zero by every launch.  The block kernel
+(:mod:`repro_torch.kernels.block_matmul`) shares the buffer and the launch
+plan's shape (:func:`ring_plan`): launches on one stream run one after
+another, so the two never hold a counter at once.
 
 ``launches`` counts the kernel launches this wrapper made (plain-version
 calls do not count), so a run can show that its matmuls went through the
@@ -36,7 +39,8 @@ from repro_torch.kernels import build, ref
 
 __all__ = ["sod_matmul", "launches", "pick_splits", "sm_count", "DTYPE_CODE",
            "QMODE_CODE", "check_operands", "side_band", "side_args", "LaunchPlan",
-           "plan_launch", "plan_of", "check_bulk_aligned", "split_counters"]
+           "ring_plan", "m_block", "plan_launch", "plan_of", "check_bulk_aligned",
+           "split_counters"]
 
 launches = 0
 
@@ -92,13 +96,54 @@ def pick_splits(kt: int, ctas: int, sms: int, per_sm: int = _CTAS_PER_SM) -> int
 class LaunchPlan:
     """How one call launches: M block ``bm``, K ``splits``, ring ``stages``,
     K tiles of x staged at once (``x_tiles``), dynamic shared memory bytes,
-    and the CTAs per SM the budget was planned for."""
+    the CTAs per SM the budget was planned for, and the groups of ``bm``
+    rows one CTA holds (``m_groups``; the block kernel above 32 rows)."""
     bm: int
     splits: int
     stages: int
     x_tiles: int
     smem_bytes: int
     ctas_per_sm: int
+    m_groups: int = 1
+
+
+def ring_plan(name: str, bm: int, kt: int, ctas: int, sms: int, stage: int,
+              x_tile: int, fixed: int = 0, per_tile: int = 0,
+              per_sm_max: int = _CTAS_PER_SM, m_groups: int = 1) -> LaunchPlan:
+    """The launch plan of a kernel with a ring of ``stage``-byte slabs in
+    shared memory: ``ctas`` CTAs before K is split, M block ``bm``, ``kt``
+    K tiles, ``x_tile`` bytes of staged x a K tile, and beside them
+    ``fixed`` bytes plus ``per_tile`` bytes a K tile of the split; a CTA
+    holds ``m_groups`` M blocks.
+
+    ``per_sm_max`` CTAs per SM are planned first, then fewer, down to one,
+    until two stages fit beside each other; the K splits follow from that
+    (:func:`pick_splits`).  x is staged for the whole split where that
+    leaves room for two stages, else a tile at a time; the ring then takes as
+    many stages as the split has tiles, up to what fits and MAX_STAGES, and
+    never fewer than 2.  Raises ValueError when even one CTA per SM cannot
+    hold two stages."""
+    for per_sm in range(per_sm_max, 0, -1):
+        splits = pick_splits(kt, ctas, sms, per_sm)
+        tiles = -(-kt // splits)
+        extra = fixed + per_tile * tiles
+        budget = (min(SMEM_PER_BLOCK, SMEM_PER_SM // per_sm - SMEM_RESERVED)
+                  - STATIC_SMEM - extra)
+        x_tiles = tiles if budget - tiles * x_tile >= 2 * stage else 1
+        fit = (budget - x_tiles * x_tile) // stage
+        if fit >= 2:
+            stages = max(2, min(fit, tiles, MAX_STAGES))
+            return LaunchPlan(bm, splits, stages, x_tiles,
+                              stages * stage + x_tiles * x_tile + extra, per_sm,
+                              m_groups)
+    raise ValueError(
+        f"{name}: two stages of {stage} bytes and x do not fit in one CTA's "
+        f"{SMEM_PER_BLOCK - STATIC_SMEM} bytes of shared memory")
+
+
+def m_block(m: int) -> int:
+    """The kernels' M block: 4 rows (decode at batch 4), 8, or 32."""
+    return 4 if m <= 4 else 8 if m <= 8 else 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -106,37 +151,18 @@ def plan_launch(m: int, kt: int, nt: int, cap: int, tile: tuple[int, int],
                 value_bytes: int, x_bytes: int, sms: int) -> LaunchPlan:
     """The launch plan of an (M, K) x of ``x_bytes`` per element against a
     (kt, nt)-tile operand of ``cap`` slots per tile column, ``value_bytes``
-    per stored value, on a card of ``sms`` SMs.  Cached: a model calls it
-    with a handful of argument sets, every step.
+    per stored value, on a card of ``sms`` SMs (:func:`ring_plan`, two CTAs
+    per SM).  Cached: a model calls it with a handful of argument sets,
+    every step.
 
-    The M block is 4, 8 or 32 rows.  A stage of the ring holds one tile's
-    slab, ``cap * bn * (value_bytes + 1)`` bytes; staging x takes ``bk * bm
-    * x_bytes`` bytes a K tile, plus one zero row of ``bm * x_bytes``.  Two
-    CTAs per SM are planned (one if two stages do not fit beside each
-    other); the K splits follow from that (:func:`pick_splits`).  x is
-    staged for the whole split where that leaves room for two stages, else
-    a tile at a time; the ring then takes as many stages as the split has
-    tiles, up to what fits and MAX_STAGES, and never fewer than 2.  Raises
-    ValueError when even one CTA per SM cannot hold two stages."""
+    A stage of the ring holds one tile's slab, ``cap * bn * (value_bytes +
+    1)`` bytes; staging x takes ``bk * bm * x_bytes`` bytes a K tile, plus
+    one zero row of ``bm * x_bytes``."""
     bk, bn = tile
-    bm = 4 if m <= 4 else 8 if m <= 8 else 32
-    stage = cap * bn * (value_bytes + 1)
-    x_tile, zero_row = bk * bm * x_bytes, bm * x_bytes
-    for per_sm in range(_CTAS_PER_SM, 0, -1):
-        budget = (min(SMEM_PER_BLOCK, SMEM_PER_SM // per_sm - SMEM_RESERVED)
-                  - STATIC_SMEM - zero_row)
-        splits = pick_splits(kt, nt * -(-m // bm), sms, per_sm)
-        tiles = -(-kt // splits)
-        x_tiles = tiles if budget - tiles * x_tile >= 2 * stage else 1
-        fit = (budget - x_tiles * x_tile) // stage
-        if fit >= 2:
-            stages = max(2, min(fit, tiles, MAX_STAGES))
-            return LaunchPlan(bm, splits, stages, x_tiles,
-                              stages * stage + x_tiles * x_tile + zero_row, per_sm)
-    raise ValueError(
-        f"sod_matmul: two stages of {stage} bytes (cap {cap}, tile {tile}, "
-        f"{value_bytes}-byte values) and x do not fit in one CTA's "
-        f"{SMEM_PER_BLOCK - STATIC_SMEM} bytes of shared memory")
+    bm = m_block(m)
+    return ring_plan("sod_matmul", bm, kt, nt * -(-m // bm), sms,
+                     cap * bn * (value_bytes + 1), bk * bm * x_bytes,
+                     fixed=bm * x_bytes)
 
 
 def plan_of(x: torch.Tensor, packed: TiledCSC) -> LaunchPlan:

@@ -244,7 +244,7 @@ def test_wrapper_rejects_bad_inputs():
 def test_split_target_leaves_no_split_empty(kt, nt, m):
     """The block kernel's split-K target: about CTAS_PER_SM CTAs per SM of
     an H100 (132 SMs), never an empty split."""
-    ctas = nt * -(-m // (8 if m <= 8 else 32))
+    ctas = nt * -(-m // sm.m_block(m))
     s = sm.pick_splits(kt, ctas, 132, bm.CTAS_PER_SM)
     per = -(-kt // s)
     assert 1 <= s <= kt and (s - 1) * per < kt
@@ -364,7 +364,7 @@ def test_served_packs_and_bytes_equal(served):
                 np.testing.assert_array_equal(getattr(tw, field).numpy(),
                                               np.asarray(getattr(jw, field))[i, 0])
     tb, jb = sod.tree_weight_bytes(tp), jsod.tree_weight_bytes(jp)
-    assert (tb["compressed"], tb["dense"]) == (jb["compressed"], jb["dense"])
+    assert tb == jb                     # compressed, dense and their ratio
 
 
 def test_cli_block_csr_on_cpu(capsys):

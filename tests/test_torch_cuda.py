@@ -146,6 +146,7 @@ def test_block_kernel_out_dtype(cuda, dtype, out_dtype):
     (0.05, (128, 128), 8, None), (1.0, (128, 128), 8, None),
     (0.3, (64, 128), 16, None), (0.3, (256, 64), 8, None),
     (0.5, (128, 128), 8, 3),          # explicit bcap: largest sub-blocks kept
+    (0.3, (128, 128), 4, None),       # br % 8 != 0: rows walked one at a time
 ])
 def test_block_kernel_caps_and_tiles(cuda, density, tile, br, bcap):
     x, p = _block_case(cuda, 640, 384, 24, torch.float32, density, tile, br)
@@ -406,3 +407,158 @@ def test_back_to_back_shapes_two_streams(cuda):
     bufs = [sm._counters[(cuda.index or 0, s.cuda_stream)] for s in streams]
     assert bufs[0].data_ptr() != bufs[1].data_ptr()
     assert not any(b.any() for b in bufs)
+
+
+# ---------------------------------------------------------------------------
+# block_matmul's ring of stored slabs and its split-K reduced inside the launch
+# ---------------------------------------------------------------------------
+def _block_operand(dev, k, n, m, dtype, qmode, seed=0):
+    x, p = _block_case(dev, k, n, m, dtype, seed=seed)
+    return x, _operand(p, qmode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+@pytest.mark.parametrize("k,n,m,split", [(2048, 512, 4, True), (8192, 2048, 4, True),
+                                         (2048, 2048, 128, True), (300, 260, 77, None)])
+def test_block_two_calls_bit_equal(cuda, k, n, m, split, qmode):
+    """Split-K sums in split order whichever CTA arrives last."""
+    x, q = _block_operand(cuda, k, n, m, torch.bfloat16, qmode)
+    if split:
+        assert bmm.plan_of(x, q).splits > 1
+    y1, y2 = bmm.block_matmul(x, q), bmm.block_matmul(x, q)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_zero_tile_row_every_qmode(cuda, dtype, qmode):
+    """A macro-tile row with tile_nnz == 0 issues no copy and takes no stage;
+    the product still equals the plain version's."""
+    x, p = _block_case(cuda, 8192, 2048, 4, dtype)
+    w = p.to_dense()
+    w[2048:4096] = 0
+    p = _operand(pack_block_csr(w), qmode)
+    assert int(p.tile_nnz[16:32].count_nonzero()) == 0
+    _check_block(x, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,m", [(300, 260, 77), (129, 33, 1), (1000, 200, 5),
+                                   (2100, 700, 9)])
+def test_block_ragged_every_qmode(cuda, k, n, m, dtype, qmode):
+    _check_block(*_block_operand(cuda, k, n, m, dtype, qmode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+@pytest.mark.parametrize("m,bm", [(1, 4), (4, 4), (5, 8), (8, 8), (9, 16), (17, 16),
+                                  (77, 16), (128, 16), (300, 16)])
+def test_block_m_blocks_every_qmode(cuda, m, bm, qmode):
+    """M across the BM = 4 / 8 / 16 boundaries, and above 16 rows CTAs of
+    M_GROUPS groups of 16 (ragged in the last group, and over several
+    CTAs)."""
+    x, q = _block_operand(cuda, 2048, 512, m, torch.bfloat16, qmode)
+    plan = bmm.plan_of(x, q)
+    assert plan.bm == bm
+    assert plan.m_groups == (min(bmm.M_GROUPS, -(-m // 16)) if bm == 16 else 1)
+    _check_block(x, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+@pytest.mark.parametrize("groups", [1, 2, 3, 4, 8])
+def test_block_m_groups_every_qmode(cuda, groups, qmode, monkeypatch):
+    """Groups of 16 rows a CTA can hold, from 1 to MAX_THREADS / 64 at
+    bn = 128, ragged in the last group, over two CTAs."""
+    monkeypatch.setattr(bmm, "M_GROUPS", groups)
+    bmm.plan_launch.cache_clear()
+    try:
+        for m in (16 * groups + 11, 32 * groups - 5):
+            x, q = _block_operand(cuda, 1024, 640, m, torch.float32, qmode)
+            assert bmm.plan_of(x, q).m_groups == min(groups, -(-m // 16))
+            _check_block(x, q)
+    finally:
+        bmm.plan_launch.cache_clear()
+
+
+@pytest.mark.cuda
+def test_block_and_sod_share_counters(cuda):
+    """sod_matmul and block_matmul calls of different shapes back to back on
+    one stream, with no synchronisation: they share one counter buffer, and
+    each launch leaves its counters at 0 for the next."""
+    cases = [(2048, 512, 4), (8192, 2048, 4), (2048, 8192, 4), (2048, 2048, 128),
+             (300, 260, 77), (8192, 2048, 4)]
+    calls = []
+    for i, (k, n, m) in enumerate(cases):
+        calls.append((sm.sod_matmul, ref.sod_matmul_ref,
+                      *_case(cuda, k, n, m, torch.bfloat16, seed=i)))
+        calls.append((bmm.block_matmul, ref.block_matmul_ref,
+                      *_block_operand(cuda, k, n, m, torch.bfloat16,
+                                      ALL_QMODES[i % 4], seed=i)))
+    torch.cuda.synchronize()
+    ys = [fn(x, p) for fn, _, x, p in calls]
+    torch.cuda.synchronize()
+    for (_, plain, x, p), y in zip(calls, ys):
+        yr = plain(x, p)
+        assert (y.float() - yr.float()).abs().max().item() <= \
+            TOL[torch.bfloat16] * yr.float().abs().max().item()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    buf = sm._counters[(cuda.index or 0, stream)]
+    need = max(p.grid[1] * -(-x.shape[0] // sm.m_block(x.shape[0])) for _, _, x, p in calls)
+    need = max(need, *(p.grid[1] * -(-x.shape[0] // (plan.bm * plan.m_groups))
+                       for _, _, x, p in calls[1::2] for plan in [bmm.plan_of(x, p)]))
+    assert buf.numel() >= need and not buf.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+def test_block_stacked_layer_slice(cuda, qmode):
+    """packed.layer(i) is a view into the stacked buffers, as the model
+    passes it.  With 3 x 1 macro tiles and an odd bcap, the ids of layer 1
+    start off a 16-byte boundary: the kernel's ids copy starts at the
+    boundary below.  A view of block_vals at an offset a bulk copy cannot
+    take raises."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    w = torch.randn(3, 384, 128, generator=g, device=cuda).bfloat16()
+    w = torch.stack([block_prune(w[i], 0.4, (8, 128)) for i in range(3)])
+    stacked = pack_block_csr(w)
+    if stacked.bcap % 2 == 0:          # make the bcap odd: one more padding slot
+        stacked = pack_block_csr(w, bcap=stacked.bcap + 1)
+    stacked = _operand(stacked, qmode)
+    x = torch.randn(4, 384, generator=g, device=cuda).bfloat16()
+    assert any(stacked.layer(i).block_ids.data_ptr() % 16 for i in range(3))
+    for i in range(3):
+        _check_block(x, stacked.layer(i))
+    layer = stacked.layer(1)
+    flat = torch.empty(layer.block_vals.numel() + 1, dtype=layer.block_vals.dtype,
+                       device=cuda)
+    off = flat[1:].view(layer.block_vals.shape)
+    off.copy_(layer.block_vals)
+    with pytest.raises(ValueError, match="aligned"):
+        bmm.block_matmul(x, dataclasses.replace(layer, block_vals=off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["tiled_csc", "block_csr"])
+@pytest.mark.parametrize("x_dtype,w_dtype", [(torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.bfloat16)])
+def test_mixed_dtype_packed_on_card(cuda, fmt, x_dtype, w_dtype):
+    """ops.sod_matmul promotes a packed operand of another dtype than x to
+    f32 and casts the sums once to x's dtype, as on the CPU."""
+    from repro_torch.kernels import ops
+
+    make = _case if fmt == "tiled_csc" else _block_case
+    x, p = make(cuda, 1024, 640, 4, w_dtype)
+    x = x.to(x_dtype)
+    y = ops.sod_matmul(x, p)
+    torch.cuda.synchronize()
+    assert y.dtype == x_dtype
+    yr = (x.float() @ p.to_dense().float()).to(x_dtype)
+    tol = TOL[torch.bfloat16] * yr.float().abs().max().item()
+    assert (y.float() - yr.float()).abs().max().item() <= tol

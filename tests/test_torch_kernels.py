@@ -1,6 +1,7 @@
 """The port's sod_matmul against the JAX package's (jnp oracle and the Pallas
-kernel in interpret mode), on the CPU; the CUDA kernel itself is held
-against its plain version in tests/test_torch_cuda.py.
+kernel in interpret mode), on the CPU, with the launch plans of both matmul
+kernels; the CUDA kernels themselves are held against their plain versions
+in tests/test_torch_cuda.py.
 
 Tolerance: in float32 both sides accumulate in f32, in different orders;
 atol 5e-4 / rtol 1e-4 is the bound the JAX package's own kernel tests use
@@ -18,6 +19,7 @@ from repro.core import formats as jformats
 from repro.kernels import ops as jops
 from repro_torch.core import formats
 from repro_torch.interop import tiled_csc_from_numpy, to_torch
+from repro_torch.kernels import block_matmul as bmm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import sod_matmul as sm
 
@@ -222,3 +224,124 @@ def test_split_counters_keyed_by_stream_and_grown():
     finally:
         for key in [k for k in sm._counters if k[0] is None]:
             del sm._counters[key]
+
+
+# ---------------------------------------------------------------------------
+# a packed operand whose value dtype differs from x's (ops promotes)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("fmt", ["tiled_csc", "block_csr"])
+@pytest.mark.parametrize("x_dtype,w_dtype", [("bfloat16", "float32"),
+                                             ("float32", "bfloat16")])
+def test_mixed_dtype_packed_matches_reference(fmt, x_dtype, w_dtype):
+    """A qmode-none TiledCSC or BlockCSR in another dtype than x: the
+    reference's ``impl="jnp"`` promotes both to f32, sums in f32 and casts
+    once to x's dtype.  Tolerance: f32 output as the rest of this file; a
+    bf16 output may round one bf16 step (2**-7 relative) apart, since the
+    f32 sums are taken in another order."""
+    dt = {"float32": (np.float32, torch.float32),
+          "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16)}
+    w, x = _case((256, 256), 4, 0.3, seed=11)
+    x, w = x.astype(dt[x_dtype][0]), w.astype(dt[w_dtype][0])
+    jpack = jformats.pack_tiled_csc if fmt == "tiled_csc" else jformats.pack_block_csr
+    tpack = formats.pack_tiled_csc if fmt == "tiled_csc" else formats.pack_block_csr
+    yj = np.asarray(jops.sod_matmul(jnp.asarray(x), jpack(jnp.asarray(w)), impl="jnp"))
+    p = tpack(to_torch(w, "cpu"))
+    assert p.dtype == dt[w_dtype][1]
+    yt = ops.sod_matmul(to_torch(x, "cpu"), p)
+    assert yt.shape == (4, 256) and yt.dtype == dt[x_dtype][1]
+    if x_dtype == "float32":
+        np.testing.assert_allclose(yt.numpy(), yj, atol=ATOL, rtol=RTOL)
+    else:
+        np.testing.assert_allclose(yt.float().numpy(), yj.astype(np.float32),
+                                   atol=1e-5, rtol=2**-7)
+
+
+def test_mixed_dtype_keeps_quantized_checks():
+    """Promotion is for qmode none only: codes of the wrong dtype still
+    raise, and a same-dtype operand reaches the wrapper as it is."""
+    w, x = _case((256, 256), 4, 0.3, seed=12)
+    p = formats.pack_tiled_csc(to_torch(w, "cpu"))
+    with pytest.raises(TypeError):           # int8 qmode over float values
+        ops.sod_matmul(to_torch(x, "cpu").bfloat16(), dataclasses.replace(p, qmode="int8"))
+    xt = to_torch(x, "cpu")
+    assert ops._promote(xt, p) == (xt, p)
+
+
+# ---------------------------------------------------------------------------
+# block_matmul's launch plan (csrc/block_matmul.cu runs only on the card)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("act_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("qmode", ["none", "int8", "fp8", "codebook"])
+@pytest.mark.parametrize("kn", PATH_SHAPES)
+def test_block_launch_plan_fits_the_smem_budget(kn, qmode, act_dtype):
+    """For every bcap a (128, 128) tile of (8, 128) sub-blocks can have and M
+    from decode to prefill: the M block, its groups and the threads of a
+    CTA, dynamic shared memory within one CTA's 227 KB,
+    the planned CTAs per SM fitting in the SM's 228 KB together, a ring of
+    at least 2 stages, no empty K split, and the bytes the plan reports
+    being the ring, the staged x (of every M group) and the list of
+    non-empty tiles."""
+    bk, bn = tile = (128, 128)
+    br = 8
+    kt, nt = kn[0] // bk, kn[1] // bn
+    xb = act_dtype.itemsize
+    vb = xb if qmode == "none" else 1
+    for bcap in range(1, bk // br + 1):
+        stage = bcap * br * bn * vb + bmm.ids_stage_bytes(bcap)
+        for m in (1, 4, 5, 8, 9, 77, 128):
+            plan = bmm.plan_launch(m, kt, nt, bcap, br, tile, vb, xb, 132)
+            tiles = -(-kt // plan.splits)
+            rows = plan.bm * plan.m_groups
+            assert plan.bm == (4 if m <= 4 else 8 if m <= 8 else 16)
+            assert plan.m_groups == (min(bmm.M_GROUPS, -(-m // plan.bm)) if m > 8 else 1)
+            assert plan.splits == sm.pick_splits(kt, nt * -(-m // rows), 132,
+                                                 plan.ctas_per_sm)
+            assert (plan.splits - 1) * tiles < kt      # the last split starts inside K
+            assert 2 <= plan.stages <= sm.MAX_STAGES
+            assert plan.x_tiles in (1, tiles)
+            staged = 4 if m > 8 else xb             # x staged in f32 at BM = 16
+            assert plan.smem_bytes == (plan.stages * stage + plan.x_tiles * bk * rows * staged
+                                       + 8 * tiles)
+            cols = 2 if plan.bm == 16 else 1        # columns a thread
+            assert bn // cols * plan.m_groups <= bmm.MAX_THREADS
+            assert plan.smem_bytes + sm.STATIC_SMEM <= sm.SMEM_PER_BLOCK
+            assert plan.ctas_per_sm * (plan.smem_bytes + sm.STATIC_SMEM
+                                       + sm.SMEM_RESERVED) <= sm.SMEM_PER_SM
+            if vb < 4:                                  # bf16 values or codes: two CTAs per SM
+                assert plan.ctas_per_sm == bmm.CTAS_PER_SM
+            if vb == 1 and m <= 8:                      # every slab of a split in flight
+                assert plan.stages >= tiles
+                assert plan.x_tiles == tiles            # x staged once, beside the slabs
+
+
+def test_block_launch_plan_raises_over_budget():
+    with pytest.raises(ValueError, match="block_matmul: two stages"):
+        bmm.plan_launch(4, 16, 16, 32, 8, (256, 1024), 4, 4, 132)
+
+
+@pytest.mark.parametrize("bcap", [1, 2, 3, 4, 5, 11, 16, 32])
+def test_block_ids_stage_holds_every_copy(bcap):
+    """The ids' copy starts at the 16-byte boundary at or below the tile's
+    first id (0-3 ids before it) and is a multiple of 16 bytes: it fits the
+    stage's ids area for every lead and stored count."""
+    for lead in range(4):
+        for nnz in range(1, bcap + 1):
+            copy = (4 * (lead + nnz) + 15) // 16 * 16
+            assert copy % 16 == 0 and copy <= bmm.ids_stage_bytes(bcap)
+    assert bmm.ids_stage_bytes(bcap) % 16 == 0
+
+
+def test_block_bulk_alignment_raises_on_offset_view():
+    """block_vals must start 16-byte aligned; a layer of a stacked operand
+    does (a whole number of 32-byte slabs in)."""
+    w = np.random.default_rng(13).standard_normal((256, 256)).astype(np.float32)
+    p = formats.pack_block_csr(to_torch(w, "cpu").bfloat16())
+    sm.check_bulk_aligned({"block_vals": p.block_vals})
+    flat = torch.empty(p.block_vals.numel() + 1, dtype=p.block_vals.dtype)
+    off = flat[1:].view(p.block_vals.shape)
+    off.copy_(p.block_vals)
+    with pytest.raises(ValueError, match="block_vals must start 16-byte aligned"):
+        sm.check_bulk_aligned({"block_vals": off})
+    stacked = formats.pack_block_csr(torch.stack([to_torch(w, "cpu").bfloat16()] * 3))
+    for i in range(3):
+        sm.check_bulk_aligned({"block_vals": stacked.layer(i).block_vals})

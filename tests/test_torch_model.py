@@ -136,7 +136,7 @@ def test_packed_layers_and_bytes_equal(runs):
             np.testing.assert_array_equal(tw.vals.numpy(),
                                           np.asarray(jw.vals)[i, 0])
     tb, jb = sod.tree_weight_bytes(tp), jsod.tree_weight_bytes(jp)
-    assert (tb["compressed"], tb["dense"]) == (jb["compressed"], jb["dense"])
+    assert tb == jb                     # compressed, dense and their ratio
 
 
 def _fields(cfg):

@@ -346,7 +346,7 @@ def test_served_packs_and_bytes_equal(served):
                 if t is not None:
                     np.testing.assert_array_equal(_bits(t), _bits(np.asarray(j)[i, 0]))
     tb, jb = sod.tree_weight_bytes(tp), jsod.tree_weight_bytes(jp)
-    assert (tb["compressed"], tb["dense"]) == (jb["compressed"], jb["dense"])
+    assert tb == jb                     # compressed, dense and their ratio
 
 
 @pytest.mark.parametrize("fmt,qmode", [("tiled_csc", "int8"), ("block_csr", "fp8"),
