@@ -16,7 +16,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``sod_matmul`` and ``block_matmul`` run twice, bit-equal across the
    calls, with their launch plans: splits, ring stages, shared memory),
    plus timings: kernel, plain version, one ``torch.matmul`` on the dense
-   bf16 weight (the yardstick of the two matmuls), and the bound max(bytes
+   bf16 weight (the yardstick of the two matmuls; for ``decompress`` in
+   qmode ``none``, one ``index_put_`` of the stored values at precomputed
+   absolute indices into a zeroed matrix), and the bound max(bytes
    / 3.35 TB/s, operations / peak rate).  Each timed call starts with a
    clean L2: a 512 MB buffer is read, not written, so no dirty line of the
    flush drains inside the timed call; a spin kernel then keeps the card
@@ -35,7 +37,18 @@ Phases, each of which raises on failure (so the script exits non-zero):
    time by kernel, the device's idle share, and the calls of a separate
    split-K reduce kernel (none in any cell: both matmul kernels reduce
    their splits inside their launch); and the tied LM head's GEMM with
-   f32 output against the same GEMM with bf16 output.
+   f32 output against the same GEMM with bf16 output;
+6. engine — ``serve.py --engine`` (the continuous-batching engine) at full
+   width, bf16, on the weights phase 4 packed, over ``poisson_trace(8, 0.5,
+   max_prompt=64, max_new=16)`` (prompts of 32-64 tokens), 4 slots, 16-token
+   pages, in three runs: ``tiled_csc`` with the prompt prefilled at
+   admission in one forward, ``tiled_csc`` with 16-token chunks, and
+   ``block_csr`` fused.  Each run must complete every request, emit for
+   every request the tokens of the port's ``static_generate`` on the card
+   bit for bit, launch its cell's kernel (and not the other), and keep its
+   logits finite; it prints throughput, warmup, latency, wall ms a step and
+   the launch plans' K splits at the prefill shapes.  One steady engine
+   step of the first run is profiled for its device time and idle share.
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
@@ -43,6 +56,7 @@ kernel and qmode), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import re
@@ -67,6 +81,8 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import decompress as dk  # noqa: E402
 from repro_torch.kernels import sod_matmul as sm  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.serving import (Engine, bucket_len, poisson_trace,  # noqa: E402
+                                 static_generate)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -252,6 +268,19 @@ def _work(name: str, x: torch.Tensor, p, y: torch.Tensor) -> tuple[int, int]:
             2 * m * stored)
 
 
+def _scatter_args(p) -> tuple:
+    """((rows, cols), vals) of a TiledCSC's real slots at their absolute
+    positions: the arguments of one ``index_put_`` that densifies it."""
+    kt, nt, cap, bn = p.vals.shape
+    bk = p.tile[0]
+    r = p.rows.long()
+    real = r >= 0
+    rows = r + bk * torch.arange(kt, device=r.device).view(kt, 1, 1, 1)
+    cols = (bn * torch.arange(nt, device=r.device).view(1, nt, 1, 1)
+            + torch.arange(bn, device=r.device).view(1, 1, 1, bn)).expand_as(r)
+    return (rows[real], cols[real]), p.vals[real]
+
+
 def _kernel_cases():
     """(kernel, qmode, K, N, M, case, dtype) of phase 3: qmode none in bf16
     and f32 as before; each quantized qmode at the path shapes in bf16 and
@@ -361,8 +390,15 @@ def phase_kernels() -> dict:
         if tag in ("decode", "prefill", "path") and dtype == torch.bfloat16:
             row["kernel_ms"] = _time_ms(kernel, flush)
             row["plain_ms"] = _time_ms(plain, flush)
-            if name == "decompress":
-                row["library_ms"] = None   # no one PyTorch call does this
+            if name == "decompress" and qmode == "none":
+                # one scatter of the stored values at precomputed absolute
+                # indices into a zeroed dense matrix
+                scatter = _scatter_args(p)
+                row["library_ms"] = _time_ms(lambda: torch.zeros(
+                    p.shape, dtype=p.vals.dtype, device="cuda").index_put_(*scatter),
+                    flush)
+            elif name == "decompress":
+                row["library_ms"] = None   # dequantizing is a second call
             else:
                 dense = p.to_dense().to(x.dtype)
                 row["library_ms"] = _time_ms(lambda: torch.matmul(x, dense), flush)
@@ -545,6 +581,118 @@ def phase_head(params, batch: int) -> None:
                             embed.dtype)[0]})
 
 
+ENGINE_ARGV = ["--arch", "llama3.2-1b", "--engine", "--requests", "8",
+               "--arrival-rate", "0.5", "--prompt-len", "64", "--gen", "16",
+               "--max-slots", "4", "--page-size", "16", "--seed", "0",
+               "--device", "cuda"]
+# run -> (phase-4 cell whose packed weights it serves, prefill chunk)
+ENGINE_RUNS = {"tiled_csc": ("tiled_csc", None),
+               "tiled_csc_chunk16": ("tiled_csc", 16),
+               "block_csr": ("block_csr", None)}
+
+
+def _prefill_splits(kernel: str, params, ms) -> dict:
+    """The K splits of the kernel's launch plan at each projection shape of
+    a layer and each row count in ``ms``."""
+    out = {}
+    for g in ("attn", "mlp"):
+        for name, w in params["layers"][0][g].items():
+            x = torch.empty((1, w.shape[0]), dtype=torch.bfloat16, device="cuda")
+            out[f"{g}.{name}"] = {
+                m: PLANS[kernel](x.expand(m, -1), w).splits for m in ms}
+    return out
+
+
+def phase_engine(run: str, cells: dict) -> dict:
+    """One engine run through ``serve.main --engine`` on a phase-4 cell's
+    packed weights, held against ``static_generate`` request by request."""
+    cell, chunk = ENGINE_RUNS[run]
+    kernel = CELLS[cell][2]
+    argv = ENGINE_ARGV + (["--prefill-chunk", str(chunk)] if chunk else [])
+    sl = cells[cell]
+    reset_counts()
+    summary = serve.main(argv, prepared=(sl["model"], sl["params"], sl["tokens"]))
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    trace, tokens = summary["trace"], summary["tokens"]
+    other = "block_matmul" if kernel == "sod_matmul" else "sod_matmul"
+    if not (launches[kernel] > 0 and launches[other] == 0
+            and launches["decompress"] == 0
+            and summary["kernel_launches"] == {kernel: launches[kernel], other: 0}):
+        raise AssertionError(f"engine {run}: launches {launches} (summary "
+                             f"{summary['kernel_launches']})")
+    if summary["completed"] != len(trace) or set(tokens) != {r.rid for r in trace}:
+        raise AssertionError(f"engine {run}: {summary['completed']} of "
+                             f"{len(trace)} requests completed")
+    if not summary["logits_finite"]:
+        raise AssertionError(f"engine {run}: non-finite logits")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for req in trace:
+            want = static_generate(sl["model"], sl["params"], req)
+            if tokens[req.rid] != want:
+                first = next(i for i, (a, b) in enumerate(zip(tokens[req.rid], want))
+                             if a != b)
+                raise AssertionError(
+                    f"engine {run}: request {req.rid} (prompt {len(req.tokens)}) "
+                    f"differs from static_generate at token {first}: "
+                    f"{tokens[req.rid]} vs {want}")
+    static_s = time.perf_counter() - t0
+    buckets = sorted({bucket_len(len(r.tokens), 16) for r in trace})
+    ms = sorted({1, 4, *([chunk] if chunk else buckets)})
+    row = {"phase": "engine", "run": run, "cell": cell, "prefill_chunk": chunk,
+           "launches": launches[kernel],
+           "bit_equal_to_static_generate": True, "static_generate_s": static_s,
+           "prompt_lens": [len(r.tokens) for r in trace],
+           "splits": _prefill_splits(kernel, sl["params"], ms),
+           **{k: summary[k] for k in (
+               "completed", "steps", "generated_tokens", "prefill_chunks",
+               "warmup_s", "steady_s", "steady_tok_per_s", "p50_latency_s",
+               "p99_latency_s", "ttft_p50_s", "ttft_p99_s", "tpot_p50_s",
+               "tpot_p99_s", "step_ms_p50", "step_ms_p99", "logits_finite")}}
+    log(row)
+    return row
+
+
+def phase_engine_profile(cells: dict) -> None:
+    """Device time and idle share of one steady engine step (tiled_csc,
+    fused prefill): the trace runs until every slot decodes, then one step
+    is profiled and the next eight are timed unprofiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sl = cells["tiled_csc"]
+    args = serve.parse_args(ENGINE_ARGV)
+    max_len = bucket_len(args.prompt_len, args.page_size,
+                         sl["model"].cfg.attn_chunk) + args.gen
+    eng = Engine(sl["model"], sl["params"], max_slots=4, page_size=16,
+                 max_len=max_len)
+    for r in poisson_trace(8, 0.5, max_prompt=64, max_new=16,
+                           vocab=sl["model"].cfg.vocab, seed=0):
+        # all admissible at once: 4 slots decode
+        eng.submit(dataclasses.replace(r, arrival=0))
+    with torch.inference_mode():
+        eng.warmup()
+        eng.step()                   # admits 4, each with its fused prefill
+        eng.step()
+        step_ms = []
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.step()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+    dev_us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA)
+    step = statistics.median(step_ms)
+    log({"phase": "engine_profile", "cell": "tiled_csc",
+         "what": "one engine step, 4 slots decoding, full width",
+         "step_ms_median_of_8": step,
+         "device_ms": dev_us / 1e3 if dev_us else "not measured",
+         "device_idle_share": (1 - dev_us / 1e3 / step) if dev_us else "not measured"})
+
+
 def _entry(name: str, qmode: str, kern: dict, launches: int) -> dict:
     """One kernel's line in one qmode: the seven projections of one layer
     (M = 4 at decode for the matmuls, and M = 128 at prefill beside it),
@@ -554,7 +702,7 @@ def _entry(name: str, qmode: str, kern: dict, launches: int) -> dict:
                 for (kn, q, k, n, t), row in kern["timed"].items()
                 if kn == name and q == qmode and t == tag]
         keys = ("kernel_ms", "plain_ms", "bound_ms") + (
-            () if name == "decompress" else ("library_ms",))
+            () if name == "decompress" and qmode != "none" else ("library_ms",))
         return rows, {key: sum(r[key] * c for r, c in rows) for key in keys}
 
     rows, total = layer("path" if name == "decompress" else "decode")
@@ -614,13 +762,20 @@ def main() -> None:
         sl = cells[cell]
         timed("profile", phase_profile, cell, sl["model"], sl["params"], sl["tokens"])
     timed("profile", phase_head, cells["tiled_csc"]["params"], 4)
+    engine = {run: timed(f"engine:{run}", phase_engine, run, cells)
+              for run in ENGINE_RUNS}
+    timed("engine_profile", phase_engine_profile, cells)
 
     entries = []
     for qmode in ("none", *QMODES):
         for name in ("sod_matmul", "block_matmul", "decompress"):
             launches, where = _launches_of(name, qmode, cells, kern)
-            entries.append({**_entry(name, qmode, kern, launches),
-                            "launches_in": where})
+            entry = {**_entry(name, qmode, kern, launches), "launches_in": where}
+            if qmode == "none":
+                entry["engine_launches"] = {run: row["launches"] for run, row in
+                                            engine.items()
+                                            if CELLS[row["cell"]][2] == name}
+            entries.append(entry)
     log({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     log(smi)
     log({"kernels": entries})

@@ -60,6 +60,8 @@ def plan_launch(m: int, kt: int, nt: int, bcap: int, br: int,
     macro tile, ``value_bytes`` per stored value, on a card of ``sms`` SMs
     (:func:`repro_torch.kernels.sod_matmul.ring_plan`, CTAS_PER_SM per SM).
     Cached: a model calls it with a handful of argument sets, every step.
+    The K splits are those of one M block, the same at every M and every
+    ``m_groups``, so a row's sums do not depend on the rows beside it.
 
     The M block ``bm`` is 4 rows (decode at batch 4), 8, or above 8 rows
     16, where a thread owns two columns and a CTA holds up to M_GROUPS
@@ -73,7 +75,7 @@ def plan_launch(m: int, kt: int, nt: int, bcap: int, br: int,
     bm = 4 if m <= 4 else 8 if m <= 8 else 16
     mg = max(1, min(M_GROUPS, -(-m // bm), MAX_THREADS // (bn // 2))) if bm == 16 else 1
     staged = 4 if bm == 16 else x_bytes
-    return ring_plan("block_matmul", bm, kt, nt * -(-m // (bm * mg)), sms,
+    return ring_plan("block_matmul", bm, kt, nt, sms,
                      bcap * br * bn * value_bytes + ids_stage_bytes(bcap),
                      bk * bm * mg * staged, per_tile=8, per_sm_max=CTAS_PER_SM,
                      m_groups=mg)

@@ -111,22 +111,27 @@ def ring_plan(name: str, bm: int, kt: int, ctas: int, sms: int, stage: int,
               x_tile: int, fixed: int = 0, per_tile: int = 0,
               per_sm_max: int = _CTAS_PER_SM, m_groups: int = 1) -> LaunchPlan:
     """The launch plan of a kernel with a ring of ``stage``-byte slabs in
-    shared memory: ``ctas`` CTAs before K is split, M block ``bm``, ``kt``
-    K tiles, ``x_tile`` bytes of staged x a K tile, and beside them
-    ``fixed`` bytes plus ``per_tile`` bytes a K tile of the split; a CTA
-    holds ``m_groups`` M blocks.
+    shared memory: ``ctas`` CTAs of one M block before K is split, M block
+    ``bm``, ``kt`` K tiles, ``x_tile`` bytes of staged x a K tile, and beside
+    them ``fixed`` bytes plus ``per_tile`` bytes a K tile of the split; a
+    CTA holds ``m_groups`` M blocks.
 
-    ``per_sm_max`` CTAs per SM are planned first, then fewer, down to one,
-    until two stages fit beside each other; the K splits follow from that
-    (:func:`pick_splits`).  x is staged for the whole split where that
-    leaves room for two stages, else a tile at a time; the ring then takes as
-    many stages as the split has tiles, up to what fits and MAX_STAGES, and
-    never fewer than 2.  Raises ValueError when even one CTA per SM cannot
-    hold two stages."""
+    The K splits come from ``ctas`` at ``per_sm_max`` CTAs per SM
+    (:func:`pick_splits`) and from nothing else: not from the count of M
+    blocks, nor from what fits.  A row's sums then run in one order whatever
+    other rows share the call (the kernels sum the splits in split order),
+    so a row computed alone equals the same row inside a prefill, which the
+    serving engine's equality with the static path needs.  The budget then
+    plans ``per_sm_max`` CTAs per SM first, then fewer, down to one, until
+    two stages fit beside each other.  x is staged for the whole split where
+    that leaves room for two stages, else a tile at a time; the ring then
+    takes as many stages as the split has tiles, up to what fits and
+    MAX_STAGES, and never fewer than 2.  Raises ValueError when even one CTA
+    per SM cannot hold two stages."""
+    splits = pick_splits(kt, ctas, sms, per_sm_max)
+    tiles = -(-kt // splits)
+    extra = fixed + per_tile * tiles
     for per_sm in range(per_sm_max, 0, -1):
-        splits = pick_splits(kt, ctas, sms, per_sm)
-        tiles = -(-kt // splits)
-        extra = fixed + per_tile * tiles
         budget = (min(SMEM_PER_BLOCK, SMEM_PER_SM // per_sm - SMEM_RESERVED)
                   - STATIC_SMEM - extra)
         x_tiles = tiles if budget - tiles * x_tile >= 2 * stage else 1
@@ -153,14 +158,15 @@ def plan_launch(m: int, kt: int, nt: int, cap: int, tile: tuple[int, int],
     (kt, nt)-tile operand of ``cap`` slots per tile column, ``value_bytes``
     per stored value, on a card of ``sms`` SMs (:func:`ring_plan`, two CTAs
     per SM).  Cached: a model calls it with a handful of argument sets,
-    every step.
+    every step.  The K splits are those of one M block, the same at every
+    M, so a row's sums do not depend on the rows beside it.
 
     A stage of the ring holds one tile's slab, ``cap * bn * (value_bytes +
     1)`` bytes; staging x takes ``bk * bm * x_bytes`` bytes a K tile, plus
     one zero row of ``bm * x_bytes``."""
     bk, bn = tile
     bm = m_block(m)
-    return ring_plan("sod_matmul", bm, kt, nt * -(-m // bm), sms,
+    return ring_plan("sod_matmul", bm, kt, nt, sms,
                      cap * bn * (value_bytes + 1), bk * bm * x_bytes,
                      fixed=bm * x_bytes)
 

@@ -24,3 +24,39 @@ def make_decode_step(model: LM):
         return logits.argmax(dim=-1), logits, cache
 
     return decode_step
+
+
+def make_prefill_full(model: LM):
+    """``(params, tokens) -> (logits (B, S, V), cache)``: every position's
+    logits.  The engine pads a prompt to a page-aligned bucket before the
+    fused prefill, so the last real token's logits sit at ``len - 1``, not
+    ``-1``; it takes that row itself."""
+    def prefill_full(params, tokens):
+        return model.apply(params, tokens, want_cache=True)
+
+    return prefill_full
+
+
+def make_chunked_prefill_step(model: LM):
+    """``(params, pool, block_tables, tokens, start, valid_len) -> (logits,
+    pool)``: one chunk of prompt prefill into the paged KV pool.  ``tokens``
+    (B, C) covers positions [start, start+C); logits of every chunk position
+    come back so the engine can take the last real prompt token's row."""
+    def chunked_prefill_step(params, pool, block_tables, tokens, start, valid_len):
+        return model.prefill_chunk(params, pool, block_tables, tokens, start,
+                                   valid_len)
+
+    return chunked_prefill_step
+
+
+def make_paged_decode_step(model: LM):
+    """``(params, pool, block_tables, tokens, pos, valid_len=None) ->
+    (greedy tokens (B, 1), logits, pool)``: a ragged decode step over the
+    paged KV pool, every engine slot at its own ``pos``; rows at or beyond
+    their ``valid_len`` write to the trash page."""
+    def paged_decode_step(params, pool, block_tables, tokens, pos, valid_len=None):
+        logits, pool = model.paged_decode_step(params, pool, block_tables,
+                                               tokens, pos, valid_len=valid_len)
+        return logits.argmax(dim=-1), logits, pool
+
+    return paged_decode_step

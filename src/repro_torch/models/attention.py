@@ -1,9 +1,21 @@
-"""GQA attention: chunked (flash-style) prefill + cached decode, plain torch.
+"""GQA attention: chunked (flash-style) prefill, cached decode and the paged
+variants of both, plain torch.
 
-Twin of :mod:`repro.models.attention` for the static serving path: the same
-online-softmax arithmetic, the same ``NEG_INF`` and the same masks, so the
-parity tests compare like with like.  The paged variants (continuous
-batching) are not ported yet.
+Twin of :mod:`repro.models.attention`: the same online-softmax arithmetic,
+the same ``NEG_INF`` and the same masks, so the parity tests compare like
+with like.  Decode takes a scalar position (the static serve path) or one
+position per row (the continuous-batching engine); the paged functions read
+and write a pool of fixed-size KV pages through per-row block tables.
+
+A row's output does not depend on the rows beside it or on the cache's
+length at the engine's shapes, which its equality with static serving
+needs: masked positions give exact zeros, and on the card torch's
+reductions and cuBLAS's einsums keep a row's bits between one row and four
+at decode, between a prompt and its page bucket, and between a whole prompt
+and its 16-row chunks at prefill (``scripts/serve_probe.py invariance``;
+``tests/test_torch_cuda.py`` holds it).  That is a property of the
+libraries at those shapes, not of the code.  The speculative verify path
+(``paged_verify_attention``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -142,12 +154,19 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # ---------------------------------------------------------------------------
 # cached decode
 # ---------------------------------------------------------------------------
-def _attend_cached(q, k_cache, v_cache, pos: int, spec: AttnSpec,
+def _decode_positions(pos, b: int, device: torch.device) -> torch.Tensor:
+    """(B, 1) RoPE positions from a scalar or per-row ``pos``."""
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        return pos.reshape(b, 1)
+    return torch.full((b, 1), int(pos), dtype=torch.int64, device=device)
+
+
+def _attend_cached(q, k_cache, v_cache, pos, spec: AttnSpec,
                    window: int | None):
     """One-token attention over a position-ordered KV cache.
 
-    q (B,1,H,hd); caches (B,L,KV,hd); keys beyond ``pos`` (or outside the
-    sliding window) are masked.
+    q (B,1,H,hd); caches (B,L,KV,hd); ``pos`` an int or a (B,) tensor.  Keys
+    beyond each row's ``pos`` (or outside its sliding window) are masked.
     """
     b = q.shape[0]
     s_max = k_cache.shape[1]
@@ -156,9 +175,15 @@ def _attend_cached(q, k_cache, v_cache, pos: int, spec: AttnSpec,
     qh = q.reshape(b, 1, kvh, g, spec.head_dim)
     scores = _block_scores(qh, k_cache, spec)   # (B,KV,G,1,Smax)
     k_pos = torch.arange(s_max, device=q.device)
-    mask = k_pos <= pos
-    if window is not None:
-        mask &= k_pos > pos - window
+    if isinstance(pos, torch.Tensor):           # (B,): a mask per row
+        mask = k_pos[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > pos[:, None] - window
+        mask = mask[:, None, None, None, :]
+    else:
+        mask = k_pos <= pos
+        if window is not None:
+            mask &= k_pos > pos - window
     scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p.to(v_cache.dtype).float(),
@@ -166,16 +191,129 @@ def _attend_cached(q, k_cache, v_cache, pos: int, spec: AttnSpec,
     return out.reshape(b, 1, spec.n_heads * spec.head_dim)
 
 
-def decode_attention(params: Params, x: torch.Tensor, cache: Params, pos: int,
+def decode_attention(params: Params, x: torch.Tensor, cache: Params, pos,
                      spec: AttnSpec, window: int | None = None):
-    """One decode step at scalar position ``pos``: write the new K/V into
-    ``cache`` (this layer's ``{"k", "v"}`` of shape (B, L, KV, hd), updated
-    in place — the reference returns a new cache) and attend to the prefix.
-    x (B, 1, D).  Returns (output (B, 1, D), cache)."""
+    """One decode step: write the new K/V into ``cache`` (this layer's
+    ``{"k", "v"}`` of shape (B, L, KV, hd), updated in place — the reference
+    returns a new cache) and attend to the prefix.  x (B, 1, D).
+
+    ``pos`` is an int (every row at the same position — the static serve
+    path) or a (B,) int64 tensor (ragged continuous batching: each row
+    writes its new KV at its own position and gets its own causal / window
+    mask).  Returns (output (B, 1, D), cache)."""
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q, k_new, v_new = _project_qkv(params, x, spec, positions)
-    cache["k"][:, pos] = k_new[:, 0]
-    cache["v"][:, pos] = v_new[:, 0]
+    q, k_new, v_new = _project_qkv(params, x, spec,
+                                   _decode_positions(pos, b, x.device))
+    if isinstance(pos, torch.Tensor):
+        rows = torch.arange(b, device=x.device)
+        cache["k"][rows, pos] = k_new[:, 0]
+        cache["v"][rows, pos] = v_new[:, 0]
+    else:
+        cache["k"][:, pos] = k_new[:, 0]
+        cache["v"][:, pos] = v_new[:, 0]
     out = _attend_cached(q, cache["k"], cache["v"], pos, spec, window)
     return sod.apply(out.to(x.dtype), params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool (continuous-batching engine)
+# ---------------------------------------------------------------------------
+def init_paged_pool(n_pages: int, page_size: int, spec: AttnSpec,
+                    dtype: torch.dtype, device: torch.device) -> Params:
+    """One layer's pool of fixed-size KV pages, ``{"k", "v"}`` of shape
+    (n_pages, page, KV, hd), shared by all running sequences.
+
+    Page 0 is the trash page: inactive engine slots point their whole block
+    table at it, so their (ignored) writes never touch a live sequence.  The
+    allocator (:class:`repro_torch.serving.pool.PagePool`) never hands it
+    out."""
+    shape = (n_pages, page_size, spec.n_kv_heads, spec.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _gather_pages(pool: Params, block_tables: torch.Tensor, spec: AttnSpec):
+    """Each row's pages in position order: (B, max_pages · page, KV, hd)."""
+    b = block_tables.shape[0]
+    shape = (b, -1, spec.n_kv_heads, spec.head_dim)
+    return pool["k"][block_tables].reshape(shape), pool["v"][block_tables].reshape(shape)
+
+
+def paged_prefill_attention(params: Params, x: torch.Tensor, pool: Params,
+                            block_tables: torch.Tensor, start: int, valid_len: int,
+                            spec: AttnSpec, window: int | None = None):
+    """Chunked-prefill attention: C prompt positions against the pool.
+
+    x (B, C, D) covers positions ``[start, start + C)``; ``pool`` is this
+    layer's ``{"k", "v"}`` (n_pages, page, KV, hd), updated in place;
+    ``block_tables`` (B, max_pages) int64.  The chunk's KV is scattered into
+    the pages its positions' block-table entries name (positions at or
+    beyond ``valid_len`` — final-chunk padding — go to the trash page, so
+    they never dirty a live page), then the table is gathered back
+    position-ordered and each query row attends under its own causal /
+    sliding-window mask in one :func:`_online_block` call: the arithmetic
+    of :func:`chunked_attention` for a prompt within one attention chunk,
+    where masked positions contribute exact zeros.  Returns (attention
+    output (B, C, H·hd) before ``wo``, pool)."""
+    b, c, _ = x.shape
+    dev = x.device
+    idx = start + torch.arange(c, device=dev)                 # (C,)
+    q, k_new, v_new = _project_qkv(params, x, spec, idx.expand(b, c))
+    page_size = pool["k"].shape[1]
+    kvh, hd = spec.n_kv_heads, spec.head_dim
+    g = spec.n_heads // kvh
+
+    page = block_tables.gather(1, (idx // page_size).expand(b, c))
+    page = torch.where((idx < valid_len)[None, :], page, 0)   # pad → trash
+    off = (idx % page_size).expand(b, c)
+    pool["k"][page.reshape(-1), off.reshape(-1)] = k_new.reshape(b * c, kvh, hd)
+    pool["v"][page.reshape(-1), off.reshape(-1)] = v_new.reshape(b * c, kvh, hd)
+    k_cache, v_cache = _gather_pages(pool, block_tables, spec)
+    s_max = k_cache.shape[1]
+
+    scores = _block_scores(q.reshape(b, c, kvh, g, hd), k_cache, spec)
+    k_pos = torch.arange(s_max, device=dev)
+    mask = k_pos[None, :] <= idx[:, None]
+    if window is not None:
+        mask &= k_pos[None, :] > idx[:, None] - window
+    init = (
+        torch.full((b, kvh, g, c), NEG_INF, dtype=torch.float32, device=dev),
+        torch.zeros((b, kvh, g, c), dtype=torch.float32, device=dev),
+        torch.zeros((b, kvh, g, c, hd), dtype=torch.float32, device=dev),
+    )
+    _, l, acc = _online_block(init, scores, v_cache, mask[None, None, None])
+    out = acc / torch.clamp(l, min=1e-30)[..., None]          # (B,KV,G,C,hd)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, c, spec.n_heads * hd)
+    return out.to(x.dtype), pool
+
+
+def paged_decode_attention(params: Params, x: torch.Tensor, pool: Params,
+                           block_tables: torch.Tensor, pos: torch.Tensor,
+                           spec: AttnSpec, window: int | None = None,
+                           valid_len: torch.Tensor | None = None):
+    """One decode step against the paged KV pool.
+
+    Row ``b``'s logical position ``p`` lives in page ``block_tables[b, p //
+    page]`` at offset ``p % page``; the new token's KV is written there (the
+    pool, this layer's (n_pages, page, KV, hd), is updated in place), then
+    the row's pages are gathered back into position order and attended with
+    the per-row mask of the dense vector-``pos`` path — so paged and dense
+    decode are bit-equal for equal cache contents.
+
+    ``pos`` and the optional ``valid_len`` are (B,) int64.  A row whose
+    ``pos`` is at or beyond its ``valid_len`` writes to the trash page: the
+    engine runs one batched step over decoding and prefilling or idle slots
+    (cutoff 0).  Reads are unaffected; the mask scopes each row to ``<= pos``.
+    Returns (output (B, 1, D), pool)."""
+    b = x.shape[0]
+    q, k_new, v_new = _project_qkv(params, x, spec, pos.reshape(b, 1))
+    page_size = pool["k"].shape[1]
+    page = block_tables.gather(1, (pos // page_size)[:, None])[:, 0]
+    if valid_len is not None:
+        page = torch.where(pos < valid_len, page, 0)          # overflow → trash
+    off = pos % page_size
+    pool["k"][page, off] = k_new[:, 0]
+    pool["v"][page, off] = v_new[:, 0]
+    k_cache, v_cache = _gather_pages(pool, block_tables, spec)
+    out = _attend_cached(q, k_cache, v_cache, pos, spec, window)
+    return sod.apply(out.to(x.dtype), params["wo"]), pool

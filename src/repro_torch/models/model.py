@@ -1,6 +1,7 @@
 """Model facade: init / prefill / decode over the attention-family decoder.
 
-Twin of :class:`repro.models.model.LM` for the static serving path.
+Twin of :class:`repro.models.model.LM` for the static serving path and the
+continuous-batching engine's paged decode and chunked prefill.
 """
 from __future__ import annotations
 
@@ -49,3 +50,30 @@ class LM:
     def grow_cache(self, cache: Params, new_len: int) -> Params:
         """Zero-pad the cache's sequence axis out to ``new_len``."""
         return cache_mod.grow_cache(cache, new_len)
+
+    # -- paged decode (continuous-batching engine) -----------------------------
+    def init_paged_pool(self, n_pages: int, page_size: int,
+                        device: torch.device | str) -> Params:
+        """Zeroed KV page pool (L, n_pages, page, KV, hd); page 0 is trash."""
+        return transformer.transformer_init_paged_pool(
+            self.cfg, n_pages, page_size, torch.device(device))
+
+    def paged_decode_step(self, params: Params, pool: Params,
+                          block_tables: torch.Tensor, tokens: torch.Tensor,
+                          pos: torch.Tensor, valid_len: torch.Tensor | None = None):
+        """Ragged decode step over the paged pool: tokens (B, 1), pos (B,),
+        block_tables (B, max_pages), optional per-row write cutoff
+        ``valid_len`` (B,), all int64.  Returns (logits, pool); the pool is
+        updated in place."""
+        return transformer.transformer_decode_paged(
+            params, pool, block_tables, tokens, pos, self.cfg,
+            valid_len=valid_len)
+
+    def prefill_chunk(self, params: Params, pool: Params,
+                      block_tables: torch.Tensor, tokens: torch.Tensor,
+                      start: int, valid_len: int):
+        """Chunked prefill against the paged pool: tokens (B, C) covering
+        prompt positions [start, start+C), zero-padded past ``valid_len``.
+        Returns (logits for all C positions, pool)."""
+        return transformer.transformer_prefill_chunk(
+            params, pool, block_tables, tokens, start, valid_len, self.cfg)

@@ -4,8 +4,13 @@ Twin of the ``TransformerLM`` functions of :mod:`repro.models.transformer`
 for the dense family with tied embeddings (llama).  Layers are a Python loop
 over per-layer parameter dicts — the reference's ``scan_layers=False``
 lowering — so every packed projection is one unstacked operand and runs the
-fused kernel.  MoE, the hybrid and xLSTM assemblies, the paged paths and the
-untied / soft-capped heads are not ported yet.
+fused kernel.  The paged functions serve the continuous-batching engine:
+its KV pool is ``{"k", "v"}`` of shape (L, n_pages, page, KV, hd) — layer,
+page id, offset in the page, KV head, head dim — where the reference stacks
+(G, P, n_pages, page, KV, hd); every layer indexes its pool with the same
+block tables.  The pool, like the static cache, is updated in place.  MoE,
+the hybrid and xLSTM assemblies, speculative verification and the untied /
+soft-capped heads are not ported yet.
 """
 from __future__ import annotations
 
@@ -94,15 +99,44 @@ def attn_block_full(bp: Params, x: torch.Tensor, cfg: ModelConfig,
     return x + layers.mlp(bp["mlp"], h2, cfg.act), (k, v)
 
 
-def attn_block_decode(bp: Params, x: torch.Tensor, cache: Params, pos: int,
-                      cfg: ModelConfig, window: int | None):
-    """One decode block over this layer's ``{"k", "v"}`` cache slice."""
+def attn_block_decode(bp: Params, x: torch.Tensor, cache: Params, pos,
+                      cfg: ModelConfig, window: int | None,
+                      block_tables: torch.Tensor | None = None,
+                      valid_len: torch.Tensor | None = None):
+    """One decode block.  ``cache`` is this layer's dense ``{"k", "v"}``
+    cache slice, or — when ``block_tables`` is given — its slice of the paged
+    KV pool; ``valid_len`` (paged only) is the per-row write cutoff of
+    :func:`repro_torch.models.attention.paged_decode_attention`."""
+    spec = attn_spec(cfg)
     h = layers.rms_norm(x, bp["norm1"], cfg.norm_eps)
-    ao, cache = attn.decode_attention(bp["attn"], h, cache, pos, attn_spec(cfg),
-                                      window=window)
+    if block_tables is None:
+        ao, cache = attn.decode_attention(bp["attn"], h, cache, pos, spec,
+                                          window=window)
+    else:
+        ao, cache = attn.paged_decode_attention(
+            bp["attn"], h, cache, block_tables, pos, spec, window=window,
+            valid_len=valid_len)
     x = x + ao
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
     return x + layers.mlp(bp["mlp"], h2, cfg.act), cache
+
+
+def attn_block_prefill_chunk(bp: Params, x: torch.Tensor, layer_pool: Params,
+                             block_tables: torch.Tensor, start: int,
+                             valid_len: int, cfg: ModelConfig,
+                             window: int | None):
+    """One block over a prefill chunk against the paged KV pool: the norm /
+    residual order of :func:`attn_block_full` with the full-sequence
+    attention replaced by
+    :func:`repro_torch.models.attention.paged_prefill_attention`, so a prompt
+    prefilled in chunks gives the tokens of one fused prefill."""
+    h = layers.rms_norm(x, bp["norm1"], cfg.norm_eps)
+    ao, layer_pool = attn.paged_prefill_attention(
+        bp["attn"], h, layer_pool, block_tables, start, valid_len,
+        attn_spec(cfg), window=window)
+    x = x + sod.apply(ao, bp["attn"]["wo"])
+    h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
+    return x + layers.mlp(bp["mlp"], h2, cfg.act), layer_pool
 
 
 # ---------------------------------------------------------------------------
@@ -164,3 +198,57 @@ def transformer_init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dt = dtype_of(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# paged decode / chunked prefill (continuous-batching engine)
+# ---------------------------------------------------------------------------
+def transformer_init_paged_pool(cfg: ModelConfig, n_pages: int, page_size: int,
+                                device: torch.device) -> Params:
+    """Zeroed per-layer KV page pools, ``{"k", "v"}`` of shape
+    (L, n_pages, page, KV, hd) in the working dtype.  A sequence's logical
+    block j lives at one page id in every layer, so the engine keeps a
+    single (slots, max_pages) block table."""
+    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    dt = dtype_of(cfg)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _layer_pool(pool: Params, i: int) -> Params:
+    return {"k": pool["k"][i], "v": pool["v"][i]}     # views into the pool
+
+
+def transformer_decode_paged(params: Params, pool: Params,
+                             block_tables: torch.Tensor, tokens: torch.Tensor,
+                             pos: torch.Tensor, cfg: ModelConfig,
+                             valid_len: torch.Tensor | None = None):
+    """One ragged decode step over the paged KV pool: tokens (B, 1), ``pos``
+    (B,) — one position per engine slot — and block tables (B, max_pages),
+    all int64.  ``valid_len`` (optional, (B,)) gates each row's KV write:
+    rows at or beyond their cutoff write to the trash page.  Returns
+    (logits (B, 1, V), pool); the pool is updated in place."""
+    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    for i, bp in enumerate(params["layers"]):
+        x, _ = attn_block_decode(bp, x, _layer_pool(pool, i), pos, cfg,
+                                 cfg.window_for(i), block_tables=block_tables,
+                                 valid_len=valid_len)
+    return project_logits(params, x, cfg), pool
+
+
+def transformer_prefill_chunk(params: Params, pool: Params,
+                              block_tables: torch.Tensor, tokens: torch.Tensor,
+                              start: int, valid_len: int, cfg: ModelConfig):
+    """Prefill one fixed-size chunk of a prompt into the paged KV pool.
+
+    ``tokens`` (B, C) — the engine admits one sequence at a time, B = 1 —
+    covers prompt positions ``[start, start + C)``, zero-padded past
+    ``valid_len`` (pad KV goes to the trash page).  Returns (logits for all
+    C positions (B, C, V), pool); the engine takes the last real prompt
+    position's row for the sequence's first token."""
+    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    for i, bp in enumerate(params["layers"]):
+        x, _ = attn_block_prefill_chunk(bp, x, _layer_pool(pool, i),
+                                        block_tables, start, valid_len, cfg,
+                                        cfg.window_for(i))
+    return project_logits(params, x, cfg), pool

@@ -562,3 +562,131 @@ def test_mixed_dtype_packed_on_card(cuda, fmt, x_dtype, w_dtype):
     yr = (x.float() @ p.to_dense().float()).to(x_dtype)
     tol = TOL[torch.bfloat16] * yr.float().abs().max().item()
     assert (y.float() - yr.float()).abs().max().item() <= tol
+
+
+# ---------------------------------------------------------------------------
+# row invariance: a row's sums do not depend on the rows beside it, which the
+# engine's equality with static serving needs (its decode runs max_slots rows,
+# its prefill a bucket or a chunk of a prompt, static serving one request)
+# ---------------------------------------------------------------------------
+INVARIANT_M = (4, 8, 16, 40, 64, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+@pytest.mark.parametrize("kernel", ["sod_matmul", "block_matmul"])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)])
+def test_row_alone_equals_row_in_batch(cuda, k, n, kernel, qmode):
+    """One row of x computed alone equals the same row inside M rows, bit
+    for bit, for every M of INVARIANT_M: at the path's projection shapes, in
+    every qmode, in bf16."""
+    make = _case if kernel == "sod_matmul" else _block_case
+    fn = sm.sod_matmul if kernel == "sod_matmul" else bmm.block_matmul
+    x, p = make(cuda, k, n, max(INVARIANT_M), torch.bfloat16)
+    q = _operand(p, qmode)
+    outs = {m: fn(x[:m].contiguous(), q) for m in INVARIANT_M}
+    for row in (0, 3, 37, 127):
+        alone = fn(x[row:row + 1].contiguous(), q)
+        for m, y in outs.items():
+            if row < m:
+                assert torch.equal(y[row], alone[0]), (row, m)
+
+
+@pytest.mark.cuda
+def test_norm_and_attention_rows_invariant_on_card(cuda):
+    """At the shapes the engine compares with static serving, in bf16 at
+    full width's head geometry: RMSNorm and cached decode attention give a
+    row alone (static decode) the bits of that row among 4 (the engine's
+    slots) over a longer cache (its pages), and RMSNorm gives a prompt's
+    rows the same bits at the prompt's length, its page bucket and its
+    16-row chunks.  torch's reductions and cuBLAS hold this at these
+    shapes; the model does nothing else to hold it."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    x = torch.randn(64, 2048, generator=g, device=cuda).bfloat16()
+    gain = torch.randn(2048, generator=g, device=cuda) * 0.1
+    four = layers.rms_norm(x[:4], gain)
+    for row in range(4):
+        assert torch.equal(layers.rms_norm(x[row:row + 1], gain)[0], four[row])
+    prompt = layers.rms_norm(x[:40], gain)
+    assert torch.equal(layers.rms_norm(x[:48], gain)[:40], prompt)
+    for start in (0, 16, 32):
+        chunk = layers.rms_norm(x[start:start + 16], gain)
+        assert torch.equal(chunk[:min(16, 40 - start)], prompt[start:start + 16])
+    spec = attn.AttnSpec(n_heads=32, n_kv_heads=8, head_dim=64)
+    k = torch.randn(4, 80, 8, 64, generator=g, device=cuda).bfloat16()
+    v = torch.randn(4, 80, 8, 64, generator=g, device=cuda).bfloat16()
+    q = torch.randn(4, 1, 32, 64, generator=g, device=cuda).bfloat16()
+    pos = torch.tensor([40, 51, 63, 70], device=cuda)
+    batch = attn._attend_cached(q, k, v, pos, spec, None)
+    for row in range(4):
+        p = int(pos[row])
+        alone = attn._attend_cached(q[row:row + 1], k[row:row + 1, :p + 9],
+                                    v[row:row + 1, :p + 9], p, spec, None)
+        assert torch.equal(batch[row], alone[0])
+
+
+@pytest.mark.cuda
+def test_prefill_rows_equal_across_bucket_and_chunks_on_card(cuda):
+    """At full width's head geometry in bf16: a 40-token prompt's attention
+    rows are the same bits attended alone, padded to its 48-token page
+    bucket, and chunk by chunk (16 tokens) through the pool.  The
+    projections see small multiples of 1/4, so their sums are exact and
+    any difference would be the attention's."""
+    from repro_torch.models import attention as attn
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(8)
+
+    def grid(*shape):
+        return (torch.randint(-2, 3, shape, generator=g, device=cuda) / 4).bfloat16()
+
+    spec = attn.AttnSpec(n_heads=32, n_kv_heads=8, head_dim=64)
+    d, plen, c = 256, 40, 16
+    tp = {"wq": grid(d, 2048), "wk": grid(d, 512), "wv": grid(d, 512),
+          "wo": grid(2048, d)}
+    x = grid(1, 48, d)
+    q, k, v = attn._project_qkv(tp, x, spec, torch.arange(48, device=cuda)[None])
+    bare = attn.chunked_attention(q[:, :plen], k[:, :plen], v[:, :plen], spec)
+    assert torch.equal(attn.chunked_attention(q, k, v, spec)[:, :plen], bare)
+    pool = attn.init_paged_pool(7, 16, spec, torch.bfloat16, torch.device(cuda))
+    table = torch.tensor([[3, 5, 1, 6, 2]], device=cuda)
+    for start in range(0, plen, c):
+        out, pool = attn.paged_prefill_attention(tp, x[:, start:start + c], pool,
+                                                 table, start, plen, spec)
+        n = min(c, plen - start)
+        assert torch.equal(out[:, :n], bare[:, start:start + n].reshape(1, n, -1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [None, 16])
+@pytest.mark.parametrize("fmt", ["tiled_csc", "block_csr"])
+def test_engine_matches_static_generate_on_card(cuda, fmt, chunk):
+    """The reduced llama in bf16 on the card: a ragged trace through the
+    engine gives static serving's tokens bit for bit, through the cell's
+    kernel."""
+    from repro_torch import configs
+    from repro_torch.core.sod import SoDConfig, sodify_params
+    from repro_torch.models.model import LM
+    from repro_torch.serving import Engine, poisson_trace, static_generate
+
+    cfg = configs.reduced(configs.get_config("llama3.2-1b")).with_(
+        sod=SoDConfig(mode=fmt, density=0.3, min_dim=64,
+                      prune_method="block" if fmt == "block_csr" else "magnitude"))
+    model = LM(cfg)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    params = sodify_params(model.init(gen, cuda), cfg.sod)
+    trace = poisson_trace(6, 0.5, max_prompt=48, max_new=10, vocab=cfg.vocab, seed=0)
+    counter = sm if fmt == "tiled_csc" else bmm
+    with torch.inference_mode():
+        counter.launches = 0
+        res = Engine(model, params, max_slots=4, page_size=16, max_len=64,
+                     prefill_chunk=chunk).run(trace)
+        assert counter.launches > 0
+        assert res["stats"]["completed"] == len(trace)
+        for req in trace:
+            assert res["tokens"][req.rid] == static_generate(model, params, req)

@@ -1,4 +1,4 @@
-"""The port, chip_smoke.py and the port's probe script import neither JAX
+"""The port, chip_smoke.py and the port's probe scripts import neither JAX
 nor the JAX package."""
 import ast
 import os
@@ -10,7 +10,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "sod_matmul_probe.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "sod_matmul_probe.py",
+    ROOT / "scripts" / "serve_probe.py"]
 
 
 def _forbidden(module: str) -> bool:
@@ -39,7 +40,8 @@ def test_forbidden_rule_tells_repro_torch_apart():
 
 
 def test_importing_the_serve_path_loads_no_jax():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.interop; "
+    code = ("import sys, repro_torch.launch.serve, repro_torch.interop, "
+            "repro_torch.serving, repro_torch.obs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")

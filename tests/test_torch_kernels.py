@@ -174,8 +174,8 @@ def test_launch_plan_fits_the_smem_budget(kn, qmode, act_dtype):
             plan = sm.plan_launch(m, kt, nt, cap, tile, vb, xb, 132)
             tiles = -(-kt // plan.splits)
             assert plan.bm == (4 if m <= 4 else 8 if m <= 8 else 32)
-            assert plan.splits == sm.pick_splits(kt, nt * -(-m // plan.bm), 132,
-                                                 plan.ctas_per_sm)
+            # the splits of one M block at two CTAs per SM, whatever M is
+            assert plan.splits == sm.pick_splits(kt, nt, 132, 2)
             assert 2 <= plan.stages <= sm.MAX_STAGES
             assert plan.x_tiles in (1, tiles)
             assert plan.smem_bytes == (plan.stages * cap * bn * (vb + 1)
@@ -294,8 +294,8 @@ def test_block_launch_plan_fits_the_smem_budget(kn, qmode, act_dtype):
             rows = plan.bm * plan.m_groups
             assert plan.bm == (4 if m <= 4 else 8 if m <= 8 else 16)
             assert plan.m_groups == (min(bmm.M_GROUPS, -(-m // plan.bm)) if m > 8 else 1)
-            assert plan.splits == sm.pick_splits(kt, nt * -(-m // rows), 132,
-                                                 plan.ctas_per_sm)
+            # the splits of one M block at CTAS_PER_SM, whatever M is
+            assert plan.splits == sm.pick_splits(kt, nt, 132, bmm.CTAS_PER_SM)
             assert (plan.splits - 1) * tiles < kt      # the last split starts inside K
             assert 2 <= plan.stages <= sm.MAX_STAGES
             assert plan.x_tiles in (1, tiles)
