@@ -49,6 +49,22 @@ Phases, each of which raises on failure (so the script exits non-zero):
    logits finite; it prints throughput, warmup, latency, wall ms a step and
    the launch plans' K splits at the prefill shapes.  One steady engine
    step of the first run is profiled for its device time and idle share.
+   Four more runs drive the engine's other stages, each on the same packed
+   weights with 16-token pages, 4 slots and ``max_len`` 80 (FEATURE_RUNS):
+   ``tiled_csc_stress`` (preemption with page swapping and prefix sharing on
+   a shared-prefix trace and a pool of 8 pages), ``tiled_csc_spec2``
+   (``serve --engine --spec-decode 2 --draft-sparsity 0.88``: a draft of the
+   same raw weights at density 0.12), ``block_csr_stress_spec`` (every
+   feature at once, a block-pruned ``block_csr`` draft at 0.12, a starved
+   pool) and ``tiled_csc_cache`` (two identical epochs of a repeated prompt
+   through the prefix cache: a 3-page budget and a disk directory).  Each
+   holds every request's tokens against ``static_generate`` bit for bit,
+   its kernel launched (both tiers counted apart) and the other not, finite
+   logits, a clean pool afterwards and its features' counters (preemptions
+   of the youngest decoding sequence, swap-ins, shared pages, spec windows,
+   rollbacks, no fresh prompt page in epoch 2, disk demotions, the cache-off
+   run's tokens).  Last, one spec window (3 draft decode steps and the
+   verify) is profiled beside 3 plain decode steps.
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
@@ -56,13 +72,16 @@ kernel and qmode), and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
 import re
 import statistics
 import subprocess
+import shutil
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -81,8 +100,10 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import decompress as dk  # noqa: E402
 from repro_torch.kernels import sod_matmul as sm  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.serving import (Engine, bucket_len, poisson_trace,  # noqa: E402
-                                 static_generate)
+                                 repeated_prompt_trace, shared_prefix_trace,
+                                 static_generate, stress_spec_trace)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -693,6 +714,296 @@ def phase_engine_profile(cells: dict) -> None:
          "device_idle_share": (1 - dev_us / 1e3 / step) if dev_us else "not measured"})
 
 
+# run -> (phase-4 cell whose packed weights are the target, the engine's
+# features, its pool's pages (None: room for every slot))
+FEATURE_RUNS = {
+    "tiled_csc_stress": ("tiled_csc", dict(prefill_chunk=16, preemption=True,
+                                           prefix_sharing=True), 8),
+    "tiled_csc_spec2": ("tiled_csc", dict(spec_k=2), None),
+    "block_csr_stress_spec": ("block_csr", dict(prefill_chunk=16, preemption=True,
+                                                prefix_sharing=True, spec_k=2), 11),
+    "tiled_csc_cache": ("tiled_csc", dict(prefill_chunk=16, prefix_sharing=True),
+                        None),
+}
+DRAFT_SPARSITY = 0.88         # the draft tier keeps 0.12 of the raw weights
+SPEC_ARGV = ENGINE_ARGV + ["--spec-decode", "2", "--draft-sparsity", str(DRAFT_SPARSITY)]
+CACHE_BUDGET_PAGES = 3
+STEP_BUILDERS = ("make_paged_decode_step", "make_prefill_full",
+                 "make_chunked_prefill_step", "make_verify_step")
+
+
+def _matmul_launches() -> int:
+    return sm.launches + bmm.launches
+
+
+@contextlib.contextmanager
+def _engine_probe(target_params):
+    """While open, every engine built counts the matmul launches of its steps
+    by tier (the target's weights or any other: the draft's), and the
+    engines ``serve.main`` builds are kept."""
+    seen = {"target": 0, "draft": 0, "engines": []}
+    builders = {name: getattr(steps_mod, name) for name in STEP_BUILDERS}
+    serve_engine = serve.Engine
+
+    def counted(build):
+        def make(model):
+            step = build(model)
+
+            def run(params, *a, **kw):
+                n0 = _matmul_launches()
+                out = step(params, *a, **kw)
+                tier = "target" if params is target_params else "draft"
+                seen[tier] += _matmul_launches() - n0
+                return out
+            return run
+        return make
+
+    def keep(*a, **kw):
+        eng = serve_engine(*a, **kw)
+        seen["engines"].append(eng)
+        return eng
+
+    for name, build in builders.items():
+        setattr(steps_mod, name, counted(build))
+    serve.Engine = keep
+    try:
+        yield seen
+    finally:
+        for name, build in builders.items():
+            setattr(steps_mod, name, build)
+        serve.Engine = serve_engine
+
+
+def _youngest_first(eng, log: list) -> None:
+    """Record, at each preemption, whether the victim is the youngest
+    decoding sequence (the scheduler's rule)."""
+    preempt = eng._preempt
+
+    def check(seq):
+        decoding = [s for s in eng.sched.active.values() if not s.is_prefilling]
+        log.append(seq is max(decoding, key=lambda s: s.req.priority))
+        preempt(seq)
+    eng._preempt = check
+
+
+def _page_bytes(model) -> int:
+    """KV bytes of one page across every layer (the prefix cache's unit)."""
+    k = model.init_paged_pool(1, 16, "cuda")["k"]
+    return 2 * k.numel() * k.element_size()
+
+
+def _check_tokens(run: str, model, params, trace, tokens) -> float:
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for req in trace:
+            want = static_generate(model, params, req)
+            if tokens[req.rid] != want:
+                first = next(i for i, (a, b) in enumerate(zip(tokens[req.rid], want))
+                             if a != b)
+                raise AssertionError(
+                    f"engine {run}: request {req.rid} (prompt {len(req.tokens)}) "
+                    f"differs from static_generate at token {first}: "
+                    f"{tokens[req.rid]} vs {want}")
+    return time.perf_counter() - t0
+
+
+def feature_run(run: str, cells: dict, drafts: dict) -> dict:
+    """One run of FEATURE_RUNS on a phase-4 cell's packed weights (the
+    draft tiers in ``drafts`` by cell): the engine, its trace, tokens and
+    stats, the kernels' launches by tier, and what the run's gates read."""
+    cell, features, n_pages = FEATURE_RUNS[run]
+    sl = cells[cell]
+    model, params = sl["model"], sl["params"]
+    vocab = model.cfg.vocab
+    victims: list[bool] = []
+    extra = {}
+    reset_counts()
+    with _engine_probe(params) as seen, torch.inference_mode():
+        if run == "tiled_csc_spec2":
+            summary = serve.main(SPEC_ARGV, prepared=(model, params, sl["tokens"]))
+            (eng,) = seen["engines"]
+            trace, tokens, stats = summary["trace"], summary["tokens"], dict(eng.stats)
+            extra = {k: summary[k] for k in ("draft_density", "draft_bytes")}
+        elif run == "tiled_csc_cache":
+            cache_dir = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+            eng = Engine(model, params, max_slots=4, page_size=16, max_len=80,
+                         prefix_cache_budget=CACHE_BUDGET_PAGES * _page_bytes(model),
+                         prefix_cache_dir=cache_dir, **features)
+            epochs = [repeated_prompt_trace(4, prefix_len=32, suffix_len=16, max_new=8,
+                                            vocab=vocab, page_size=16, rid_base=base)
+                      for base in (0, 4)]
+            fresh1 = eng.run(epochs[0])["stats"]["prompt_pages_fresh"]
+            res = eng.run(epochs[1])
+            trace, tokens, stats = epochs[0] + epochs[1], res["tokens"], res["stats"]
+            eng.flush_prefix_cache()
+            shutil.rmtree(cache_dir)
+            extra = {"epoch1_fresh_pages": fresh1,
+                     "epoch2_fresh_pages": stats["prompt_pages_fresh"] - fresh1}
+        else:
+            draft = drafts[cell] if features.get("spec_k") else None
+            eng = Engine(model, params, max_slots=4, page_size=16, max_len=80,
+                         n_pages=n_pages, draft_params=draft, **features)
+            _youngest_first(eng, victims)
+            trace = (shared_prefix_trace(8, prefix_len=32, max_prompt=64, max_new=16,
+                                         vocab=vocab, seed=0, arrival_gap=2)
+                     if run == "tiled_csc_stress" else
+                     stress_spec_trace(8, prefix_len=32, max_prompt=64, max_new=16,
+                                       vocab=vocab, seed=0, burst=2, rate=0.3))
+            res = eng.run(trace)
+            tokens, stats = res["tokens"], res["stats"]
+    return {"eng": eng, "trace": trace, "tokens": tokens, "stats": stats,
+            "seen": seen, "victims": victims, "extra": extra,
+            "launches": {name: mod.launches for name, mod in COUNTERS.items()}}
+
+
+def phase_feature(run: str, cells: dict, drafts: dict) -> dict:
+    """One run of the engine's other stages (:func:`feature_run`), held
+    against ``static_generate`` request by request, with its features'
+    gates."""
+    cell, features, _ = FEATURE_RUNS[run]
+    kernel = CELLS[cell][2]
+    other = "block_matmul" if kernel == "sod_matmul" else "sod_matmul"
+    model, params = cells[cell]["model"], cells[cell]["params"]
+    out = feature_run(run, cells, drafts)
+    eng, trace, tokens, stats = out["eng"], out["trace"], out["tokens"], out["stats"]
+    seen, victims, extra, launches = (out["seen"], out["victims"], out["extra"],
+                                      out["launches"])
+    if not (launches[kernel] > 0 and launches[other] == 0
+            and launches["decompress"] == 0
+            and seen["target"] + seen["draft"] == launches[kernel]):
+        raise AssertionError(f"engine {run}: launches {launches}, by tier {seen}")
+    if stats["completed"] != len(trace) or set(tokens) != {r.rid for r in trace}:
+        raise AssertionError(f"engine {run}: {stats['completed']} of {len(trace)} "
+                             "requests completed")
+    if not stats["logits_finite"]:
+        raise AssertionError(f"engine {run}: non-finite logits")
+    pool = eng.page_pool
+    if (pool.free_count != pool.n_pages - 1 or pool.allocated
+            or (eng.trie is not None and len(eng.trie))):
+        raise AssertionError(f"engine {run}: pool not clean: {pool.free_count} of "
+                             f"{pool.n_pages - 1} free")
+    if run == "tiled_csc_cache":      # the same two epochs with the cache off
+        with torch.inference_mode():
+            off = Engine(model, params, max_slots=4, page_size=16, max_len=80,
+                         **features).run(trace)["tokens"]
+        extra["equals_cache_off"] = tokens == off
+    gates = {
+        "tiled_csc_stress": (stats["preemptions"] >= 1 and stats["swapped_in_pages"] >= 1
+                             and stats["shared_prompt_pages"] >= 1 and all(victims)),
+        "tiled_csc_spec2": stats["spec_windows"] >= 1 and seen["draft"] > 0,
+        "block_csr_stress_spec": (stats["preemptions"] >= 1 and stats["spec_rollbacks"] >= 1
+                                  and all(victims) and seen["draft"] > 0),
+        "tiled_csc_cache": (extra.get("epoch2_fresh_pages") == 0
+                            and stats["prefix_demotions_disk"] >= 1
+                            and extra.get("equals_cache_off")),
+    }
+    static_s = _check_tokens(run, model, params, trace, tokens)
+    row = {"phase": "engine", "run": run, "cell": cell, "n_pages": pool.n_pages,
+           "features": features, "launches": launches[kernel],
+           "launches_by_tier": {"target": seen["target"], "draft": seen["draft"]},
+           "bit_equal_to_static_generate": True, "static_generate_s": static_s,
+           "youngest_decoding_evicted_first": victims, **extra,
+           **{k: stats[k] for k in (
+               "completed", "steps", "generated_tokens", "tokens_per_step",
+               "acceptance_rate", "warmup_s", "steady_s", "steady_tok_per_s",
+               "p50_latency_s", "p99_latency_s", "step_ms_p50", "step_ms_p99",
+               "logits_finite")},
+           "counters": {k: v for k, v in stats.items() if isinstance(v, int)
+                        and not isinstance(v, bool) and k not in ("steps", "completed",
+                                                                  "generated_tokens")}}
+    if run in ("tiled_csc_stress", "block_csr_stress_spec"):
+        row["preempt_log"] = eng.preempt_log
+    log(row)
+    if not gates[run]:
+        raise AssertionError(f"engine {run}: a feature gate failed: {row}")
+    return row
+
+
+def _device_ms(fn) -> float:
+    """Device ms of one call of ``fn`` under ``torch.profiler`` (after one
+    call unprofiled)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / 1e3
+
+
+def _wall_ms(fn, reps: int = 5) -> float:
+    """Median wall ms of ``fn`` with the card synchronized around each call
+    (host enqueue and device time together)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_spec_profile(cells: dict, draft) -> None:
+    """Device time of one spec window (k = 2: the k + 1 draft decode steps
+    the engine runs, then the verify pass) beside k + 1 plain decode steps,
+    tiled_csc, 4 slots decoding at the same positions; and one whole engine
+    step that runs a window: its device time against the unprofiled wall
+    time of the step before it (the idle share)."""
+    sl = cells["tiled_csc"]
+    model, params = sl["model"], sl["params"]
+    k = 2
+    eng = Engine(model, params, max_slots=4, page_size=16, max_len=80, spec_k=k,
+                 draft_params=draft)
+    for r in poisson_trace(4, 0.5, max_prompt=64, max_new=16,
+                           vocab=model.cfg.vocab, seed=0):
+        eng.submit(dataclasses.replace(r, arrival=0, max_new=16))
+    with torch.inference_mode():
+        eng.warmup()
+        eng.step()                   # admits 4 (fused prefills) and a window
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        step_wall = (time.perf_counter() - t0) * 1e3
+        step_dev = _device_ms(eng.step)
+        if len(eng.sched.active) != 4:
+            raise AssertionError("spec profile: not every slot is still decoding")
+        bt, tok, pos, valid = eng._decode_inputs(eng._valid_lens())
+
+        def draft_steps():
+            d = tok
+            for j in range(k + 1):
+                d = eng._decode(eng.draft_params, eng.draft_pool, bt, d, pos + j,
+                                valid)[0].reshape(4, 1)
+
+        window = torch.cat([tok, tok.expand(4, k)], 1)
+
+        def verify():
+            eng._verify(params, eng.pool, bt, window, pos, valid)
+
+        def plain_steps():
+            for j in range(k + 1):
+                eng._decode(params, eng.pool, bt, tok, pos + j, valid)
+
+        draft_ms, verify_ms, plain_ms = map(_device_ms, (draft_steps, verify, plain_steps))
+        wall = {name: _wall_ms(fn) for name, fn in (
+            ("draft_steps", draft_steps), ("verify", verify), ("plain_decode_steps",
+                                                                plain_steps))}
+    log({"phase": "spec_profile", "cell": "tiled_csc", "k": k,
+         "what": "4 slots decoding, full width; device ms from torch.profiler, "
+                 "wall ms synchronized (median of 5)",
+         "draft_steps_ms": draft_ms, "verify_ms": verify_ms,
+         "window_ms": draft_ms + verify_ms, "plain_decode_steps_ms": plain_ms,
+         "wall_ms": wall,
+         "engine_step_device_ms": step_dev, "engine_step_wall_ms": step_wall,
+         "engine_step_idle_share": (1 - step_dev / step_wall) if step_dev else
+         "not measured"})
+
+
 def _entry(name: str, qmode: str, kern: dict, launches: int) -> dict:
     """One kernel's line in one qmode: the seven projections of one layer
     (M = 4 at decode for the matmuls, and M = 128 at prefill beside it),
@@ -765,6 +1076,13 @@ def main() -> None:
     engine = {run: timed(f"engine:{run}", phase_engine, run, cells)
               for run in ENGINE_RUNS}
     timed("engine_profile", phase_engine_profile, cells)
+    spec_args = serve.parse_args(SPEC_ARGV)
+    drafts = {cell: serve.prepare_draft(spec_args, cells[cell]["model"])
+              for cell in ("tiled_csc", "block_csr")}
+    engine.update({run: timed(f"engine:{run}", phase_feature, run, cells, drafts)
+                   for run in FEATURE_RUNS})
+    timed("spec_profile", phase_spec_profile, cells, drafts["tiled_csc"])
+    del drafts
 
     entries = []
     for qmode in ("none", *QMODES):

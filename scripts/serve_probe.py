@@ -30,9 +30,13 @@ bf16 with seeded random weights, as in ``chip_smoke.py``.
   cache's length (RMSNorm of a row alone against inside 4 rows; decode
   attention at batch 1 over ``plen + 16`` positions against batch 4 over
   80; prefill attention over the prompt against its page bucket and
-  against 16-row chunks over 80 pool positions), and (2) ``chip_smoke.py``'s
-  three engine runs against ``static_generate``: the requests whose tokens
-  differ.
+  against 16-row chunks over 80 pool positions; the verify pass of k + 1
+  positions against k + 1 sequential decode steps, k in {2, 4}, 4 slots,
+  full width's attention layer with packed weights, with the reference's
+  batched core and with the kept one, and RMSNorm at 4·(k + 1) rows at once
+  against 4), and (2) ``chip_smoke.py``'s engine runs
+  (``ENGINE_RUNS`` and ``FEATURE_RUNS``) against ``static_generate``: the
+  requests whose tokens differ.
 
 Prints one JSON line per measurement, the ``nvidia-smi`` name and power
 limit, and last ``{"ok": true}``.
@@ -212,6 +216,98 @@ def invariance_unit(torch) -> None:
     log({"what": "prefill attention, prompt vs page bucket and vs 16-row "
                  "chunks over 80 positions", "rows": n,
          "rows_that_differ_bucket": d_bucket, "rows_that_differ_chunks": d_chunk})
+    invariance_verify(torch, g, spec)
+
+
+def _verify_batched(torch, tp, x, pool, tables, start, spec):
+    """The verify pass with the reference's core: one softmax and value
+    einsum over all C query rows (the form the port tried first)."""
+    from repro_torch.core import sod
+    from repro_torch.models import attention as attn
+
+    b, c, _ = x.shape
+    idx = start[:, None] + torch.arange(c, device=x.device)[None, :]
+    q, k_new, v_new = attn._project_qkv(tp, x, spec, idx)
+    page, off = tables.gather(1, idx // 16), idx % 16
+    pool["k"][page.reshape(-1), off.reshape(-1)] = k_new.reshape(b * c, 8, 64)
+    pool["v"][page.reshape(-1), off.reshape(-1)] = v_new.reshape(b * c, 8, 64)
+    k_cache, v_cache = attn._gather_pages(pool, tables, spec)
+    scores = attn._block_scores(q.reshape(b, c, 8, 4, 64), k_cache, spec)
+    mask = torch.arange(k_cache.shape[1], device=x.device)[None, None] <= idx[..., None]
+    p = torch.softmax(torch.where(mask[:, None, None], scores, attn.NEG_INF), dim=-1)
+    out = torch.einsum("bkgqc,bckh->bqkgh", p.to(v_cache.dtype).float(), v_cache.float())
+    return sod.apply(out.reshape(b, c, -1).to(x.dtype), tp["wo"])
+
+
+def invariance_verify(torch, g, spec) -> None:
+    """Rows of a verify pass (k + 1 positions a slot) that differ from k + 1
+    sequential ``paged_decode_attention`` steps, at full width's attention
+    layer with tiled_csc-packed bf16 weights (the matmul kernels are
+    row-invariant, so a differing row is the attention core's): the
+    reference's batched core and the kept ``paged_verify_attention`` (the
+    decode core once a position); and RMSNorm rows at the verify pass's
+    4·(k + 1) rows at once against 4 at a time."""
+    from repro_torch.core.sod import SoDConfig, pack_param
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers
+
+    cfg = SoDConfig(mode="tiled_csc", density=0.3, min_dim=64)
+    tp = {name: pack_param((torch.randn(*kn, generator=g, device="cuda")
+                            * 2048 ** -0.5).bfloat16(), cfg)
+          for name, kn in (("wq", (2048, 2048)), ("wk", (2048, 512)),
+                           ("wv", (2048, 512)), ("wo", (2048, 2048)))}
+    gain = torch.randn(2048, generator=g, device="cuda") * 0.1
+    for k in (2, 4):
+        c, n = k + 1, 0
+        differ = {"batched": 0, "kept": 0, "norm_at_once": 0}
+        pools_differ = 0
+        for _ in range(16):
+            pool = {name: torch.randn(25, 16, 8, 64, generator=g,
+                                      device="cuda").bfloat16() for name in ("k", "v")}
+            tables = torch.randperm(24, generator=g, device="cuda").reshape(4, 6) + 1
+            start = torch.randint(32, 80 - c, (4,), generator=g, device="cuda")
+            x = torch.randn(4, c, 2048, generator=g, device="cuda").bfloat16()
+            seq = {name: t.clone() for name, t in pool.items()}
+            rows = []
+            for i in range(c):
+                out, seq = attn.paged_decode_attention(tp, x[:, i:i + 1], seq, tables,
+                                                       start + i, spec)
+                rows.append(out[:, 0])
+            kept, ver = attn.paged_verify_attention(
+                tp, x, {name: t.clone() for name, t in pool.items()}, tables, start,
+                torch.full((4,), 80, device="cuda"), spec)
+            batched = _verify_batched(torch, tp, x, {name: t.clone() for name, t in
+                                                     pool.items()}, tables, start, spec)
+            at_once = layers.rms_norm(x, gain)
+            for i in range(c):
+                n += 4
+                differ["kept"] += _rows_that_differ(torch, kept[:, i], rows[i])
+                differ["batched"] += _rows_that_differ(torch, batched[:, i], rows[i])
+                differ["norm_at_once"] += _rows_that_differ(
+                    torch, at_once[:, i],
+                    layers.rms_norm(x[:, i:i + 1].contiguous(), gain)[:, 0])
+            pools_differ += sum(int(not torch.equal(ver[name], seq[name]))
+                                for name in ("k", "v"))
+        log({"what": f"verify attention, k = {k}: against {c} sequential decode "
+                     "steps, 4 slots, tiled_csc bf16", "rows": n,
+             "rows_that_differ_batched_core": differ["batched"],
+             "rows_that_differ_kept": differ["kept"], "pools_that_differ": pools_differ,
+             "rms_norm_rows_that_differ_at_once": differ["norm_at_once"]})
+
+
+def _differing(torch, trace, tokens, model, params) -> list[dict]:
+    from repro_torch.serving import static_generate
+
+    differ = []
+    with torch.inference_mode():
+        for req in trace:
+            want = static_generate(model, params, req)
+            got = tokens[req.rid]
+            if got != want:
+                differ.append({"rid": req.rid, "prompt": len(req.tokens),
+                               "first_token": next(i for i, (a, b) in
+                                                   enumerate(zip(got, want)) if a != b)})
+    return differ
 
 
 def invariance_engine(torch) -> None:
@@ -220,28 +316,31 @@ def invariance_engine(torch) -> None:
     import chip_smoke as cs
 
     from repro_torch.launch import serve
-    from repro_torch.serving import static_generate
 
-    prepared = {}
+    cells = {}
+    for cell in ("tiled_csc", "block_csr"):
+        argv, sod = cs.CELLS[cell][:2]
+        model, params, tokens = serve.prepare(serve.parse_args(argv), sod)
+        cells[cell] = {"model": model, "params": params, "tokens": tokens}
     for run, (cell, chunk) in cs.ENGINE_RUNS.items():
-        if cell not in prepared:
-            argv, sod = cs.CELLS[cell][:2]
-            prepared[cell] = serve.prepare(serve.parse_args(argv), sod)
-        model, params, _ = prepared[cell]
         argv = cs.ENGINE_ARGV + (["--prefill-chunk", str(chunk)] if chunk else [])
-        summary = serve.main(argv, prepared=prepared[cell])
-        differ = []
-        with torch.inference_mode():
-            for req in summary["trace"]:
-                want = static_generate(model, params, req)
-                got = summary["tokens"][req.rid]
-                if got != want:
-                    differ.append({"rid": req.rid, "prompt": len(req.tokens),
-                                   "first_token": next(i for i, (a, b) in
-                                                       enumerate(zip(got, want))
-                                                       if a != b)})
+        sl = cells[cell]
+        summary = serve.main(argv, prepared=(sl["model"], sl["params"], sl["tokens"]))
         log({"what": "engine vs static_generate", "run": run,
-             "requests": len(summary["trace"]), "requests_that_differ": differ})
+             "requests": len(summary["trace"]),
+             "requests_that_differ": _differing(torch, summary["trace"],
+                                                summary["tokens"], sl["model"],
+                                                sl["params"])})
+    spec_args = serve.parse_args(cs.SPEC_ARGV)
+    drafts = {cell: serve.prepare_draft(spec_args, cells[cell]["model"])
+              for cell in cells}
+    for run, (cell, _, _) in cs.FEATURE_RUNS.items():
+        out = cs.feature_run(run, cells, drafts)
+        log({"what": "engine vs static_generate", "run": run,
+             "requests": len(out["trace"]),
+             "requests_that_differ": _differing(torch, out["trace"], out["tokens"],
+                                                cells[cell]["model"],
+                                                cells[cell]["params"])})
 
 
 def main() -> None:

@@ -9,12 +9,19 @@ replays a synthetic Poisson trace of ``--requests`` requests (prompts of
 :class:`repro_torch.serving.Engine`: ``--max-slots`` running rows over a
 paged KV pool of ``--page-size``-token pages, each prompt prefilled at
 admission in one forward or, with ``--prefill-chunk C``, C tokens an engine
-step.  Runs on CUDA unless ``--device cpu`` is given; with no GPU and no
+step.  The engine's features are the reference CLI's flags:
+``--preemption`` (swap the youngest sequence's pages to host memory under
+pool pressure), ``--prefix-sharing`` (needs ``--prefill-chunk``),
+``--prefix-cache-budget`` / ``--prefix-cache-dir`` (need
+``--prefix-sharing``) and ``--spec-decode K`` with ``--draft-sparsity S``:
+a draft tier of the same raw weights pruned to density 1 - S in the
+target's format.  The reference lets its planner pick the draft density
+when ``--draft-sparsity`` is absent; the port has no planner yet and errors.
+
+Runs on CUDA unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it raises.  ``--quantize int8|fp8|codebook`` stores the
-packed values quantized (it needs ``--sod``).  The engine's
-``--preemption``, ``--prefix-sharing``, ``--prefix-cache-*`` and
-``--spec-decode``, ``--plan`` (and so ``--quantize auto``) and
-``--autotune`` are not ported yet: each errors.
+packed values quantized (it needs ``--sod``).  ``--plan`` (and so
+``--quantize auto``) and ``--autotune`` are not ported yet.
 
 ``--sod block_csr`` keeps the reference CLI's magnitude pruning; a caller
 that wants block pruning (as the reference's serving bench uses for this
@@ -25,7 +32,8 @@ Examples:
       --batch 4 --prompt-len 32 --gen 16 --sod tiled_csc --density 0.3 \\
       --quantize int8
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --engine \\
-      --requests 8 --prefill-chunk 16 --sod tiled_csc --device cpu
+      --requests 8 --prefill-chunk 16 --sod tiled_csc --device cpu \\
+      --preemption --prefix-sharing --spec-decode 2 --draft-sparsity 0.9
 """
 from __future__ import annotations
 
@@ -44,17 +52,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels import sod_matmul as sod_matmul_kernel
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models.model import LM
+from repro_torch.runtime.planner import _draft_sod_cfg
 from repro_torch.serving import Engine, bucket_len, poisson_trace
-
-
-# the reference CLI's engine flags whose engine stage is not ported yet
-_UNPORTED_FLAGS = {
-    "--preemption": "stage 2 of the engine, preemption with page swapping",
-    "--prefix-sharing": "stage 2 of the engine, copy-on-write prefix sharing",
-    "--spec-decode": "stage 3 of the engine, speculative decoding",
-    "--prefix-cache-budget": "stage 4 of the engine, the persistent prefix cache",
-    "--prefix-cache-dir": "stage 4 of the engine, the persistent prefix cache",
-}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -94,14 +93,47 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="engine mode: split prompt prefill into chunks of "
                          "this many tokens, interleaved with running decode "
                          "steps (default: fused whole-prompt prefill)")
-    for flag, what in _UNPORTED_FLAGS.items():
-        ap.add_argument(flag, default=None, nargs="?", const=True,
-                        help=f"engine mode: {what} (not ported yet: errors)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="engine mode: under pool pressure, swap the youngest "
+                         "running sequence's KV pages to host memory instead "
+                         "of blocking admission")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="engine mode: map identical prompt prefixes onto "
+                         "refcounted KV pages (copy-on-write); requires "
+                         "--prefill-chunk")
+    ap.add_argument("--prefix-cache-budget", type=int, default=0,
+                    metavar="BYTES",
+                    help="engine mode: keep completed prompts' prefix pages "
+                         "resident under this LRU byte budget, demoting cold "
+                         "pages to host memory; requires --prefix-sharing")
+    ap.add_argument("--prefix-cache-dir", default=None, metavar="DIR",
+                    help="engine mode: spill demoted prefix pages to "
+                         "DIR/<token-hash>.npz so the cache survives engine "
+                         "restarts; requires --prefix-sharing")
+    ap.add_argument("--spec-decode", type=int, default=0, metavar="K",
+                    help="engine mode: speculative decoding — a sparser pack "
+                         "of the same weights drafts K tokens a slot, verified "
+                         "in one batched pass (greedy output unchanged)")
+    ap.add_argument("--draft-sparsity", type=float, default=None,
+                    help="fraction of the draft tier's weights pruned away "
+                         "(density = 1 - sparsity); required with "
+                         "--spec-decode")
     args = ap.parse_args(argv)
-    for flag, what in _UNPORTED_FLAGS.items():
-        if getattr(args, flag.lstrip("-").replace("-", "_")) not in (None, "0"):
-            ap.error(f"{flag}: {what} is not ported yet (ROADMAP.md, queue A "
-                     "item 2)")
+    if args.prefix_sharing and not args.prefill_chunk:
+        ap.error("--prefix-sharing requires --prefill-chunk (prefill must "
+                 "be able to start mid-prompt to skip shared positions)")
+    if ((args.prefix_cache_budget or args.prefix_cache_dir)
+            and not args.prefix_sharing):
+        ap.error("--prefix-cache-budget/--prefix-cache-dir require "
+                 "--prefix-sharing (the cache retains trie-held pages)")
+    if args.spec_decode and not args.engine:
+        ap.error("--spec-decode requires --engine (draft/verify windows "
+                 "run against the paged KV cache)")
+    if args.draft_sparsity is not None and not args.spec_decode:
+        ap.error("--draft-sparsity requires --spec-decode")
+    if args.spec_decode and args.draft_sparsity is None:
+        ap.error("--spec-decode: the draft density choice comes with the "
+                 "planner (ROADMAP queue A item 4); pass --draft-sparsity")
     if args.quantize != "none" and not args.sod:
         ap.error("--quantize requires Sparse-on-Dense packing "
                  "(pass --sod tiled_csc|block_csr)")
@@ -149,6 +181,19 @@ def prepare(args: argparse.Namespace, sod: SoDConfig | None = None,
     return model, params, tokens
 
 
+def prepare_draft(args: argparse.Namespace, model: LM):
+    """The draft tier of ``--spec-decode``: the raw weights :func:`prepare`
+    drew (drawn again from ``--seed`` on the same device, so the same bits)
+    pruned to density ``1 - --draft-sparsity`` and packed in the target's
+    format (``_draft_sod_cfg``; a dense target gets a ``tiled_csc`` draft).
+    The raw weights are dropped once packed."""
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    return sodify_params(model.init(gen, device),
+                         _draft_sod_cfg(model.cfg.sod, 1.0 - args.draft_sparsity))
+
+
 def prefill_cache(model: LM, params, tokens: torch.Tensor, max_len: int):
     """(last-position logits, KV cache grown to ``max_len``, prompt length)."""
     last_logits, cache = model.prefill(params, tokens)
@@ -165,31 +210,41 @@ def _launches() -> dict[str, int]:
             "block_matmul": block_matmul_kernel.launches}
 
 
-def engine_main(args: argparse.Namespace, model: LM, params) -> dict:
-    """``--engine``: continuous batching over a synthetic Poisson trace.
+def engine_main(args: argparse.Namespace, model: LM, params, draft=None) -> dict:
+    """``--engine``: continuous batching over a synthetic Poisson trace, with
+    ``draft`` the draft tier's packed weights under ``--spec-decode``.
     Returns the summary (the reference's keys, and the kernels' launches
-    over the engine's run, warmup included)."""
+    over the engine's run, warmup and both tiers included)."""
     cfg = model.cfg
     page = args.page_size
     max_len = bucket_len(args.prompt_len, page, cfg.attn_chunk) + args.gen
     eng = Engine(model, params, max_slots=args.max_slots, page_size=page,
-                 max_len=max_len, prefill_chunk=args.prefill_chunk)
+                 max_len=max_len, prefill_chunk=args.prefill_chunk,
+                 preemption=args.preemption, prefix_sharing=args.prefix_sharing,
+                 spec_k=args.spec_decode, draft_params=draft,
+                 prefix_cache_budget=args.prefix_cache_budget,
+                 prefix_cache_dir=args.prefix_cache_dir)
     trace = poisson_trace(args.requests, args.arrival_rate,
                           max_prompt=args.prompt_len, max_new=args.gen,
                           vocab=cfg.vocab, seed=args.seed)
     launches0 = _launches()
     res = eng.run(trace)
-    return {
+    summary = {
         "engine": True, "arch": cfg.name, "requests": args.requests,
         "max_slots": args.max_slots, "page_size": page,
-        "prefill_chunk": args.prefill_chunk, "preemption": False,
-        "prefix_sharing": False, "spec_decode": 0,
-        "prefix_cache_budget": 0, "prefix_cache_dir": None,
+        "prefill_chunk": args.prefill_chunk, "preemption": args.preemption,
+        "prefix_sharing": args.prefix_sharing, "spec_decode": args.spec_decode,
+        "prefix_cache_budget": args.prefix_cache_budget,
+        "prefix_cache_dir": args.prefix_cache_dir,
         "sample": res["tokens"][trace[0].rid][:8],
         **res["stats"],
         "kernel_launches": {k: v - launches0[k] for k, v in _launches().items()},
         "tokens": res["tokens"], "trace": trace,
     }
+    if draft is not None:
+        summary["draft_density"] = 1.0 - args.draft_sparsity
+        summary["draft_bytes"] = tree_weight_bytes(draft)["compressed"]
+    return summary
 
 
 def main(argv=None, sod: SoDConfig | None = None, prepared=None) -> dict:
@@ -204,7 +259,8 @@ def main(argv=None, sod: SoDConfig | None = None, prepared=None) -> dict:
     if args.engine:
         with torch.inference_mode():
             model, params, tokens = prepared or prepare(args, sod)
-            summary = engine_main(args, model, params)
+            draft = prepare_draft(args, model) if args.spec_decode else None
+            summary = engine_main(args, model, params, draft)
         summary["device"] = (torch.cuda.get_device_name(tokens.device)
                              if tokens.device.type == "cuda" else "cpu")
         summary["weight_bytes"] = tree_weight_bytes(params)

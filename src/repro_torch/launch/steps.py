@@ -60,3 +60,17 @@ def make_paged_decode_step(model: LM):
         return logits.argmax(dim=-1), logits, pool
 
     return paged_decode_step
+
+
+def make_verify_step(model: LM):
+    """``(params, pool, block_tables, tokens, start, valid_len) -> (greedy
+    tokens (B, C), logits, pool)``: every engine slot scores its committed
+    token and k draft proposals (C = k + 1) in one batched pass; greedy
+    token ``(b, i)`` is what the sequential paged decode step emits at that
+    position."""
+    def verify_step(params, pool, block_tables, tokens, start, valid_len):
+        logits, pool = model.verify_chunk(params, pool, block_tables, tokens,
+                                          start, valid_len)
+        return logits.argmax(dim=-1), logits, pool
+
+    return verify_step

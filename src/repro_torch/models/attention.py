@@ -15,7 +15,8 @@ at decode, between a prompt and its page bucket, and between a whole prompt
 and its 16-row chunks at prefill (``scripts/serve_probe.py invariance``;
 ``tests/test_torch_cuda.py`` holds it).  That is a property of the
 libraries at those shapes, not of the code.  The speculative verify path
-(``paged_verify_attention``) is not ported yet.
+(:func:`paged_verify_attention`) calls the decode core once a window
+position, so its rows equal C sequential decode steps by construction.
 """
 from __future__ import annotations
 
@@ -316,4 +317,42 @@ def paged_decode_attention(params: Params, x: torch.Tensor, pool: Params,
     pool["v"][page, off] = v_new[:, 0]
     k_cache, v_cache = _gather_pages(pool, block_tables, spec)
     out = _attend_cached(q, k_cache, v_cache, pos, spec, window)
+    return sod.apply(out.to(x.dtype), params["wo"]), pool
+
+
+def paged_verify_attention(params: Params, x: torch.Tensor, pool: Params,
+                           block_tables: torch.Tensor, start: torch.Tensor,
+                           valid_len: torch.Tensor, spec: AttnSpec,
+                           window: int | None = None):
+    """Speculative-decoding verification: C window positions a row, each
+    with exactly the decode step's attention.
+
+    x (B, C, D); row ``b`` scores positions ``[start[b], start[b] + C)``
+    against its pages (``start`` and ``valid_len`` are (B,) int64).  The
+    window's KV is scattered as :func:`paged_prefill_attention` scatters a
+    chunk (positions at or beyond ``valid_len[b]`` go to the trash page, so
+    an over-long window never dirties a live page; the pool, this layer's
+    (n_pages, page, KV, hd), is updated in place).  The projections run
+    once over all B·C rows (the matmul kernels keep a row's bits whatever
+    the row count); the attention core is :func:`_attend_cached` called
+    once a window position, at the decode step's shape (B, 1) with that
+    position's causal cutoff, so row i equals the i-th of C sequential
+    :func:`paged_decode_attention` calls by construction — which the
+    engine's accept rule needs.  The reference runs the core once with C
+    query rows; on the card that form changed the bits of some rows
+    (``scripts/serve_probe.py invariance``).  Returns (output (B, C, D),
+    pool)."""
+    b, c, _ = x.shape
+    idx = start[:, None] + torch.arange(c, device=x.device)[None, :]  # (B, C)
+    q, k_new, v_new = _project_qkv(params, x, spec, idx)
+    page_size = pool["k"].shape[1]
+    kvh, hd = spec.n_kv_heads, spec.head_dim
+    page = block_tables.gather(1, idx // page_size)
+    page = torch.where(idx < valid_len[:, None], page, 0)    # overflow → trash
+    off = idx % page_size
+    pool["k"][page.reshape(-1), off.reshape(-1)] = k_new.reshape(b * c, kvh, hd)
+    pool["v"][page.reshape(-1), off.reshape(-1)] = v_new.reshape(b * c, kvh, hd)
+    k_cache, v_cache = _gather_pages(pool, block_tables, spec)
+    out = torch.cat([_attend_cached(q[:, i:i + 1].contiguous(), k_cache, v_cache,
+                                    idx[:, i], spec, window) for i in range(c)], 1)
     return sod.apply(out.to(x.dtype), params["wo"]), pool

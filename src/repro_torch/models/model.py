@@ -1,7 +1,8 @@
 """Model facade: init / prefill / decode over the attention-family decoder.
 
 Twin of :class:`repro.models.model.LM` for the static serving path and the
-continuous-batching engine's paged decode and chunked prefill.
+continuous-batching engine's paged decode, chunked prefill and speculative
+verification.
 """
 from __future__ import annotations
 
@@ -76,4 +77,14 @@ class LM:
         prompt positions [start, start+C), zero-padded past ``valid_len``.
         Returns (logits for all C positions, pool)."""
         return transformer.transformer_prefill_chunk(
+            params, pool, block_tables, tokens, start, valid_len, self.cfg)
+
+    def verify_chunk(self, params: Params, pool: Params,
+                     block_tables: torch.Tensor, tokens: torch.Tensor,
+                     start: torch.Tensor, valid_len: torch.Tensor):
+        """Speculative-window verification: tokens (B, C) at cache positions
+        [start[b], start[b] + C) a row, writes cut off at ``valid_len[b]``.
+        Returns (logits for all C positions, pool); row i's logits are what
+        C sequential paged decode steps give at their i-th."""
+        return transformer.transformer_verify_chunk(
             params, pool, block_tables, tokens, start, valid_len, self.cfg)

@@ -9,8 +9,8 @@ its KV pool is ``{"k", "v"}`` of shape (L, n_pages, page, KV, hd) — layer,
 page id, offset in the page, KV head, head dim — where the reference stacks
 (G, P, n_pages, page, KV, hd); every layer indexes its pool with the same
 block tables.  The pool, like the static cache, is updated in place.  MoE,
-the hybrid and xLSTM assemblies, speculative verification and the untied /
-soft-capped heads are not ported yet.
+the hybrid and xLSTM assemblies and the untied / soft-capped heads are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -139,19 +139,52 @@ def attn_block_prefill_chunk(bp: Params, x: torch.Tensor, layer_pool: Params,
     return x + layers.mlp(bp["mlp"], h2, cfg.act), layer_pool
 
 
+def _norm_rows(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm of a verify window one position at a time, each call at the
+    decode step's shape (B, 1, D): torch's reduction then keeps each row's
+    bits, which it need not do at B·C rows at once (on the card 2 of 320
+    rows differed at 20 rows against 4; ``PERF.md`` §6)."""
+    return torch.cat([layers.rms_norm(x[:, i:i + 1].contiguous(), gain, eps)
+                      for i in range(x.shape[1])], 1)
+
+
+def attn_block_verify(bp: Params, x: torch.Tensor, layer_pool: Params,
+                      block_tables: torch.Tensor, start: torch.Tensor,
+                      valid_len: torch.Tensor, cfg: ModelConfig,
+                      window: int | None):
+    """One block over a speculative verification window: the paged branch
+    of :func:`attn_block_decode` (same norm / residual order, ``wo`` inside
+    the attention call) with the one-token attention replaced by
+    :func:`repro_torch.models.attention.paged_verify_attention`, so row
+    ``b`` scores C window positions from ``start[b]``.  The matmuls run once
+    over all B·C rows; the norms and the attention core run once a window
+    position at the decode step's shape; everything else is elementwise."""
+    h = _norm_rows(x, bp["norm1"], cfg.norm_eps)
+    ao, layer_pool = attn.paged_verify_attention(
+        bp["attn"], h, layer_pool, block_tables, start, valid_len,
+        attn_spec(cfg), window=window)
+    x = x + ao
+    h2 = _norm_rows(x, bp["norm2"], cfg.norm_eps)
+    return x + layers.mlp(bp["mlp"], h2, cfg.act), layer_pool
+
+
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
 def project_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Tied LM head: float32 logits over the padded vocabulary, padded ids
-    masked to -1e30.
+    """Final norm and tied LM head: float32 logits over the padded
+    vocabulary, padded ids masked to -1e30."""
+    return _head(params, layers.rms_norm(x, params["final_norm"], cfg.norm_eps), cfg)
+
+
+def _head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The tied LM head on the final-normed ``h``.
 
     As the reference's dot with ``preferred_element_type=float32``: operands
-    in x's dtype, products summed in float32, and the f32 sums are the
+    in h's dtype, products summed in float32, and the f32 sums are the
     logits, never rounded to bfloat16 on the way (:func:`ops.dense_matmul`).
     """
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = ops.dense_matmul(x, params["embed"].to(x.dtype).T, torch.float32)
+    logits = ops.dense_matmul(h, params["embed"].to(h.dtype).T, torch.float32)
     v = cfg.padded_vocab
     if v != cfg.vocab:
         pad = torch.arange(v, device=logits.device) >= cfg.vocab
@@ -252,3 +285,27 @@ def transformer_prefill_chunk(params: Params, pool: Params,
                                         block_tables, start, valid_len, cfg,
                                         cfg.window_for(i))
     return project_logits(params, x, cfg), pool
+
+
+def transformer_verify_chunk(params: Params, pool: Params,
+                             block_tables: torch.Tensor, tokens: torch.Tensor,
+                             start: torch.Tensor, valid_len: torch.Tensor,
+                             cfg: ModelConfig):
+    """Verify a speculative window for every engine slot at once.
+
+    ``tokens`` (B, C): row ``b`` holds its committed last token and C - 1
+    draft proposals, at cache positions ``[start[b], start[b] + C)``; writes
+    at or beyond ``valid_len[b]`` go to the trash page.  It is
+    :func:`transformer_decode_paged` with each block swapped for
+    :func:`attn_block_verify` and the final norm taken a position at a
+    time, so up to the LM head row ``(b, i)`` is what the sequential decode
+    step gives at position ``start[b] + i`` after the window's first i
+    tokens.  The head is one matmul over all B·C rows, like the engine's
+    decode step over B rows against static serving's one (not held
+    row-invariant).  Returns (logits (B, C, V), pool); the pool is updated
+    in place."""
+    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    for i, bp in enumerate(params["layers"]):
+        x, _ = attn_block_verify(bp, x, _layer_pool(pool, i), block_tables,
+                                 start, valid_len, cfg, cfg.window_for(i))
+    return _head(params, _norm_rows(x, params["final_norm"], cfg.norm_eps), cfg), pool

@@ -25,7 +25,7 @@ Four capabilities layered on the free list:
   resume.  The byte movement itself is the engine's job; the pool keeps
   the id bookkeeping and the counters CI gates on.
 * **cache-tier retention** — the persistent prefix cache
-  (``PrefixCache``, not ported yet) keeps completed
+  (:class:`repro_torch.serving.prefix_cache.PrefixCache`) keeps completed
   prompt pages alive past sequence completion by holding one extra
   reference per retained page.  To the pool it is just another sharer:
   demotions go through :meth:`PagePool.free` (so a page shared with a

@@ -569,7 +569,7 @@ def test_mixed_dtype_packed_on_card(cuda, fmt, x_dtype, w_dtype):
 # engine's equality with static serving needs (its decode runs max_slots rows,
 # its prefill a bucket or a chunk of a prompt, static serving one request)
 # ---------------------------------------------------------------------------
-INVARIANT_M = (4, 8, 16, 40, 64, 128)
+INVARIANT_M = (4, 8, 12, 16, 20, 40, 64, 128)   # 12, 20: 4 slots x (k + 1)
 
 
 @pytest.mark.cuda
@@ -690,3 +690,205 @@ def test_engine_matches_static_generate_on_card(cuda, fmt, chunk):
         assert res["stats"]["completed"] == len(trace)
         for req in trace:
             assert res["tokens"][req.rid] == static_generate(model, params, req)
+
+
+# ---------------------------------------------------------------------------
+# the engine's other stages: verify rows, page swapping, spec decoding,
+# preemption, prefix sharing and the prefix cache, on the card
+# ---------------------------------------------------------------------------
+def _packed_attention(dev, fmt, seed):
+    """Full width's attention projections (d_model 2048, 32 / 8 heads of 64),
+    bf16, pruned to 0.3 and packed in ``fmt``."""
+    from repro_torch.core.sod import SoDConfig, pack_param
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    cfg = SoDConfig(mode=fmt, density=0.3, min_dim=64,
+                    prune_method="block" if fmt == "block_csr" else "magnitude")
+    shapes = {"wq": (2048, 2048), "wk": (2048, 512), "wv": (2048, 512),
+              "wo": (2048, 2048)}
+    return {name: pack_param((torch.randn(*kn, generator=g, device=dev)
+                              * 2048 ** -0.5).bfloat16(), cfg)
+            for name, kn in shapes.items()}, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["tiled_csc", "block_csr"])
+@pytest.mark.parametrize("k", [2, 4])
+def test_verify_rows_equal_sequential_decode_on_card(cuda, k, fmt):
+    """Full width's attention layer in bf16, 4 slots, packed weights: row i of
+    a (k + 1)-position verify pass equals the i-th of k + 1 sequential paged
+    decode steps bit for bit, and both leave the pool with the same bits;
+    the verify block's norms (a window position at a time) give the decode
+    step's rows."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers, transformer
+
+    tp, g = _packed_attention(cuda, fmt, seed=10 + k)
+    spec = attn.AttnSpec(n_heads=32, n_kv_heads=8, head_dim=64)
+    c, slots, n_logical = k + 1, 4, 6
+    pool = {name: torch.randn(1 + slots * n_logical, 16, 8, 64, generator=g,
+                              device=cuda).bfloat16() for name in ("k", "v")}
+    tables = (torch.randperm(slots * n_logical, generator=g, device=cuda)
+              .reshape(slots, n_logical) + 1)
+    start = torch.tensor([33, 47, 60, 75 - k], device=cuda)
+    x = torch.randn(slots, c, 2048, generator=g, device=cuda).bfloat16()
+    seq_pool = {name: t.clone() for name, t in pool.items()}
+    rows = []
+    for i in range(c):
+        out, seq_pool = attn.paged_decode_attention(tp, x[:, i:i + 1], seq_pool, tables,
+                                                    start + i, spec)
+        rows.append(out[:, 0])
+    out, ver_pool = attn.paged_verify_attention(
+        tp, x, {name: t.clone() for name, t in pool.items()}, tables, start,
+        torch.full((slots,), 80, device=cuda), spec)
+    torch.cuda.synchronize()
+    for i in range(c):
+        assert torch.equal(out[:, i], rows[i]), i
+    for name in ("k", "v"):
+        assert torch.equal(ver_pool[name], seq_pool[name])
+    gain = torch.randn(2048, generator=g, device=cuda) * 0.1
+    window = transformer._norm_rows(x, gain, 1e-6)
+    for i in range(c):
+        assert torch.equal(window[:, i],
+                           layers.rms_norm(x[:, i:i + 1].contiguous(), gain)[:, 0])
+
+
+def _reduced_on_card(dev, fmt, dtype="bfloat16"):
+    """The reduced llama on the card, its raw weights (seed 0) and their
+    packing in ``fmt`` at 0.3 (block-pruned for block_csr)."""
+    from repro_torch import configs
+    from repro_torch.core.sod import SoDConfig, sodify_params
+    from repro_torch.models.model import LM
+
+    sod = SoDConfig(mode=fmt, density=0.3, min_dim=64,
+                    prune_method="block" if fmt == "block_csr" else "magnitude")
+    cfg = configs.reduced(configs.get_config("llama3.2-1b")).with_(dtype=dtype, sod=sod)
+    model = LM(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    raw = model.init(gen, dev)
+    return model, raw, sodify_params(raw, sod)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["tiled_csc", "block_csr"])
+def test_verify_chunk_rows_equal_sequential_decode_on_card(cuda, fmt, monkeypatch):
+    """The reduced llama in bf16 with packed weights: every row of a verify
+    window's final-normed hidden state (the LM head left out: it is one
+    cuBLAS GEMM, not held) equals the sequential paged decode step's, and
+    the pools agree."""
+    from repro_torch.models import transformer
+
+    monkeypatch.setattr(transformer, "_head", lambda params, h, cfg: h)
+    model, _, params = _reduced_on_card(cuda, fmt)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    pool = model.init_paged_pool(25, 16, cuda)
+    for name in ("k", "v"):
+        pool[name].normal_(generator=g)
+    tables = torch.randperm(24, generator=g, device=cuda).reshape(4, 6) + 1
+    tokens = torch.randint(0, model.cfg.vocab, (4, 3), generator=g, device=cuda)
+    start, valid = torch.tensor([33, 47, 60, 70], device=cuda), torch.full((4,), 80,
+                                                                          device=cuda)
+    seq_pool = {name: t.clone() for name, t in pool.items()}
+    with torch.inference_mode():
+        rows = []
+        for i in range(3):
+            hidden, seq_pool = model.paged_decode_step(params, seq_pool, tables,
+                                                       tokens[:, i:i + 1], start + i,
+                                                       valid)
+            rows.append(hidden[:, 0])
+        hidden, ver_pool = model.verify_chunk(
+            params, {name: t.clone() for name, t in pool.items()}, tables, tokens,
+            start, valid)
+    for i in range(3):
+        assert torch.equal(hidden[:, i], rows[i]), i
+    for name in ("k", "v"):
+        assert torch.equal(ver_pool[name], seq_pool[name])
+
+
+@pytest.mark.cuda
+def test_swap_round_trip_bit_exact_on_card(cuda):
+    """A preempted sequence's pages go to host memory and come back at fresh
+    page ids bit for bit (compared as raw int16), though the freed pages
+    were overwritten meanwhile; its tokens stay static serving's."""
+    import numpy as np
+
+    from repro_torch.serving import Engine, Request, static_generate
+
+    model, _, params = _reduced_on_card(cuda, "tiled_csc")
+    req = Request(rid=0, tokens=np.arange(1, 41, dtype=np.int32), max_new=12)
+    with torch.inference_mode():
+        eng = Engine(model, params, max_slots=2, page_size=16, max_len=64,
+                     prefill_chunk=16, preemption=True)
+        eng.submit(req)
+        for _ in range(5):                      # 3 prefill chunks, 2 decode steps
+            eng.step()
+        (seq,) = eng.sched.active.values()
+        old = list(seq.pages)
+        before = {n: eng.pool[n][:, old].clone().view(torch.int16) for n in ("k", "v")}
+        eng._preempt(seq)
+        assert seq.host_kv[0]["k"].device.type == "cpu"
+        for name in ("k", "v"):
+            eng.pool[name][:, old] = -1
+        eng._swap_in(seq)
+        torch.cuda.synchronize()
+        for name in ("k", "v"):
+            assert torch.equal(eng.pool[name][:, seq.pages].view(torch.int16), before[name])
+        res = eng.run()
+        assert res["tokens"][0] == static_generate(model, params, req)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["tiled_csc", "block_csr"])
+@pytest.mark.parametrize("run", ["spec", "stress_spec", "cache"])
+def test_engine_stages_match_static_generate_on_card(cuda, fmt, run, tmp_path):
+    """The reduced llama in bf16 on the card: speculative decoding with a
+    draft of the same raw weights at 0.12, every feature composed on a
+    starved pool, and two epochs through the prefix cache each give static
+    serving's tokens bit for bit, through the cell's kernel, and leave the
+    pool clean."""
+    from repro_torch.core.sod import sodify_params
+    from repro_torch.runtime.planner import _draft_sod_cfg
+    from repro_torch.serving import (Engine, poisson_trace, repeated_prompt_trace,
+                                     static_generate, stress_spec_trace)
+
+    model, raw, params = _reduced_on_card(cuda, fmt)
+    vocab = model.cfg.vocab
+    counter = sm if fmt == "tiled_csc" else bmm
+    kw = dict(max_slots=4, page_size=16, max_len=64)
+    if run == "spec":
+        trace = poisson_trace(6, 0.5, max_prompt=40, max_new=12, vocab=vocab, seed=0)
+        kw.update(spec_k=2, draft_params=sodify_params(raw, _draft_sod_cfg(model.cfg.sod,
+                                                                           0.12)))
+    elif run == "stress_spec":
+        trace = stress_spec_trace(8, prefix_len=16, max_prompt=40, max_new=12,
+                                  vocab=vocab, seed=0, burst=2, rate=0.3)
+        kw.update(spec_k=2, prefill_chunk=16, preemption=True, prefix_sharing=True,
+                  n_pages=6, draft_params=sodify_params(raw, _draft_sod_cfg(
+                      model.cfg.sod, 0.12)))
+    else:
+        trace = [r for base in (0, 3) for r in repeated_prompt_trace(
+            3, prefix_len=16, suffix_len=16, max_new=6, vocab=vocab, page_size=16,
+            rid_base=base)]
+        kw.update(prefill_chunk=16, prefix_sharing=True, prefix_cache_budget=1,
+                  prefix_cache_dir=str(tmp_path))
+    with torch.inference_mode():
+        counter.launches = 0
+        eng = Engine(model, params, **kw)
+        res = eng.run(trace)
+        assert counter.launches > 0
+        for req in trace:
+            assert res["tokens"][req.rid] == static_generate(model, params, req), req.rid
+        eng.flush_prefix_cache()
+    s = res["stats"]
+    assert s["completed"] == len(trace) and s["logits_finite"]
+    if run != "cache":
+        assert s["spec_windows"] > 0
+    if run == "stress_spec":
+        assert s["preemptions"] >= 1
+    if run == "cache":
+        assert s["prefix_restored_pages"] >= 1
+    assert eng.page_pool.free_count == eng.page_pool.n_pages - 1
+    assert eng.trie is None or len(eng.trie) == 0

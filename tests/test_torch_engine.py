@@ -1,9 +1,11 @@
 """The port's continuous-batching engine: its copied page pool, scheduler
 and trace against the JAX package's, its tokens against the port's
 ``static_generate`` (bit for bit, on the reduced llama in dense,
-``tiled_csc`` and ``block_csr``, with fused and with chunked prefill) and
-against the JAX package's ``Engine`` on the same weights in fp32, its
-admission rules, its refusals, and ``serve.py --engine`` on the CPU.
+``tiled_csc`` and ``block_csr``, with fused and with chunked prefill,
+through preemption with page swapping and copy-on-write prefix sharing) and
+against the JAX package's ``Engine`` on the same weights in fp32 (tokens,
+preemption log and integer counters), its admission rules, its flag
+validation, and ``serve.py --engine`` on the CPU.
 
 Weights come from the JAX initialiser and are carried across with
 ``repro_torch.interop``; each package prunes and packs them itself (the
@@ -13,6 +15,10 @@ import jax
 import numpy as np
 import pytest
 import torch
+try:
+    from hypothesis import given, settings, strategies as st
+except ImportError:          # CI installs hypothesis; bare
+    from _hypothesis_stub import given, settings, st  # noqa: E501  envs skip the property tests
 
 from repro import configs as jconfigs
 from repro.core import sod as jsod
@@ -20,13 +26,15 @@ from repro.models.model import LM as JLM
 from repro.serving import Engine as JEngine
 from repro.serving import PagePool as JPagePool
 from repro.serving import poisson_trace as jpoisson_trace
+from repro.serving import shared_prefix_trace as jshared_prefix_trace
 from repro_torch import configs
 from repro_torch.core import sod
 from repro_torch.interop import params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models.model import LM
 from repro_torch.serving import (Engine, PagePool, PoolExhausted, Request,
-                                 bucket_len, poisson_trace, static_generate)
+                                 bucket_len, poisson_trace, shared_prefix_trace,
+                                 static_generate)
 
 MODES = ("dense", "tiled_csc", "block_csr")
 
@@ -64,6 +72,65 @@ def test_page_pool_hands_out_the_reference_ids():
         assert a == b
         assert mine.free(a[:drop]) == ref.free(b[:drop])
     assert mine.free_count == ref.free_count
+
+
+@settings(max_examples=60, deadline=None)
+@given(st.integers(4, 24),
+       st.lists(st.tuples(st.integers(0, 6), st.integers(0, 10**6)),
+                min_size=1, max_size=120))
+def test_page_pool_refcount_partition_property(n_pages, program):
+    """Random alloc/retain/free/trim/fork/swap programs against a model:
+    refcounts never go negative (a release of an unheld page raises), the
+    trash page is never handed out, the free list and the live set partition
+    the pool, and the swap tallies count what left the device."""
+    pool = PagePool(n_pages, page_size=4)
+    refs: dict[int, int] = {}     # model: page id -> expected refcount
+    host = 0                      # model: pages swapped out, not yet back
+    for op, r in program:
+        live = sorted(refs)
+        if op == 0:                                 # alloc
+            for p in pool.alloc(r % (pool.free_count + 1)):
+                assert p != PagePool.TRASH_PAGE and p not in refs
+                refs[p] = 1
+        elif op in (2, 3, 5) and live:              # free / trim / swap out
+            p = live[r % len(live)]
+            release = {2: pool.free, 3: pool.trim, 5: pool.swap_out}[op]
+            before = (pool.trimmed_pages, pool.swapped_out_pages)
+            freed = release([p])
+            refs[p] -= 1
+            assert (freed == [p]) == (refs[p] == 0)
+            assert (pool.trimmed_pages - before[0]) == (len(freed) if op == 3 else 0)
+            assert (pool.swapped_out_pages - before[1]) == (len(freed) if op == 5 else 0)
+            host += len(freed) if op == 5 else 0
+            if refs[p] == 0:
+                del refs[p]
+        elif op == 1 and live:                      # retain (share)
+            p = live[r % len(live)]
+            pool.retain([p])
+            refs[p] += 1
+        elif op == 4:                               # copy-on-write fork
+            shared = [p for p in live if refs[p] >= 2]
+            if shared and pool.can_alloc(1):
+                p = shared[r % len(shared)]
+                new = pool.fork(p)
+                refs[p] -= 1
+                assert new not in refs and new != PagePool.TRASH_PAGE
+                refs[new] = 1
+        elif op == 6 and host:                      # resume: swap in
+            k = min(host, r % (pool.free_count + 1))
+            for p in pool.swap_in(k):
+                assert p != PagePool.TRASH_PAGE and p not in refs
+                refs[p] = 1
+            host -= k
+        assert PagePool.TRASH_PAGE not in pool.allocated
+        assert pool.allocated == frozenset(refs)
+        assert all(pool.ref_count(p) == c >= 1 for p, c in refs.items())
+        assert pool.free_count + len(refs) == pool.n_pages - 1
+        assert pool.swapped_in_pages <= pool.swapped_out_pages
+    victim = next(iter(refs)) if refs else pool.alloc(1)[0]
+    pool.free([victim] * pool.ref_count(victim))
+    with pytest.raises(ValueError):
+        pool.free([victim])
 
 
 def test_bucket_len():
@@ -227,25 +294,199 @@ def test_chunked_prefill_refuses_prompts_past_attn_chunk(weights):
         eng.submit(Request(rid=0, tokens=np.zeros(70, np.int32), max_new=2))
 
 
-@pytest.mark.parametrize("flag,value,stage", [
-    ("preemption", True, "stage 2"), ("prefix_sharing", True, "stage 2"),
-    ("spec_k", 2, "stage 3"), ("draft_params", {}, "stage 3"),
-    ("prefix_cache_budget", 1 << 20, "stage 4"),
-    ("prefix_cache_dir", "cache", "stage 4")])
-def test_engine_refuses_unported_stages(weights, flag, value, stage):
+# ---------------------------------------------------------------------------
+# preemption with page swapping, copy-on-write prefix sharing
+# ---------------------------------------------------------------------------
+def _drained(eng):
+    assert eng.page_pool.free_count == eng.page_pool.n_pages - 1
+    assert not eng.page_pool.allocated
+    assert eng.trie is None or len(eng.trie) == 0
+
+
+def _rotating(vocab, n=3, plen=8, max_new=8):
+    return [Request(rid=i, tokens=(np.arange(plen, dtype=np.int32) * (3 * i + 7)) % vocab,
+                    max_new=max_new, arrival=i) for i in range(n)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_preemption_victim_order_and_identity(weights, dtype):
+    """A pool too small for three concurrent decodes forces preemption: the
+    youngest decoding arrival goes first (the oldest is never evicted),
+    every sequence completes, and the tokens hold through the swap cycles."""
+    model, params = _port(weights, "dense", dtype)
+    reqs = _rotating(model.cfg.vocab)
+    with torch.inference_mode():
+        eng = Engine(model, params, max_slots=3, page_size=4, max_len=16, n_pages=8,
+                     prefill_chunk=4, preemption=True)
+        res = eng.run(reqs)
+        for req in reqs:
+            assert res["tokens"][req.rid] == static_generate(model, params, req)
+    s = res["stats"]
+    assert s["preemptions"] == len(eng.preempt_log) >= 1
+    assert s["swapped_in_pages"] >= 1 and 0 not in eng.preempt_log
+    _drained(eng)
+
+
+def _pages(eng, pages):
+    """A copy of pages ``pages`` of every layer's pool, raw bits as int."""
+    return {name: eng.pool[name][:, pages].clone().view(
+        {2: torch.int16, 4: torch.int32}[eng.pool[name].element_size()])
+        for name in ("k", "v")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_engine_swap_roundtrip_restores_exact_kv(weights, dtype):
+    """Swap-out then swap-in lands the sequence's KV pages back on the
+    device bit for bit (compared as raw integers), at fresh page ids."""
+    model, params = _port(weights, "dense", str(dtype).split(".")[-1])
+    req = Request(rid=0, tokens=np.arange(1, 9, dtype=np.int32), max_new=6)
+    with torch.inference_mode():
+        eng = Engine(model, params, max_slots=2, page_size=4, max_len=16,
+                     prefill_chunk=4, preemption=True)
+        eng.submit(req)
+        for _ in range(4):                    # two prefill chunks, then decode
+            eng.step()
+        (seq,) = eng.sched.active.values()
+        assert not seq.is_prefilling and len(seq.pages) >= 2
+        old = list(seq.pages)
+        before = _pages(eng, old)
+        eng._preempt(seq)
+        assert eng.sched.swapped and not eng.sched.active
+        assert seq.host_kv[0]["k"].device.type == "cpu"
+        # the freed pages are reused and overwritten while the sequence is out
+        for name in ("k", "v"):
+            eng.pool[name][:, old] = -1
+        eng._swap_in(seq)
+        assert eng.pool["k"].dtype == dtype
+        after = _pages(eng, seq.pages)
+        for name in ("k", "v"):
+            assert torch.equal(before[name], after[name])
+        res = eng.run()
+        assert res["tokens"][0] == static_generate(model, params, req)
+    assert res["stats"]["swapped_in_pages"] == len(old)
+    _drained(eng)
+
+
+def test_engine_prefix_sharing_saves_pages(weights):
+    """Requests with one common prefix map its pages once: fewer fresh
+    prompt pages than prompt pages, static serving's tokens, and an empty
+    trie and pool at the end."""
     model, params = _small(weights)
-    with pytest.raises(NotImplementedError, match=f"not ported yet.*{stage}"):
-        Engine(model, params, max_len=16, **{flag: value})
+    trace = shared_prefix_trace(4, prefix_len=8, max_prompt=12, max_new=6,
+                                vocab=model.cfg.vocab, seed=2, arrival_gap=3)
+    with torch.inference_mode():
+        eng = Engine(model, params, max_slots=3, page_size=4, max_len=24,
+                     prefill_chunk=4, prefix_sharing=True)
+        res = eng.run(trace)
+        for req in trace:
+            assert res["tokens"][req.rid] == static_generate(model, params, req)
+    s = res["stats"]
+    assert s["shared_prompt_pages"] > 0
+    assert s["prompt_pages_fresh"] < s["prompt_pages_total"]
+    _drained(eng)
 
 
-@pytest.mark.parametrize("argv", [["--preemption"], ["--prefix-sharing"],
-                                  ["--spec-decode", "2"],
-                                  ["--prefix-cache-budget", "1024"],
-                                  ["--prefix-cache-dir", "d"]])
-def test_serve_refuses_unported_engine_flags(argv, capsys):
+def test_engine_cow_fork_refcount_accounting(weights):
+    """Identical page-aligned prompts share every prompt page; a sharer's
+    recompute of its last token forks the last shared page.  No page leaks
+    or double frees (the pool raises on either)."""
+    model, params = _small(weights)
+    tok = (np.arange(8, dtype=np.int32) * 5 + 2) % model.cfg.vocab
+    reqs = [Request(rid=i, tokens=tok.copy(), max_new=6, arrival=i * 3)
+            for i in range(3)]
+    with torch.inference_mode():
+        eng = Engine(model, params, max_slots=3, page_size=4, max_len=16,
+                     prefill_chunk=4, prefix_sharing=True)
+        res = eng.run(reqs)
+        ref = static_generate(model, params, reqs[0])
+    s = res["stats"]
+    assert s["cow_forks"] >= 1 and s["shared_prompt_pages"] >= 2
+    assert all(res["tokens"][r.rid] == ref for r in reqs)
+    assert eng.page_pool.forks == s["cow_forks"]
+    _drained(eng)
+
+
+def test_engine_cow_fork_under_pool_pressure(weights):
+    """A fork whose capacity hunt preempts the page's only other holder
+    writes in place (forking a page of refcount 1 raises): a donor decodes
+    on 3 of 4 usable pages, two identical sharers arrive together."""
+    model, params = _small(weights)
+    tok = (np.arange(8, dtype=np.int32) * 11 + 3) % model.cfg.vocab
+    reqs = [Request(rid=0, tokens=tok.copy(), max_new=8, arrival=0),
+            Request(rid=1, tokens=tok.copy(), max_new=6, arrival=3),
+            Request(rid=2, tokens=tok.copy(), max_new=6, arrival=3)]
+    with torch.inference_mode():
+        eng = Engine(model, params, max_slots=3, page_size=4, max_len=16, n_pages=5,
+                     prefill_chunk=4, preemption=True, prefix_sharing=True)
+        res = eng.run(reqs)
+        for req in reqs:
+            assert res["tokens"][req.rid] == static_generate(model, params, req)
+    s = res["stats"]
+    assert s["completed"] == 3 and s["cow_forks"] >= 1 and s["preemptions"] >= 1
+    _drained(eng)
+
+
+@pytest.mark.parametrize("features", [
+    dict(preemption=True), dict(prefix_sharing=True),
+    dict(preemption=True, prefix_sharing=True)], ids=["preempt", "share", "both"])
+def test_stage2_equals_the_reference_engine(weights, features):
+    """fp32, the same weights and traces: the port's tokens, preempt log and
+    integer counters are the JAX engine's, on a starved pool (preemption)
+    and on a shared-prefix trace."""
+    jcfg, jparams, _ = weights
+    model, params = _small(weights)
+    kw = dict(max_slots=3, page_size=4, max_len=24, n_pages=9, prefill_chunk=4,
+              **features)
+    traces = [(_rotating(model.cfg.vocab, n=4), _rotating(jcfg.vocab, n=4)),
+              (shared_prefix_trace(5, prefix_len=8, max_prompt=14, max_new=8,
+                                   vocab=model.cfg.vocab, seed=4, arrival_gap=1),
+               jshared_prefix_trace(5, prefix_len=8, max_prompt=14, max_new=8,
+                                    vocab=jcfg.vocab, seed=4, arrival_gap=1))]
+    for mine, ref in traces:
+        jeng = JEngine(JLM(jcfg), jparams, **kw)
+        want = jeng.run(ref)
+        with torch.inference_mode():
+            eng = Engine(model, params, **kw)
+            got = eng.run(mine)
+        assert got["tokens"] == want["tokens"]
+        assert eng.preempt_log == jeng.preempt_log
+        ints = [k for k, v in want["stats"].items()
+                if isinstance(v, int) and not isinstance(v, bool)]
+        assert {k: got["stats"][k] for k in ints} == {k: want["stats"][k] for k in ints}
+    if features.get("preemption"):
+        assert got["stats"]["preemptions"] >= 1
+    if features.get("prefix_sharing"):
+        assert got["stats"]["shared_prompt_pages"] >= 1
+
+
+def test_engine_feature_flag_validation(weights):
+    model, params = _small(weights)
+    with pytest.raises(ValueError, match="prefix sharing needs chunked prefill"):
+        Engine(model, params, max_len=16, prefix_sharing=True)
+    with pytest.raises(ValueError, match="prefix_sharing=True"):
+        Engine(model, params, max_len=16, prefill_chunk=4, prefix_cache_budget=1)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--prefix-sharing"], "--prefix-sharing requires --prefill-chunk"),
+    (["--prefill-chunk", "4", "--prefix-cache-budget", "1"], "require --prefix-sharing"),
+    (["--prefill-chunk", "4", "--prefix-cache-dir", "d"], "require --prefix-sharing"),
+])
+def test_serve_engine_flag_validation(argv, msg, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(["--engine", "--device", "cpu", *argv])
-    assert "not ported yet" in capsys.readouterr().err
+    assert msg in capsys.readouterr().err
+
+
+def test_serve_engine_preemption_and_sharing_on_the_cpu():
+    summary = serve.main(["--reduced", "--engine", "--device", "cpu",
+                          "--requests", "4", "--prompt-len", "16", "--gen", "6",
+                          "--max-slots", "2", "--page-size", "4",
+                          "--prefill-chunk", "4", "--preemption", "--prefix-sharing"])
+    assert summary["preemption"] and summary["prefix_sharing"]
+    assert summary["completed"] == 4
+    for key in ("preemptions", "swapped_in_pages", "cow_forks", "shared_prompt_pages"):
+        assert key in summary, key
 
 
 @pytest.mark.parametrize("chunk", [[], ["--prefill-chunk", "16"]])

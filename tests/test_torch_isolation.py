@@ -1,5 +1,5 @@
 """The port, chip_smoke.py and the port's probe scripts import neither JAX
-nor the JAX package."""
+nor the JAX package, nor ``ml_dtypes`` (which comes with JAX)."""
 import ast
 import os
 import pathlib
@@ -16,7 +16,8 @@ FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")   # "repro_torch" is a different top
+    # "repro_torch" is a different top
+    return top in ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _imports(path: pathlib.Path):
@@ -35,7 +36,7 @@ def test_no_jax_or_reference_imports(path):
 
 def test_forbidden_rule_tells_repro_torch_apart():
     assert _forbidden("repro") and _forbidden("repro.core.sod")
-    assert _forbidden("jax.numpy")
+    assert _forbidden("jax.numpy") and _forbidden("ml_dtypes")
     assert not _forbidden("repro_torch.core.sod")
 
 
@@ -43,7 +44,7 @@ def test_importing_the_serve_path_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.interop, "
             "repro_torch.serving, repro_torch.obs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]; "
+            "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
