@@ -64,17 +64,39 @@ Phases, each of which raises on failure (so the script exits non-zero):
    of the youngest decoding sequence, swap-ins, shared pages, spec windows,
    rollbacks, no fresh prompt page in epoch 2, disk demotions, the cache-off
    run's tokens).  Last, one spec window (3 draft decode steps and the
-   verify) is profiled beside 3 plain decode steps.
+   verify) is profiled beside 3 plain decode steps;
+7. plan — the planner and the tuned dispatch at full width, bf16, on
+   phase 4's raw weights (``--seed 0``), with a fresh tuning cache in a
+   temporary directory, in six runs of ``serve`` (PLAN_RUNS):
+   ``plan_tiled_csc`` (``--plan auto --autotune --tuning-cache T --plan-json
+   P``: packs bit-equal to phase 4's tiled_csc, its prefill through phase
+   4's densified check, the autotune stats and each layout's winner beside
+   the untuned launch), ``plan_replay`` (``--plan P`` on the warm cache: no
+   new measurement, the same packs and tokens), ``plan_block_csr`` (``--plan
+   auto --autotune``: only ``cuda_block`` dispatched), ``plan_quantize_auto``
+   (``--plan auto --quantize auto``: each entry's qmode and drift, the
+   kernel launched in each chosen qmode, the densified check),
+   ``plan_engine`` (``--engine --plan P`` on the warm cache over phase 6's
+   trace: every request equals ``static_generate`` under the same plan and
+   cache bit for bit, so tuning kept a row's sums independent of M) and
+   ``plan_spec`` (``--engine --spec-decode 2 --plan auto`` without
+   ``--draft-sparsity``: the planner's draft density and its diagnostics,
+   every request bit-equal to ``static_generate``).  Every run fails if its
+   dispatch log shows the plain version (``torch_oracle``) on the card.
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
-kernel and qmode), and ``{"ok": true, "device": {...}}``.
+kernel and qmode, with the launches and registry dispatches of phase 7's
+runs), and ``{"ok": true, "device": {...}}``.  The whole run reads and
+writes a tuning cache of its own in a temporary directory, so phases 4-6
+dispatch on a cold cache (the untuned launches).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -91,12 +113,13 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core.formats import (pack_block_csr, pack_tiled_csc,  # noqa: E402
-                                      quantize_packed)
+from repro_torch.core.formats import (TiledCSC, pack_block_csr,  # noqa: E402
+                                      pack_tiled_csc, quantize_packed)
 from repro_torch.core.pruning import block_prune, magnitude_prune  # noqa: E402
+from repro_torch.core import sod as sod_mod  # noqa: E402
 from repro_torch.core.sod import SoDConfig  # noqa: E402
 from repro_torch.kernels import block_matmul as bmm  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import autotune, build, ops, ref, timing  # noqa: E402
 from repro_torch.kernels import decompress as dk  # noqa: E402
 from repro_torch.kernels import sod_matmul as sm  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -156,8 +179,6 @@ PATH_SHAPES = {(2048, 2048): ("wq+wo", 2), (2048, 512): ("wk+wv", 2),
 PATH_M = {"decode": 4, "prefill": 128}
 RAGGED = [((300, 260), 77), ((2048, 512), 77), ((8192, 2048), 5)]
 REPS = 25
-FLUSH_BYTES = 512 << 20   # > 50 MB L2: every timed launch reads from HBM
-SPIN_HZ = 2e9             # spin cycles a second: at least the H100's top SM clock
 PLANS = {"sod_matmul": sm.plan_of, "block_matmul": bmm.plan_of}
 COUNTERS = {"sod_matmul": sm, "block_matmul": bmm, "decompress": dk}
 SOURCES = {"sod_matmul": ("src/repro_torch/kernels/csrc/sod_matmul.cu",
@@ -230,35 +251,10 @@ def _weights(k: int, n: int, m: int, dtype, seed: int, block: bool):
     return x, w
 
 
-def _flush_buffer() -> torch.Tensor:
-    return torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-
-
 def _time_ms(fn, flush: torch.Tensor) -> float:
-    """Median device time of one call, CUDA events.  Before each, L2 is
-    left clean: reading the flush buffer (a reduction, which writes one
-    scalar) evicts every line, and dirty ones are written back there, not
-    inside the timed call.  A spin kernel after it keeps the card busy
-    while the host enqueues the call (at least 1 ms, and 4x the host time
-    of one call), so the events hold the call's device time and no host
-    time."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t0
-    cycles = int(SPIN_HZ * max(1e-3, 4 * host_s))
-    times = []
-    for _ in range(REPS):
-        flush.sum()
-        torch.cuda._sleep(cycles)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    """Median device time of one call over REPS calls, on the clean-L2
+    yardstick of :mod:`repro_torch.kernels.timing`."""
+    return timing.device_ms(fn, flush, REPS)
 
 
 def _nbytes(t) -> int:
@@ -362,7 +358,7 @@ def _run_case(name, qmode, k, n, m, tag, dtype, seed, qpacks):
 
 
 def phase_kernels() -> dict:
-    flush = _flush_buffer()
+    flush = timing.flush_buffer()
     cases = _kernel_cases()
     t0 = time.perf_counter()
     qpacks = _quantized_packs(cases)
@@ -455,7 +451,7 @@ def phase_slice(cell: str) -> dict:
     cfg = (None if layers == LAYERS
            else configs.get_config(args.arch).with_(n_layers=layers))
     t0 = time.perf_counter()
-    model, params, tokens = serve.prepare(args, sod, cfg)
+    model, params, tokens, *_ = serve.prepare(args, sod, cfg)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     reset_counts()
@@ -483,8 +479,21 @@ def phase_slice(cell: str) -> dict:
          "steady_tok_per_s": summary["steady_tok_per_s"],
          "sample": summary["sample"], "weight_bytes": wb})
 
-    # the same weights, prefill through the kernel and through the dense
-    # matmul on the weights densified by ops.decompress
+    row = check_vs_dense(cell, model, params, tokens, kernel, layers)
+    decompress_launches = row["decompress_launches"]
+    return {"launches": launches[kernel], "decompress_launches": decompress_launches,
+            "weight_bytes": wb, "layer_bytes": row["projection_bytes"] / layers,
+            "model": model, "params": params, "tokens": tokens}
+
+
+def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int) -> dict:
+    """The same weights, prefill through the kernel and through the dense
+    matmul on the weights densified by ops.decompress: logits within
+    LOGIT_TOL of the dense path's largest, and ``decompress`` launched once
+    a packed TiledCSC projection (all ``layers`` x 7 of them when the
+    ``kernel`` is ``sod_matmul``).  Returns the logged row."""
+    proj = _projections(params)
+    packed = [w for ws in proj.values() for w in ws]
     with torch.inference_mode():
         lk, _ = model.prefill(params, tokens)
         dk.launches = 0
@@ -497,18 +506,20 @@ def phase_slice(cell: str) -> dict:
         err = (lk - ld).abs().max().item()
         scale = ld.abs().max().item()
         agree = (lk.argmax(-1) == ld.argmax(-1)).float().mean().item()
-    want_decompress = layers * 7 if kernel == "sod_matmul" else 0
-    if decompress_launches != want_decompress:
-        raise AssertionError(f"{cell}: densifying launched decompress "
+    want_decompress = sum(isinstance(w, TiledCSC) for w in packed)
+    if decompress_launches != want_decompress or (
+            kernel == "sod_matmul" and want_decompress != layers * 7):
+        raise AssertionError(f"{label}: densifying launched decompress "
                              f"{decompress_launches} times, want {want_decompress}")
-    row = {"phase": "slice_vs_dense", "cell": cell, "max_abs_err": err,
+    row = {"phase": "slice_vs_dense", "cell": label, "max_abs_err": err,
            "max_abs_logit": scale, "tol": LOGIT_TOL * scale,
            "argmax_agreement": agree, "decompress_launches": decompress_launches,
-           "projection_bytes": sum(w.nbytes_compressed() for w in packed),
-           "projection_bytes_dense": sum(w.nbytes_dense() for w in packed)}
+           "projection_bytes": sum(sod_mod.weight_bytes(w) for w in packed),
+           "projection_bytes_dense": sum(w.nbytes_dense() if hasattr(w, "nbytes_dense")
+                                         else sod_mod.weight_bytes(w) for w in packed)}
     if kernel == "sod_matmul":
         row["caps"] = {name: ws[0].cap for name, ws in proj.items()}
-    else:
+    elif kernel == "block_matmul":
         row["bcaps"] = {name: ws[0].bcap for name, ws in proj.items()}
         row["stored_share"] = {
             name: sum(int(w.tile_nnz.sum()) for w in ws)
@@ -519,11 +530,9 @@ def phase_slice(cell: str) -> dict:
             for w in packed)
     log(row)
     if not (torch.isfinite(lk).all() and err <= LOGIT_TOL * scale):
-        raise AssertionError(f"{cell}: kernel-path logits differ from the dense "
+        raise AssertionError(f"{label}: kernel-path logits differ from the dense "
                              f"path: {err} > {LOGIT_TOL * scale}")
-    return {"launches": launches[kernel], "decompress_launches": decompress_launches,
-            "weight_bytes": wb, "layer_bytes": row["projection_bytes"] / layers,
-            "model": model, "params": params, "tokens": tokens}
+    return row
 
 
 def check_quantized_bytes(cells: dict) -> None:
@@ -589,7 +598,7 @@ def phase_profile(cell: str, model, params, tokens) -> None:
 def phase_head(params, batch: int) -> None:
     """The tied LM head's GEMM at decode: f32 output (what project_logits
     runs) against bf16 output widened after (what it ran before)."""
-    flush = _flush_buffer()
+    flush = timing.flush_buffer()
     embed = params["embed"]
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
@@ -746,8 +755,8 @@ def _engine_probe(target_params):
     serve_engine = serve.Engine
 
     def counted(build):
-        def make(model):
-            step = build(model)
+        def make(model, plan=None):
+            step = build(model, plan=plan)
 
             def run(params, *a, **kw):
                 n0 = _matmul_launches()
@@ -792,11 +801,11 @@ def _page_bytes(model) -> int:
     return 2 * k.numel() * k.element_size()
 
 
-def _check_tokens(run: str, model, params, trace, tokens) -> float:
+def _check_tokens(run: str, model, params, trace, tokens, plan=None) -> float:
     t0 = time.perf_counter()
     with torch.inference_mode():
         for req in trace:
-            want = static_generate(model, params, req)
+            want = static_generate(model, params, req, plan=plan)
             if tokens[req.rid] != want:
                 first = next(i for i, (a, b) in enumerate(zip(tokens[req.rid], want))
                              if a != b)
@@ -977,8 +986,8 @@ def phase_spec_profile(cells: dict, draft) -> None:
         def draft_steps():
             d = tok
             for j in range(k + 1):
-                d = eng._decode(eng.draft_params, eng.draft_pool, bt, d, pos + j,
-                                valid)[0].reshape(4, 1)
+                d = eng._draft_decode(eng.draft_params, eng.draft_pool, bt, d,
+                                      pos + j, valid)[0].reshape(4, 1)
 
         window = torch.cat([tok, tok.expand(4, k)], 1)
 
@@ -1002,6 +1011,187 @@ def phase_spec_profile(cells: dict, draft) -> None:
          "engine_step_device_ms": step_dev, "engine_step_wall_ms": step_wall,
          "engine_step_idle_share": (1 - step_dev / step_wall) if step_dev else
          "not measured"})
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the planner and the tuned dispatch
+# ---------------------------------------------------------------------------
+PLAN_RUNS = ("plan_tiled_csc", "plan_replay", "plan_block_csr", "plan_quantize_auto",
+             "plan_engine", "plan_spec")
+TILED_ENGINE_ARGV = ENGINE_ARGV + ["--sod", "tiled_csc", "--density", str(DENSITY)]
+IMPL_KERNEL = {"cuda_fused": "sod_matmul", "cuda_block": "block_matmul"}
+
+
+def _same_packs(a: dict, b: dict) -> bool:
+    """Every projection of every layer of two packed trees: the same format
+    and layout, and every buffer bit-equal."""
+    for la, lb in zip(a["layers"], b["layers"], strict=True):
+        for g in ("attn", "mlp"):
+            for n, wa in la[g].items():
+                wb = lb[g][n]
+                if type(wa) is not type(wb):
+                    return False
+                if isinstance(wa, torch.Tensor):    # a plan's dense entry
+                    if not (wa.dtype == wb.dtype and torch.equal(wa, wb)):
+                        return False
+                    continue
+                for f in dataclasses.fields(wa):
+                    va, vb = getattr(wa, f.name), getattr(wb, f.name)
+                    if isinstance(va, torch.Tensor):
+                        if not (isinstance(vb, torch.Tensor) and va.dtype == vb.dtype
+                                and torch.equal(va, vb)):
+                            return False
+                    elif va != vb:
+                        return False
+    return True
+
+
+def _dispatch_gate(run: str, summary: dict, impl: str) -> dict:
+    """The run's dispatches by ``impl[source]``: fails if the plain version
+    ran on the card or another impl than ``impl`` was chosen."""
+    counts = summary["kernel_dispatch"]
+    if not counts or any(not k.startswith(f"{impl}[") for k in counts):
+        raise AssertionError(f"{run}: dispatches {counts}, want only {impl}")
+    return counts
+
+
+def _winners(cache_path: str) -> list[dict]:
+    """Each tuned (layout, M bucket): the winner's launch and time beside the
+    untuned launch's, from the tuning cache file."""
+    raw = json.loads(pathlib.Path(cache_path).read_text())
+    return [{"key": k, "impl": e["impl"], "params": e["params"], "us": e["us"],
+             "default_us": e.get("default_us")}
+            for k, e in sorted(raw["entries"].items())]
+
+
+def _plan_run(run: str, argv: list[str], impl: str, sod: SoDConfig | None = None,
+              prepared=None) -> tuple[dict, object, float]:
+    """One ``serve`` run of phase 7: its weights prepared (and planned,
+    tuned) from the flags unless ``prepared`` is given, then served with
+    every launch count read around the serve.  Returns (summary, prepared,
+    prepare seconds)."""
+    t0 = time.perf_counter()
+    prep = prepared or serve.prepare(serve.parse_args(argv), sod)
+    torch.cuda.synchronize()
+    prepare_s = time.perf_counter() - t0
+    reset_counts()
+    summary = serve.main(argv, sod=sod, prepared=prep)
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    kernel = IMPL_KERNEL[impl]
+    other = "block_matmul" if kernel == "sod_matmul" else "sod_matmul"
+    if not (launches[kernel] > 0 and launches[other] == 0 and launches["decompress"] == 0):
+        raise AssertionError(f"{run}: launches {launches}")
+    _dispatch_gate(run, summary, impl)
+    if not summary["logits_finite"]:
+        raise AssertionError(f"{run}: non-finite logits")
+    summary["launches"] = launches[kernel]
+    return summary, prep, prepare_s
+
+
+def _plan_row(run: str, summary: dict, prepare_s: float, **extra) -> dict:
+    row = {"phase": "plan", "run": run, "prepare_s": prepare_s,
+           "launches": summary["launches"], "kernel_dispatch": summary["kernel_dispatch"],
+           **{k: summary[k] for k in ("plan_s", "autotune", "autotune_s", "plan_layers",
+                                      "plan_bytes") if k in summary}, **extra}
+    log(row)
+    return row
+
+
+def _engine_gate(run: str, summary: dict, model, params, plan) -> float:
+    trace, tokens = summary["trace"], summary["tokens"]
+    if summary["completed"] != len(trace) or set(tokens) != {r.rid for r in trace}:
+        raise AssertionError(f"{run}: {summary['completed']} of {len(trace)} "
+                             "requests completed")
+    return _check_tokens(run, model, params, trace, tokens, plan)
+
+
+def phase_plan(cells: dict) -> dict:
+    """Phase 7's six runs (PLAN_RUNS) on one tuning cache in a temporary
+    directory; returns each run's row."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plan_")
+    tc, pj = f"{tmp}/tuning_cache.json", f"{tmp}/plan.json"
+    rows = {}
+    try:
+        # plan_tiled_csc: plan from the weights, tuned, saved
+        run = "plan_tiled_csc"
+        argv = TILED_ARGV + ["--plan", "auto", "--autotune", "--tuning-cache", tc,
+                             "--plan-json", pj]
+        summary, prep, prepare_s = _plan_run(run, argv, "cuda_fused")
+        if not _same_packs(prep.params, cells["tiled_csc"]["params"]):
+            raise AssertionError(f"{run}: packs differ from phase 4's tiled_csc")
+        if not summary["autotune"]["tuned"] > 0:
+            raise AssertionError(f"{run}: nothing tuned: {summary['autotune']}")
+        check_vs_dense(run, prep.model, prep.params, prep.tokens, "sod_matmul", LAYERS)
+        rows[run] = _plan_row(run, summary, prepare_s, packs_equal_phase4=True,
+                              winners=_winners(tc),
+                              plan={p: e.describe() for p, e in prep.plan.entries.items()})
+        first = summary
+
+        # plan_replay: the saved plan on the warm cache
+        run = "plan_replay"
+        argv = TILED_ARGV + ["--plan", pj, "--autotune", "--tuning-cache", tc]
+        summary, replay, prepare_s = _plan_run(run, argv, "cuda_fused")
+        if summary["autotune"]["tuned"] != 0:
+            raise AssertionError(f"{run}: measured again: {summary['autotune']}")
+        if not _same_packs(replay.params, prep.params):
+            raise AssertionError(f"{run}: packs differ from plan_tiled_csc's")
+        if summary["generated_ids"] != first["generated_ids"]:
+            raise AssertionError(f"{run}: tokens differ from plan_tiled_csc's")
+        rows[run] = _plan_row(run, summary, prepare_s, packs_equal=True,
+                              tokens_equal=True)
+        del prep
+
+        # plan_block_csr: the block kernel only
+        run = "plan_block_csr"
+        argv = BASE_ARGV + ["--sod", "block_csr", "--density", str(DENSITY),
+                            "--plan", "auto", "--autotune", "--tuning-cache", tc]
+        summary, prep, prepare_s = _plan_run(run, argv, "cuda_block", sod=_block_sod())
+        rows[run] = _plan_row(run, summary, prepare_s)
+        del prep
+
+        # plan_quantize_auto: the planner's qmodes
+        run = "plan_quantize_auto"
+        argv = TILED_ARGV + ["--plan", "auto", "--quantize", "auto",
+                             "--tuning-cache", tc]
+        summary, prep, prepare_s = _plan_run(run, argv, "cuda_fused")
+        qmodes = {p: e.qmode for p, e in prep.plan.entries.items()}
+        packed = {w.qmode for ws in _projections(prep.params).values() for w in ws}
+        if packed != set(qmodes.values()):
+            raise AssertionError(f"{run}: packed qmodes {packed}, plan {qmodes}")
+        check_vs_dense(run, prep.model, prep.params, prep.tokens, "sod_matmul", LAYERS)
+        rows[run] = _plan_row(run, summary, prepare_s, qmodes=qmodes,
+                              notes={p: e.note for p, e in prep.plan.entries.items()},
+                              packed_qmodes=sorted(packed))
+        del prep
+
+        # plan_engine: the saved plan and warm cache under the engine
+        run = "plan_engine"
+        argv = TILED_ENGINE_ARGV + ["--plan", pj, "--tuning-cache", tc]
+        summary, _, _ = _plan_run(run, argv, "cuda_fused", prepared=replay)
+        static_s = _engine_gate(run, summary, replay.model, replay.params, replay.plan)
+        rows[run] = _plan_row(run, summary, 0.0, bit_equal_to_static_generate=True,
+                              static_generate_s=static_s,
+                              **{k: summary[k] for k in ("completed", "steady_tok_per_s",
+                                                         "step_ms_p50", "warmup_s")})
+        del replay
+
+        # plan_spec: the planner picks the draft density
+        run = "plan_spec"
+        argv = TILED_ENGINE_ARGV + ["--plan", "auto", "--tuning-cache", tc,
+                                    "--spec-decode", "2"]
+        summary, prep, prepare_s = _plan_run(run, argv, "cuda_fused")
+        static_s = _engine_gate(run, summary, prep.model, prep.params, prep.plan)
+        rows[run] = _plan_row(run, summary, prepare_s, bit_equal_to_static_generate=True,
+                              static_generate_s=static_s,
+                              **{k: summary[k] for k in (
+                                  "draft_density", "draft_density_choice", "draft_bytes",
+                                  "spec_windows", "acceptance_rate", "completed",
+                                  "steady_tok_per_s")})
+        del prep
+    finally:
+        autotune.set_cache(None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rows
 
 
 def _entry(name: str, qmode: str, kern: dict, launches: int) -> dict:
@@ -1056,6 +1246,11 @@ def _launches_of(name: str, qmode: str, cells: dict, kern: dict) -> tuple[int, s
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
+    # a cold tuning cache of this run's own: phases 4-6 dispatch the untuned
+    # launches, and no user cache is read or written
+    cache_dir = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ["REPRO_TORCH_TUNING_CACHE"] = f"{cache_dir}/tuning_cache.json"
+    autotune.set_cache(None)      # opened from the variable at first use
 
     def timed(phase, fn, *a):
         t0 = time.perf_counter()
@@ -1077,12 +1272,14 @@ def main() -> None:
               for run in ENGINE_RUNS}
     timed("engine_profile", phase_engine_profile, cells)
     spec_args = serve.parse_args(SPEC_ARGV)
-    drafts = {cell: serve.prepare_draft(spec_args, cells[cell]["model"])
+    drafts = {cell: serve.prepare_draft(spec_args, cells[cell]["model"])[0]
               for cell in ("tiled_csc", "block_csr")}
     engine.update({run: timed(f"engine:{run}", phase_feature, run, cells, drafts)
                    for run in FEATURE_RUNS})
     timed("spec_profile", phase_spec_profile, cells, drafts["tiled_csc"])
     del drafts
+    plan = timed("plan", phase_plan, cells)
+    shutil.rmtree(cache_dir, ignore_errors=True)
 
     entries = []
     for qmode in ("none", *QMODES):
@@ -1093,6 +1290,14 @@ def main() -> None:
                 entry["engine_launches"] = {run: row["launches"] for run, row in
                                             engine.items()
                                             if CELLS[row["cell"]][2] == name}
+            runs = {run: row for run, row in plan.items() if name != "decompress"
+                    and any(IMPL_KERNEL[k.split("[")[0]] == name
+                            for k in row["kernel_dispatch"])
+                    and (qmode in row.get("packed_qmodes", ("none",)))}
+            if runs:
+                entry["plan_launches"] = {run: row["launches"] for run, row in runs.items()}
+                entry["plan_dispatch"] = {run: row["kernel_dispatch"]
+                                          for run, row in runs.items()}
             entries.append(entry)
     log({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     log(smi)

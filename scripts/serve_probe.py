@@ -6,6 +6,7 @@ invariance that the engine's equality with static serving rests on.
                                            [--batch 4]
     python3 scripts/serve_probe.py decode [--src DIR] [--repeats 5]
     python3 scripts/serve_probe.py invariance
+    python3 scripts/serve_probe.py dispatch [--src DIR]
 
 Run from the root of a checkout.  ``--src`` names the ``src`` directory
 whose ``repro_torch`` is measured (default: this checkout's), so that two
@@ -37,13 +38,25 @@ bf16 with seeded random weights, as in ``chip_smoke.py``.
   against 4), and (2) ``chip_smoke.py``'s engine runs
   (``ENGINE_RUNS`` and ``FEATURE_RUNS``) against ``static_generate``: the
   requests whose tokens differ.
+- ``dispatch``: the host's cost of dispatching one packed matmul through
+  the kernel registry, as every projection of a served step does: its
+  problem key (``registry.problem_key``) and its resolution
+  (``ops.resolve``, a memo hit once warm), at decode (M = 4) on each
+  full-width layout of tiled_csc weights at density 0.3, keyed on
+  ``cuda``.  Three cases: nothing recording, under the dispatch record
+  that ``serve.main`` keeps for its summary, and that with a plan's hint
+  (``fallback_params``).  Each is the median of DISPATCH_BLOCKS blocks of
+  DISPATCH_CALLS calls, in µs a call, and times 112 (the packed matmuls of
+  a decode step) in ms a step.  It runs on the host alone: with no GPU it
+  measures this host's CPU.
 
 Prints one JSON line per measurement, the ``nvidia-smi`` name and power
-limit, and last ``{"ok": true}``.
+limit (where there is a GPU), and last ``{"ok": true}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import statistics
@@ -55,6 +68,12 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 BASE = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "32", "--gen",
         "16", "--seed", "0", "--device", "cuda"]
 TILED = BASE + ["--sod", "tiled_csc", "--density", "0.3"]
+# full-width llama3.2-1b projections (K, N), and the packed matmuls of a step
+LAYOUTS = {"wq": (2048, 2048), "wk": (2048, 512), "w_gate": (2048, 8192),
+           "w_down": (8192, 2048)}
+STEP_CALLS = 112
+DISPATCH_BLOCKS = 30
+DISPATCH_CALLS = 2000
 
 
 def log(obj) -> None:
@@ -70,7 +89,7 @@ def _block_sod(qmode: str):
 def prefill(torch, args) -> None:
     from repro_torch.launch import serve
 
-    model, params, _ = serve.prepare(serve.parse_args(TILED))
+    model, params, *_ = serve.prepare(serve.parse_args(TILED))
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
     for plen in args.prompt_lens:
@@ -111,7 +130,7 @@ def decode(torch, args) -> None:
              "block_csr_fp8": (BASE, _block_sod("fp8"))}
     for cell, (argv, sod) in cells.items():
         prepared = serve.prepare(serve.parse_args(argv), sod)
-        model, params, tokens = prepared
+        model, params, tokens = prepared[:3]
         toks = [serve.main(argv, sod=sod, prepared=prepared)["steady_tok_per_s"]
                 for _ in range(args.repeats)]
         with torch.inference_mode():
@@ -320,7 +339,7 @@ def invariance_engine(torch) -> None:
     cells = {}
     for cell in ("tiled_csc", "block_csr"):
         argv, sod = cs.CELLS[cell][:2]
-        model, params, tokens = serve.prepare(serve.parse_args(argv), sod)
+        model, params, tokens, *_ = serve.prepare(serve.parse_args(argv), sod)
         cells[cell] = {"model": model, "params": params, "tokens": tokens}
     for run, (cell, chunk) in cs.ENGINE_RUNS.items():
         argv = cs.ENGINE_ARGV + (["--prefill-chunk", str(chunk)] if chunk else [])
@@ -332,7 +351,7 @@ def invariance_engine(torch) -> None:
                                                 summary["tokens"], sl["model"],
                                                 sl["params"])})
     spec_args = serve.parse_args(cs.SPEC_ARGV)
-    drafts = {cell: serve.prepare_draft(spec_args, cells[cell]["model"])
+    drafts = {cell: serve.prepare_draft(spec_args, cells[cell]["model"])[0]
               for cell in cells}
     for run, (cell, _, _) in cs.FEATURE_RUNS.items():
         out = cs.feature_run(run, cells, drafts)
@@ -343,9 +362,43 @@ def invariance_engine(torch) -> None:
                                                 cells[cell]["params"])})
 
 
+def dispatch(torch, args) -> None:
+    """Host µs of one dispatch of a packed matmul at decode."""
+    from repro_torch.core.formats import pack_tiled_csc
+    from repro_torch.core.pruning import magnitude_prune
+    from repro_torch.kernels import ops, registry
+
+    # the record serve.main keeps: a count per impl, or in a tree without
+    # one, the full record that tree's serve.main kept
+    record = getattr(registry, "count_dispatches", registry.record_dispatches)
+    g = torch.Generator().manual_seed(0)
+    for name, (k, n) in LAYOUTS.items():
+        w = pack_tiled_csc(magnitude_prune(torch.randn(k, n, generator=g), 0.3))
+        row = {"src": str(args.src), "what": "dispatch, host us a call",
+               "layout": name, "k": k, "n": n, "m": 4}
+        for case, hint, rec in (("no_record", None, False),
+                                ("serve_record", None, True),
+                                ("serve_record_plan_hint", {"bm": 8}, True)):
+            def call():
+                key = registry.problem_key(w, m=4, backend="cuda")
+                ops.resolve(key, "auto", fallback_params=hint)
+
+            blocks = []
+            for _ in range(DISPATCH_BLOCKS):
+                with record() if rec else contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    for _ in range(DISPATCH_CALLS):
+                        call()
+                    blocks.append((time.perf_counter() - t0) / DISPATCH_CALLS * 1e6)
+            us = statistics.median(blocks)
+            row[f"{case}_us"] = us
+            row[f"{case}_ms_a_step"] = us * STEP_CALLS / 1e3
+        log(row)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", choices=("prefill", "decode", "invariance"))
+    ap.add_argument("what", choices=("prefill", "decode", "invariance", "dispatch"))
     ap.add_argument("--src", type=pathlib.Path, default=ROOT / "src",
                     help="directory holding the repro_torch package to measure")
     ap.add_argument("--prompt-lens", type=int, nargs="+", default=[512, 2048])
@@ -355,13 +408,17 @@ def main() -> None:
     sys.path.insert(0, str(args.src.resolve()))
     import torch
 
+    if args.what == "dispatch":
+        dispatch(torch, args)
+        if torch.cuda.is_available():
+            log(_smi())
+        log({"ok": True})
+        return
     if not torch.cuda.is_available():
         raise SystemExit("serve_probe: torch.cuda.is_available() is false")
     if args.what == "invariance" and args.src.resolve() != (ROOT / "src").resolve():
         raise SystemExit("serve_probe: invariance measures this checkout only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    smi = _smi()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.what == "prefill":
@@ -373,6 +430,12 @@ def main() -> None:
         invariance_engine(torch)
     log(smi)
     log({"ok": True})
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 if __name__ == "__main__":

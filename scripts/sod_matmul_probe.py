@@ -23,7 +23,10 @@ with bf16 activations and weights pruned to density 0.3, it reports:
 - ``decode_ms`` and ``prefill_ms`` (M = 4 and 128): device time per call,
   CUDA events, median of REPS, each call starting with a clean L2 (a 512 MB
   buffer read, not written) behind a spin kernel that hides the host's
-  enqueue, as ``chip_smoke.py`` times;
+  enqueue: the yardstick of this checkout's
+  ``src/repro_torch/kernels/timing.py``, which ``chip_smoke.py`` and the
+  autotuner use too (loaded from this checkout whatever ``--src`` says, so
+  two trees are timed alike);
 - at decode, data probes on the same operand.  ``sod_matmul``: every row
   index set to padding (``pad_ms``: the copies, x staging, the walk over
   the slots and the split-K reduction, no gather of x and no multiply-add),
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -59,8 +63,6 @@ DENSITY = 0.3
 REPS = 25
 HOST_BLOCKS = 40
 HOST_CALLS = 25
-FLUSH_BYTES = 512 << 20   # > 50 MB L2: every timed launch reads from HBM
-SPIN_HZ = 2e9             # spin cycles a second: at least the H100's top SM clock
 TOL = 1e-4                # f32 output, relative to the largest |y| (chip_smoke's)
 
 
@@ -68,27 +70,14 @@ def log(obj) -> None:
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
 
 
-def device_ms(torch, fn, flush) -> float:
-    """Median device time of one call, CUDA events, as ``chip_smoke.py``
-    times: L2 left clean before each (the flush buffer read, not written),
-    then a spin kernel that keeps the card busy while the host enqueues the
-    call (at least 1 ms and 4x the host time of one call)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    cycles = int(SPIN_HZ * max(1e-3, 4 * (time.perf_counter() - t0)))
-    times = []
-    for _ in range(REPS):
-        flush.sum()
-        torch.cuda._sleep(cycles)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+def _timing():
+    """This checkout's yardstick module, loaded from its file (it imports
+    only torch), so the package under ``--src`` is not shadowed."""
+    spec = importlib.util.spec_from_file_location(
+        "_probe_timing", ROOT / "src" / "repro_torch" / "kernels" / "timing.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def host_us(torch, fn) -> tuple[float, float]:
@@ -132,7 +121,12 @@ def main() -> None:
     plain = ref.block_matmul_ref if block else ref.sod_matmul_ref
     qmodes = QMODES[args.kernel]
     build.load(args.kernel)
-    flush = torch.zeros(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    timing = _timing()
+    flush = timing.flush_buffer()
+
+    def device_ms(fn) -> float:
+        return timing.device_ms(fn, flush, REPS)
+
     src = str(args.src)
 
     def probes(p) -> dict:
@@ -180,10 +174,10 @@ def main() -> None:
             row = {"src": src, "kernel": args.kernel, "K": k, "N": n, "qmode": qmode,
                    ("bcap" if block else "cap"): p.bcap if block else p.cap,
                    "host_us": host, "host_us_min": host_min,
-                   "decode_ms": device_ms(torch, lambda: kernel(x4, p), flush),
-                   "prefill_ms": device_ms(torch, lambda: kernel(x128, p), flush)}
+                   "decode_ms": device_ms(lambda: kernel(x4, p)),
+                   "prefill_ms": device_ms(lambda: kernel(x128, p))}
             for name, q in extra.items():
-                row[f"{name}_ms"] = device_ms(torch, lambda: kernel(x4, q), flush)
+                row[f"{name}_ms"] = device_ms(lambda: kernel(x4, q))
             log(row)
             for key in layer[qmode]:
                 layer[qmode][key] += count * row[key]

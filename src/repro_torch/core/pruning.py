@@ -1,14 +1,15 @@
 """Pruning — produces the sparse weights that Sparse-on-Dense consumes.
 
-Twin of :mod:`repro.core.pruning` for unstructured magnitude pruning and
-(br, bc) block pruning.  The N:M pruner is not ported yet.
+Twin of :mod:`repro.core.pruning` for unstructured magnitude pruning,
+structured N:M pruning, (br, bc) block pruning and the random sparse test
+matrix.  The paper's layerwise density profiles are not ported.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["magnitude_prune", "block_prune"]
+__all__ = ["magnitude_prune", "nm_prune", "block_prune", "random_sparse"]
 
 
 def magnitude_prune(w: torch.Tensor, density: float) -> torch.Tensor:
@@ -27,6 +28,25 @@ def magnitude_prune(w: torch.Tensor, density: float) -> torch.Tensor:
     mag = w.abs().float()      # exact for bf16/f32: the threshold compares equal
     thresh = torch.kthvalue(mag.reshape(-1), w.numel() - k + 1).values
     return torch.where(mag >= thresh, w, torch.zeros_like(w))
+
+
+def nm_prune(w: torch.Tensor, n: int = 4, m: int = 8, axis: int = 0) -> torch.Tensor:
+    """Structured N:M pruning: keep the ``n`` largest-|w| of every ``m``
+    consecutive entries along ``axis``.
+
+    The reference ranks with ``argsort(argsort(-|w|))``; ``jnp.argsort`` is
+    stable, so among equal magnitudes (common in bf16, and every zero) the
+    lower index ranks first.  ``torch.argsort`` is asked to be stable too,
+    or ties would give another mask.
+    """
+    if w.shape[axis] % m:
+        raise ValueError(f"axis size {w.shape[axis]} not divisible by m={m}")
+    wm = w.movedim(axis, -1)
+    groups = wm.reshape(*wm.shape[:-1], wm.shape[-1] // m, m)
+    order = torch.argsort(-groups.abs(), dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1, stable=True)
+    pruned = torch.where(rank < n, groups, torch.zeros_like(groups))
+    return pruned.reshape(wm.shape).movedim(-1, axis)
 
 
 def block_prune(w: torch.Tensor, density: float,
@@ -51,3 +71,13 @@ def block_prune(w: torch.Tensor, density: float,
     mask = (norms >= thresh)[:, None, :, None]
     pruned = torch.where(mask, blocks, torch.zeros_like(blocks)).reshape(kp, np_)
     return pruned[:k, :n].contiguous()
+
+
+def random_sparse(gen: torch.Generator, shape: tuple[int, ...], density: float,
+                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Random matrix with Bernoulli(``density``) support, drawn from ``gen``
+    on its device (the autotuner's warmup operand; its values are not the
+    reference's)."""
+    vals = torch.randn(shape, generator=gen, device=gen.device)
+    mask = torch.rand(shape, generator=gen, device=gen.device) < density
+    return torch.where(mask, vals, torch.zeros_like(vals)).to(dtype)

@@ -1,11 +1,24 @@
 """Public entry points over dense and packed weights.
 
-Twin of :mod:`repro.kernels.ops` without the kernel registry, the autotuner
-and SPMD routing (not ported yet): a dense weight flows straight to
-:func:`dense_matmul` (the paper's decompression bypass, Fig. 2c); a
-:class:`~repro_torch.core.formats.TiledCSC` goes to the fused kernel wrapper
-and a :class:`~repro_torch.core.formats.BlockCSR` to the block kernel
-wrapper, with the input flattened to 2-D.
+Twin of :mod:`repro.kernels.ops` without SPMD routing (ROADMAP.md queue A
+item 8): a dense weight flows straight to :func:`dense_matmul` (the paper's
+decompression bypass, Fig. 2c); a packed weight dispatches through the
+kernel registry (:mod:`repro_torch.kernels.registry`) with the autotuner's
+persisted winners (:mod:`repro_torch.kernels.autotune`):
+
+* ``impl="auto"`` — the tuned entry of this (layout, M bucket, backend) if
+  the tuning cache has one, else the prior's choice: on a CUDA tensor the
+  hand-written kernel of the format (``cuda_fused`` for a TiledCSC,
+  ``cuda_block`` for a BlockCSR), on a CPU tensor the plain version
+  (``torch_oracle``);
+* ``impl="cuda"`` (``"pallas"``, the reference's spelling of the same
+  choice, so its plans replay) — force the format's CUDA impl; its wrapper
+  runs the plain version on a CPU tensor;
+* ``impl="jnp"`` — force ``torch_oracle``, which raises on a CUDA tensor.
+
+Dispatch runs on every call (PyTorch is eager, where the reference resolves
+once per trace), so a resolution is memoized per problem and cache state;
+nothing is ever measured here (``--autotune`` fills the cache).
 """
 from __future__ import annotations
 
@@ -14,11 +27,20 @@ import dataclasses
 import torch
 
 from repro_torch.core.formats import BlockCSR, TiledCSC
-from repro_torch.kernels import block_matmul as block_matmul_kernel
+from repro_torch.kernels import autotune, registry
 from repro_torch.kernels import decompress as decompress_kernel
-from repro_torch.kernels import sod_matmul as sod_matmul_kernel
 
-__all__ = ["sod_matmul", "decompress", "dense_matmul"]
+__all__ = ["sod_matmul", "decompress", "dense_matmul", "resolve"]
+
+_CUDA_IMPLS = {"tiled_csc": "cuda_fused", "block_csr": "cuda_block"}
+_FORCED = {
+    "cuda": _CUDA_IMPLS,
+    "pallas": _CUDA_IMPLS,
+    "jnp": {"tiled_csc": "torch_oracle", "block_csr": "torch_oracle"},
+}
+# (key, impl, params, bm, fallback, cache version) -> (impl, params, source);
+# bounded by the handful of problems a model has
+_RESOLVED: dict[tuple, tuple[registry.KernelImpl, dict, str]] = {}
 
 
 def dense_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -40,23 +62,88 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> to
     return y.to(out_dtype).reshape(*x.shape[:-1], w.shape[-1])
 
 
-def sod_matmul(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """``x @ W`` for ``x`` of shape (..., K); returns (..., N) in
-    ``out_dtype`` (default: ``x.dtype``).  A packed W whose values have
-    another dtype than x is computed in the promoted dtype (``_promote``)."""
-    out_dtype = out_dtype or x.dtype
-    if isinstance(w, TiledCSC):
-        kernel = sod_matmul_kernel.sod_matmul
-    elif isinstance(w, BlockCSR):
-        kernel = block_matmul_kernel.block_matmul
+def _frozen(d: dict | None) -> tuple:
+    # unsorted: one dict gives one order, and another order of the same
+    # items only costs a second memo entry
+    return tuple(d.items()) if d else ()
+
+
+def _resolve(key: registry.ProblemKey, impl: str, params: dict | None,
+             bm: int | None, fallback_params: dict | None
+             ) -> tuple[registry.KernelImpl, dict, str]:
+    if impl in _FORCED:
+        chosen = registry.get_impl(_FORCED[impl][key.fmt])
+        run_params, source, tuned = chosen.default_params(key), "forced", None
+    elif impl == "auto":
+        tuned = autotune.lookup(key)
+        chosen, run_params = registry.choose(key, tuned=tuned, note=False)
+        source = "tuned" if tuned is not None and tuned.get("impl") == chosen.name \
+            else "prior"
     else:
+        raise ValueError(f"unknown impl {impl!r}; want auto | cuda | jnp "
+                         "(or pallas, the reference's name for cuda)")
+    space = chosen.param_space(key)
+    run_params = dict(run_params)
+    if fallback_params and tuned is None:
+        run_params.update((k, v) for k, v in fallback_params.items() if k in space)
+    if params:
+        run_params.update((k, v) for k, v in params.items() if k in space)
+    if bm is not None and "bm" in space:
+        run_params["bm"] = bm
+    return chosen, run_params, source
+
+
+def resolve(key: registry.ProblemKey, impl: str, params: dict | None = None,
+            bm: int | None = None, fallback_params: dict | None = None,
+            ) -> tuple[registry.KernelImpl, dict]:
+    """(impl, run_params) for a problem key — the one dispatch resolver.
+
+    ``params`` always override the tuned or default choice; ``fallback_params``
+    (a pack plan's dispatch hint) only seed dispatch when the tuning cache
+    has no entry for this (layout, M bucket): a hint recorded at one M never
+    overrides a winner tuned at another.  Keys outside the chosen impl's
+    param space are dropped (a reference plan's ``slot_chunk`` and
+    ``k_slab``); its ``bm`` is a key of both spaces, and the CUDA impls map
+    it onto their compiled M blocks.
+    """
+    memo = (key, impl, _frozen(params), bm, _frozen(fallback_params),
+            autotune.get_cache().version)
+    hit = _RESOLVED.get(memo)
+    if hit is None:
+        if len(_RESOLVED) > 4096:
+            _RESOLVED.clear()
+        hit = _RESOLVED[memo] = _resolve(key, impl, params, bm, fallback_params)
+    chosen, run_params, source = hit
+    registry.note_dispatch(key, chosen, run_params, source)
+    return chosen, dict(run_params)
+
+
+def sod_matmul(x: torch.Tensor, w, *, impl: str = "auto", bm: int | None = None,
+               out_dtype: torch.dtype | None = None, backend: str | None = None,
+               params: dict | None = None,
+               fallback_params: dict | None = None) -> torch.Tensor:
+    """``x @ W`` where ``W`` is dense, :class:`TiledCSC` or :class:`BlockCSR`.
+
+    ``x``: (..., K).  Returns (..., N) in ``out_dtype`` (default: x.dtype).
+    ``params`` overrides individual tunables (e.g. ``{"bm": 8}``) on top of
+    the tuned or default choice; ``backend`` overrides the backend taken
+    from x's device (``cuda`` / ``cpu``).  A packed W whose values have
+    another dtype than x is computed in the promoted dtype (``_promote``).
+    """
+    out_dtype = out_dtype or x.dtype
+    if not isinstance(w, (TiledCSC, BlockCSR)):
         return dense_matmul(x, w, out_dtype)
     k, n = w.shape
     if x.shape[-1] != k:
         raise ValueError(f"x inner dim {x.shape[-1]} != W K {k}")
     x, w = _promote(x, w)
     lead = x.shape[:-1]
-    y = kernel(x.reshape(-1, k).contiguous(), w, out_dtype)
+    x2 = x.reshape(-1, k).contiguous()
+    key = registry.problem_key(w, m=x2.shape[0],
+                               backend=backend or registry.current_backend(x.device))
+    chosen, run_params = resolve(key, impl, params=params, bm=bm,
+                                 fallback_params=fallback_params)
+    y = chosen.run(x2, w, out_dtype=out_dtype, **run_params)
     return y.reshape(*lead, n)
 
 

@@ -8,7 +8,11 @@ hand-written kernel, or the call raises.
 How a call is launched is one pure function, :func:`plan_launch`: the M
 block, the K splits (:func:`pick_splits`), the stages of the kernel's ring
 of tile slabs in shared memory, how much of x it stages at once, and the
-dynamic shared memory that takes, within the card's budget.  The kernel
+dynamic shared memory that takes, within the card's budget.  Two of its
+inputs are the autotuner's parameters (:mod:`repro_torch.kernels.registry`):
+the M block ``bm`` and the ring's stage cap ``max_stages``, neither of which
+changes the K splits and so the order of a row's sums (the splits are
+planned for a fixed CTAS_PER_SM).  The kernel
 fills its ring with bulk copies, which need ``vals`` and ``rows`` to start
 16-byte aligned: a misaligned operand (a view into a stacked tensor at an
 odd offset) raises (:func:`check_bulk_aligned`); there is no other path.
@@ -40,7 +44,7 @@ from repro_torch.kernels import build, ref
 __all__ = ["sod_matmul", "launches", "pick_splits", "sm_count", "DTYPE_CODE",
            "QMODE_CODE", "check_operands", "side_band", "side_args", "LaunchPlan",
            "ring_plan", "m_block", "plan_launch", "plan_of", "check_bulk_aligned",
-           "split_counters"]
+           "split_counters", "M_BLOCKS", "CTAS_PER_SM", "MAX_STAGES"]
 
 launches = 0
 
@@ -52,7 +56,10 @@ QMODE_CODE = {"none": 0, "int8": 1, "fp8": 2, "codebook": 3}
 CODE_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn,
               "codebook": torch.int8}
 MAX_CODES = 128
-_CTAS_PER_SM = 2
+# The CTAs per SM a launch plan aims for (fewer where two stages do not
+# fit), and the M blocks the kernel is compiled for.
+CTAS_PER_SM = 2
+M_BLOCKS = (4, 8, 32)
 
 # Shared memory of an H100 SM (bytes): 228 KB in all, at most 227 KB for one
 # CTA, and 1 KB of each CTA's share kept by the runtime.  The kernel's static
@@ -84,7 +91,7 @@ def _entry():
     return fn
 
 
-def pick_splits(kt: int, ctas: int, sms: int, per_sm: int = _CTAS_PER_SM) -> int:
+def pick_splits(kt: int, ctas: int, sms: int, per_sm: int = CTAS_PER_SM) -> int:
     """K splits so that ``ctas`` CTAs become about ``per_sm`` per SM, with no
     empty split."""
     want = max(1, min(kt, -(-per_sm * sms // max(ctas, 1))))
@@ -109,7 +116,8 @@ class LaunchPlan:
 
 def ring_plan(name: str, bm: int, kt: int, ctas: int, sms: int, stage: int,
               x_tile: int, fixed: int = 0, per_tile: int = 0,
-              per_sm_max: int = _CTAS_PER_SM, m_groups: int = 1) -> LaunchPlan:
+              per_sm_max: int = CTAS_PER_SM, m_groups: int = 1,
+              max_stages: int = MAX_STAGES) -> LaunchPlan:
     """The launch plan of a kernel with a ring of ``stage``-byte slabs in
     shared memory: ``ctas`` CTAs of one M block before K is split, M block
     ``bm``, ``kt`` K tiles, ``x_tile`` bytes of staged x a K tile, and beside
@@ -126,8 +134,8 @@ def ring_plan(name: str, bm: int, kt: int, ctas: int, sms: int, stage: int,
     two stages fit beside each other.  x is staged for the whole split where
     that leaves room for two stages, else a tile at a time; the ring then
     takes as many stages as the split has tiles, up to what fits and
-    MAX_STAGES, and never fewer than 2.  Raises ValueError when even one CTA
-    per SM cannot hold two stages."""
+    ``max_stages`` (at most MAX_STAGES), and never fewer than 2.  Raises
+    ValueError when even one CTA per SM cannot hold two stages."""
     splits = pick_splits(kt, ctas, sms, per_sm_max)
     tiles = -(-kt // splits)
     extra = fixed + per_tile * tiles
@@ -137,7 +145,7 @@ def ring_plan(name: str, bm: int, kt: int, ctas: int, sms: int, stage: int,
         x_tiles = tiles if budget - tiles * x_tile >= 2 * stage else 1
         fit = (budget - x_tiles * x_tile) // stage
         if fit >= 2:
-            stages = max(2, min(fit, tiles, MAX_STAGES))
+            stages = max(2, min(fit, tiles, max_stages, MAX_STAGES))
             return LaunchPlan(bm, splits, stages, x_tiles,
                               stages * stage + x_tiles * x_tile + extra, per_sm,
                               m_groups)
@@ -146,36 +154,47 @@ def ring_plan(name: str, bm: int, kt: int, ctas: int, sms: int, stage: int,
         f"{SMEM_PER_BLOCK - STATIC_SMEM} bytes of shared memory")
 
 
-def m_block(m: int) -> int:
-    """The kernels' M block: 4 rows (decode at batch 4), 8, or 32."""
-    return 4 if m <= 4 else 8 if m <= 8 else 32
+def m_block(m: int, bm: int | None = None, blocks: tuple[int, ...] = M_BLOCKS) -> int:
+    """The M block of an M-row call among the compiled ``blocks``: the
+    smallest that holds M (the largest above that), or, when ``bm`` is
+    asked for, the largest compiled block no wider than both (the smallest
+    block below that).  So any requested ``bm``, a TPU plan's 128 too, lands
+    on a block the kernel has."""
+    fit = next((b for b in blocks if m <= b), blocks[-1])
+    if bm is None:
+        return fit
+    return max((b for b in blocks if b <= min(bm, fit)), default=blocks[0])
 
 
 @functools.lru_cache(maxsize=None)
 def plan_launch(m: int, kt: int, nt: int, cap: int, tile: tuple[int, int],
-                value_bytes: int, x_bytes: int, sms: int) -> LaunchPlan:
+                value_bytes: int, x_bytes: int, sms: int, bm: int | None = None,
+                max_stages: int | None = None) -> LaunchPlan:
     """The launch plan of an (M, K) x of ``x_bytes`` per element against a
     (kt, nt)-tile operand of ``cap`` slots per tile column, ``value_bytes``
     per stored value, on a card of ``sms`` SMs (:func:`ring_plan`, two CTAs
-    per SM).  Cached: a model calls it with a handful of argument sets,
-    every step.  The K splits are those of one M block, the same at every
-    M, so a row's sums do not depend on the rows beside it.
+    per SM, with at most ``max_stages`` ring stages), M block
+    :func:`m_block` of ``bm``.  Cached: a model calls it with a handful of
+    argument sets, every step.  The K splits are those of one M block, the
+    same at every M, every ``bm`` and every ``max_stages``, so a row's sums
+    do not depend on the rows beside it.
 
     A stage of the ring holds one tile's slab, ``cap * bn * (value_bytes +
     1)`` bytes; staging x takes ``bk * bm * x_bytes`` bytes a K tile, plus
     one zero row of ``bm * x_bytes``."""
     bk, bn = tile
-    bm = m_block(m)
+    bm = m_block(m, bm)
     return ring_plan("sod_matmul", bm, kt, nt, sms,
                      cap * bn * (value_bytes + 1), bk * bm * x_bytes,
-                     fixed=bm * x_bytes)
+                     fixed=bm * x_bytes, max_stages=max_stages or MAX_STAGES)
 
 
-def plan_of(x: torch.Tensor, packed: TiledCSC) -> LaunchPlan:
-    """:func:`plan_launch` for these operands on x's card."""
+def plan_of(x: torch.Tensor, packed: TiledCSC, **launch) -> LaunchPlan:
+    """:func:`plan_launch` for these operands on x's card, with the launch
+    parameters ``launch`` (``bm``, ``max_stages``)."""
     return plan_launch(x.shape[0], *packed.grid, packed.cap, tuple(packed.tile),
                        packed.vals.element_size(), x.element_size(),
-                       sm_count(x.device.index or 0))
+                       sm_count(x.device.index or 0), **launch)
 
 
 def check_bulk_aligned(buffers: dict[str, torch.Tensor]) -> None:
@@ -268,11 +287,14 @@ def check_operands(name: str, x: torch.Tensor, packed, out_dtype: torch.dtype,
 
 
 def sod_matmul(x: torch.Tensor, packed: TiledCSC,
-               out_dtype: torch.dtype | None = None) -> torch.Tensor:
+               out_dtype: torch.dtype | None = None, **launch) -> torch.Tensor:
     """``x @ decompress(packed)`` for 2-D ``x`` of shape (M, K): (M, N).
 
     The kernel masks the ragged M, K and N edges itself, so ``x`` is passed
     as it is (no padded copy) and the output comes out at its logical shape.
+    ``launch`` holds the tuned launch parameters of :func:`plan_launch`
+    (``bm``, ``max_stages``); the plain version on a CPU tensor ignores
+    them.
     """
     global launches
     out_dtype = out_dtype or x.dtype
@@ -294,7 +316,7 @@ def sod_matmul(x: torch.Tensor, packed: TiledCSC,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
-    plan = plan_of(x, packed)
+    plan = plan_of(x, packed, **launch)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     partial = counters = None
     if plan.splits > 1:

@@ -94,11 +94,15 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """SwiGLU MLP through three SoD matmuls."""
-    gate = sod.apply(x, params["w_gate"])
-    up = sod.apply(x, params["w_up"])
-    return sod.apply(activate(gate, act) * up, params["w_down"])
+def mlp(params: Params, x: torch.Tensor, act: str = "silu",
+        plans: dict | None = None) -> torch.Tensor:
+    """SwiGLU MLP through three SoD matmuls.  ``plans`` maps ``w_gate`` /
+    ``w_up`` / ``w_down`` to their :class:`repro_torch.core.plan.PackPlan`
+    (absent entries fall back to the active plan's layout lookup)."""
+    pl = (plans or {}).get
+    gate = sod.apply(x, params["w_gate"], plan=pl("w_gate"))
+    up = sod.apply(x, params["w_up"], plan=pl("w_up"))
+    return sod.apply(activate(gate, act) * up, params["w_down"], plan=pl("w_down"))
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False) -> torch.Tensor:

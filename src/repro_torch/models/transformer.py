@@ -19,6 +19,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import plan as plan_mod
 from repro_torch.core import sod
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
@@ -85,6 +86,12 @@ def init_transformer(gen: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
+def _mlp(bp: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    # the active plan's entries for this block's projections (the layer
+    # stack shares one path, hence one entry)
+    return layers.mlp(bp["mlp"], h, cfg.act, plans=plan_mod.active_subplans("mlp"))
+
+
 def attn_block_full(bp: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, window: int | None):
     """Full-sequence block.  Returns (x, (k, v))."""
@@ -94,9 +101,10 @@ def attn_block_full(bp: Params, x: torch.Tensor, cfg: ModelConfig,
     s = x.shape[1]
     eff_window = None if (window is None or window >= s) else window
     ao = attn.chunked_attention(q, k, v, spec, window=eff_window)
-    x = x + sod.apply(ao.reshape(*x.shape[:2], -1), bp["attn"]["wo"])
+    x = x + sod.apply(ao.reshape(*x.shape[:2], -1), bp["attn"]["wo"],
+                      plan=plan_mod.active_entry("attn.wo"))
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + layers.mlp(bp["mlp"], h2, cfg.act), (k, v)
+    return x + _mlp(bp, h2, cfg), (k, v)
 
 
 def attn_block_decode(bp: Params, x: torch.Tensor, cache: Params, pos,
@@ -118,7 +126,7 @@ def attn_block_decode(bp: Params, x: torch.Tensor, cache: Params, pos,
             valid_len=valid_len)
     x = x + ao
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + layers.mlp(bp["mlp"], h2, cfg.act), cache
+    return x + _mlp(bp, h2, cfg), cache
 
 
 def attn_block_prefill_chunk(bp: Params, x: torch.Tensor, layer_pool: Params,
@@ -134,9 +142,9 @@ def attn_block_prefill_chunk(bp: Params, x: torch.Tensor, layer_pool: Params,
     ao, layer_pool = attn.paged_prefill_attention(
         bp["attn"], h, layer_pool, block_tables, start, valid_len,
         attn_spec(cfg), window=window)
-    x = x + sod.apply(ao, bp["attn"]["wo"])
+    x = x + sod.apply(ao, bp["attn"]["wo"], plan=plan_mod.active_entry("attn.wo"))
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + layers.mlp(bp["mlp"], h2, cfg.act), layer_pool
+    return x + _mlp(bp, h2, cfg), layer_pool
 
 
 def _norm_rows(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
@@ -165,7 +173,7 @@ def attn_block_verify(bp: Params, x: torch.Tensor, layer_pool: Params,
         attn_spec(cfg), window=window)
     x = x + ao
     h2 = _norm_rows(x, bp["norm2"], cfg.norm_eps)
-    return x + layers.mlp(bp["mlp"], h2, cfg.act), layer_pool
+    return x + _mlp(bp, h2, cfg), layer_pool
 
 
 # ---------------------------------------------------------------------------

@@ -163,10 +163,11 @@ class Engine:
 
     def __init__(self, model: LM, params: Params, *, max_slots: int = 4,
                  page_size: int = 16, max_len: int = 256,
-                 n_pages: int | None = None, prefill_chunk: int | None = None,
+                 n_pages: int | None = None, plan=None,
+                 prefill_chunk: int | None = None,
                  preemption: bool = False, prefix_sharing: bool = False,
                  spec_k: int = 0, draft_params: Params | None = None,
-                 prefix_cache_budget: int = 0,
+                 draft_plan=None, prefix_cache_budget: int = 0,
                  prefix_cache_dir: str | None = None, tracer=None):
         if prefix_sharing and not prefill_chunk:
             raise ValueError(
@@ -184,7 +185,9 @@ class Engine:
                 "compressed) pack of the same weights")
         self.model = model
         self.params = params
+        self.plan = plan
         self.draft_params = draft_params
+        self.draft_plan = draft_plan
         self.device = _param_device(params)
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
@@ -243,16 +246,23 @@ class Engine:
                 on_page_freed=self.trie.drop)
         self.block_tables = np.full((self.max_slots, self.max_pages),
                                     PagePool.TRASH_PAGE, np.int64)
-        self._decode = steps_mod.make_paged_decode_step(model)
-        self._prefill = steps_mod.make_prefill_full(model)
+        # each tier's steps dispatch under its own pack plan
+        self._decode = steps_mod.make_paged_decode_step(model, plan=plan)
+        self._prefill = steps_mod.make_prefill_full(model, plan=plan)
         if self.prefill_chunk:
-            self._chunk_prefill = steps_mod.make_chunked_prefill_step(model)
+            self._chunk_prefill = steps_mod.make_chunked_prefill_step(model, plan=plan)
         if self.spec_k:
             # the draft tier runs the same steps on its own weights; its KV
             # lives in a parallel pool addressed by the same page ids
             self.draft_pool = model.init_paged_pool(n_pages, self.page_size,
                                                     self.device)
-            self._verify = steps_mod.make_verify_step(model)
+            self._verify = steps_mod.make_verify_step(model, plan=plan)
+            self._draft_decode = steps_mod.make_paged_decode_step(model,
+                                                                  plan=draft_plan)
+            self._draft_prefill = steps_mod.make_prefill_full(model, plan=draft_plan)
+            if self.prefill_chunk:
+                self._draft_chunk_prefill = steps_mod.make_chunked_prefill_step(
+                    model, plan=draft_plan)
 
     def _up(self, a) -> torch.Tensor:
         """A host int array as an int64 tensor on the engine's device."""
@@ -421,7 +431,7 @@ class Engine:
         ids = self._up(pages)
         _pool_write_pages(self.pool, cache, ids)
         if self.spec_k:
-            _, dcache = self._prefill(self.draft_params, tokens)
+            _, dcache = self._draft_prefill(self.draft_params, tokens)
             _pool_write_pages(self.draft_pool, dcache, ids)
         seq = self._place(req, pages, first_token=first)
         self.stats["prompt_pages_total"] += n
@@ -601,7 +611,7 @@ class Engine:
         logits, self.pool = self._chunk_prefill(self.params, self.pool, row,
                                                 chunk, start, plen)
         if self.spec_k:
-            _, self.draft_pool = self._chunk_prefill(
+            _, self.draft_pool = self._draft_chunk_prefill(
                 self.draft_params, self.draft_pool, row, chunk, start, plen)
         seq.prefilled = end
         self.stats["prefill_chunks"] += 1
@@ -776,7 +786,7 @@ class Engine:
         d_tok, cols = tok, []
         with self.tracer.span("draft", track="spec", k=k, slots=len(decoding)):
             for j in range(k + 1):
-                nxt, _, self.draft_pool = self._decode(
+                nxt, _, self.draft_pool = self._draft_decode(
                     self.draft_params, self.draft_pool, bt, d_tok, pos + j, valid)
                 d_tok = nxt.reshape(self.max_slots, 1)
                 cols.append(d_tok)
@@ -934,19 +944,20 @@ class Engine:
         changes."""
         with self.tracer.span("warmup", track="engine"):
             t0 = time.perf_counter()
-            tiers = [(self.params, self.pool)]
+            tiers = [(self.params, self.pool, "")]
             if self.spec_k:
-                tiers.append((self.draft_params, self.draft_pool))
-            for params, pool in tiers:
+                tiers.append((self.draft_params, self.draft_pool, "_draft"))
+            for params, pool, tier in tiers:
                 if self.prefill_chunk:
                     trash_row = np.full((1, self.max_pages), PagePool.TRASH_PAGE)
-                    self._chunk_prefill(params, pool, self._up(trash_row),
-                                        self._up(np.zeros((1, self.prefill_chunk))),
-                                        0, 0)
+                    getattr(self, f"{tier}_chunk_prefill")(
+                        params, pool, self._up(trash_row),
+                        self._up(np.zeros((1, self.prefill_chunk))), 0, 0)
                 else:
+                    prefill = getattr(self, f"{tier}_prefill")
                     for b in sorted({self._bucket(len(r.tokens))
                                      for r in self.sched.pending}):
-                        _, cache = self._prefill(params, self._up(np.zeros((1, b))))
+                        _, cache = prefill(params, self._up(np.zeros((1, b))))
                         trash = np.full(b // self.page_size, PagePool.TRASH_PAGE)
                         _pool_write_pages(pool, cache, self._up(trash))
             trash = PagePool.TRASH_PAGE
@@ -964,7 +975,7 @@ class Engine:
             out = self._decode(self.params, self.pool, *inputs)
             if self.spec_k:
                 bt, tok, pos, valid = inputs
-                self._decode(self.draft_params, self.draft_pool, *inputs)
+                self._draft_decode(self.draft_params, self.draft_pool, *inputs)
                 window = torch.zeros((self.max_slots, self.spec_k + 1),
                                      dtype=torch.int64, device=self.device)
                 out = self._verify(self.params, self.pool, bt, window, pos, valid)
@@ -1045,16 +1056,17 @@ class Engine:
 # ---------------------------------------------------------------------------
 # static-batch reference
 # ---------------------------------------------------------------------------
-def static_generate(model: LM, params: Params, req: Request) -> list[int]:
+def static_generate(model: LM, params: Params, req: Request,
+                    plan=None) -> list[int]:
     """Per-request static greedy generation — the reference the engine must
     match token for token: the static serve path at batch 1 (fused prefill
     of the bare prompt, the cache grown to prompt + ``max_new`` positions,
-    scalar-position decode steps)."""
+    scalar-position decode steps), dispatched under ``plan``."""
     device = _param_device(params)
     prompt = torch.as_tensor(np.asarray(req.tokens, np.int64), device=device)[None]
     plen = prompt.shape[1]
-    prefill = steps_mod.make_prefill_step(model)
-    decode = steps_mod.make_decode_step(model)
+    prefill = steps_mod.make_prefill_step(model, plan=plan)
+    decode = steps_mod.make_decode_step(model, plan=plan)
     nxt, cache = prefill(params, prompt)
     cache = model.grow_cache(cache, plen + req.max_new)
     out = [int(nxt.reshape(-1)[0])]

@@ -271,8 +271,7 @@ def test_sod_config_methods():
     assert (cfg.br, cfg.tile, cfg.min_dim) == (ref_cfg.br, ref_cfg.tile,
                                               ref_cfg.min_dim)
     assert sod.SoDConfig().prune_method == ref_cfg.prune_method == "magnitude"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sod.SoDConfig(mode="block_csr", prune_method="nm")
+    assert sod.SoDConfig(mode="block_csr", prune_method="nm").prune_method == "nm"
     with pytest.raises(ValueError):
         sod.SoDConfig(mode="block_csr", prune_method="random")
 

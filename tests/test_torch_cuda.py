@@ -892,3 +892,132 @@ def test_engine_stages_match_static_generate_on_card(cuda, fmt, run, tmp_path):
         assert s["prefix_restored_pages"] >= 1
     assert eng.page_pool.free_count == eng.page_pool.n_pages - 1
     assert eng.trie is None or len(eng.trie) == 0
+
+
+# ---------------------------------------------------------------------------
+# tuned dispatch across each CUDA impl's parameter grid
+# ---------------------------------------------------------------------------
+TUNED_M = (4, 8, 16, 40, 64, 128)
+
+
+def _tuned_cache(tmp_path, impl, p, params):
+    """A tuning cache whose entries give ``impl`` the launch ``params`` at
+    every M bucket of TUNED_M (and at M = 1), installed for dispatch."""
+    from repro_torch.kernels import autotune, registry
+
+    cache = autotune.TuningCache(tmp_path / "tuned.json")
+    for m in (1, *TUNED_M):
+        cache.put(registry.problem_key(p, m=m, backend="cuda"), impl.name, params,
+                  us=1.0)
+    autotune.set_cache(cache)
+    return cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["sod_matmul", "block_matmul"])
+@pytest.mark.parametrize("k,n", [(2048, 512), (8192, 2048)])
+def test_tuned_grid_rows_invariant_and_within_tol(cuda, k, n, kernel, tmp_path):
+    """For every point of the CUDA impl's parameter grid, through tuned
+    dispatch (``ops.sod_matmul`` reading a tuning cache): a row computed
+    alone equals the same row in a call of each M of TUNED_M, bit for bit,
+    and every call stays within TOL of the plain version (bf16)."""
+    from repro_torch.kernels import autotune, ops, registry
+
+    make = _case if kernel == "sod_matmul" else _block_case
+    x, p = make(cuda, k, n, max(TUNED_M), torch.bfloat16)
+    impl = registry.get_impl("cuda_fused" if kernel == "sod_matmul" else "cuda_block")
+    counter = sm if kernel == "sod_matmul" else bmm
+    key = registry.problem_key(p, m=max(TUNED_M), backend="cuda")
+    grid = {tuple(sorted(g.items())) for g in impl.param_grid(key)}
+    ref_y = ref.sod_matmul_ref(x, p).float()
+    tol = TOL[torch.bfloat16] * ref_y.abs().max().item()
+    try:
+        for point in sorted(grid):
+            _tuned_cache(tmp_path, impl, p, dict(point))
+            with registry.record_dispatches() as log:
+                before = counter.launches
+                outs = {m: ops.sod_matmul(x[:m], p) for m in TUNED_M}
+                alone = {row: ops.sod_matmul(x[row:row + 1], p) for row in (0, 3, 37, 127)}
+                torch.cuda.synchronize()
+            assert counter.launches == before + len(outs) + len(alone)
+            assert {(r["impl"], r["source"]) for r in log} == {(impl.name, "tuned")}
+            assert all(r["params"] == dict(point) for r in log)
+            for m, y in outs.items():
+                assert (y.float() - ref_y[:m]).abs().max().item() <= tol, (point, m)
+                for row, a in alone.items():
+                    if row < m:
+                        assert torch.equal(y[row], a[0]), (point, row, m)
+    finally:
+        autotune.set_cache(None)
+
+
+@pytest.mark.cuda
+def test_tuned_params_leave_the_splits(cuda):
+    """On this card's SM count, no point of either CUDA impl's grid changes
+    the K splits at any M of TUNED_M: the tunables are all M-local."""
+    from repro_torch.kernels import registry
+
+    for make, plan_of, name in ((_case, sm.plan_of, "cuda_fused"),
+                                (_block_case, bmm.plan_of, "cuda_block")):
+        x, p = make(cuda, 8192, 2048, 128, torch.bfloat16)
+        key = registry.problem_key(p, m=128, backend="cuda")
+        grid = registry.get_impl(name).param_grid(key)
+        splits = {plan_of(x[:m], p, **point).splits for m in TUNED_M for point in grid}
+        assert splits == {plan_of(x[:1], p).splits}, name
+
+
+@pytest.mark.cuda
+def test_autotune_on_card_measures_only_the_kernel(cuda, tmp_path):
+    """The tuner on the card's clock: only the CUDA impl is measured (the
+    plain version is never a candidate), every time is positive, and the
+    winner's launch serves the next dispatch."""
+    from repro_torch.kernels import autotune, ops, registry
+
+    x, p = _case(cuda, 2048, 512, 4, torch.bfloat16)
+    cache = autotune.TuningCache(tmp_path / "tc.json")
+    trials = []
+    entry = autotune.tune(x, p, cache=cache, iters=3, trials_out=trials)
+    assert {name for name, _, _ in trials} == {"cuda_fused"}
+    assert all(us > 0 for _, _, us in trials)
+    autotune.set_cache(cache)
+    try:
+        with registry.record_dispatches() as log:
+            ops.sod_matmul(x, p)
+        assert log[-1]["source"] == "tuned" and log[-1]["params"] == entry["params"]
+        with pytest.raises(RuntimeError, match="CPU only"):
+            ops.sod_matmul(x, p, impl="jnp")
+    finally:
+        autotune.set_cache(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["tiled_csc", "block_csr"])
+def test_engine_under_a_tuned_plan_matches_static_generate_on_card(cuda, fmt,
+                                                                   tmp_path):
+    """The reduced llama in bf16: a plan built from the weights, the cache
+    tuned at static serving's M, the engine (other M buckets) under that
+    plan and cache gives static_generate's tokens bit for bit, through the
+    cell's kernel only."""
+    from repro_torch.kernels import autotune, registry
+    from repro_torch.runtime import planner
+    from repro_torch.serving import Engine, poisson_trace, static_generate
+    from repro_torch.core.sod import sodify_params
+
+    model, raw, _ = _reduced_on_card(cuda, fmt)
+    cache = autotune.install_cache(tmp_path / "tc.json")
+    try:
+        plan = planner.build_plan(raw, model.cfg.sod, cfg=model.cfg, m_values=(128, 4))
+        params = sodify_params(raw, model.cfg.sod, plan=plan)
+        stats = planner.warmup_plan(plan, (128, 4), cache=cache, iters=3)
+        assert stats["tuned"] > 0
+        trace = poisson_trace(6, 0.5, max_prompt=40, max_new=10, vocab=model.cfg.vocab,
+                              seed=0)
+        with torch.inference_mode(), registry.record_dispatches() as log:
+            res = Engine(model, params, max_slots=4, page_size=16, max_len=64,
+                         plan=plan).run(trace)
+            for req in trace:
+                assert res["tokens"][req.rid] == static_generate(model, params, req,
+                                                                 plan=plan), req.rid
+        assert not any(r["impl"] == "torch_oracle" for r in log)
+    finally:
+        autotune.set_cache(None)

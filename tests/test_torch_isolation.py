@@ -42,7 +42,10 @@ def test_forbidden_rule_tells_repro_torch_apart():
 
 def test_importing_the_serve_path_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.interop, "
-            "repro_torch.serving, repro_torch.obs; "
+            "repro_torch.serving, repro_torch.obs, repro_torch.kernels.registry, "
+            "repro_torch.kernels.autotune, repro_torch.kernels.timing, "
+            "repro_torch.runtime.planner, "
+            "repro_torch.core.plan; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; "
             "assert not bad, bad")

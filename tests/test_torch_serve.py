@@ -67,12 +67,13 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("kw", [{"prune_method": "nm"}, {"qmode": "int4"}])
 def test_unported_modes_raise(kw):
-    """nm pruning is not ported yet; every qmode of the reference is, and an
-    unknown one is rejected as the reference rejects it."""
+    """Every prune method and qmode of the reference is ported (nm pruning
+    too); an unknown one is rejected."""
     if "qmode" in kw:
         with pytest.raises(ValueError, match="unknown SoD qmode"):
             SoDConfig(**{"mode": "tiled_csc", **kw})
         assert SoDConfig(mode="tiled_csc", qmode="codebook").qmode == "codebook"
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SoDConfig(**{"mode": "tiled_csc", **kw})
+    assert SoDConfig(**{"mode": "tiled_csc", **kw}).prune_method == "nm"
+    with pytest.raises(ValueError, match="unknown prune method"):
+        SoDConfig(mode="tiled_csc", prune_method="random")

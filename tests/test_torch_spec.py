@@ -457,7 +457,7 @@ def test_spec_validation_errors(weights):
 @pytest.mark.parametrize("argv,msg", [
     (["--spec-decode", "2", "--draft-sparsity", "0.9"], "--engine"),
     (["--engine", "--draft-sparsity", "0.9"], "requires --spec-decode"),
-    (["--engine", "--spec-decode", "2"], "planner"),
+    (["--engine", "--spec-decode", "2", "--plan", "auto"], "--plan requires"),
 ])
 def test_serve_spec_flag_validation(argv, msg, capsys):
     with pytest.raises(SystemExit):
