@@ -82,12 +82,32 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``plan_spec`` (``--engine --spec-decode 2 --plan auto`` without
    ``--draft-sparsity``: the planner's draft density and its diagnostics,
    every request bit-equal to ``static_generate``).  Every run fails if its
-   dispatch log shows the plain version (``torch_oracle``) on the card.
+   dispatch log shows the plain version (``torch_oracle``) on the card;
+8. train — training at full width, bf16, batch 8 × seq 128 (M = 1024 rows
+   a matmul), after the serving weights are freed.  First each matmul
+   kernel's ``autograd.Function`` (``kernels/vjp.py``) in each qmode at
+   every K×N of the model: output, dx and the packed float leaves'
+   gradients against autograd over ``kernels/ref.py`` on the card, within
+   KERNEL_TOL (fp8 codes' gradients within one e4m3 rounding), exact 0 at
+   padding.  Then three ``repro_torch.launch.train`` runs (TRAIN_RUNS),
+   each with its checkpoints in a temporary directory deleted after it:
+   ``train_tiled_csc`` (12 steps), ``train_block_csr`` (6) and
+   ``train_tiled_csc_int8`` (4), gated on finite losses and gradient
+   norms, a falling loss, integer leaves bit-equal to the initial pack,
+   padding exactly 0, only the format's CUDA impl dispatched, 2 × 112
+   matmul launches a step (the remat recompute) and 112 ``decompress``
+   launches a step for a TiledCSC (the backward's re-densify), and the
+   scales moved under int8; one steady ``train_tiled_csc`` step is
+   profiled (device time by kernel and operator class, idle share, tok/s,
+   peak memory).  Last, ``train_resume``: the reduced model 12 steps with
+   a checkpoint every 5, then twice ``--resume --steps 16`` from copies of
+   its directory, losses and states bit-equal.
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
 kernel and qmode, with the launches and registry dispatches of phase 7's
-runs), and ``{"ok": true, "device": {...}}``.  The whole run reads and
+runs, and the launches and gradient error of phase 8), and
+``{"ok": true, "device": {...}}``.  The whole run reads and
 writes a tuning cache of its own in a temporary directory, so phases 4-6
 dispatch on a cold cache (the untuned launches).
 """
@@ -96,6 +116,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import re
@@ -122,8 +143,13 @@ from repro_torch.kernels import block_matmul as bmm  # noqa: E402
 from repro_torch.kernels import autotune, build, ops, ref, timing  # noqa: E402
 from repro_torch.kernels import decompress as dk  # noqa: E402
 from repro_torch.kernels import sod_matmul as sm  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.kernels import vjp  # noqa: E402
+from repro_torch.core.tree import leaves_with_path  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
 from repro_torch.serving import (Engine, bucket_len, poisson_trace,  # noqa: E402
                                  repeated_prompt_trace, shared_prefix_trace,
                                  static_generate, stress_spec_trace)
@@ -425,7 +451,7 @@ def phase_kernels() -> dict:
             timed[(name, qmode, k, n, tag)] = row
         launches[key] = launches.get(key, 0) + COUNTERS[name].launches
         log(row)
-    return {"max_err": max_err, "timed": timed, "launches": launches}
+    return {"max_err": max_err, "timed": timed, "launches": launches, "qpacks": qpacks}
 
 
 def _densify(tree):
@@ -1194,6 +1220,315 @@ def phase_plan(cells: dict) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_M = TRAIN_BATCH * TRAIN_SEQ      # the rows of every training matmul
+# the learning rate of the reference's own training tests (tests/test_system.py)
+TRAIN_ARGV = ["--arch", "llama3.2-1b", "--batch", str(TRAIN_BATCH), "--seq",
+              str(TRAIN_SEQ), "--warmup", "2", "--lr", "3e-3", "--seed", "0",
+              "--device", "cuda",
+              "--ckpt-every", "1000", "--log-every", "1000"]
+# run -> (flags, kernel, its registry impl, steps)
+TRAIN_RUNS = {
+    "train_tiled_csc": (["--sod", "tiled_csc", "--density", str(DENSITY)], "sod_matmul",
+                        "cuda_fused", 12),
+    "train_block_csr": (["--sod", "block_csr", "--density", str(DENSITY)], "block_matmul",
+                        "cuda_block", 6),
+    "train_tiled_csc_int8": (["--sod", "tiled_csc", "--quantize", "int8"], "sod_matmul",
+                             "cuda_fused", 4),
+}
+RESUME_ARGV = ["--arch", "llama3.2-1b", "--reduced", "--sod", "tiled_csc", "--density",
+               str(DENSITY), "--batch", "2", "--seq", "32", "--ckpt-every", "5",
+               "--seed", "0", "--device", "cuda", "--log-every", "1000"]
+GRAD_TOL = {torch.bfloat16: KERNEL_TOL[torch.bfloat16],
+            torch.float32: KERNEL_TOL[torch.float32],
+            torch.float8_e4m3fn: 2**-3}     # fp8 codes: one e4m3 rounding apart
+
+
+def _train_qmode(run: str) -> str:
+    flags = TRAIN_RUNS[run][0]
+    return flags[flags.index("--quantize") + 1] if "--quantize" in flags else "none"
+
+
+def _float_leaves(p) -> list[str]:
+    return [f for f in ("vals", "block_vals", "scale", "codebook")
+            if getattr(p, f, None) is not None and getattr(p, f).is_floating_point()]
+
+
+def _backward(x, p, g, kernel: bool) -> dict:
+    """(y, dx, d of the operand's float buffers) for the cotangent ``g``:
+    through the kernel's autograd.Function, or autograd over the plain
+    version."""
+    xx = x.detach().clone().requires_grad_(True)
+    leaves = {f: getattr(p, f).detach().clone().requires_grad_(True)
+              for f in _float_leaves(p)}
+    w = dataclasses.replace(p, **leaves)
+    if not kernel:
+        y = ref.sod_matmul_ref(xx, w)
+    elif isinstance(p, TiledCSC):
+        y = vjp.fused_matmul(xx, w, None, {})
+    else:
+        y = vjp.block_matmul(xx, w, None, {})
+    y.backward(g)
+    return {"y": y.detach(), "x": xx.grad, **{f: t.grad for f, t in leaves.items()}}
+
+
+def phase_train_grads(qpacks: dict) -> dict:
+    """Each differentiable kernel in each qmode at every K×N of the model
+    and M = TRAIN_M, bf16 activations: the output, dx and the gradients of
+    the packed float buffers from the Function (kernel forward, analytical
+    backward re-densifying through ``decompress``) against autograd over
+    ``kernels/ref.py`` on the card, under one seeded cotangent; within
+    GRAD_TOL of the plain gradient's largest magnitude, exact 0 at padding.
+    In qmode none the kernel's forward is also timed at M = TRAIN_M beside
+    its plain version, ``torch.matmul`` on the dense weight and its bound,
+    as phase 3 times the serving shapes.  Returns (the largest error per
+    (kernel, qmode), one layer's 7 projections' times per kernel)."""
+    max_err: dict[tuple, float] = {}
+    flush = timing.flush_buffer()
+    layer_ms: dict[str, dict] = {}
+    for name, fmt in (("sod_matmul", "tiled"), ("block_matmul", "block")):
+        for qmode in ("none", *QMODES):
+            for i, (k, n) in enumerate(PATH_SHAPES):
+                g = torch.Generator(device="cuda")
+                g.manual_seed(3000 + i)
+                if qmode == "none":
+                    x, w = _weights(k, n, TRAIN_M, torch.bfloat16, 2000 + i,
+                                    block=fmt == "block")
+                    p = pack_block_csr(w) if fmt == "block" else pack_tiled_csc(w)
+                else:
+                    p = qpacks[(fmt, k, n, qmode)]
+                    x = torch.randn(TRAIN_M, k, generator=g, device="cuda").to(torch.bfloat16)
+                cot = torch.randn(TRAIN_M, n, generator=g, device="cuda").to(torch.bfloat16)
+                got, want = _backward(x, p, cot, True), _backward(x, p, cot, False)
+                torch.cuda.synchronize()
+                errs = {}
+                for leaf, ref_grad in want.items():
+                    a, b = got[leaf], ref_grad
+                    if a.dtype != b.dtype:
+                        raise AssertionError(f"{name}[{qmode}] {k}x{n}: d{leaf} dtype "
+                                             f"{a.dtype} != {b.dtype}")
+                    err = (a.float() - b.float()).abs().max().item()
+                    errs[leaf] = err
+                    if err > GRAD_TOL[b.dtype] * b.float().abs().max().item():
+                        raise AssertionError(f"{name}[{qmode}] {k}x{n}: d{leaf} off by "
+                                             f"{err}")
+                field = "vals" if fmt == "tiled" else "block_vals"
+                pad = (p.rows < 0) if fmt == "tiled" else \
+                    (p.block_ids < 0)[..., None, None].expand(p.block_vals.shape)
+                pad_zero = field not in got or bool((got[field][pad] == 0).all())
+                if not pad_zero:
+                    raise AssertionError(f"{name}[{qmode}] {k}x{n}: padding got a gradient")
+                key = (name, qmode)
+                max_err[key] = max(max_err.get(key, 0.0), *errs.values())
+                row = {"phase": "train_grads", "kernel": name, "qmode": qmode, "K": k,
+                       "N": n, "M": TRAIN_M, "max_abs_err": errs,
+                       "padding_exact_zero": True}
+                if qmode == "none":
+                    fn = sm.sod_matmul if fmt == "tiled" else bmm.block_matmul
+                    dense = p.to_dense().to(x.dtype)
+                    times = {"kernel_ms": _time_ms(lambda: fn(x, p), flush),
+                             "plain_ms": _time_ms(lambda: ref.sod_matmul_ref(x, p), flush),
+                             "library_ms": _time_ms(lambda: torch.matmul(x, dense), flush)}
+                    times["bound_ms"] = _bound(*_work(name, x, p, got["y"]),
+                                               torch.bfloat16)[0]
+                    row.update(times)
+                    count = PATH_SHAPES[(k, n)][1]
+                    total = layer_ms.setdefault(name, dict.fromkeys(times, 0.0))
+                    for t, v in times.items():
+                        total[t] += v * count
+                log(row)
+    return max_err, layer_ms
+
+
+def _packed(params) -> list:
+    return [w for layer in params["layers"] for g in ("attn", "mlp")
+            for w in layer[g].values()]
+
+
+def train_run(run: str) -> dict:
+    """One full-width ``train.main`` run of TRAIN_RUNS with its checkpoints
+    in a temporary directory, gated: finite loss and gradient norm at every
+    step, the mean of the last 5 losses below the first (runs of 6 steps
+    or more), integer leaves
+    bit-equal to the initial pack, padding exactly 0, only the format's
+    CUDA impl dispatched, its kernel launched 2 × 112 times a step (under
+    ``cfg.remat`` the forward runs each block twice), the other not, ``decompress``
+    112 times a step for a TiledCSC (the backward's re-densify) and never
+    for a BlockCSR; int8: the scales moved.  Returns the summary with the
+    run's launches and its seconds."""
+    flags, kernel, impl, n_steps = TRAIN_RUNS[run]
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{run}_")
+    argv = TRAIN_ARGV + flags + ["--steps", str(n_steps), "--ckpt-dir", tmp]
+    try:
+        t0 = time.perf_counter()
+        prep = train.prepare(train.parse_args(argv))
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        ints = {k: v.clone() for k, v in leaves_with_path(prep[1])
+                if not v.is_floating_point()}
+        scales = {k: v.clone() for k, v in leaves_with_path(prep[1]) if k.endswith(".scale")}
+        packed, train_cfg = len(_packed(prep[1])), prep[0].cfg
+        reset_counts()
+        summary = train.main(argv, prepared=prep)
+        launches = {name: mod.launches for name, mod in COUNTERS.items()}
+        del prep
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    params = summary["state"]["params"]
+    losses, gnorms = summary["losses"], summary["grad_norms"]
+    tiled = kernel == "sod_matmul"
+    want = {"sod_matmul": 0, "block_matmul": 0, "decompress": 0}
+    remat = 2 if train_cfg.remat else 1
+    want[kernel] = remat * packed * n_steps
+    want["decompress"] = packed * n_steps if tiled else 0
+    final_ints = {k: v for k, v in leaves_with_path(params) if not v.is_floating_point()}
+    gates = {
+        "finite": all(map(math.isfinite, losses + gnorms)),
+        "loss_fell": n_steps < 6 or statistics.mean(losses[-5:]) < losses[0],
+        "integer_leaves_bit_equal": final_ints.keys() == ints.keys() and all(
+            torch.equal(v, ints[k]) for k, v in final_ints.items()),
+        "padding_exact_zero": all(
+            bool((w.vals[w.rows < 0] == 0).all()) if isinstance(w, TiledCSC)
+            else bool((w.block_vals[w.block_ids < 0] == 0).all())
+            for w in _packed(params)),
+        "dispatch_only_" + impl: bool(summary["kernel_dispatch"]) and all(
+            k.startswith(f"{impl}[") for k in summary["kernel_dispatch"]),
+        "launches": launches == want and summary["kernel_launches"] == want,
+        "checkpoints": [summary["checkpoints"][i]["step"] for i in (0, -1)]
+        == [0, n_steps - 1],
+    }
+    if scales:
+        gates["scales_moved"] = any(not torch.equal(v, scales[k])
+                                    for k, v in leaves_with_path(params)
+                                    if k.endswith(".scale"))
+    row = {"phase": "train", "run": run, "steps": n_steps, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "prepare_s": prepare_s, "packed_weights": packed,
+           "losses": losses, "grad_norms": gnorms, "launches": launches,
+           "launches_want": want, "kernel_dispatch": summary["kernel_dispatch"],
+           **{k: summary[k] for k in ("step_s", "tok_s", "peak_mem_gb", "wall_s")},
+           "checkpoints": summary["checkpoints"], "gates": gates}
+    log(row)
+    if not all(gates.values()):
+        raise AssertionError(f"{run}: a gate failed: {gates}")
+    return summary
+
+
+def phase_train_profile(summary: dict) -> None:
+    """One steady step of ``train_tiled_csc`` under ``torch.profiler``, on
+    its final state: device time by kernel and by operator class (the
+    matmul kernel's forward and remat launches, ``decompress``, the tied LM
+    head's GEMMs, the other GEMMs — the projections' backward, the
+    attention's einsums — and AdamW's foreach kernels), the device's idle
+    share against the median wall of 3 unprofiled steps, tok/s and the
+    peak memory of those steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args = train.parse_args(TRAIN_ARGV + TRAIN_RUNS["train_tiled_csc"][0])
+    cfg = configs.get_config(args.arch).with_(sod=SoDConfig(mode="tiled_csc",
+                                                           density=DENSITY, min_dim=64))
+    model = LM(cfg)
+    step = steps_mod.make_train_step(model, AdamW(AdamWConfig(lr=args.lr)))
+    state = summary["state"]
+    data = SyntheticLMData(cfg, args.batch, args.seq, seed=args.seed)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in data.batch(12).items()}
+
+    def one():
+        state["params"], state["opt"], _ = step(state["params"], state["opt"], batch)
+        torch.cuda.synchronize()
+
+    one()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        one()
+    per_kernel: dict[str, list] = {}
+    classes = {"lm_head_gemm": 0.0, "other_gemm": 0.0, "attention_bmm": 0.0,
+               "adamw_foreach": 0.0}
+    vocab = cfg.padded_vocab
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us, n = per_kernel.get(ev.name, (0.0, 0))
+            per_kernel[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+            continue
+        self_us = getattr(ev, "self_device_time_total", 0.0)
+        if not self_us:
+            continue
+        if ev.name.startswith("aten::mm"):
+            shapes = [d for s in (ev.input_shapes or []) for d in (s or [])]
+            classes["lm_head_gemm" if vocab in shapes else "other_gemm"] += self_us
+        elif ev.name.startswith("aten::bmm"):
+            classes["attention_bmm"] += self_us
+        elif ev.name.startswith("aten::_foreach"):
+            classes["adamw_foreach"] += self_us
+    total_us = sum(us for us, _ in per_kernel.values())
+    ours = {name: [(us, n) for k, (us, n) in per_kernel.items() if name in k]
+            for name in ("sod_matmul", "decompress")}
+    wall = statistics.median(walls)
+    rows = sorted(((us, k, n) for k, (us, n) in per_kernel.items()), reverse=True)
+    log({"phase": "train_profile", "run": "train_tiled_csc",
+         "what": "one steady training step, batch 8 × seq 128, full width, bf16",
+         "step_s_median_of_3": wall, "tok_s": TRAIN_M / wall, "peak_mem_gb": peak,
+         "device_ms": total_us / 1e3 if total_us else "not measured",
+         "device_idle_share": (1 - total_us / 1e6 / wall) if total_us else "not measured",
+         "sod_matmul_ms": sum(us for us, _ in ours["sod_matmul"]) / 1e3,
+         "sod_matmul_calls": sum(n for _, n in ours["sod_matmul"]),
+         "decompress_ms": sum(us for us, _ in ours["decompress"]) / 1e3,
+         "decompress_calls": sum(n for _, n in ours["decompress"]),
+         **{f"{k}_ms": (v / 1e3 if any(classes.values()) else "not measured")
+            for k, v in classes.items()},
+         "launches": {name: mod.launches for name, mod in COUNTERS.items()},
+         "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": c} for us, k, c in rows[:15]]})
+
+
+def phase_train_resume() -> dict:
+    """``train_resume``: the reduced model on the card, 12 steps with a
+    checkpoint every 5, then two ``--resume --steps 16`` runs on two copies
+    of its directory; their losses and final states must be bit-equal.  On a
+    mismatch it logs the gradient leaves that differ between two
+    computations of one step from the restored state, then fails."""
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
+    try:
+        first = train.main(RESUME_ARGV + ["--steps", "12", "--ckpt-dir", str(tmp / "a")])
+        shutil.copytree(tmp / "a", tmp / "b")
+        runs = [train.main(RESUME_ARGV + ["--steps", "16", "--resume",
+                                          "--ckpt-dir", str(tmp / d)]) for d in "ab"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same_losses = runs[0]["losses"] == runs[1]["losses"]
+    same_state = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        leaves_with_path(runs[0]["state"]), leaves_with_path(runs[1]["state"])))
+    row = {"phase": "train_resume", "first_losses": first["losses"],
+           "start_step": runs[0]["start_step"], "losses": [r["losses"] for r in runs],
+           "losses_bit_equal": same_losses, "state_bit_equal": same_state}
+    if not (same_losses and same_state):
+        state = runs[0]["state"]
+        model = LM(configs.reduced(configs.get_config("llama3.2-1b")).with_(
+            sod=SoDConfig(mode="tiled_csc", density=DENSITY, min_dim=64)))
+        data = SyntheticLMData(model.cfg, 2, 32, seed=0)
+        batch = {k: torch.from_numpy(v).long().cuda() for k, v in data.batch(11).items()}
+        grads = [steps_mod.make_loss_and_grads(model)(state["params"], batch)[2]
+                 for _ in range(2)]
+        row["grad_leaves_differing_between_two_replays"] = [
+            name for (name, a), (_, b) in zip(leaves_with_path(grads[0]),
+                                               leaves_with_path(grads[1]))
+            if not torch.equal(a, b)]
+    log(row)
+    if not (same_losses and same_state):
+        raise AssertionError(f"train_resume: two resumes differ: {row}")
+    return row
+
+
 def _entry(name: str, qmode: str, kern: dict, launches: int) -> dict:
     """One kernel's line in one qmode: the seven projections of one layer
     (M = 4 at decode for the matmuls, and M = 128 at prefill beside it),
@@ -1279,6 +1614,18 @@ def main() -> None:
     timed("spec_profile", phase_spec_profile, cells, drafts["tiled_csc"])
     del drafts
     plan = timed("plan", phase_plan, cells)
+    for cell in cells.values():        # free the card for training
+        for key in ("model", "params", "tokens"):
+            cell.pop(key, None)
+    train_err, train_ms = timed("train", phase_train_grads, kern.pop("qpacks"))
+    train_launches = {}
+    for run in TRAIN_RUNS:
+        summary = timed(f"train:{run}", train_run, run)
+        train_launches[run] = summary["kernel_launches"]
+        if run == "train_tiled_csc":
+            timed("train_profile", phase_train_profile, summary)
+        del summary
+    timed("train_resume", phase_train_resume)
     shutil.rmtree(cache_dir, ignore_errors=True)
 
     entries = []
@@ -1298,6 +1645,14 @@ def main() -> None:
                 entry["plan_launches"] = {run: row["launches"] for run, row in runs.items()}
                 entry["plan_dispatch"] = {run: row["kernel_dispatch"]
                                           for run, row in runs.items()}
+            trained = {run: launches[name] for run, launches in train_launches.items()
+                       if launches[name] and _train_qmode(run) == qmode}
+            if trained:
+                entry["train_launches"] = trained
+            if (name, qmode) in train_err:
+                entry["train_grad_max_abs_err"] = train_err[(name, qmode)]
+            if qmode == "none" and name in train_ms:
+                entry.update({f"train_{k}": v for k, v in train_ms[name].items()})
             entries.append(entry)
     log({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     log(smi)

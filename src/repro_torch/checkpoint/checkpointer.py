@@ -1,0 +1,148 @@
+"""Checkpointing with async save — twin of :mod:`repro.checkpoint.checkpointer`.
+
+The reference's layout per step::
+
+    <dir>/step_<N>/MANIFEST.msgpack      # leaf paths, shapes, dtypes
+    <dir>/step_<N>/<leaf-index>.npy      # one array per leaf
+    <dir>/step_<N>/COMMITTED             # write-completion marker
+
+A step is written into a temporary directory and renamed into place, and
+only a directory holding the COMMITTED marker counts: a crashed save is
+done again, never restored.  ``save(blocking=False)`` copies every leaf to
+the host synchronously (the step loop may then change the tensors in
+place) and writes from a daemon thread.  numpy has no bfloat16 or float8,
+so those leaves are stored through their bits (``uint16``, ``uint8``) and
+named by dtype in the manifest, without ``ml_dtypes``.  ``restore`` casts
+every leaf to its template's dtype and moves it to the template's device.
+``history`` records every save: its step, the seconds of the host copy and
+of the writes, and the bytes written.
+Restoring onto other shardings (the reference's ``shardings``) waits for
+the distributed runtime.
+"""
+from __future__ import annotations
+
+import os
+import pathlib
+import shutil
+import threading
+import time
+from typing import Any
+
+import msgpack
+import numpy as np
+import torch
+
+from repro_torch.core.tree import leaves_with_path, tree_map_with_path
+
+Params = Any
+_COMMITTED = "COMMITTED"
+# torch dtype -> (name in the manifest, numpy view that carries its bits)
+_BIT_VIEWS = {torch.bfloat16: ("bfloat16", torch.uint16),
+              torch.float8_e4m3fn: ("float8_e4m3fn", torch.uint8)}
+_FROM_NAME = {name: (dtype, view) for dtype, (name, view) in _BIT_VIEWS.items()}
+
+
+def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    """A host copy of ``t`` as numpy, and its dtype's name."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype in _BIT_VIEWS:
+        name, view = _BIT_VIEWS[t.dtype]
+        return t.view(view).numpy(), name
+    return t.numpy(), str(t.dtype).removeprefix("torch.")
+
+
+def _from_numpy(arr: np.ndarray, name: str) -> torch.Tensor:
+    t = torch.from_numpy(arr)      # np.load gives a C-contiguous array, 0-d kept
+    if name in _FROM_NAME:
+        return t.view(_FROM_NAME[name][0])
+    return t
+
+
+class Checkpointer:
+    """Save and restore state trees (dicts, lists, packed containers of
+    tensors) under one directory, keeping the last ``keep`` steps."""
+
+    def __init__(self, directory: str | pathlib.Path, keep: int = 3):
+        self.dir = pathlib.Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self.history: list[dict] = []
+
+    # -- save -----------------------------------------------------------------
+    def save(self, step: int, state: Params, blocking: bool = True) -> None:
+        """Write ``state`` as step ``step``; with ``blocking=False`` the host
+        copy is taken now and the files are written by a daemon thread."""
+        self.wait()   # one writer at a time; drain a pending async save
+        t0 = time.perf_counter()
+        host = [(name, *_to_numpy(leaf)) for name, leaf in leaves_with_path(state)]
+        record = {"step": step, "host_s": time.perf_counter() - t0,
+                  "bytes": sum(arr.nbytes for _, arr, _ in host), "blocking": blocking}
+        self.history.append(record)
+        if blocking:
+            self._write(step, host, record)
+        else:
+            self._thread = threading.Thread(target=self._write,
+                                            args=(step, host, record), daemon=True)
+            self._thread.start()
+
+    def wait(self) -> None:
+        """Block until a pending async save is written."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def _write(self, step: int, host: list, record: dict) -> None:
+        t0 = time.perf_counter()
+        path = self.dir / f"step_{step:08d}"
+        tmp = self.dir / f".tmp_step_{step:08d}_{os.getpid()}_{id(host):x}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        manifest = []
+        for i, (name, arr, dtype) in enumerate(host):
+            np.save(tmp / f"{i}.npy", arr)
+            manifest.append({"name": name, "index": i, "shape": list(arr.shape),
+                             "dtype": dtype})
+        (tmp / "MANIFEST.msgpack").write_bytes(
+            msgpack.packb({"step": step, "leaves": manifest}))
+        (tmp / _COMMITTED).touch()
+        if path.exists():
+            shutil.rmtree(path)
+        tmp.rename(path)
+        self._gc()
+        record["write_s"] = time.perf_counter() - t0
+
+    def _gc(self) -> None:
+        for s in self.all_steps()[: -self.keep]:
+            shutil.rmtree(self.dir / f"step_{s:08d}", ignore_errors=True)
+
+    # -- restore --------------------------------------------------------------
+    def all_steps(self) -> list[int]:
+        """Committed steps, ascending."""
+        return sorted(int(p.name.split("_")[1]) for p in self.dir.glob("step_*")
+                      if (p / _COMMITTED).exists())
+
+    def latest_step(self) -> int | None:
+        """The last committed step, or None."""
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: int, template: Params) -> Params:
+        """Step ``step`` in ``template``'s structure, every leaf cast to its
+        template leaf's dtype on its device.  Raises FileNotFoundError for an
+        uncommitted step and KeyError for a leaf the checkpoint lacks."""
+        path = self.dir / f"step_{step:08d}"
+        if not (path / _COMMITTED).exists():
+            raise FileNotFoundError(f"no committed checkpoint at {path}")
+        manifest = msgpack.unpackb((path / "MANIFEST.msgpack").read_bytes())
+        by_name = {m["name"]: m for m in manifest["leaves"]}
+
+        def load(name: str, tmpl: torch.Tensor) -> torch.Tensor:
+            if name not in by_name:
+                raise KeyError(f"checkpoint missing leaf {name}")
+            meta = by_name[name]
+            t = _from_numpy(np.load(path / f"{meta['index']}.npy"), meta["dtype"])
+            return t.to(device=tmpl.device, dtype=tmpl.dtype)
+
+        return tree_map_with_path(load, template)

@@ -41,6 +41,18 @@ class SyntheticLMData:
                            self.batch_size, self.seq_len + 1)
         return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
+    def host_slice(self, batch: dict, host_id: int, n_hosts: int) -> dict:
+        """Host ``host_id``'s rows of a batch split evenly over ``n_hosts``."""
+        per = self.batch_size // n_hosts
+        return {k: v[host_id * per:(host_id + 1) * per] for k, v in batch.items()}
+
+    def batches(self, start_step: int = 0):
+        """``(step, batch)`` from ``start_step`` on, without end."""
+        step = start_step
+        while True:
+            yield step, self.batch(step)
+            step += 1
+
     def _chain(self, rng: np.random.Generator, b: int, s: int) -> np.ndarray:
         tok = rng.integers(0, self.cfg.vocab, size=(b,))
         choices = rng.integers(0, self.branching, size=(b, s))

@@ -30,7 +30,7 @@ from repro_torch.core.formats import BlockCSR, TiledCSC
 from repro_torch.kernels import autotune, registry
 from repro_torch.kernels import decompress as decompress_kernel
 
-__all__ = ["sod_matmul", "decompress", "dense_matmul", "resolve"]
+__all__ = ["sod_matmul", "decompress", "dense_matmul", "mm_f32", "resolve"]
 
 _CUDA_IMPLS = {"tiled_csc": "cuda_fused", "block_csr": "cuda_block"}
 _FORCED = {
@@ -43,22 +43,54 @@ _FORCED = {
 _RESOLVED: dict[tuple, tuple[registry.KernelImpl, dict, str]] = {}
 
 
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for 2-D operands as the reference's ``jnp.dot(a, b,
+    preferred_element_type=float32)``: the operands promoted to one dtype,
+    products summed in float32, float32 out.  On CUDA with 16-bit operands
+    one cuBLAS call keeps the f32 sums (``aten::mm.dtype``); the CPU build
+    has no such kernel, so there the operands are widened first, which
+    gives the same sums of exact products.  Not differentiable: autograd
+    goes through :func:`dense_matmul`."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    if a.device.type == "cuda" and dtype in (torch.bfloat16, torch.float16):
+        return torch.mm(a.to(dtype), b.to(dtype), out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _MmF32(torch.autograd.Function):
+    """:func:`mm_f32` with the derivative that ``aten::mm.dtype`` lacks:
+    ``ga = g @ bᵀ`` and ``gb = aᵀ g``, each with float32 sums and cast to
+    its operand's dtype — how JAX transposes a dot with
+    ``preferred_element_type=float32``."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = mm_f32(g, b.T).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = mm_f32(a.T, g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        return ga, gb
+
+
 def dense_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
     """``x @ w`` for a dense 2-D ``w``, as the reference's ``jnp.dot(x, w,
     preferred_element_type=float32).astype(out_dtype)``: the operands
     promoted to one dtype (bf16 activations meet an f32 weight as f32),
-    products summed in float32, the sums cast once to ``out_dtype``.
-
-    On CUDA with 16-bit operands one cuBLAS call keeps the f32 sums
-    (``aten::mm.dtype``); the CPU build has no such kernel, so there the
-    operands are widened first, which gives the same sums of exact products.
-    """
-    dtype = torch.promote_types(x.dtype, w.dtype)
+    products summed in float32 (:func:`mm_f32`), the sums cast once to
+    ``out_dtype``.  Differentiable: under autograd the cuBLAS call goes
+    through :class:`_MmF32`; the CPU path's widening differentiates as it
+    is."""
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cuda" and dtype in (torch.bfloat16, torch.float16):
-        y = torch.mm(x2.to(dtype), w.to(dtype), out_dtype=torch.float32)
+    on_card = x.device.type == "cuda" and torch.promote_types(
+        x.dtype, w.dtype) in (torch.bfloat16, torch.float16)
+    if on_card and torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+        y = _MmF32.apply(x2, w)
     else:
-        y = torch.mm(x2.float(), w.float())
+        y = mm_f32(x2, w)
     return y.to(out_dtype).reshape(*x.shape[:-1], w.shape[-1])
 
 

@@ -112,6 +112,9 @@ class KernelImpl:
     # the block holds them); the autotuner dedups trials on this
     canonicalize: Callable[[ProblemKey, dict, int], dict] | None = None
     qmodes: tuple[str, ...] = ("none", "int8", "fp8", "codebook")
+    # gradients flow through the runner: the CUDA impls by their
+    # autograd.Functions (kernels/vjp.py), the plain ones by autograd itself
+    differentiable: bool = True
 
     def supports(self, key: ProblemKey) -> bool:
         """Whether this impl can run the problem (format, backend, qmode)."""
@@ -355,14 +358,18 @@ _STAGES = (8, 4, 2)            # the ring's stage cap (MAX_STAGES first)
 
 
 def _run_cuda_fused(x2, w, *, out_dtype=None, **launch):
-    from repro_torch.kernels import sod_matmul
+    from repro_torch.kernels import sod_matmul, vjp
 
+    if vjp.wants_grad(x2, w):     # training: the kernel under its VJP
+        return vjp.fused_matmul(x2, w, out_dtype, launch)
     return sod_matmul.sod_matmul(x2, w, out_dtype, **launch)
 
 
 def _run_cuda_block(x2, w, *, out_dtype=None, **launch):
-    from repro_torch.kernels import block_matmul
+    from repro_torch.kernels import block_matmul, vjp
 
+    if vjp.wants_grad(x2, w):
+        return vjp.block_matmul(x2, w, out_dtype, launch)
     return block_matmul.block_matmul(x2, w, out_dtype, **launch)
 
 

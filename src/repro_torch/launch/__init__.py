@@ -1,1 +1,1 @@
-"""Entry points: the static serving driver and its step builders."""
+"""Entry points: serving and training, and their step builders."""

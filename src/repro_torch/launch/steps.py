@@ -1,6 +1,11 @@
-"""Prefill / decode step builders — twins of :mod:`repro.launch.steps`.
+"""Train / prefill / decode step builders — twins of :mod:`repro.launch.steps`.
 
 PyTorch runs eagerly, so a step is a plain closure (the reference jits it).
+Gradients are taken functionally, as ``jax.value_and_grad(...,
+allow_int=True)``: every float leaf of the parameter tree enters the loss
+as a fresh leaf that requires grad (a detached view, no copy), and
+``torch.autograd.grad`` returns their gradients; integer leaves get
+``None``.
 Every ``make_*`` function takes an optional ``plan`` (a
 :class:`repro_torch.core.plan.ModelPlan`): the step body runs inside
 :func:`repro_torch.core.plan.use_plan`, so each packed matmul dispatches
@@ -8,8 +13,43 @@ with its layer's :class:`~repro_torch.core.plan.PackPlan`.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.plan import use_plan
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models.model import LM
+from repro_torch.optim.adamw import AdamW
+
+
+def make_loss_and_grads(model: LM, plan=None):
+    """``(params, batch) -> (loss, metrics, grads)``: the loss of
+    :meth:`LM.loss`, its metrics (detached), and a gradient tree shaped like
+    ``params`` (float leaves' gradients in their own dtype, zeros for an
+    unused one; ``None`` at integer leaves)."""
+    def loss_and_grads(params, batch):
+        with use_plan(plan):
+            live = tree_map(lambda p: p.detach().requires_grad_(True)
+                            if p.is_floating_point() else p, params)
+            leaves = [p for p in tree_leaves(live) if p.requires_grad]
+            loss, metrics = model.loss(live, batch)
+            gs = iter(torch.autograd.grad(loss, leaves, materialize_grads=True))
+        grads = tree_map(lambda p: next(gs) if p.requires_grad else None, live)
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    return loss_and_grads
+
+
+def make_train_step(model: LM, optimizer: AdamW, plan=None):
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)``: one
+    optimizer step, the loss's and the optimizer's metrics merged."""
+    loss_and_grads = make_loss_and_grads(model, plan)
+
+    def train_step(params, opt_state, batch):
+        _, metrics, grads = loss_and_grads(params, batch)
+        params, opt_state, opt_metrics = optimizer.update(params, grads, opt_state)
+        return params, opt_state, {**metrics, **opt_metrics}
+
+    return train_step
 
 
 def make_prefill_step(model: LM, plan=None):

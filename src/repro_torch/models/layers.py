@@ -1,8 +1,8 @@
 """Shared building blocks: norms, RoPE, embeddings, MLPs — all SoD-aware.
 
-Twin of :mod:`repro.models.layers`.  Every weight matmul goes through
-:func:`repro_torch.core.sod.apply`, so a packed leaf runs the Sparse-on-Dense
-kernel and a dense leaf bypasses decompression.
+Twin of :mod:`repro.models.layers`, its loss included.  Every weight
+matmul goes through :func:`repro_torch.core.sod.apply`, so a packed leaf
+runs the Sparse-on-Dense kernel and a dense leaf bypasses decompression.
 """
 from __future__ import annotations
 
@@ -111,3 +111,16 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False) -> tor
     if scale:
         x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype, device=x.device)
     return x
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross-entropy: logits (..., V) float32, targets (...) int;
+    with ``mask``, the mean over the masked-in tokens (at least one)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)

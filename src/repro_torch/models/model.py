@@ -1,8 +1,8 @@
 """Model facade: init / prefill / decode over the attention-family decoder.
 
-Twin of :class:`repro.models.model.LM` for the static serving path and the
-continuous-batching engine's paged decode, chunked prefill and speculative
-verification.
+Twin of :class:`repro.models.model.LM` for training (``loss``), the static
+serving path and the continuous-batching engine's paged decode, chunked
+prefill and speculative verification.
 """
 from __future__ import annotations
 
@@ -13,14 +13,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cache as cache_mod
-from repro_torch.models import transformer
+from repro_torch.models import layers, transformer
 
 Params = dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class LM:
-    """Functional language model: init / prefill / decode_step."""
+    """Functional language model: init / apply / loss / prefill / decode_step."""
 
     cfg: ModelConfig
 
@@ -31,6 +31,17 @@ class LM:
     def apply(self, params: Params, tokens: torch.Tensor, want_cache: bool = False):
         """Full-sequence forward: (logits (B, S, V), cache or None)."""
         return transformer.transformer_forward(params, tokens, self.cfg, want_cache)
+
+    def loss(self, params: Params, batch: dict[str, torch.Tensor]):
+        """``(loss, {"loss", "ce", "aux"})`` of a batch ``{"tokens",
+        "targets"}`` (int, (B, S)) with an optional ``"loss_mask"``: the
+        mean token cross-entropy of the float32 logits; ``aux`` (a router
+        loss in the reference's MoE family) is 0 for the dense family."""
+        logits, _ = self.apply(params, batch["tokens"])
+        ce = layers.cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        loss = ce + aux
+        return loss, {"loss": loss, "ce": ce, "aux": aux}
 
     def prefill(self, params: Params, tokens: torch.Tensor):
         """(last-position logits (B, V), KV cache sized to the prompt)."""

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
@@ -203,16 +204,33 @@ def _head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # forward / decode
 # ---------------------------------------------------------------------------
+def _remat_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, window: int | None):
+    """:func:`attn_block_full` under activation checkpointing (the
+    reference's ``jax.checkpoint`` of ``cfg.remat``): the block keeps only
+    its inputs, and autograd runs its forward again, under the pack plan
+    active now, before its backward — every matmul of the block launches
+    twice a step."""
+    plan = plan_mod.active_plan()
+    return checkpoint(attn_block_full, bp, x, cfg, positions, window,
+                      use_reentrant=False,
+                      context_fn=lambda: (plan_mod.use_plan(plan),
+                                          plan_mod.use_plan(plan)))
+
+
 def transformer_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                         want_cache: bool = False):
     """Logits (B, S, V) and, with ``want_cache``, the KV cache
-    ``{"k", "v"}`` of shape (L, B, S, KV, hd)."""
+    ``{"k", "v"}`` of shape (L, B, S, KV, hd).  Under ``cfg.remat`` (full
+    width) a forward that records gradients checkpoints every block."""
     x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     ks, vs = [], []
+    remat = cfg.remat and not want_cache and torch.is_grad_enabled()
+    block = _remat_block if remat else attn_block_full
     for i, bp in enumerate(params["layers"]):
-        x, (k, v) = attn_block_full(bp, x, cfg, positions, cfg.window_for(i))
+        x, (k, v) = block(bp, x, cfg, positions, cfg.window_for(i))
         if want_cache:
             ks.append(k)
             vs.append(v)

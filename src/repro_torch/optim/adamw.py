@@ -1,0 +1,114 @@
+"""AdamW with float32 master weights over packed (Sparse-on-Dense) parameter
+trees — twin of :mod:`repro.optim.adamw`.
+
+Packed containers contribute *compressed-sized* moments (the paper's
+effective-capacity argument applied to optimizer state): a ``TiledCSC``'s
+moments are ``TiledCSC``-shaped trees whose ``vals`` moments have the shape
+of the stored slots.  Integer leaves (``rows``, ``block_ids``,
+``tile_nnz``, int8 codes and codebook indices) and leaves without a
+gradient pass through untouched; their moments and master are 0-d
+placeholders.  float8 codes are float leaves, as in the reference.
+
+The step counter is a 0-d int32 tensor on the CPU, so a schedule's value
+never waits on the card.  ``update`` applies the reference's formula with
+``torch._foreach_*`` over all float leaves at once, in place on the
+state's moments and master weights, and returns fresh parameter tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.core.tree import leaves_along, tree_leaves, tree_map
+
+Params = Any
+
+
+def _is_float(leaf) -> bool:
+    return isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    """The reference's hyper-parameters and defaults."""
+
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    """Functional AdamW: ``init(params)`` and ``update(params, grads,
+    state) -> (params, state, {"grad_norm", "lr"})``."""
+
+    cfg: AdamWConfig
+    schedule: Callable | None = None    # step -> learning rate
+
+    def init(self, params: Params) -> Params:
+        """``{"step", "m", "v", "master"}``: zero float32 moments and a
+        float32 copy of every float leaf, 0-d placeholders elsewhere."""
+        def moments(p):
+            shape = p.shape if _is_float(p) else ()
+            return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+        def master(p):
+            if _is_float(p):
+                return p.detach().to(torch.float32, copy=True)
+            return torch.zeros((), dtype=torch.float32, device=p.device)
+
+        return {"step": torch.zeros((), dtype=torch.int32),
+                "m": tree_map(moments, params), "v": tree_map(moments, params),
+                "master": tree_map(master, params)}
+
+    def update(self, params: Params, grads: Params, state: Params):
+        """One step: the global-norm clip over all float gradients, then
+        bias-corrected AdamW with decoupled weight decay on the masters."""
+        cfg = self.cfg
+        step = state["step"] + 1
+        lr = float(self.schedule(step) if self.schedule else cfg.lr)
+
+        flat_p, flat_g = tree_leaves(params), leaves_along(params, grads)
+        flat_m, flat_v = tree_leaves(state["m"]), tree_leaves(state["v"])
+        flat_w = tree_leaves(state["master"])
+        live = [i for i, (p, g) in enumerate(zip(flat_p, flat_g))
+                if _is_float(p) and g is not None]
+        gs = [flat_g[i].float() for i in live]
+        ms, vs, ws = ([flat[i] for i in live] for flat in (flat_m, flat_v, flat_w))
+
+        # global-norm clip over the float gradients
+        sq = sum(n * n for n in torch._foreach_norm(gs)) if gs else torch.zeros(())
+        gnorm = torch.sqrt(sq + 1e-20)
+        clip = min(1.0, cfg.grad_clip / float(gnorm))
+        bc1 = 1 - cfg.b1 ** float(step)
+        bc2 = 1 - cfg.b2 ** float(step)
+        if gs:
+            gs = torch._foreach_mul(gs, clip)
+            torch._foreach_mul_(ms, cfg.b1)                      # m = b1 m + (1-b1) g
+            torch._foreach_add_(ms, gs, alpha=1 - cfg.b1)
+            torch._foreach_mul_(vs, cfg.b2)                      # v = b2 v + (1-b2) g²
+            torch._foreach_addcmul_(vs, gs, gs, value=1 - cfg.b2)
+            del gs
+            denom = torch._foreach_div(vs, bc2)                  # sqrt(v / bc2) + eps
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, cfg.eps)
+            upd = torch._foreach_div(ms, bc1)                    # (m / bc1) / denom
+            torch._foreach_div_(upd, denom)
+            del denom
+            torch._foreach_add_(upd, ws, alpha=cfg.weight_decay)  # w -= lr (upd + wd w)
+            torch._foreach_add_(ws, upd, alpha=-lr)
+            del upd
+        new = list(flat_p)
+        for i in live:
+            new[i] = flat_w[i].to(flat_p[i].dtype, copy=True)
+        it = iter(new)
+        new_params = tree_map(lambda p: next(it), params)
+        new_state = {"step": step, "m": state["m"], "v": state["v"],
+                     "master": state["master"]}
+        return new_params, new_state, {"grad_norm": gnorm,
+                                       "lr": torch.tensor(lr, dtype=torch.float32)}

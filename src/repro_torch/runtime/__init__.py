@@ -1,1 +1,2 @@
-"""Runtime policy of the port: the draft tier's packing configuration."""
+"""Runtime policy of the port: the planner (and the draft tier's packing
+configuration) and the fault-tolerant step runner."""

@@ -1021,3 +1021,155 @@ def test_engine_under_a_tuned_plan_matches_static_generate_on_card(cuda, fmt,
         assert not any(r["impl"] == "torch_oracle" for r in log)
     finally:
         autotune.set_cache(None)
+
+
+# ---------------------------------------------------------------------------
+# training: the kernels under their autograd.Functions
+# ---------------------------------------------------------------------------
+def _grads(x, p, impl):
+    """d sum(y²) / d (x, the operand's float buffers) with y = x @ W through
+    ``ops.sod_matmul`` forced to ``impl`` (``cuda``: the kernel's Function;
+    ``jnp`` on a CPU copy: autograd over the plain version)."""
+    from repro_torch.kernels import ops
+
+    x = x.detach().clone().requires_grad_(True)
+    names = [f for f in ("vals", "block_vals", "scale", "codebook")
+             if getattr(p, f, None) is not None and getattr(p, f).is_floating_point()]
+    leaves = {f: getattr(p, f).detach().clone().requires_grad_(True) for f in names}
+    y = ops.sod_matmul(x, dataclasses.replace(p, **leaves), impl=impl)
+    (y.float() ** 2).sum().backward()
+    return {"x": x.grad, **{f: t.grad for f, t in leaves.items()}}
+
+
+def _to_cpu(p):
+    return dataclasses.replace(p, **{f.name: getattr(p, f.name).cpu()
+                                     for f in dataclasses.fields(p)
+                                     if isinstance(getattr(p, f.name), torch.Tensor)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,k,n,m", [
+    ("sod_matmul", 2048, 512, 64), ("sod_matmul", 300, 260, 77),
+    ("block_matmul", 2048, 512, 64), ("block_matmul", 300, 260, 77)])
+def test_function_grads_match_plain_autograd_on_card(cuda, kernel, k, n, m, dtype, qmode):
+    """The Function (kernel forward, analytical backward through the
+    decompress kernel) against autograd over ``kernels/ref.py`` on the same
+    operand on the CPU; padding slots get exactly 0."""
+    if kernel == "sod_matmul":
+        x, p = _case(cuda, k, n, m, dtype)
+        before = (sm.launches, dk.launches)
+    else:
+        x, p = _block_case(cuda, k, n, m, dtype)
+        before = (bmm.launches, dk.launches)
+    p = _operand(p, qmode)
+    got = _grads(x, p, "cuda")
+    torch.cuda.synchronize()
+    after = (sm.launches if kernel == "sod_matmul" else bmm.launches, dk.launches)
+    assert after[0] == before[0] + 1
+    assert after[1] == before[1] + (kernel == "sod_matmul")
+    want = _grads(x.cpu(), _to_cpu(p), "jnp")
+    assert set(got) == set(want)
+    for name, g in want.items():
+        tol = TOL[torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32]
+        if g.dtype == torch.float8_e4m3fn:
+            tol = 2**-3      # one e4m3 rounding of the gradient
+        a, b = got[name].float().cpu(), g.float()
+        assert got[name].dtype == g.dtype, name
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item(), name
+    field = "vals" if kernel == "sod_matmul" else "block_vals"
+    if field in got:
+        pad = (p.rows < 0) if kernel == "sod_matmul" else \
+            (p.block_ids < 0)[..., None, None].expand(p.block_vals.shape)
+        assert (got[field][pad] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wdtype", [torch.bfloat16, torch.float32])
+def test_dense_matmul_backward_on_card(cuda, wdtype):
+    """``ops.dense_matmul`` with f32 out (the tied LM head's call) has a
+    derivative on the card, where it runs ``aten::mm.dtype``, and its
+    gradients are the CPU path's within one bf16 rounding."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(64, 2048, generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn(2048, 4096, generator=g, device=cuda) * 0.02).to(wdtype)
+    t = torch.randn(64, 4096, generator=g, device=cuda)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        xs, ws = (a.detach().to(dev).requires_grad_(True) for a in (x, w))
+        y = ops.dense_matmul(xs, ws, torch.float32)
+        assert y.dtype == torch.float32
+        (y * t.to(dev)).sum().backward()
+        out[dev] = (y.detach().cpu(), xs.grad.cpu(), ws.grad.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert a.dtype == b.dtype
+        assert (a.float() - b.float()).abs().max() <= 2**-7 * b.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["tiled_csc", "block_csr"])
+def test_train_step_on_card_matches_cpu(cuda, fmt):
+    """One ``make_train_step`` of the reduced model in float32 on the card
+    (every packed matmul through its kernel's Function) against the same
+    step on the CPU (autograd over the plain version): loss and gradients
+    within 1e-4 of their largest magnitude, parameters after the step within
+    a tenth of a step (lr 1e-3), integer leaves and padding unchanged."""
+    from repro_torch.core.tree import leaves_with_path, tree_map
+    from repro_torch.kernels import registry
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamW, AdamWConfig
+
+    model, _, params = _reduced_on_card(cuda, fmt, dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, model.cfg.vocab, (4, 65), generator=gen)
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        with registry.count_dispatches() as counts:
+            loss, _, grads = steps.make_loss_and_grads(model)(p, b)
+        opt = AdamW(AdamWConfig(lr=1e-3))
+        new, _, _ = steps.make_train_step(model, opt)(p, opt.init(p), b)
+        out[dev] = (loss.cpu(), tree_map(lambda t: t.cpu(), grads),
+                    tree_map(lambda t: t.cpu(), new), dict(counts))
+    impl = "cuda_fused" if fmt == "tiled_csc" else "cuda_block"
+    assert set(out["cuda"][3]) == {f"{impl}[prior]"}
+    assert set(out["cpu"][3]) == {"torch_oracle[prior]"}
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for (name, a), (_, b) in zip(leaves_with_path(out["cuda"][1]),
+                                 leaves_with_path(out["cpu"][1])):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-8, name
+    for (name, a), (_, b) in zip(leaves_with_path(out["cuda"][2]),
+                                 leaves_with_path(out["cpu"][2])):
+        if a.is_floating_point():
+            assert (a - b).abs().max() <= 1e-4, name
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_serving_under_inference_mode_builds_no_graph(cuda, monkeypatch):
+    """Serving runs under ``torch.inference_mode``: no kernel goes through
+    its autograd.Function and no output carries a graph."""
+    from repro_torch.kernels import vjp
+    from repro_torch.launch import serve
+
+    def refuse(*a, **kw):
+        raise AssertionError("a serving matmul went through its autograd.Function")
+
+    monkeypatch.setattr(vjp, "fused_matmul", refuse)
+    monkeypatch.setattr(vjp, "block_matmul", refuse)
+    for fmt in ("tiled_csc", "block_csr"):
+        before = sm.launches + bmm.launches
+        summary = serve.main(["--reduced", "--sod", fmt, "--density", "0.3",
+                              "--batch", "2", "--prompt-len", "16", "--gen", "4"])
+        assert sm.launches + bmm.launches == before + 2 * 7 * 5
+        assert summary["logits_finite"]
+    model, _, params = _reduced_on_card(cuda, "tiled_csc")
+    with torch.inference_mode():
+        logits, _ = model.apply(params, torch.zeros((1, 8), dtype=torch.long, device=cuda))
+    assert logits.grad_fn is None and not logits.requires_grad

@@ -42,6 +42,9 @@ def test_forbidden_rule_tells_repro_torch_apart():
 
 def test_importing_the_serve_path_loads_no_jax():
     code = ("import sys, repro_torch.launch.serve, repro_torch.interop, "
+            "repro_torch.launch.train, repro_torch.kernels.vjp, "
+            "repro_torch.optim.grad, repro_torch.checkpoint, "
+            "repro_torch.runtime.fault, "
             "repro_torch.serving, repro_torch.obs, repro_torch.kernels.registry, "
             "repro_torch.kernels.autotune, repro_torch.kernels.timing, "
             "repro_torch.runtime.planner, "
