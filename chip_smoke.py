@@ -12,7 +12,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (nvcc, sm_90a), all at once, and report ptxas registers and spills;
 3. kernels — each kernel in each qmode (``none``, ``int8``, ``fp8``,
    ``codebook``) against its plain PyTorch version at the serving paths'
-   shapes (and ragged ones), in bf16 and f32 (``decompress`` bit for bit;
+   shapes (and ragged ones), in bf16 and f32 (``decompress`` bit for bit,
+   with its launch plan and, per qmode, its share of the byte bound over a
+   layer, apart for the launch-bound 2048 x 512 calls and the rest;
    ``sod_matmul`` and ``block_matmul`` run twice, bit-equal across the
    calls, with their launch plans: splits, ring stages, shared memory),
    plus timings: kernel, plain version, one ``torch.matmul`` on the dense
@@ -446,12 +448,37 @@ def phase_kernels() -> dict:
                 dense = p.to_dense().to(x.dtype)
                 row["library_ms"] = _time_ms(lambda: torch.matmul(x, dense), flush)
             row["bound_ms"], row["bound_by"] = _bound(*_work(name, x, p, y), dtype)
+            if name == "decompress":
+                row["share_of_bound"] = row["bound_ms"] / row["kernel_ms"]
+                row["plan"] = dataclasses.asdict(dk.plan_of(p, y.dtype))
             row["launches_per_forward"] = LAYERS * PATH_SHAPES[(k, n)][1]
             row["projections"] = PATH_SHAPES[(k, n)][0]
             timed[(name, qmode, k, n, tag)] = row
         launches[key] = launches.get(key, 0) + COUNTERS[name].launches
         log(row)
+    for qmode in ("none", *QMODES):
+        log(_decompress_share(qmode, timed))
     return {"max_err": max_err, "timed": timed, "launches": launches, "qpacks": qpacks}
+
+
+def _decompress_share(qmode: str, timed: dict) -> dict:
+    """decompress's share of its byte bound over one layer's 7 projections
+    in one qmode, and apart for the 2048 x 512 calls (wk, wv: about 1 µs of
+    bytes each, so launch-bound) and the rest."""
+    rows = [(row, PATH_SHAPES[(k, n)][1]) for (name, q, k, n, _), row in timed.items()
+            if name == "decompress" and q == qmode]
+
+    def layer(small: bool | None) -> tuple[float, float]:
+        picked = [(r, c) for r, c in rows
+                  if small is None or ((r["K"], r["N"]) == (2048, 512)) == small]
+        return (sum(r["kernel_ms"] * c for r, c in picked),
+                sum(r["bound_ms"] * c for r, c in picked))
+
+    (ms, bound), (ms_small, bound_small), (ms_rest, bound_rest) = (
+        layer(None), layer(True), layer(False))
+    return {"phase": "kernels", "kernel": "decompress", "qmode": qmode,
+            "layer_ms": ms, "layer_bound_ms": bound, "share_of_bound": bound / ms,
+            "share_wk_wv": bound_small / ms_small, "share_rest": bound_rest / ms_rest}
 
 
 def _densify(tree):

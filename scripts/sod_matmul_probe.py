@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Host and device time of a Sparse-on-Dense matmul kernel's wrapper at the
+"""Host and device time of a Sparse-on-Dense kernel's wrapper at the
 serving path's shapes.
 
-    python3 scripts/sod_matmul_probe.py [--kernel sod_matmul|block_matmul]
-                                        [--src DIR]
+    python3 scripts/sod_matmul_probe.py
+        [--kernel sod_matmul|block_matmul|decompress] [--src DIR]
 
 Run from the root of a checkout on an NVIDIA GPU.  ``--kernel`` picks the
 kernel: ``sod_matmul`` (TiledCSC, magnitude-pruned weights; qmodes
@@ -40,10 +40,28 @@ Every operand is first held against the plain version, with f32 output (a
 probe's sums cancel far more than real data's).  Prints one JSON line per
 case, one per qmode with the seven projections of a layer summed, the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true}``.
+
+``--kernel decompress`` times the standalone decompression kernel on
+magnitude-pruned TiledCSC operands in every qmode (bf16 values, bf16 out;
+quantized codes, f32 out, each call's default), each first held bit for bit
+against the plain version.  Per (K, N) and qmode it prints ``ms`` (device
+time a call, the yardstick above), ``bound_ms`` (the bytes of vals, rows,
+the side band and the dense output at 3.35 TB/s), ``share`` (bound / ms),
+``pad_ms`` (every row index padding: the copies and the write-out, no slot
+placed), ``copy_ms`` (one ``copy_`` between two byte buffers of half the
+bound's bytes each: the same traffic as a plain device copy, the practical
+ceiling of a kernel that reads and writes) and ``host_us``; then the same
+summed over a layer's seven
+projections, and ``launch_floor_ms``, the yardstick's time of a
+one-element ``zero_`` (the least a launch costs on it).  Where the measured
+tree's wrapper plans its launches from the constants ``CTAS_PER_SM`` and
+``THREADS``, it also times each setting of DECOMPRESS_PLANS (``ms_<name>``
+and the layer sums), set on the module for the timing and then restored.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -58,7 +76,14 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # (K, N) of a layer's projections and how many of each (chip_smoke.py's)
 PATH_SHAPES = {(2048, 2048): 2, (2048, 512): 2, (2048, 8192): 2, (8192, 2048): 1}
 QMODES = {"sod_matmul": ("none", "int8", "fp8"),
-          "block_matmul": ("none", "int8", "fp8", "codebook")}
+          "block_matmul": ("none", "int8", "fp8", "codebook"),
+          "decompress": ("none", "int8", "fp8", "codebook")}
+# decompress's plan constants beside the module's own (decompress.plan_launch)
+DECOMPRESS_PLANS = {"cta1": {"CTAS_PER_SM": 1},
+                    "cta1_threads1024": {"CTAS_PER_SM": 1, "THREADS": 1024},
+                    "threads256": {"THREADS": 256},
+                    "threads1024": {"THREADS": 1024}}
+HBM_BYTES_PER_S = 3.35e12
 DENSITY = 0.3
 REPS = 25
 HOST_BLOCKS = 40
@@ -116,6 +141,9 @@ def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    if args.kernel == "decompress":
+        probe_decompress(torch, args.src, smi)
+        return
     block = args.kernel == "block_matmul"
     kernel = bmm.block_matmul if block else sm.sod_matmul
     plain = ref.block_matmul_ref if block else ref.sod_matmul_ref
@@ -183,6 +211,96 @@ def main() -> None:
                 layer[qmode][key] += count * row[key]
     for qmode, sums in layer.items():
         log({"src": src, "kernel": args.kernel, "layer": qmode, **sums})
+    log(smi)
+    log({"ok": True})
+
+
+def probe_decompress(torch, src: pathlib.Path, smi: str) -> None:
+    """``--kernel decompress``: see the module's docstring."""
+    from repro_torch.core.formats import pack_tiled_csc, quantize_packed
+    from repro_torch.core.pruning import magnitude_prune
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import decompress as dk
+
+    build.load("decompress")
+    timing = _timing()
+    flush = timing.flush_buffer()
+    plans = DECOMPRESS_PLANS if hasattr(dk, "CTAS_PER_SM") else {}
+
+    def device_ms(fn) -> float:
+        return timing.device_ms(fn, flush, REPS)
+
+    @contextlib.contextmanager
+    def planned(consts: dict):
+        if not consts:                  # the tree's own plan (a parent has no constants)
+            yield
+            return
+        saved = {name: getattr(dk, name) for name in consts}
+        vars(dk).update(consts)
+        dk.plan_launch.cache_clear()
+        try:
+            yield
+        finally:
+            vars(dk).update(saved)
+            dk.plan_launch.cache_clear()
+
+    def nbytes(t) -> int:
+        return 0 if t is None else t.numel() * t.element_size()
+
+    bases = {}
+    for i, (k, n) in enumerate(PATH_SHAPES):
+        g = torch.Generator(device="cuda")
+        g.manual_seed(2000 + i)
+        w = torch.randn(k, n, generator=g, device="cuda").to(torch.bfloat16)
+        bases[(k, n)] = pack_tiled_csc(magnitude_prune(w, DENSITY))
+    jobs = [(kn, q) for kn in PATH_SHAPES for q in QMODES["decompress"]]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        ops = dict(zip(jobs, pool.map(
+            lambda job: bases[job[0]] if job[1] == "none"
+            else quantize_packed(bases[job[0]], job[1]), jobs)))
+
+    keys = ["ms", "bound_ms", "pad_ms", "copy_ms", "host_us"] + [f"ms_{name}" for name in plans]
+    layer = {q: dict.fromkeys(keys, 0.0) for q in QMODES["decompress"]}
+    for (k, n), count in PATH_SHAPES.items():
+        for qmode in QMODES["decompress"]:
+            p = ops[((k, n), qmode)]
+            pad = dataclasses.replace(p, rows=torch.full_like(p.rows, -1))
+            for name, plan in [("default", {})] + list(plans.items()):
+                for q in (p, pad):
+                    with planned(plan):
+                        y = dk.decompress(q)
+                    yr = ref.decompress_tiled_ref(q)
+                    if not (y.dtype == yr.dtype and torch.equal(y, yr)):
+                        raise AssertionError(f"decompress {(k, n, qmode, name)} is not "
+                                             "bit-equal to its plain version")
+            y = dk.decompress(p)
+            moved = (nbytes(p.vals) + nbytes(p.rows) + nbytes(p.scale)
+                     + nbytes(p.codebook) + nbytes(y))
+            bound = moved / HBM_BYTES_PER_S * 1e3
+            src_buf, dst_buf = (torch.empty(moved // 2, dtype=torch.uint8, device="cuda")
+                                for _ in range(2))
+            row = {"src": str(src), "kernel": "decompress", "K": k, "N": n,
+                   "qmode": qmode, "cap": p.cap, "out_dtype": str(y.dtype).split(".")[-1],
+                   "ms": device_ms(lambda: dk.decompress(p)), "bound_ms": bound,
+                   "pad_ms": device_ms(lambda: dk.decompress(pad)),
+                   "copy_ms": device_ms(lambda: dst_buf.copy_(src_buf)),
+                   "host_us": host_us(torch, lambda: dk.decompress(p))[0]}
+            if plans:
+                row["plan"] = dataclasses.asdict(dk.plan_of(p, y.dtype))
+            for name, plan in plans.items():
+                with planned(plan):
+                    row[f"ms_{name}"] = device_ms(lambda: dk.decompress(p))
+            row["share"] = bound / row["ms"]
+            log(row)
+            for key in keys:
+                layer[qmode][key] += count * row[key]
+    one = torch.empty(1, device="cuda")
+    log({"src": str(src), "launch_floor_ms": device_ms(one.zero_)})
+    for qmode, sums in layer.items():
+        log({"src": str(src), "kernel": "decompress", "layer": qmode, **sums,
+             "share": sums["bound_ms"] / sums["ms"],
+             "copy_share": sums["bound_ms"] / sums["copy_ms"],
+             **{f"share_{name}": sums["bound_ms"] / sums[f"ms_{name}"] for name in plans}})
     log(smi)
     log({"ok": True})
 

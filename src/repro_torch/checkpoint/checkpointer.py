@@ -11,9 +11,16 @@ only a directory holding the COMMITTED marker counts: a crashed save is
 done again, never restored.  ``save(blocking=False)`` copies every leaf to
 the host synchronously (the step loop may then change the tensors in
 place) and writes from a daemon thread.  numpy has no bfloat16 or float8,
-so those leaves are stored through their bits (``uint16``, ``uint8``) and
-named by dtype in the manifest, without ``ml_dtypes``.  ``restore`` casts
-every leaf to its template's dtype and moves it to the template's device.
+and the port does without ``ml_dtypes``.  A bfloat16 leaf is stored
+through its bits (``uint16``), as the reference stores it.  A float8 leaf
+is stored as float16 *values*, which hold every e4m3 value (NaNs and -0.0
+included) exactly, so the reference's restore, which casts such an array to
+its template's dtype by value, reads it right; it takes 2 bytes an element
+on disk.  Both are named by their dtype in the manifest.  ``restore`` reads
+a float8 leaf by value from float16, and through its bits from ``uint8``
+(the port's older checkpoints) or from the ``|V1`` array numpy loads for
+the reference's float8 leaf; it then casts every leaf to its template's
+dtype and moves it to the template's device.
 ``history`` records every save: its step, the seconds of the host copy and
 of the writes, and the bytes written.
 Restoring onto other shardings (the reference's ``shardings``) waits for
@@ -36,26 +43,33 @@ from repro_torch.core.tree import leaves_with_path, tree_map_with_path
 
 Params = Any
 _COMMITTED = "COMMITTED"
-# torch dtype -> (name in the manifest, numpy view that carries its bits)
-_BIT_VIEWS = {torch.bfloat16: ("bfloat16", torch.uint16),
-              torch.float8_e4m3fn: ("float8_e4m3fn", torch.uint8)}
-_FROM_NAME = {name: (dtype, view) for dtype, (name, view) in _BIT_VIEWS.items()}
+# manifest name -> torch dtype of the leaves numpy cannot hold
+_FROM_NAME = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def _to_numpy(t: torch.Tensor) -> tuple[np.ndarray, str]:
     """A host copy of ``t`` as numpy, and its dtype's name."""
     t = t.detach().to("cpu", copy=True)
-    if t.dtype in _BIT_VIEWS:
-        name, view = _BIT_VIEWS[t.dtype]
-        return t.view(view).numpy(), name
+    if t.dtype == torch.bfloat16:        # through its bits, as the reference
+        return t.view(torch.uint16).numpy(), "bfloat16"
+    if t.dtype == torch.float8_e4m3fn:   # by value: float16 holds every e4m3 value
+        return t.to(torch.float16).numpy(), "float8_e4m3fn"
     return t.numpy(), str(t.dtype).removeprefix("torch.")
 
 
 def _from_numpy(arr: np.ndarray, name: str) -> torch.Tensor:
+    """The leaf ``arr`` holds, in the dtype ``name``: bits (uint16 for
+    bfloat16; uint8 or a 1-byte void array for float8) are viewed, float16
+    values of a float8 leaf are cast (exactly)."""
+    if arr.dtype.kind == "V":      # the reference's float8 leaf: numpy's |V1
+        arr = arr.view(np.uint8)
     t = torch.from_numpy(arr)      # np.load gives a C-contiguous array, 0-d kept
-    if name in _FROM_NAME:
-        return t.view(_FROM_NAME[name][0])
-    return t
+    dtype = _FROM_NAME.get(name)
+    if dtype is None:
+        return t
+    if t.element_size() == dtype.itemsize and not t.is_floating_point():
+        return t.view(dtype)
+    return t.to(dtype)
 
 
 class Checkpointer:

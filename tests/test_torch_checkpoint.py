@@ -1,8 +1,9 @@
 """The port's Checkpointer, mirroring ``tests/test_checkpoint.py``: round
 trip, commit marker, async save, GC, cast to the template's dtype — plus
-bf16 and fp8 leaves stored through their bits (no ``ml_dtypes``), packed
-containers, the reference's on-disk layout, and a checkpoint written by the
-JAX package restored by the port.  Round trips are bit-exact."""
+bf16 leaves stored through their bits and fp8 leaves as float16 values (no
+``ml_dtypes``), packed containers, the reference's on-disk layout, and
+checkpoints crossing between the packages both ways, every fp8 bit pattern
+kept.  Round trips are bit-exact."""
 import dataclasses
 import pathlib
 
@@ -130,3 +131,83 @@ def test_restores_a_checkpoint_written_by_the_reference(tmp_path):
     assert torch.equal(out["b"].view(torch.int16),
                        torch.from_numpy(np.asarray(jstate["b"]).view(np.int16)))
     assert torch.equal(out["w"], torch.ones(2, 3))
+
+
+# every e4m3fn bit pattern, NaNs and -0.0 included
+_ALL_FP8 = torch.arange(256, dtype=torch.uint8).view(torch.float8_e4m3fn)
+_JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+        torch.float8_e4m3fn: jnp.float8_e4m3fn, torch.int8: jnp.int8,
+        torch.int32: jnp.int32}
+
+
+def _leaf(dtype):
+    if dtype == torch.float8_e4m3fn:
+        return _ALL_FP8
+    g = torch.Generator().manual_seed(5)
+    if dtype in (torch.int8, torch.int32):
+        return torch.randint(-128, 128, (7, 9), generator=g, dtype=dtype)
+    return (torch.randn(7, 9, generator=g) * 3).to(dtype)
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32}[a.dtype.itemsize])
+
+
+@pytest.mark.parametrize("dtype", list(_JNP))
+def test_port_checkpoint_restores_in_the_reference(tmp_path, dtype):
+    """Fault C5: the reference casts a leaf by value into its template's
+    dtype, so an fp8 leaf must be on disk as values, not bits; every
+    pattern comes back."""
+    x = _leaf(dtype)
+    Checkpointer(tmp_path).save(3, {"x": x, "y": [x[:2]]})
+    out = JCheckpointer(tmp_path).restore(
+        3, {"x": jnp.zeros(x.shape, _JNP[dtype]), "y": [jnp.zeros(x[:2].shape, _JNP[dtype])]})
+    for got, want in ((out["x"], x), (out["y"][0], x[:2])):
+        got = np.asarray(got)
+        assert got.dtype == _JNP[dtype] and got.shape == tuple(want.shape)
+        bits = want.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[want.element_size()])
+        np.testing.assert_array_equal(_bits(got), _bits(bits.numpy()))
+
+
+def test_reference_fp8_leaf_restores_in_the_port(tmp_path):
+    """The reference writes an fp8 leaf as numpy's ``|V1``; the port reads
+    its bits."""
+    bits = np.arange(256, dtype=np.uint8)
+    JCheckpointer(tmp_path).save(2, {"c": jnp.asarray(bits.view(jnp.float8_e4m3fn))})
+    out = Checkpointer(tmp_path).restore(
+        2, {"c": torch.zeros(256, dtype=torch.float8_e4m3fn)})
+    assert out["c"].dtype == torch.float8_e4m3fn
+    assert torch.equal(out["c"].view(torch.uint8), torch.from_numpy(bits))
+
+
+def test_old_uint8_fp8_checkpoint_restores_bit_exact(tmp_path):
+    """The port's checkpoints before the repair hold an fp8 leaf as its
+    uint8 bits under the dtype name ``float8_e4m3fn``."""
+    step = tmp_path / "step_00000004"
+    step.mkdir()
+    np.save(step / "0.npy", _ALL_FP8.view(torch.uint8).numpy())
+    (step / "MANIFEST.msgpack").write_bytes(msgpack.packb({"step": 4, "leaves": [
+        {"name": "['c']", "index": 0, "shape": [256], "dtype": "float8_e4m3fn"}]}))
+    (step / "COMMITTED").touch()
+    out = Checkpointer(tmp_path).restore(
+        4, {"c": torch.zeros(256, dtype=torch.float8_e4m3fn)})
+    assert torch.equal(out["c"].view(torch.uint8), _ALL_FP8.view(torch.uint8))
+
+
+def test_every_fp8_pattern_round_trips_in_the_port(tmp_path):
+    """Saved as float16 values and cast back: every e4m3fn bit pattern,
+    NaNs and -0.0 included, comes back bit for bit."""
+    ck = Checkpointer(tmp_path)
+    ck.save(5, {"c": _ALL_FP8, "l": [_ALL_FP8.reshape(16, 16)]})
+    out = ck.restore(5, {"c": torch.zeros(256, dtype=torch.float8_e4m3fn),
+                         "l": [torch.zeros(16, 16, dtype=torch.float8_e4m3fn)]})
+    assert out["c"].dtype == out["l"][0].dtype == torch.float8_e4m3fn
+    assert torch.equal(out["c"].view(torch.uint8), _ALL_FP8.view(torch.uint8))
+    assert torch.equal(out["l"][0].view(torch.uint8).flatten(), _ALL_FP8.view(torch.uint8))
+
+
+def test_fp8_leaf_is_float16_values_on_disk(tmp_path):
+    Checkpointer(tmp_path).save(1, {"c": _ALL_FP8})
+    arr = np.load(tmp_path / "step_00000001" / "0.npy")
+    assert arr.dtype == np.float16 and arr.nbytes == 2 * 256
+    np.testing.assert_array_equal(arr, _ALL_FP8.to(torch.float16).numpy())

@@ -1173,3 +1173,121 @@ def test_serving_under_inference_mode_builds_no_graph(cuda, monkeypatch):
     with torch.inference_mode():
         logits, _ = model.apply(params, torch.zeros((1, 8), dtype=torch.long, device=cuda))
     assert logits.grad_fn is None and not logits.requires_grad
+
+
+# ---------------------------------------------------------------------------
+# decompress: persistent CTAs, a bulk-copy ring of tile slabs, 16-byte rows
+# ---------------------------------------------------------------------------
+def _check_decompress(p, out_dtype=None):
+    """One launch, bit-equal to the plain version in dtype, shape and bits."""
+    before = dk.launches
+    d = dk.decompress(p, out_dtype)
+    torch.cuda.synchronize()
+    assert dk.launches == before + 1
+    want = ref.decompress_tiled_ref(p, out_dtype)
+    assert d.shape == tuple(p.shape) and d.dtype == want.dtype
+    assert torch.equal(d, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,more_tiles", [(8192, 2048, True), (2048, 512, False)])
+def test_decompress_persistent_grid(cuda, k, n, more_tiles, dtype):
+    """More tiles than CTAs (each CTA walks several through its ring) and
+    fewer tiles than SMs (one tile a CTA)."""
+    _, p = _case(cuda, k, n, 1, dtype)
+    plan = dk.plan_of(p, dtype)
+    tiles = p.grid[0] * p.grid[1]
+    if more_tiles:
+        assert plan.grid < tiles
+    else:
+        assert plan.grid == tiles < sm.sm_count(cuda.index or 0)
+    _check_decompress(p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,n", [(300, 260), (200, 130), (129, 33)])
+def test_decompress_unaligned_row_starts(cuda, k, n, out_dtype):
+    """In bf16 these rows do not start 16-byte aligned (n * 2 % 16 != 0):
+    the kernel writes them element by element, and the ragged edge too."""
+    _, p = _case(cuda, k, n, 1, torch.bfloat16, 0.4)
+    _check_decompress(p, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decompress_cap_one_and_padding_tiles(cuda, dtype):
+    """One slot a column (cap = 1: a slab of bn values), and tiles whose
+    every slot is padding, beside a weight of zeros."""
+    k, n = 1000, 700
+    col = torch.arange(n, device=cuda)
+    w = torch.zeros(k, n, device=cuda)
+    w[col % k, col] = torch.randn(n, generator=torch.Generator(device=cuda).manual_seed(4),
+                                  device=cuda)
+    p = pack_tiled_csc(w.to(dtype))
+    assert ((p.rows >= 0).sum(dim=2) <= 1).all()
+    # the one real slot of each column (padding holds row -1 and value 0)
+    one = dataclasses.replace(p, vals=p.vals.sum(dim=2, keepdim=True).to(dtype),
+                              rows=p.rows.max(dim=2, keepdim=True).values)
+    assert one.cap == 1 and (one.rows < 0).all(dim=(2, 3)).any()
+    _check_decompress(one)
+    _check_decompress(one, torch.float32)
+    _check_decompress(pack_tiled_csc(torch.zeros(k, n, dtype=dtype, device=cuda)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", QMODES)
+def test_quantized_decompress_full_width_both_dtypes(cuda, qmode):
+    """Every quantized qmode at 8192 x 2048, to f32 (the default) and bf16."""
+    _, p = _case(cuda, 8192, 2048, 1, torch.bfloat16)
+    q = quantize_packed(p, qmode)
+    _check_decompress(q)
+    _check_decompress(q, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+def test_decompress_stacked_layer_view(cuda, qmode):
+    """packed.layer(i) is a view into the stacked buffers; a view at an
+    offset a bulk copy cannot take raises."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    w = magnitude_prune(torch.randn(3, 2048, 512, generator=g, device=cuda), 0.3)
+    stacked = _operand(pack_tiled_csc(w.bfloat16()), qmode)
+    for i in range(3):
+        layer = stacked.layer(i)
+        assert layer.vals.data_ptr() == stacked.vals.data_ptr() + i * layer.vals.nbytes
+        _check_decompress(layer)
+    layer = stacked.layer(1)
+    flat = torch.empty(layer.rows.numel() + 1, dtype=layer.rows.dtype, device=cuda)
+    off = flat[1:].view(layer.rows.shape)
+    off.copy_(layer.rows)
+    with pytest.raises(ValueError, match="aligned"):
+        dk.decompress(dataclasses.replace(layer, rows=off))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("launch", [{"CTAS_PER_SM": 1}, {"CTAS_PER_SM": 3},
+                                    {"CTAS_PER_SM": 1, "THREADS": 1024},
+                                    {"THREADS": 256}, {"THREADS": 128},
+                                    {"THREADS": 1024}])
+@pytest.mark.parametrize("qmode", ALL_QMODES)
+def test_decompress_every_plan_bit_equal(cuda, launch, qmode, monkeypatch):
+    """The output does not depend on the launch plan: each tile is written
+    by exactly one CTA, whatever the grid, the threads, the ring or the
+    dense tiles (one or two, by the output dtype and the CTAs an SM)."""
+    for name, value in launch.items():
+        monkeypatch.setattr(dk, name, value)
+    dk.plan_launch.cache_clear()
+    try:
+        _, p = _case(cuda, 2048, 4096, 1, torch.bfloat16, seed=6)
+        q = _operand(p, qmode)
+        for dtype in (None, torch.bfloat16, torch.float32):
+            out = dtype or (torch.float32 if qmode != "none" else torch.bfloat16)
+            plan = dk.plan_of(q, out)
+            assert plan.grid < q.grid[0] * q.grid[1]
+            assert plan.ctas_per_sm <= dk.CTAS_PER_SM
+            _check_decompress(q, dtype)
+    finally:
+        dk.plan_launch.cache_clear()
