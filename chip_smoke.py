@@ -103,12 +103,33 @@ Phases, each of which raises on failure (so the script exits non-zero):
    profiled (device time by kernel and operator class, idle share, tok/s,
    peak memory).  Last, ``train_resume``: the reduced model 12 steps with
    a checkpoint every 5, then twice ``--resume --steps 16`` from copies of
-   its directory, losses and states bit-equal.
+   its directory, losses and states bit-equal;
+9. dense_family — the rest of the dense family at full width.  First each
+   kernel at the shapes the family adds (FAMILY_SHAPES: the untied heads of
+   internlm2-1.8b and yi-34b with float32 out, gemma2-27b's and yi-34b's
+   large-K ``w_down``, gemma2's 4096-wide ``wo``), ``sod_matmul`` in qmode
+   none and int8, ``block_matmul`` in none, ``decompress`` in none and
+   int8, at M = 4 and 128: against its plain version, two calls bit-equal,
+   its launch plan, and timed beside its plain version, ``torch.matmul``
+   and its bound.  Then four static cells through ``serve.main``
+   (FAMILY_CELLS): ``internlm2_tiled_csc`` (full depth, its head packed;
+   (24 · 7 + 1) × 17 launches; one decode step and the head alone
+   profiled), ``internlm2_tiled_csc_int8`` (the same raw weights, int8),
+   ``gemma2_tiled_csc`` (4 of 46 layers; every logit within the final
+   soft-cap of 30) and ``yi_block_csr`` (4 of 60 layers, block-pruned; the
+   head through ``block_matmul``), each against its densified weights (the
+   head included); engine runs on their weights (FAMILY_ENGINE_RUNS: fused
+   and ``--spec-decode 2`` for internlm2 and gemma2, fused for yi), every
+   request equal to ``static_generate`` bit for bit and an untied head run
+   at 1, 4 and 4 × 3 rows; and ``train_internlm2`` (full depth, 4 steps,
+   the head's gradient at M = 1024 against the plain version first, one
+   step profiled).
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
 kernel and qmode, with the launches and registry dispatches of phase 7's
-runs, and the launches and gradient error of phase 8), and
+runs, the launches and gradient error of phase 8, and phase 9's launches
+by cell and its shapes' times), and
 ``{"ok": true, "device": {...}}``.  The whole run reads and
 writes a tuning cache of its own in a temporary directory, so phases 4-6
 dispatch on a cold cache (the untuned launches).
@@ -136,8 +157,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.core.formats import (TiledCSC, pack_block_csr,  # noqa: E402
-                                      pack_tiled_csc, quantize_packed)
+from repro_torch.core.formats import (BlockCSR, TiledCSC,  # noqa: E402
+                                      pack_block_csr, pack_tiled_csc,
+                                      quantize_packed)
 from repro_torch.core.pruning import block_prune, magnitude_prune  # noqa: E402
 from repro_torch.core import sod as sod_mod  # noqa: E402
 from repro_torch.core.sod import SoDConfig  # noqa: E402
@@ -150,6 +172,7 @@ from repro_torch.core.tree import leaves_with_path  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
 from repro_torch.serving import (Engine, bucket_len, poisson_trace,  # noqa: E402
@@ -491,8 +514,12 @@ def _densify(tree):
 
 
 def _projections(params):
-    return {f"{g}.{n}": [layer[g][n] for layer in params["layers"]]
-            for g in ("attn", "mlp") for n in params["layers"][0][g]}
+    """Every layer's projections by name, and a packed untied ``head``."""
+    out = {f"{g}.{n}": [layer[g][n] for layer in params["layers"]]
+           for g in ("attn", "mlp") for n in params["layers"][0][g]}
+    if isinstance(params.get("head"), (TiledCSC, BlockCSR)):
+        out["head"] = [params["head"]]
+    return out
 
 
 def phase_slice(cell: str) -> dict:
@@ -543,8 +570,9 @@ def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int) 
     """The same weights, prefill through the kernel and through the dense
     matmul on the weights densified by ops.decompress: logits within
     LOGIT_TOL of the dense path's largest, and ``decompress`` launched once
-    a packed TiledCSC projection (all ``layers`` x 7 of them when the
-    ``kernel`` is ``sod_matmul``).  Returns the logged row."""
+    a packed TiledCSC projection (all ``layers`` x 7 of them, and a packed
+    head, when the ``kernel`` is ``sod_matmul``).  Returns the logged row
+    (without the logits, which are under ``"logits"``)."""
     proj = _projections(params)
     packed = [w for ws in proj.values() for w in ws]
     with torch.inference_mode():
@@ -561,7 +589,7 @@ def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int) 
         agree = (lk.argmax(-1) == ld.argmax(-1)).float().mean().item()
     want_decompress = sum(isinstance(w, TiledCSC) for w in packed)
     if decompress_launches != want_decompress or (
-            kernel == "sod_matmul" and want_decompress != layers * 7):
+            kernel == "sod_matmul" and want_decompress != layers * 7 + ("head" in proj)):
         raise AssertionError(f"{label}: densifying launched decompress "
                              f"{decompress_launches} times, want {want_decompress}")
     row = {"phase": "slice_vs_dense", "cell": label, "max_abs_err": err,
@@ -585,7 +613,7 @@ def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int) 
     if not (torch.isfinite(lk).all() and err <= LOGIT_TOL * scale):
         raise AssertionError(f"{label}: kernel-path logits differ from the dense "
                              f"path: {err} > {LOGIT_TOL * scale}")
-    return row
+    return {**row, "logits": lk}
 
 
 def check_quantized_bytes(cells: dict) -> None:
@@ -1284,20 +1312,20 @@ def _float_leaves(p) -> list[str]:
             if getattr(p, f, None) is not None and getattr(p, f).is_floating_point()]
 
 
-def _backward(x, p, g, kernel: bool) -> dict:
+def _backward(x, p, g, kernel: bool, out_dtype=None) -> dict:
     """(y, dx, d of the operand's float buffers) for the cotangent ``g``:
     through the kernel's autograd.Function, or autograd over the plain
-    version."""
+    version, the output in ``out_dtype`` (x's dtype when None)."""
     xx = x.detach().clone().requires_grad_(True)
     leaves = {f: getattr(p, f).detach().clone().requires_grad_(True)
               for f in _float_leaves(p)}
     w = dataclasses.replace(p, **leaves)
     if not kernel:
-        y = ref.sod_matmul_ref(xx, w)
+        y = ref.sod_matmul_ref(xx, w, out_dtype)
     elif isinstance(p, TiledCSC):
-        y = vjp.fused_matmul(xx, w, None, {})
+        y = vjp.fused_matmul(xx, w, out_dtype, {})
     else:
-        y = vjp.block_matmul(xx, w, None, {})
+        y = vjp.block_matmul(xx, w, out_dtype, {})
     y.backward(g)
     return {"y": y.detach(), "x": xx.grad, **{f: t.grad for f, t in leaves.items()}}
 
@@ -1443,18 +1471,21 @@ def train_run(run: str) -> dict:
     return summary
 
 
-def phase_train_profile(summary: dict) -> None:
-    """One steady step of ``train_tiled_csc`` under ``torch.profiler``, on
-    its final state: device time by kernel and by operator class (the
-    matmul kernel's forward and remat launches, ``decompress``, the tied LM
-    head's GEMMs, the other GEMMs — the projections' backward, the
-    attention's einsums — and AdamW's foreach kernels), the device's idle
-    share against the median wall of 3 unprofiled steps, tok/s and the
-    peak memory of those steps."""
+def phase_train_profile(summary: dict, run: str = "train_tiled_csc",
+                        argv: list[str] | None = None) -> None:
+    """One steady step of ``run`` (trained from ``argv``, by default
+    ``train_tiled_csc``'s) under ``torch.profiler``, on its final state:
+    device time by kernel and by operator class (the matmul kernel's
+    forward and remat launches, ``decompress``, the LM head's GEMMs — the
+    tied head's, or an untied packed head's backward on its densified
+    weight —, the other GEMMs — the projections' backward, the attention's
+    einsums — and AdamW's foreach kernels), the device's idle share against
+    the median wall of 3 unprofiled steps, tok/s and the peak memory of
+    those steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    args = train.parse_args(TRAIN_ARGV + TRAIN_RUNS["train_tiled_csc"][0])
+    args = train.parse_args(argv or TRAIN_ARGV + TRAIN_RUNS["train_tiled_csc"][0])
     cfg = configs.get_config(args.arch).with_(sod=SoDConfig(mode="tiled_csc",
                                                            density=DENSITY, min_dim=64))
     model = LM(cfg)
@@ -1503,7 +1534,7 @@ def phase_train_profile(summary: dict) -> None:
             for name in ("sod_matmul", "decompress")}
     wall = statistics.median(walls)
     rows = sorted(((us, k, n) for k, (us, n) in per_kernel.items()), reverse=True)
-    log({"phase": "train_profile", "run": "train_tiled_csc",
+    log({"phase": "train_profile", "run": run, "arch": cfg.name,
          "what": "one steady training step, batch 8 × seq 128, full width, bf16",
          "step_s_median_of_3": wall, "tok_s": TRAIN_M / wall, "peak_mem_gb": peak,
          "device_ms": total_us / 1e3 if total_us else "not measured",
@@ -1556,6 +1587,387 @@ def phase_train_resume() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the dense family
+# ---------------------------------------------------------------------------
+# (K, N) -> (what, the output dtype on the model's path: f32 for a head)
+FAMILY_SHAPES = {
+    "sod_matmul": {(2048, 92544): ("internlm2 head", torch.float32),
+                   (7168, 64000): ("yi head", torch.float32),
+                   (4608, 36864): ("gemma2 w_gate+w_up", torch.bfloat16),
+                   (36864, 4608): ("gemma2 w_down", torch.bfloat16),
+                   (20480, 7168): ("yi w_down", torch.bfloat16),
+                   (4096, 4608): ("gemma2 wo", torch.bfloat16)},
+    "block_matmul": {(7168, 20480): ("yi w_gate+w_up", torch.bfloat16),
+                     (20480, 7168): ("yi w_down", torch.bfloat16),
+                     (7168, 64000): ("yi head", torch.float32)},
+    "decompress": {(36864, 4608): ("gemma2 w_down", None),
+                   (7168, 64000): ("yi head", None)},
+}
+FAMILY_QMODES = {"sod_matmul": ("none", "int8"), "block_matmul": ("none",),
+                 "decompress": ("none", "int8")}
+FAMILY_BASE = ["--batch", "4", "--prompt-len", "32", "--gen", "16", "--seed", "0",
+               "--device", "cuda"]
+FAMILY_TILED = ["--sod", "tiled_csc", "--density", str(DENSITY)]
+# cell -> (arch, layers (None: full depth), flags, caller's SoDConfig, kernel,
+# qmode)
+FAMILY_CELLS = {
+    "internlm2_tiled_csc": ("internlm2-1.8b", None, FAMILY_TILED, None, "sod_matmul",
+                            "none"),
+    "internlm2_tiled_csc_int8": ("internlm2-1.8b", None,
+                                 FAMILY_TILED + ["--quantize", "int8"], None,
+                                 "sod_matmul", "int8"),
+    "gemma2_tiled_csc": ("gemma2-27b", 4, FAMILY_TILED, None, "sod_matmul", "none"),
+    "yi_block_csr": ("yi-34b", 4, [], _block_sod(), "block_matmul", "none"),
+}
+# engine run -> (family cell whose packed weights it serves, speculative)
+FAMILY_ENGINE_RUNS = {
+    "internlm2_tiled_csc": ("internlm2_tiled_csc", False),
+    "internlm2_tiled_csc_spec2": ("internlm2_tiled_csc", True),
+    "gemma2_tiled_csc": ("gemma2_tiled_csc", False),
+    "gemma2_tiled_csc_spec2": ("gemma2_tiled_csc", True),
+    "yi_block_csr": ("yi_block_csr", False),
+}
+FAMILY_TRAIN_ARGV = ["--arch", "internlm2-1.8b", "--batch", str(TRAIN_BATCH), "--seq",
+                     str(TRAIN_SEQ), "--warmup", "2", "--lr", "3e-3", "--seed", "0",
+                     "--device", "cuda", "--ckpt-every", "1000", "--log-every", "1000",
+                     *FAMILY_TILED]
+FAMILY_TRAIN_STEPS = 4
+
+
+def phase_family_kernels() -> dict:
+    """Each kernel at the shapes the dense family adds (FAMILY_SHAPES), in
+    the qmodes of FAMILY_QMODES, bf16 activations: against its plain
+    version within KERNEL_TOL (``decompress`` bit for bit), two calls
+    bit-equal, its launch plan, and the times of the kernel, its plain
+    version and ``torch.matmul`` (with the path's output dtype) on the
+    dense bf16 weight beside the bound, at M = 4 and M = 128 (the matmuls).
+    One weight is drawn, pruned and packed a (format, K, N), and quantized
+    once a qmode, for every kernel that reads it.  Returns the timed rows
+    by (kernel, qmode, K, N, M)."""
+    flush = timing.flush_buffer()
+    rows = {}
+    layouts = sorted({("block" if name == "block_matmul" else "tiled", k, n)
+                      for name, shapes in FAMILY_SHAPES.items() for k, n in shapes})
+    for i, (fmt, k, n) in enumerate(layouts):
+        x, w = _weights(k, n, max(PATH_M.values()), torch.bfloat16, 4000 + i,
+                        block=fmt == "block")
+        packs = {"none": pack_block_csr(w) if fmt == "block" else pack_tiled_csc(w)}
+        del w
+        for name, shapes in FAMILY_SHAPES.items():
+            if (k, n) not in shapes or (name == "block_matmul") != (fmt == "block"):
+                continue
+            what, out_dtype = shapes[(k, n)]
+            for qmode in FAMILY_QMODES[name]:
+                if qmode not in packs:
+                    packs[qmode] = quantize_packed(packs["none"], qmode)
+                for m in (1,) if name == "decompress" else tuple(PATH_M.values()):
+                    rows[(name, qmode, k, n, m)] = _family_kernel_row(
+                        name, qmode, what, x[:m].contiguous(), packs[qmode], out_dtype,
+                        flush)
+        del x, packs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _family_kernel_row(name, qmode, what, x, p, out_dtype, flush) -> dict:
+    if name == "decompress":
+        kernel, plain = lambda: dk.decompress(p), lambda: ref.decompress_tiled_ref(p)
+    else:
+        fn = sm.sod_matmul if name == "sod_matmul" else bmm.block_matmul
+        kernel = lambda: fn(x, p, out_dtype)               # noqa: E731
+        plain = lambda: ref.sod_matmul_ref(x, p, out_dtype)  # noqa: E731
+    reset_counts()
+    y, y2, yr = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    row = {"phase": "family_kernels", "kernel": name, "qmode": qmode, "shape": what,
+           "K": p.shape[0], "N": p.shape[1], "M": x.shape[0],
+           "out_dtype": str(y.dtype).split(".")[-1], "launches": COUNTERS[name].launches,
+           "bit_equal_across_calls": torch.equal(y, y2)}
+    if name == "decompress":
+        ok = torch.equal(y, yr) and y.dtype == yr.dtype
+        row.update(cap=p.cap, bit_equal=ok, dense_bytes=_nbytes(y),
+                   plan=dataclasses.asdict(dk.plan_of(p, y.dtype)))
+        err = 0.0 if ok else (y.float() - yr.float()).abs().max().item()
+    else:
+        err = (y.float() - yr.float()).abs().max().item()
+        tol = KERNEL_TOL[torch.bfloat16] * yr.float().abs().max().item()
+        ok = err <= tol and y.dtype == yr.dtype
+        plan = PLANS[name](x, p)
+        row.update(max_abs_err=err, tol=tol, bm=plan.bm, m_groups=plan.m_groups,
+                   splits=plan.splits, stages=plan.stages, x_tiles=plan.x_tiles,
+                   smem_bytes=plan.smem_bytes, ctas_per_sm=plan.ctas_per_sm,
+                   **({"cap": p.cap} if name == "sod_matmul" else {"bcap": p.bcap}))
+    ok = ok and row["bit_equal_across_calls"] and row["launches"] == 2
+    row["max_abs_err"] = err
+    if not ok:
+        log(row)
+        raise AssertionError(f"{name}[{qmode}] at {what} disagrees with its plain "
+                             f"version or with itself: {row}")
+    del y2, yr
+    row["kernel_ms"] = _time_ms(kernel, flush)
+    row["plain_ms"] = _time_ms(plain, flush)
+    if name == "decompress":
+        row["library_ms"] = None
+    else:
+        dense = p.to_dense().to(torch.bfloat16)
+        lib_dtype = out_dtype or x.dtype
+        row["library_ms"] = _time_ms(
+            lambda: torch.mm(x, dense, out_dtype=lib_dtype) if lib_dtype != x.dtype
+            else torch.matmul(x, dense), flush)
+        del dense
+    row["bound_ms"], row["bound_by"] = _bound(*_work(name, x, p, y), torch.bfloat16)
+    log(row)
+    return row
+
+
+@contextlib.contextmanager
+def _head_rows():
+    """While open, the row count (B·C) of every LM head call is recorded."""
+    seen: set[int] = set()
+    head = transformer._head
+
+    def counted(params, h, cfg):
+        seen.add(h.shape[0] * h.shape[1])
+        return head(params, h, cfg)
+    transformer._head = counted
+    try:
+        yield seen
+    finally:
+        transformer._head = head
+
+
+def phase_family_serve(cell: str) -> dict:
+    """One FAMILY_CELLS cell: its weights prepared at full width (at its
+    depth cut through ``prepare(cfg=...)``), served through ``serve.main``
+    with every launch count read around the run ((layers · 7 + a packed
+    head) × 17 of its kernel, none of the others), then its prefill held
+    against the densified weights (the head included); gemma2's logits
+    within its final soft-cap."""
+    arch, layers, flags, sod, kernel, qmode = FAMILY_CELLS[cell]
+    argv = ["--arch", arch, *FAMILY_BASE, *flags]
+    args = serve.parse_args(argv)
+    full = configs.get_config(arch)
+    cfg = full.with_(n_layers=layers) if layers else None
+    layers = layers or full.n_layers
+    t0 = time.perf_counter()
+    model, params, tokens, *_ = serve.prepare(args, sod, cfg)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    head_packed = isinstance(params.get("head"), (TiledCSC, BlockCSR))
+    if head_packed != (not model.cfg.tie_embeddings):
+        raise AssertionError(f"{cell}: head packed {head_packed}, tied "
+                             f"{model.cfg.tie_embeddings}")
+    reset_counts()
+    with _head_rows() as head_rows:
+        summary = serve.main(argv, sod=sod, prepared=(model, params, tokens))
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    expect = {"sod_matmul": 0, "block_matmul": 0, "decompress": 0}
+    expect[kernel] = (layers * 7 + head_packed) * (1 + 16)
+    if launches != expect or summary["kernel_launches"] != {
+            k: v for k, v in expect.items() if k != "decompress"}:
+        raise AssertionError(f"{cell}: launches {launches} (summary "
+                             f"{summary['kernel_launches']}), want {expect}")
+    wb = summary["weight_bytes"]
+    if not (summary["logits_finite"] and wb["compressed"] < wb["dense"]):
+        raise AssertionError(f"{cell}: non-finite logits or packed bytes not below "
+                             f"dense: {summary['logits_finite']}, {wb}")
+    packed = {w.qmode for ws in _projections(params).values() for w in ws}
+    if packed != {qmode}:
+        raise AssertionError(f"{cell}: packed qmodes {packed}, want {qmode}")
+    log({"phase": "family", "cell": cell, "arch": arch, "layers": layers,
+         "depth_cut": f"{full.n_layers} -> {layers}" if layers != full.n_layers else None,
+         "qmode": qmode, "head_packed": head_packed, "head_rows": sorted(head_rows),
+         "pack_s": pack_s, "launches": launches,
+         "prefill_s": summary["prefill_s"], "warmup_s": summary["warmup_s"],
+         "steady_tok_per_s": summary["steady_tok_per_s"],
+         "sample": summary["sample"], "weight_bytes": wb})
+    row = check_vs_dense(cell, model, params, tokens, kernel, layers)
+    cap = model.cfg.final_softcap
+    if cap is not None:
+        peak = row["logits"].abs().max().item()
+        with torch.inference_mode():
+            _, cache, pos = serve.prefill_cache(model, params, tokens, 40)
+            step, _ = model.decode_step(params, cache, tokens[:, -1:], pos)
+        peak = max(peak, step[..., :model.cfg.vocab].abs().max().item())
+        log({"phase": "family", "cell": cell, "final_softcap": cap,
+             "max_abs_logit": peak})
+        if not peak <= cap:
+            raise AssertionError(f"{cell}: |logit| {peak} above the soft-cap {cap}")
+    return {"launches": launches[kernel], "model": model, "params": params,
+            "tokens": tokens, "decompress_launches": row["decompress_launches"]}
+
+
+def phase_family_head(sl: dict) -> None:
+    """The model's untied head alone at the engine's decode rows (M = 4):
+    one ``_head`` call timed as phase 3 times a kernel, beside its bound."""
+    model, params = sl["model"], sl["params"]
+    head = params["head"]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    h = torch.randn(4, 1, model.cfg.d_model, generator=g, device="cuda").bfloat16()
+    with torch.inference_mode():
+        ms = _time_ms(lambda: transformer._head(params, h, model.cfg),
+                      timing.flush_buffer())
+        y = transformer._head(params, h, model.cfg)
+    log({"phase": "family_head", "arch": model.cfg.name, "M": 4, "K": head.shape[0],
+         "N": head.shape[1], "ms": ms,
+         "bound_ms": _bound(*_work("sod_matmul", h[:, 0], head, y[:, 0]),
+                            torch.bfloat16)[0]})
+
+
+def phase_family_engine(run: str, cells: dict) -> dict:
+    """One engine run through ``serve.main --engine`` on a family cell's
+    packed weights (with ``--spec-decode 2 --draft-sparsity 0.88`` for a
+    spec run), every request held against ``static_generate`` bit for bit;
+    the cell's kernel launched and the other not; an untied head run at one
+    row (static) and at the engine's 4 (and 4 × 3 in a window)."""
+    cell, spec = FAMILY_ENGINE_RUNS[run]
+    arch, _, _, _, kernel, _ = FAMILY_CELLS[cell]
+    sl = cells[cell]
+    model, params = sl["model"], sl["params"]
+    argv = (["--arch", arch] + ENGINE_ARGV[2:]
+            + (["--spec-decode", "2", "--draft-sparsity", str(DRAFT_SPARSITY)]
+               if spec else []))
+    other = "block_matmul" if kernel == "sod_matmul" else "sod_matmul"
+    reset_counts()
+    with _head_rows() as head_rows:
+        summary = serve.main(argv, prepared=(model, params, sl["tokens"]))
+        launches = {name: mod.launches for name, mod in COUNTERS.items()}
+        trace, tokens = summary["trace"], summary["tokens"]
+        if summary["completed"] != len(trace) or set(tokens) != {r.rid for r in trace}:
+            raise AssertionError(f"engine {run}: {summary['completed']} of "
+                                 f"{len(trace)} requests completed")
+        static_s = _check_tokens(run, model, params, trace, tokens)
+    want_rows = {1, 4} | ({12} if spec else set())
+    untied = not model.cfg.tie_embeddings
+    if not (launches[kernel] > 0 and launches[other] == 0 and launches["decompress"] == 0
+            and summary["logits_finite"]
+            and (not untied or want_rows <= head_rows)
+            and (not spec or summary["spec_windows"] >= 1)):
+        raise AssertionError(f"engine {run}: launches {launches}, head rows "
+                             f"{sorted(head_rows)}, finite {summary['logits_finite']}, "
+                             f"spec windows {summary.get('spec_windows')}")
+    row = {"phase": "family_engine", "run": run, "cell": cell, "launches": launches[kernel],
+           "head_rows": sorted(head_rows), "bit_equal_to_static_generate": True,
+           "static_generate_s": static_s,
+           **{k: summary[k] for k in (
+               "completed", "steps", "generated_tokens", "warmup_s", "steady_tok_per_s",
+               "p50_latency_s", "p99_latency_s", "step_ms_p50", "step_ms_p99",
+               "logits_finite") if k in summary},
+           **({k: summary[k] for k in ("spec_windows", "acceptance_rate", "draft_density",
+                                       "draft_bytes")} if spec else {})}
+    log(row)
+    return row
+
+
+def phase_family_train() -> dict:
+    """``train_internlm2``: full-width internlm2-1.8b, tiled_csc 0.3, batch
+    8 × seq 128, remat on, FAMILY_TRAIN_STEPS steps.  First the packed
+    head's gradient at M = 1024 with float32 out, through the kernel's
+    autograd.Function against autograd over the plain version (GRAD_TOL,
+    exact 0 at padding).  Then ``train.main``, gated on finite losses and
+    gradient norms, integer leaves bit-equal to the initial pack, padding
+    exactly 0 (the head's too), only ``cuda_fused`` dispatched, and the
+    launches: 2 × 168 projections (remat) + the head a step of
+    ``sod_matmul``, 169 a step of ``decompress``.  Then one steady step is
+    profiled."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_internlm2_")
+    argv = FAMILY_TRAIN_ARGV + ["--steps", str(FAMILY_TRAIN_STEPS), "--ckpt-dir", tmp]
+    try:
+        t0 = time.perf_counter()
+        prep = train.prepare(train.parse_args(argv))
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        head = prep[1]["head"]
+        g = torch.Generator(device="cuda")
+        g.manual_seed(3100)
+        x = torch.randn(TRAIN_M, head.shape[0], generator=g, device="cuda").bfloat16()
+        cot = torch.randn(TRAIN_M, head.shape[1], generator=g, device="cuda")
+        got = _backward(x, head, cot, True, torch.float32)
+        want = _backward(x, head, cot, False, torch.float32)
+        torch.cuda.synchronize()
+        errs = {}
+        for leaf, b in want.items():
+            a = got[leaf]
+            errs[leaf] = (a.float() - b.float()).abs().max().item()
+            if a.dtype != b.dtype or errs[leaf] > GRAD_TOL[b.dtype] * b.float().abs().max().item():
+                raise AssertionError(f"train_internlm2: head d{leaf} off by {errs[leaf]} "
+                                     f"({a.dtype} vs {b.dtype})")
+        if not bool((got["vals"][head.rows < 0] == 0).all()):
+            raise AssertionError("train_internlm2: the head's padding got a gradient")
+        log({"phase": "family_train_grads", "K": head.shape[0], "N": head.shape[1],
+             "M": TRAIN_M, "out_dtype": "float32", "max_abs_err": errs,
+             "padding_exact_zero": True})
+        del got, want, x, cot
+        ints = {k: v.clone() for k, v in leaves_with_path(prep[1])
+                if not v.is_floating_point()}
+        n_layers_packed, cfg = len(_packed(prep[1])), prep[0].cfg
+        reset_counts()
+        summary = train.main(argv, prepared=prep)
+        launches = {name: mod.launches for name, mod in COUNTERS.items()}
+        del prep
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    params = summary["state"]["params"]
+    losses, gnorms = summary["losses"], summary["grad_norms"]
+    remat = 2 if cfg.remat else 1
+    want_launches = {"sod_matmul": (remat * n_layers_packed + 1) * FAMILY_TRAIN_STEPS,
+                     "block_matmul": 0,
+                     "decompress": (n_layers_packed + 1) * FAMILY_TRAIN_STEPS}
+    final_ints = {k: v for k, v in leaves_with_path(params) if not v.is_floating_point()}
+    gates = {
+        "finite": all(map(math.isfinite, losses + gnorms)),
+        "integer_leaves_bit_equal": final_ints.keys() == ints.keys() and all(
+            torch.equal(v, ints[k]) for k, v in final_ints.items()),
+        "padding_exact_zero": all(bool((w.vals[w.rows < 0] == 0).all())
+                                  for w in _packed(params) + [params["head"]]),
+        "head_packed": isinstance(params["head"], TiledCSC),
+        "dispatch_only_cuda_fused": bool(summary["kernel_dispatch"]) and all(
+            k.startswith("cuda_fused[") for k in summary["kernel_dispatch"]),
+        "launches": launches == want_launches
+        and summary["kernel_launches"] == want_launches,
+    }
+    row = {"phase": "family_train", "run": "train_internlm2", "steps": FAMILY_TRAIN_STEPS,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "prepare_s": prepare_s,
+           "losses": losses, "grad_norms": gnorms, "launches": launches,
+           "launches_want": want_launches, "kernel_dispatch": summary["kernel_dispatch"],
+           **{k: summary[k] for k in ("step_s", "tok_s", "peak_mem_gb", "wall_s")},
+           "checkpoints": summary["checkpoints"], "gates": gates}
+    log(row)
+    if not all(gates.values()):
+        raise AssertionError(f"train_internlm2: a gate failed: {gates}")
+    phase_train_profile(summary, "train_internlm2", argv)
+    return {"launches": launches, "head_grad_err": max(errs.values())}
+
+
+def phase_family(timed) -> dict:
+    """Phase 9: the kernels at the family's shapes, then each cell, its
+    engine runs and training, each freed before the next; every step
+    through ``timed(phase, fn, *args)``, which records its seconds."""
+    out = {"kernels": timed("family:kernels", phase_family_kernels), "launches": {},
+           "engine": {}}
+    cells = {}
+    for cell in FAMILY_CELLS:
+        sl = cells[cell] = timed(f"family:{cell}", phase_family_serve, cell)
+        out["launches"][cell] = {k: sl[k] for k in ("launches", "decompress_launches")}
+        if cell == "internlm2_tiled_csc":
+            timed("family:profile", phase_profile, cell, sl["model"], sl["params"],
+                  sl["tokens"])
+            timed("family:profile", phase_family_head, sl)
+        for run, (of, _) in FAMILY_ENGINE_RUNS.items():
+            if of == cell:
+                out["engine"][run] = timed(f"family:engine:{run}", phase_family_engine,
+                                           run, cells)
+        for key in ("model", "params", "tokens"):
+            sl.pop(key)
+        torch.cuda.empty_cache()
+        if cell == "internlm2_tiled_csc_int8":
+            out["train"] = timed("family:train", phase_family_train)
+            torch.cuda.empty_cache()
+    return out
+
+
 def _entry(name: str, qmode: str, kern: dict, launches: int) -> dict:
     """One kernel's line in one qmode: the seven projections of one layer
     (M = 4 at decode for the matmuls, and M = 128 at prefill beside it),
@@ -1603,6 +2015,38 @@ def _launches_of(name: str, qmode: str, cells: dict, kern: dict) -> tuple[int, s
         if name == "decompress" and kernel == "sod_matmul":
             return cells[cell]["decompress_launches"], cell
     return kern["launches"][(name, qmode)], "phase 3"
+
+
+def _family_entry(name: str, qmode: str, family: dict) -> dict:
+    """Phase 9's numbers of one kernel in one qmode: its launches in each
+    family cell and engine run that serves it (counted from 0 around each
+    run), in ``train_internlm2``, and its rows at the family's shapes."""
+    out = {}
+    launches = {}
+    for cell, (_, _, _, _, kernel, q) in FAMILY_CELLS.items():
+        if q != qmode:
+            continue
+        if name == kernel:
+            launches[cell] = family["launches"][cell]["launches"]
+        elif name == "decompress" and kernel == "sod_matmul":
+            launches[f"{cell}:densified"] = family["launches"][cell]["decompress_launches"]
+    if qmode == "none":
+        launches.update({f"engine:{run}": row["launches"]
+                         for run, row in family["engine"].items()
+                         if FAMILY_CELLS[row["cell"]][4] == name})
+        if name != "block_matmul":
+            launches["train_internlm2"] = family["train"]["launches"][name]
+    if launches:
+        out["family_launches"] = launches
+    rows = [r for (kn, q, *_), r in family["kernels"].items() if kn == name and q == qmode]
+    if rows:
+        out["family_shapes"] = [
+            {k: r[k] for k in ("shape", "K", "N", "M", "out_dtype", "max_abs_err",
+                               "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")} for r in rows]
+    if name == "sod_matmul" and qmode == "none":
+        out["family_head_grad_max_abs_err"] = family["train"]["head_grad_err"]
+    return out
 
 
 def main() -> None:
@@ -1653,6 +2097,7 @@ def main() -> None:
             timed("train_profile", phase_train_profile, summary)
         del summary
     timed("train_resume", phase_train_resume)
+    family = phase_family(timed)
     shutil.rmtree(cache_dir, ignore_errors=True)
 
     entries = []
@@ -1680,6 +2125,7 @@ def main() -> None:
                 entry["train_grad_max_abs_err"] = train_err[(name, qmode)]
             if qmode == "none" and name in train_ms:
                 entry.update({f"train_{k}": v for k, v in train_ms[name].items()})
+            entry.update(_family_entry(name, qmode, family))
             entries.append(entry)
     log({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     log(smi)

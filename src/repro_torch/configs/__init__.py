@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``get_config(arch)`` + reduced variants.
 
-Only the architectures whose model path is ported are listed.
+Only the architectures whose model path is ported are listed: the dense
+family.
 """
 from __future__ import annotations
 
@@ -13,6 +14,9 @@ __all__ = ["ARCH_NAMES", "ModelConfig", "get_config", "reduced"]
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "internlm2-1.8b": "internlm2_1_8b",
+    "yi-34b": "yi_34b",
+    "gemma2-27b": "gemma2_27b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -1,7 +1,8 @@
 """Config schema — a copy of the fields of :mod:`repro.configs.base`.
 
 The port keeps its own copy (the JAX module imports ``repro.core.sod`` and
-with it JAX); ``tests/test_torch_model.py`` holds the two field sets equal.
+with it JAX), the parameter counts included; ``tests/test_torch_model.py``
+and ``tests/test_torch_dense_family.py`` hold the two equal.
 """
 from __future__ import annotations
 
@@ -92,3 +93,38 @@ class ModelConfig:
         """Sliding window of layer ``slot`` (None for global layers)."""
         return self.sliding_window if self.layer_pattern[
             slot % self.pattern_period] == "local" else None
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks)."""
+        d, f, l = self.d_model, self.d_ff, self.n_layers
+        qkvo = d * self.n_heads * self.head_dim * 2 \
+            + d * self.n_kv_heads * self.head_dim * 2
+        n = self.vocab * d * (1 if self.tie_embeddings else 2)
+        if self.family in ("dense", "vlm", "audio"):
+            n += l * (qkvo + 3 * d * f)
+        elif self.family == "moe":
+            per = self.n_experts * 3 * d * f
+            if self.n_shared_experts:
+                per += 3 * d * (self.d_shared_ff or f * self.n_shared_experts)
+            n += l * (qkvo + per)
+        elif self.family == "hybrid":
+            di = self.ssm_expand * d
+            mamba = d * (2 * di + 2 * self.ssm_state + di // self.ssm_headdim) \
+                + di * d
+            n += l * mamba + (qkvo + 3 * d * f)   # one shared attn block
+        elif self.family == "ssm":
+            di = int(d * self.xlstm_proj_factor)
+            n += l * (2 * d * di + 3 * di * di + di * d)
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f, l = self.d_model, self.d_ff, self.n_layers
+        qkvo = d * self.n_heads * self.head_dim * 2 \
+            + d * self.n_kv_heads * self.head_dim * 2
+        per = self.top_k * 3 * d * f
+        if self.n_shared_experts:
+            per += 3 * d * (self.d_shared_ff or f * self.n_shared_experts)
+        return self.vocab * d * 2 + l * (qkvo + per)

@@ -47,8 +47,10 @@ def params_from_numpy(tree: dict[str, Any], cfg,
     """The port's per-layer parameters from the JAX parameter pytree.
 
     ``tree`` is the JAX attention-family tree as numpy arrays: ``embed``,
-    ``final_norm`` and ``blocks`` whose leaves are stacked ``(G, P, ...)``
-    (layer groups × pattern period).  Layer ``l`` is ``blocks[l // P, l % P]``.
+    ``final_norm``, ``head`` when the embeddings are untied, and ``blocks``
+    whose leaves are stacked ``(G, P, ...)`` (layer groups × pattern
+    period; the post norms among them).  Layer ``l`` is
+    ``blocks[l // P, l % P]``.
     """
     blocks = tree["blocks"]
     lead = next(iter(_leaves(blocks))).shape[:2]
@@ -61,9 +63,11 @@ def params_from_numpy(tree: dict[str, Any], cfg,
              to_torch(np.asarray(a)[g, p], device))
         for l in range(cfg.n_layers)
     ]
-    return {"embed": to_torch(tree["embed"], device),
-            "final_norm": to_torch(tree["final_norm"], device),
-            "layers": layers}
+    out = {"embed": to_torch(tree["embed"], device),
+           "final_norm": to_torch(tree["final_norm"], device)}
+    if "head" in tree:
+        out["head"] = to_torch(tree["head"], device)
+    return {**out, "layers": layers}
 
 
 def _leaves(tree):

@@ -152,9 +152,28 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def full_attention(params: Params, x: torch.Tensor, spec: AttnSpec,
+                   positions: torch.Tensor, window: int | None = None) -> torch.Tensor:
+    """Training / prefill self-attention over a full sequence: x (B, S, D)
+    → (B, S, D), through ``wo``."""
+    q, k, v = _project_qkv(params, x, spec, positions)
+    out = chunked_attention(q, k, v, spec, window=window)
+    b, s = x.shape[:2]
+    return sod.apply(out.reshape(b, s, -1), params["wo"])
+
+
 # ---------------------------------------------------------------------------
 # cached decode
 # ---------------------------------------------------------------------------
+def init_cache(batch: int, max_len: int, spec: AttnSpec, dtype: torch.dtype,
+               device: torch.device) -> Params:
+    """A zeroed dense KV cache of one layer, ``{"k", "v"}`` of shape
+    (B, max_len, KV, hd)."""
+    shape = (batch, max_len, spec.n_kv_heads, spec.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
 def _decode_positions(pos, b: int, device: torch.device) -> torch.Tensor:
     """(B, 1) RoPE positions from a scalar or per-row ``pos``."""
     if isinstance(pos, torch.Tensor) and pos.ndim == 1:

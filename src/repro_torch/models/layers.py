@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import sod
+from repro_torch.kernels import ops
 
 Params = dict[str, Any]
 
@@ -81,6 +82,14 @@ def activate(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {kind!r}")
 
 
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: ``cap * tanh(x / cap)`` in float32, cast
+    back to x's dtype; the identity when ``cap`` is None."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # gated MLP, embedding
 # ---------------------------------------------------------------------------
@@ -111,6 +120,24 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False) -> tor
     if scale:
         x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype, device=x.device)
     return x
+
+
+def lm_head(x: torch.Tensor, table_or_w, tied: bool, cap: float | None = None,
+            plan=None) -> torch.Tensor:
+    """Vocabulary logits in float32, soft-capped by ``cap``.
+
+    Tied: ``x`` against the (vocab, d) embedding table transposed, operands
+    in x's dtype and products summed in float32 (the reference's dot with
+    ``preferred_element_type=float32``).  Untied: ``x`` through the (d,
+    vocab) head weight by :func:`repro_torch.core.sod.apply` with float32
+    out, so a packed head runs the Sparse-on-Dense kernel; ``plan`` is its
+    :class:`repro_torch.core.plan.PackPlan` (None: the active plan's layout
+    lookup)."""
+    if tied:
+        logits = ops.dense_matmul(x, table_or_w.to(x.dtype).T, torch.float32)
+    else:
+        logits = sod.apply(x, table_or_w, out_dtype=torch.float32, plan=plan)
+    return softcap(logits.float(), cap)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

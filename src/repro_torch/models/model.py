@@ -1,8 +1,9 @@
 """Model facade: init / prefill / decode over the attention-family decoder.
 
-Twin of :class:`repro.models.model.LM` for training (``loss``), the static
-serving path and the continuous-batching engine's paged decode, chunked
-prefill and speculative verification.
+Twin of :class:`repro.models.model.LM` and :func:`repro.models.model.build_model`
+for training (``loss``), the static serving path and the continuous-batching
+engine's paged decode, chunked prefill and speculative verification, for
+the dense family.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cache as cache_mod
+from repro_torch.core.tree import tree_leaves
 from repro_torch.models import layers, transformer
 
 Params = dict[str, Any]
@@ -99,3 +101,16 @@ class LM:
         C sequential paged decode steps give at their i-th."""
         return transformer.transformer_verify_chunk(
             params, pool, block_tables, tokens, start, valid_len, self.cfg)
+
+    # -- info ------------------------------------------------------------------
+    def param_count(self, params: Params | None = None) -> int:
+        """The config's parameter count, or with ``params`` the elements of
+        every tensor leaf (a packed operand's stored buffers)."""
+        if params is None:
+            return self.cfg.param_count()
+        return sum(int(t.numel()) for t in tree_leaves(params))
+
+
+def build_model(cfg: ModelConfig) -> LM:
+    """The model of ``cfg``."""
+    return LM(cfg)

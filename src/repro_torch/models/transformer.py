@@ -1,16 +1,18 @@
 """Attention-family decoder: full-sequence forward and cached decode.
 
 Twin of the ``TransformerLM`` functions of :mod:`repro.models.transformer`
-for the dense family with tied embeddings (llama).  Layers are a Python loop
+for the dense family: tied or untied LM head, gemma-2's post norms, final
+logit soft-cap and local/global layers.  Layers are a Python loop
 over per-layer parameter dicts — the reference's ``scan_layers=False``
 lowering — so every packed projection is one unstacked operand and runs the
 fused kernel.  The paged functions serve the continuous-batching engine:
 its KV pool is ``{"k", "v"}`` of shape (L, n_pages, page, KV, hd) — layer,
 page id, offset in the page, KV head, head dim — where the reference stacks
 (G, P, n_pages, page, KV, hd); every layer indexes its pool with the same
-block tables.  The pool, like the static cache, is updated in place.  MoE,
-the hybrid and xLSTM assemblies and the untied / soft-capped heads are not
-ported yet.
+block tables.  The pool, like the static cache, is updated in place.  An
+untied head is a packed ``head`` leaf like any projection, so it runs the
+Sparse-on-Dense kernel with float32 out.  MoE, the hybrid and xLSTM
+assemblies and the VLM and audio frontends are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import sod
-from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 
@@ -35,16 +36,10 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for model features this slice of the port does not have."""
-    missing = [what for what, bad in (
-        (f"family {cfg.family!r}", cfg.family != "dense"),
-        ("untied LM head", not cfg.tie_embeddings),
-        ("post norms", cfg.use_post_norms),
-        ("final logit soft-cap", cfg.final_softcap is not None),
-    ) if bad]
-    if missing:
+    """Raise for a model family the port does not have yet (all but dense)."""
+    if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet")
+            f"{cfg.name}: family {cfg.family!r} not ported yet")
 
 
 def attn_spec(cfg: ModelConfig) -> attn.AttnSpec:
@@ -61,32 +56,61 @@ def attn_spec(cfg: ModelConfig) -> attn.AttnSpec:
 # ---------------------------------------------------------------------------
 def init_attn_block(gen: torch.Generator, cfg: ModelConfig,
                     device: torch.device) -> Params:
-    """One layer: two RMSNorm gains, attention and MLP projections."""
+    """One layer: two RMSNorm gains, attention and MLP projections, and with
+    ``cfg.use_post_norms`` the gains of the norms after attention and MLP."""
     dt = dtype_of(cfg)
-    return {
+    p: Params = {
         "norm1": layers.init_rms_norm(cfg.d_model, device),
         "norm2": layers.init_rms_norm(cfg.d_model, device),
         "attn": attn.init_attention(gen, cfg.d_model, attn_spec(cfg), dt, device),
         "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device),
     }
+    if cfg.use_post_norms:
+        p["norm1_post"] = layers.init_rms_norm(cfg.d_model, device)
+        p["norm2_post"] = layers.init_rms_norm(cfg.d_model, device)
+    return p
+
+
+def init_embed_head(gen: torch.Generator, cfg: ModelConfig,
+                    device: torch.device) -> Params:
+    """``{"embed", "final_norm"}``, and ``"head"`` (d_model, padded vocab)
+    when the embeddings are untied.  The VLM and audio frontends raise."""
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} frontend is not ported yet")
+    dt = dtype_of(cfg)
+    p: Params = {"embed": layers.embed_init(gen, cfg.padded_vocab, cfg.d_model,
+                                            dt, device),
+                 "final_norm": layers.init_rms_norm(cfg.d_model, device)}
+    if not cfg.tie_embeddings:
+        p["head"] = layers.dense_init(gen, cfg.d_model, cfg.padded_vocab, dt, device)
+    return p
 
 
 def init_transformer(gen: torch.Generator, cfg: ModelConfig,
                      device: torch.device) -> Params:
-    """``{"embed", "final_norm", "layers": [per-layer dicts]}``."""
+    """``{"embed", "final_norm", ["head",] "layers": [per-layer dicts]}``;
+    the layers are drawn first, then the embedding and the head."""
     check_supported(cfg)
     layer_params = [init_attn_block(gen, cfg, device) for _ in range(cfg.n_layers)]
-    return {
-        "embed": layers.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                   dtype_of(cfg), device),
-        "final_norm": layers.init_rms_norm(cfg.d_model, device),
-        "layers": layer_params,
-    }
+    return {**init_embed_head(gen, cfg, device), "layers": layer_params}
 
 
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
+def _post_norm(bp: Params, name: str, y: torch.Tensor, cfg: ModelConfig,
+               rows: bool = False) -> torch.Tensor:
+    """gemma-2's sandwich norm ``name`` on a sub-block's output ``y`` under
+    ``cfg.use_post_norms``, else ``y``; with ``rows`` one window position
+    at a time (:func:`_norm_rows`)."""
+    if not cfg.use_post_norms:
+        return y
+    if rows:
+        return _norm_rows(y, bp[name], cfg.norm_eps)
+    return layers.rms_norm(y, bp[name], cfg.norm_eps)
+
+
 def _mlp(bp: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # the active plan's entries for this block's projections (the layer
     # stack shares one path, hence one entry)
@@ -102,10 +126,11 @@ def attn_block_full(bp: Params, x: torch.Tensor, cfg: ModelConfig,
     s = x.shape[1]
     eff_window = None if (window is None or window >= s) else window
     ao = attn.chunked_attention(q, k, v, spec, window=eff_window)
-    x = x + sod.apply(ao.reshape(*x.shape[:2], -1), bp["attn"]["wo"],
-                      plan=plan_mod.active_entry("attn.wo"))
+    ao = sod.apply(ao.reshape(*x.shape[:2], -1), bp["attn"]["wo"],
+                   plan=plan_mod.active_entry("attn.wo"))
+    x = x + _post_norm(bp, "norm1_post", ao, cfg)
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + _mlp(bp, h2, cfg), (k, v)
+    return x + _post_norm(bp, "norm2_post", _mlp(bp, h2, cfg), cfg), (k, v)
 
 
 def attn_block_decode(bp: Params, x: torch.Tensor, cache: Params, pos,
@@ -125,9 +150,9 @@ def attn_block_decode(bp: Params, x: torch.Tensor, cache: Params, pos,
         ao, cache = attn.paged_decode_attention(
             bp["attn"], h, cache, block_tables, pos, spec, window=window,
             valid_len=valid_len)
-    x = x + ao
+    x = x + _post_norm(bp, "norm1_post", ao, cfg)
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + _mlp(bp, h2, cfg), cache
+    return x + _post_norm(bp, "norm2_post", _mlp(bp, h2, cfg), cfg), cache
 
 
 def attn_block_prefill_chunk(bp: Params, x: torch.Tensor, layer_pool: Params,
@@ -143,9 +168,10 @@ def attn_block_prefill_chunk(bp: Params, x: torch.Tensor, layer_pool: Params,
     ao, layer_pool = attn.paged_prefill_attention(
         bp["attn"], h, layer_pool, block_tables, start, valid_len,
         attn_spec(cfg), window=window)
-    x = x + sod.apply(ao, bp["attn"]["wo"], plan=plan_mod.active_entry("attn.wo"))
+    ao = sod.apply(ao, bp["attn"]["wo"], plan=plan_mod.active_entry("attn.wo"))
+    x = x + _post_norm(bp, "norm1_post", ao, cfg)
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + _mlp(bp, h2, cfg), layer_pool
+    return x + _post_norm(bp, "norm2_post", _mlp(bp, h2, cfg), cfg), layer_pool
 
 
 def _norm_rows(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
@@ -166,34 +192,43 @@ def attn_block_verify(bp: Params, x: torch.Tensor, layer_pool: Params,
     the attention call) with the one-token attention replaced by
     :func:`repro_torch.models.attention.paged_verify_attention`, so row
     ``b`` scores C window positions from ``start[b]``.  The matmuls run once
-    over all B·C rows; the norms and the attention core run once a window
-    position at the decode step's shape; everything else is elementwise."""
+    over all B·C rows; the norms (the post norms too) and the attention
+    core run once a window position at the decode step's shape; everything
+    else is elementwise."""
     h = _norm_rows(x, bp["norm1"], cfg.norm_eps)
     ao, layer_pool = attn.paged_verify_attention(
         bp["attn"], h, layer_pool, block_tables, start, valid_len,
         attn_spec(cfg), window=window)
-    x = x + ao
+    x = x + _post_norm(bp, "norm1_post", ao, cfg, rows=True)
     h2 = _norm_rows(x, bp["norm2"], cfg.norm_eps)
-    return x + _mlp(bp, h2, cfg), layer_pool
+    mo = _post_norm(bp, "norm2_post", _mlp(bp, h2, cfg), cfg, rows=True)
+    return x + mo, layer_pool
 
 
 # ---------------------------------------------------------------------------
 # embedding / head
 # ---------------------------------------------------------------------------
 def project_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm and tied LM head: float32 logits over the padded
-    vocabulary, padded ids masked to -1e30."""
+    """Final norm and LM head: float32 logits over the padded vocabulary,
+    soft-capped, padded ids masked to -1e30."""
     return _head(params, layers.rms_norm(x, params["final_norm"], cfg.norm_eps), cfg)
 
 
 def _head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The tied LM head on the final-normed ``h``.
+    """The LM head on the final-normed ``h``, in the reference's order
+    (``src/repro/models/transformer.py:286-304``): the logits, then
+    ``cfg.final_softcap``, then the padded-vocabulary mask.
 
-    As the reference's dot with ``preferred_element_type=float32``: operands
-    in h's dtype, products summed in float32, and the f32 sums are the
-    logits, never rounded to bfloat16 on the way (:func:`ops.dense_matmul`).
+    Tied: the embedding table through
+    :func:`repro_torch.kernels.ops.dense_matmul`, operands in
+    h's dtype, products summed in float32, and the f32 sums are the logits,
+    never rounded to bfloat16 on the way.  Untied: the ``head`` weight
+    through :func:`repro_torch.core.sod.apply` with float32 out and the
+    active plan's ``head`` entry, so a packed head runs the SoD kernel.
     """
-    logits = ops.dense_matmul(h, params["embed"].to(h.dtype).T, torch.float32)
+    tied = cfg.tie_embeddings
+    logits = layers.lm_head(h, params["embed"] if tied else params["head"], tied,
+                            cfg.final_softcap, plan=plan_mod.active_entry("head"))
     v = cfg.padded_vocab
     if v != cfg.vocab:
         pad = torch.arange(v, device=logits.device) >= cfg.vocab
@@ -327,8 +362,9 @@ def transformer_verify_chunk(params: Params, pool: Params,
     time, so up to the LM head row ``(b, i)`` is what the sequential decode
     step gives at position ``start[b] + i`` after the window's first i
     tokens.  The head is one matmul over all B·C rows, like the engine's
-    decode step over B rows against static serving's one (not held
-    row-invariant).  Returns (logits (B, C, V), pool); the pool is updated
+    decode step over B rows against static serving's one: a tied head's
+    GEMM is not held row-invariant, an untied head's SoD kernel is by
+    design (its K splits do not depend on M).  Returns (logits (B, C, V), pool); the pool is updated
     in place."""
     x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
     for i, bp in enumerate(params["layers"]):

@@ -60,11 +60,13 @@ against ``max_slots`` at decode, ``max_slots × (k + 1)`` rows at verify, a
 prompt against its page bucket or its chunks at prefill), which
 ``tests/test_torch_cuda.py`` holds.  That last part is the libraries'
 behaviour at those shapes, not a guarantee of the code; on the CPU, float32
-decode attention over a longer cache may differ in the last bits.  The tied
+decode attention over a longer cache may differ in the last bits.  A tied
 LM head is one cuBLAS GEMM, at one row in static serving and ``max_slots``
 (or ``max_slots × (k + 1)``) rows here, and is not held row-invariant
 either, so two logits within a rounding of each other can break an argmax
-tie the other way.
+tie the other way.  An untied head is a packed operand like any projection:
+it runs the SoD kernel, whose rows are equal across M by design (the K
+splits come from one M block; fault C3 in ``ROADMAP.md``).
 
 Tensors live on the device of the model's parameters.  Block tables,
 positions, tokens and write cutoffs are kept in numpy on the host and go up

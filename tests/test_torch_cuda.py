@@ -592,6 +592,59 @@ def test_row_alone_equals_row_in_batch(cuda, k, n, kernel, qmode):
                 assert torch.equal(y[row], alone[0]), (row, m)
 
 
+# The dense family's shapes: K up to 36,864 (x staged one tile at a time,
+# many K splits) and the untied heads at float32 out (N up to 92,544).
+FAMILY_ROW_SHAPES = [(36864, 4608, None), (20480, 7168, None),
+                     (2048, 92544, torch.float32), (7168, 64000, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmode", ["none", "int8"])
+@pytest.mark.parametrize("kernel", ["sod_matmul", "block_matmul"])
+@pytest.mark.parametrize("k,n,out_dtype", FAMILY_ROW_SHAPES)
+def test_row_alone_equals_row_in_batch_at_family_shapes(cuda, k, n, out_dtype, kernel,
+                                                         qmode):
+    """test_row_alone_equals_row_in_batch at gemma2's and yi's w_down and at
+    internlm2's and yi's heads (float32 out), bf16 activations."""
+    make = _case if kernel == "sod_matmul" else _block_case
+    fn = sm.sod_matmul if kernel == "sod_matmul" else bmm.block_matmul
+    x, p = make(cuda, k, n, max(INVARIANT_M), torch.bfloat16)
+    q = _operand(p, qmode)
+    del p
+    outs = {m: fn(x[:m].contiguous(), q, out_dtype) for m in INVARIANT_M}
+    for row in (0, 3, 37, 127):
+        alone = fn(x[row:row + 1].contiguous(), q, out_dtype)
+        for m, y in outs.items():
+            if row < m:
+                assert torch.equal(y[row], alone[0]), (row, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [4608, 7168])
+def test_rms_norm_rows_invariant_at_family_widths(cuda, d):
+    """RMSNorm at gemma2's and yi's d_model in bf16: a row alone (static
+    decode) has the bits of that row among the engine's rows (4 slots, 4 ×
+    (k + 1) at verify, a prompt's bucket), and a prompt's rows keep their
+    bits at its page bucket and in 16-row chunks."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(9)
+    x = torch.randn(max(INVARIANT_M), d, generator=g, device=cuda).bfloat16()
+    gain = torch.randn(d, generator=g, device=cuda) * 0.1
+    outs = {m: layers.rms_norm(x[:m], gain) for m in INVARIANT_M}
+    for row in (0, 3, 11, 37, 127):
+        alone = layers.rms_norm(x[row:row + 1], gain)[0]
+        for m, y in outs.items():
+            if row < m:
+                assert torch.equal(y[row], alone), (row, m)
+    prompt = layers.rms_norm(x[:40], gain)
+    assert torch.equal(layers.rms_norm(x[:48], gain)[:40], prompt)
+    for start in (0, 16, 32):
+        chunk = layers.rms_norm(x[start:start + 16], gain)
+        assert torch.equal(chunk[:min(16, 40 - start)], prompt[start:start + 16])
+
+
 @pytest.mark.cuda
 def test_norm_and_attention_rows_invariant_on_card(cuda):
     """At the shapes the engine compares with static serving, in bf16 at
