@@ -123,13 +123,39 @@ Phases, each of which raises on failure (so the script exits non-zero):
    request equal to ``static_generate`` bit for bit and an untied head run
    at 1, 4 and 4 × 3 rows; and ``train_internlm2`` (full depth, 4 steps,
    the head's gradient at M = 1024 against the plain version first, one
-   step profiled).
+   step profiled);
+10. moe_family — the MoE family at full width and depth, served through
+   the SoD kernels under a pack plan without routed-expert entries (the
+   routed experts stay dense: packing them is the reference's fault R4).
+   First each kernel at the shapes the family adds (MOE_SHAPES: granite's
+   1024 × 1024 and 1024 × 512 attention, qwen's shared expert and its
+   2048 × 151,936 head at f32 out), at M = 4 and 128, as phase 9 runs them.
+   Then three static cells (MOE_CELLS): ``granite_moe_tiled_csc``
+   (granite-moe-1b-a400m: 24 layers, 32 experts top-8, tied head; 24 · 4
+   · 17 = 1632 launches), ``granite_moe_block_csr`` (block-pruned, 1632
+   ``block_matmul``) and ``qwen2_moe_tiled_csc`` (qwen2-moe-a2.7b: 24
+   layers, 60 experts padded to 64, top-4, the shared expert and untied
+   head packed; (24 · 7 + 1) · 17 = 2873 launches).  Each builds its plan
+   with ``runtime/planner.build_plan`` on the seeded raw weights (the
+   routed experts' entries planned with lead (24, 1, E)), drops the routed
+   entries (``moe.without_routed``), saves it and serves with ``--plan
+   P``, gated on its kernel's launches only, no ``torch_oracle`` dispatch,
+   finite logits and prefill logits within LOGIT_TOL of the densified
+   weights.  Engine runs on those weights and plans (MOE_ENGINE_RUNS:
+   granite fused and with 16-token chunks, qwen fused) hold every request
+   against ``static_generate`` bit for bit, with a clean pool; one qwen
+   decode step is profiled (device ms by kernel and by class: the SoD
+   kernels, the routed experts' products, the dispatch, attention; the
+   idle share); ``train_granite`` trains full depth under its own plan,
+   batch 8 × seq 128, 4 steps (finite losses, gradient norms and aux
+   losses, every aux above 0, 2 × 96 ``sod_matmul`` and 96
+   ``decompress`` launches a step, only ``cuda_fused`` dispatched).
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
 kernel and qmode, with the launches and registry dispatches of phase 7's
 runs, the launches and gradient error of phase 8, and phase 9's launches
-by cell and its shapes' times), and
+by cell and its shapes' times, and phase 10's the same way), and
 ``{"ok": true, "device": {...}}``.  The whole run reads and
 writes a tuning cache of its own in a temporary directory, so phases 4-6
 dispatch on a cold cache (the untuned launches).
@@ -172,9 +198,10 @@ from repro_torch.core.tree import leaves_with_path  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
+from repro_torch.runtime import planner  # noqa: E402
 from repro_torch.serving import (Engine, bucket_len, poisson_trace,  # noqa: E402
                                  repeated_prompt_trace, shared_prefix_trace,
                                  static_generate, stress_spec_trace)
@@ -513,10 +540,28 @@ def _densify(tree):
     return ops.decompress(tree)
 
 
+def _packed_paths(tree: dict, prefix: str = "") -> list[str]:
+    """Dotted paths of the packed leaves of one layer's tree."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += _packed_paths(v, f"{prefix}{k}.")
+        elif isinstance(v, (TiledCSC, BlockCSR)):
+            out.append(f"{prefix}{k}")
+    return out
+
+
+def _at(tree: dict, path: str):
+    for part in path.split("."):
+        tree = tree[part]
+    return tree
+
+
 def _projections(params):
-    """Every layer's projections by name, and a packed untied ``head``."""
-    out = {f"{g}.{n}": [layer[g][n] for layer in params["layers"]]
-           for g in ("attn", "mlp") for n in params["layers"][0][g]}
+    """Every layer's packed projections by path (``attn.wq``, ``mlp.w_up``,
+    an MoE block's ``moe.shared.w_up``), and a packed untied ``head``."""
+    layers = params["layers"]
+    out = {p: [_at(layer, p) for layer in layers] for p in _packed_paths(layers[0])}
     if isinstance(params.get("head"), (TiledCSC, BlockCSR)):
         out["head"] = [params["head"]]
     return out
@@ -566,35 +611,82 @@ def phase_slice(cell: str) -> dict:
             "model": model, "params": params, "tokens": tokens}
 
 
-def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int) -> dict:
+@contextlib.contextmanager
+def _routing(record: list | None = None, replay: list | None = None):
+    """While open, every MoE block's top-k appends its expert ids to
+    ``record``, or (``replay``) takes the next ids recorded instead of
+    choosing, with the gate values at them, so a second forward routes
+    every token as the first did."""
+    top_k = moe._top_k
+
+    def pinned(probs, k):
+        if replay is not None:
+            ids = replay.pop(0)
+            return torch.gather(probs, -1, ids), ids
+        vals, ids = top_k(probs, k)
+        record.append(ids)
+        return vals, ids
+    moe._top_k = pinned
+    try:
+        yield
+    finally:
+        moe._top_k = top_k
+
+
+def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int,
+                   per_layer: int = 7) -> dict:
     """The same weights, prefill through the kernel and through the dense
     matmul on the weights densified by ops.decompress: logits within
     LOGIT_TOL of the dense path's largest, and ``decompress`` launched once
-    a packed TiledCSC projection (all ``layers`` x 7 of them, and a packed
-    head, when the ``kernel`` is ``sod_matmul``).  Returns the logged row
-    (without the logits, which are under ``"logits"``)."""
+    a packed TiledCSC projection (all ``layers`` x ``per_layer`` of them,
+    and a packed head, when the ``kernel`` is ``sod_matmul``).  An MoE
+    model's dense path routes every token to the experts the kernel path
+    chose (:func:`_routing`): a top-k choice is a step function of the
+    router's logits, so a rounding apart between the paths can send a token
+    to another expert, which the gate would charge to the kernels; the
+    dense path routed by its own logits is logged beside (its error, argmax
+    agreement, and the share of (token, layer) expert sets that differ).
+    Returns the logged row (without the logits, which are under
+    ``"logits"``)."""
     proj = _projections(params)
     packed = [w for ws in proj.values() for w in ws]
+    routed = model.cfg.family == "moe"
+    kernel_ids, free_ids, free = [], [], {}
     with torch.inference_mode():
-        lk, _ = model.prefill(params, tokens)
+        with _routing(record=kernel_ids) if routed else contextlib.nullcontext():
+            lk, _ = model.prefill(params, tokens)
         dk.launches = 0
         dense = _densify(params)
         decompress_launches = dk.launches
-        ld, _ = model.prefill(dense, tokens)
-        del dense
         vocab = model.cfg.vocab
-        lk, ld = lk[:, :vocab].float(), ld[:, :vocab].float()
+        lk = lk[:, :vocab].float()
+        if routed:
+            with _routing(record=free_ids):
+                lf = model.prefill(dense, tokens)[0][:, :vocab].float()
+            flips = [(a.sort(-1).values != b.sort(-1).values).any(-1).float().mean().item()
+                     for a, b in zip(kernel_ids, free_ids)]
+            free = {"own_routing_max_abs_err": (lk - lf).abs().max().item(),
+                    "own_routing_argmax_agreement":
+                        (lk.argmax(-1) == lf.argmax(-1)).float().mean().item(),
+                    "own_routing_expert_sets_that_differ": statistics.mean(flips)}
+            del lf
+        with _routing(replay=list(kernel_ids)) if routed else contextlib.nullcontext():
+            ld, _ = model.prefill(dense, tokens)
+        del dense
+        ld = ld[:, :vocab].float()
         err = (lk - ld).abs().max().item()
         scale = ld.abs().max().item()
         agree = (lk.argmax(-1) == ld.argmax(-1)).float().mean().item()
     want_decompress = sum(isinstance(w, TiledCSC) for w in packed)
     if decompress_launches != want_decompress or (
-            kernel == "sod_matmul" and want_decompress != layers * 7 + ("head" in proj)):
+            kernel == "sod_matmul"
+            and want_decompress != layers * per_layer + ("head" in proj)):
         raise AssertionError(f"{label}: densifying launched decompress "
                              f"{decompress_launches} times, want {want_decompress}")
     row = {"phase": "slice_vs_dense", "cell": label, "max_abs_err": err,
            "max_abs_logit": scale, "tol": LOGIT_TOL * scale,
            "argmax_agreement": agree, "decompress_launches": decompress_launches,
+           **({"routing": "the kernel path's expert choices", **free} if routed else {}),
            "projection_bytes": sum(sod_mod.weight_bytes(w) for w in packed),
            "projection_bytes_dense": sum(w.nbytes_dense() if hasattr(w, "nbytes_dense")
                                          else sod_mod.weight_bytes(w) for w in packed)}
@@ -1399,8 +1491,9 @@ def phase_train_grads(qpacks: dict) -> dict:
 
 
 def _packed(params) -> list:
-    return [w for layer in params["layers"] for g in ("attn", "mlp")
-            for w in layer[g].values()]
+    """Every layer's packed projections (an untied head apart)."""
+    return [_at(layer, p) for layer in params["layers"]
+            for p in _packed_paths(layer)]
 
 
 def train_run(run: str) -> dict:
@@ -1479,7 +1572,8 @@ def phase_train_profile(summary: dict, run: str = "train_tiled_csc",
     forward and remat launches, ``decompress``, the LM head's GEMMs — the
     tied head's, or an untied packed head's backward on its densified
     weight —, the other GEMMs — the projections' backward, the attention's
-    einsums — and AdamW's foreach kernels), the device's idle share against
+    einsums, an MoE model's routed experts' products apart — and AdamW's
+    foreach kernels), the device's idle share against
     the median wall of 3 unprofiled steps, tok/s and the peak memory of
     those steps."""
     from torch.autograd import DeviceType
@@ -1513,6 +1607,9 @@ def phase_train_profile(summary: dict, run: str = "train_tiled_csc",
     per_kernel: dict[str, list] = {}
     classes = {"lm_head_gemm": 0.0, "other_gemm": 0.0, "attention_bmm": 0.0,
                "adamw_foreach": 0.0}
+    if cfg.family == "moe":      # the routed experts' batched products
+        classes["routed_expert_bmm"] = 0.0
+        n_experts = transformer.moe_spec(cfg).n_experts_padded
     vocab = cfg.padded_vocab
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
@@ -1526,7 +1623,10 @@ def phase_train_profile(summary: dict, run: str = "train_tiled_csc",
             shapes = [d for s in (ev.input_shapes or []) for d in (s or [])]
             classes["lm_head_gemm" if vocab in shapes else "other_gemm"] += self_us
         elif ev.name.startswith("aten::bmm"):
-            classes["attention_bmm"] += self_us
+            first = (ev.input_shapes or [[]])[0] or [0]
+            routed = (cfg.family == "moe" and len(first) == 3 and first[0] == n_experts
+                      and first[1] % 128 == 0)
+            classes["routed_expert_bmm" if routed else "attention_bmm"] += self_us
         elif ev.name.startswith("aten::_foreach"):
             classes["adamw_foreach"] += self_us
     total_us = sum(us for us, _ in per_kernel.values())
@@ -1635,9 +1735,10 @@ FAMILY_TRAIN_ARGV = ["--arch", "internlm2-1.8b", "--batch", str(TRAIN_BATCH), "-
 FAMILY_TRAIN_STEPS = 4
 
 
-def phase_family_kernels() -> dict:
-    """Each kernel at the shapes the dense family adds (FAMILY_SHAPES), in
-    the qmodes of FAMILY_QMODES, bf16 activations: against its plain
+def phase_family_kernels(shapes_by_kernel=None, qmodes=None, seed: int = 4000,
+                         phase: str = "family_kernels") -> dict:
+    """Each kernel at the shapes a family adds (FAMILY_SHAPES by default),
+    in the qmodes of FAMILY_QMODES, bf16 activations: against its plain
     version within KERNEL_TOL (``decompress`` bit for bit), two calls
     bit-equal, its launch plan, and the times of the kernel, its plain
     version and ``torch.matmul`` (with the path's output dtype) on the
@@ -1645,32 +1746,35 @@ def phase_family_kernels() -> dict:
     One weight is drawn, pruned and packed a (format, K, N), and quantized
     once a qmode, for every kernel that reads it.  Returns the timed rows
     by (kernel, qmode, K, N, M)."""
+    shapes_by_kernel = shapes_by_kernel or FAMILY_SHAPES
+    qmodes = qmodes or FAMILY_QMODES
     flush = timing.flush_buffer()
     rows = {}
     layouts = sorted({("block" if name == "block_matmul" else "tiled", k, n)
-                      for name, shapes in FAMILY_SHAPES.items() for k, n in shapes})
+                      for name, shapes in shapes_by_kernel.items() for k, n in shapes})
     for i, (fmt, k, n) in enumerate(layouts):
-        x, w = _weights(k, n, max(PATH_M.values()), torch.bfloat16, 4000 + i,
+        x, w = _weights(k, n, max(PATH_M.values()), torch.bfloat16, seed + i,
                         block=fmt == "block")
         packs = {"none": pack_block_csr(w) if fmt == "block" else pack_tiled_csc(w)}
         del w
-        for name, shapes in FAMILY_SHAPES.items():
+        for name, shapes in shapes_by_kernel.items():
             if (k, n) not in shapes or (name == "block_matmul") != (fmt == "block"):
                 continue
             what, out_dtype = shapes[(k, n)]
-            for qmode in FAMILY_QMODES[name]:
+            for qmode in qmodes[name]:
                 if qmode not in packs:
                     packs[qmode] = quantize_packed(packs["none"], qmode)
                 for m in (1,) if name == "decompress" else tuple(PATH_M.values()):
                     rows[(name, qmode, k, n, m)] = _family_kernel_row(
                         name, qmode, what, x[:m].contiguous(), packs[qmode], out_dtype,
-                        flush)
+                        flush, phase)
         del x, packs
         torch.cuda.empty_cache()
     return rows
 
 
-def _family_kernel_row(name, qmode, what, x, p, out_dtype, flush) -> dict:
+def _family_kernel_row(name, qmode, what, x, p, out_dtype, flush,
+                       phase: str = "family_kernels") -> dict:
     if name == "decompress":
         kernel, plain = lambda: dk.decompress(p), lambda: ref.decompress_tiled_ref(p)
     else:
@@ -1680,7 +1784,7 @@ def _family_kernel_row(name, qmode, what, x, p, out_dtype, flush) -> dict:
     reset_counts()
     y, y2, yr = kernel(), kernel(), plain()
     torch.cuda.synchronize()
-    row = {"phase": "family_kernels", "kernel": name, "qmode": qmode, "shape": what,
+    row = {"phase": phase, "kernel": name, "qmode": qmode, "shape": what,
            "K": p.shape[0], "N": p.shape[1], "M": x.shape[0],
            "out_dtype": str(y.dtype).split(".")[-1], "launches": COUNTERS[name].launches,
            "bit_equal_across_calls": torch.equal(y, y2)}
@@ -1968,6 +2072,375 @@ def phase_family(timed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the MoE family
+# ---------------------------------------------------------------------------
+# (K, N) -> (what, the output dtype on the model's path); qwen's attention
+# projections are llama's 2048 x 2048 (phase 3)
+MOE_SHAPES = {
+    "sod_matmul": {(1024, 1024): ("granite wq+wo", torch.bfloat16),
+                   (1024, 512): ("granite wk+wv", torch.bfloat16),
+                   (2048, 5632): ("qwen shared w_gate+w_up", torch.bfloat16),
+                   (5632, 2048): ("qwen shared w_down", torch.bfloat16),
+                   (2048, 151936): ("qwen head", torch.float32)},
+    "block_matmul": {(1024, 1024): ("granite wq+wo", torch.bfloat16),
+                     (1024, 512): ("granite wk+wv", torch.bfloat16)},
+    "decompress": {(1024, 1024): ("granite wq+wo", None),
+                   (1024, 512): ("granite wk+wv", None),
+                   (2048, 151936): ("qwen head", None)},
+}
+MOE_QMODES = {"sod_matmul": ("none",), "block_matmul": ("none",), "decompress": ("none",)}
+# cell -> (arch, flags, caller's SoDConfig, kernel, packed projections a layer)
+MOE_CELLS = {
+    "granite_moe_tiled_csc": ("granite-moe-1b-a400m", FAMILY_TILED, None, "sod_matmul", 4),
+    "granite_moe_block_csr": ("granite-moe-1b-a400m", ["--sod", "block_csr"], _block_sod(),
+                              "block_matmul", 4),
+    "qwen2_moe_tiled_csc": ("qwen2-moe-a2.7b", FAMILY_TILED, None, "sod_matmul", 7),
+}
+# engine run -> (MoE cell whose packed weights and plan it serves, prefill chunk)
+MOE_ENGINE_RUNS = {"granite_moe": ("granite_moe_tiled_csc", None),
+                   "granite_moe_chunk16": ("granite_moe_tiled_csc", 16),
+                   "qwen2_moe": ("qwen2_moe_tiled_csc", None)}
+MOE_TRAIN_ARGV = ["--arch", "granite-moe-1b-a400m", "--batch", str(TRAIN_BATCH), "--seq",
+                  str(TRAIN_SEQ), "--warmup", "2", "--lr", "3e-3", "--seed", "0",
+                  "--device", "cuda", "--ckpt-every", "1000", "--log-every", "1000",
+                  *FAMILY_TILED]
+MOE_TRAIN_STEPS = 4
+# aten operators of the MoE block's dispatch: the rank sort, the scatter into
+# the capacity buffer, the gathers back, the routing's top-k sort
+DISPATCH_OPS = ("aten::sort", "aten::index_put", "aten::index_put_", "aten::index",
+                "aten::gather", "aten::scatter", "aten::scatter_", "aten::scatter_add_",
+                "aten::cumsum", "aten::bincount")
+
+
+def _moe_plan(label: str, cfg, sod: SoDConfig, seed: int, m_values, tmp: str) -> tuple:
+    """The port's planner on the seeded raw weights of ``cfg`` (drawn as
+    ``serve.prepare`` and ``train.prepare`` draw them), the routed experts'
+    entries dropped (``moe.without_routed``), saved under ``tmp``.  Returns
+    (path, plan row)."""
+    cfg = cfg.with_(sod=sod)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    raw = LM(cfg).init(gen, "cuda")
+    full = planner.build_plan(raw, sod, cfg=cfg, cache=autotune.get_cache(),
+                              m_values=tuple(m_values))
+    del raw
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    e = transformer.moe_spec(cfg).n_experts_padded
+    leads = {p: full.entries[p].lead for p in moe.ROUTED_PATHS}
+    if set(leads.values()) != {(cfg.n_layers, 1, e)}:
+        raise AssertionError(f"{label}: routed experts planned with leads {leads}, "
+                             f"want {(cfg.n_layers, 1, e)}")
+    plan = moe.without_routed(full)
+    path = str(plan.save(pathlib.Path(tmp) / f"{label}.json"))
+    row = {"plan_s": plan_s, "entries_planned": len(full), "entries_kept": len(plan),
+           "routed_leads": {p: list(v) for p, v in leads.items()},
+           "modes": {p: e.mode for p, e in plan.entries.items()}}
+    return path, row
+
+
+def phase_moe_serve(cell: str, tmp: str) -> dict:
+    """One MOE_CELLS cell at full width and depth: its plan built on the
+    seeded raw weights with the routed entries dropped, the weights
+    prepared under ``--plan P`` (routed experts dense, the rest packed),
+    served through ``serve.main`` with every launch count read around the
+    run ((layers · packed a layer + a packed head) × 17 of its kernel, none
+    of the others, no ``torch_oracle`` dispatch), then its prefill held
+    against the densified weights."""
+    arch, flags, sod, kernel, per_layer = MOE_CELLS[cell]
+    base = ["--arch", arch, *FAMILY_BASE, *flags]
+    args = serve.parse_args(base)
+    cfg = configs.get_config(arch)
+    plan_path, plan_row = _moe_plan(
+        cell, cfg, sod or SoDConfig(mode=args.sod, density=args.density, min_dim=64),
+        args.seed, serve.m_values(args, cfg), tmp)
+    argv = base + ["--plan", plan_path]
+    t0 = time.perf_counter()
+    prep = serve.prepare(serve.parse_args(argv), sod)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    model, params, tokens, plan = prep[:4]
+    layers = model.cfg.n_layers
+    head_packed = isinstance(params.get("head"), (TiledCSC, BlockCSR))
+    routed_dense = all(isinstance(layer["moe"][n], torch.Tensor)
+                       for layer in params["layers"] for n in moe.ROUTED)
+    packed_a_layer = {len(_packed_paths(layer)) for layer in params["layers"]}
+    if not (routed_dense and packed_a_layer == {per_layer}
+            and head_packed == (not model.cfg.tie_embeddings)):
+        raise AssertionError(f"{cell}: routed experts dense {routed_dense}, packed a "
+                             f"layer {packed_a_layer} (want {per_layer}), head packed "
+                             f"{head_packed}")
+    reset_counts()
+    summary = serve.main(argv, sod=sod, prepared=(model, params, tokens, plan))
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    expect = {"sod_matmul": 0, "block_matmul": 0, "decompress": 0}
+    expect[kernel] = (layers * per_layer + head_packed) * (1 + 16)
+    oracle = [k for k in summary["kernel_dispatch"] if k.startswith("torch_oracle")]
+    if launches != expect or oracle or summary["kernel_launches"] != {
+            k: v for k, v in expect.items() if k != "decompress"}:
+        raise AssertionError(f"{cell}: launches {launches} (summary "
+                             f"{summary['kernel_launches']}), want {expect}; "
+                             f"dispatch {summary['kernel_dispatch']}")
+    wb = summary["weight_bytes"]
+    if not summary["logits_finite"]:
+        raise AssertionError(f"{cell}: non-finite logits from the full-width serve")
+    log({"phase": "moe", "cell": cell, "arch": arch, "layers": layers,
+         "plan": plan_row, "pack_s": pack_s, "launches": launches,
+         "kernel_dispatch": summary["kernel_dispatch"], "head_packed": head_packed,
+         "prefill_s": summary["prefill_s"], "warmup_s": summary["warmup_s"],
+         "steady_tok_per_s": summary["steady_tok_per_s"],
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "sample": summary["sample"], "weight_bytes": wb})
+    row = check_vs_dense(cell, model, params, tokens, kernel, layers, per_layer)
+    return {"launches": launches[kernel], "decompress_launches": row["decompress_launches"],
+            "model": model, "params": params, "tokens": tokens, "plan": plan}
+
+
+def phase_moe_engine(run: str, cells: dict) -> dict:
+    """One engine run through ``serve.main --engine`` on an MoE cell's packed
+    weights under its plan, over phase 6's trace (4 slots, 16-token pages):
+    every request equal to ``static_generate`` under the same plan bit for
+    bit, the cell's kernel launched and the others not, no ``torch_oracle``
+    dispatch, finite logits and a clean pool after the run."""
+    cell, chunk = MOE_ENGINE_RUNS[run]
+    arch, _, _, kernel, _ = MOE_CELLS[cell]
+    sl = cells[cell]
+    model, params, plan = sl["model"], sl["params"], sl["plan"]
+    argv = (["--arch", arch] + ENGINE_ARGV[2:]
+            + (["--prefill-chunk", str(chunk)] if chunk else []))
+    reset_counts()
+    with _engine_probe(params) as seen:
+        summary = serve.main(argv, prepared=(model, params, sl["tokens"], plan))
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    (eng,) = seen["engines"]
+    trace, tokens = summary["trace"], summary["tokens"]
+    other = "block_matmul" if kernel == "sod_matmul" else "sod_matmul"
+    oracle = [k for k in summary["kernel_dispatch"] if k.startswith("torch_oracle")]
+    if not (launches[kernel] > 0 and launches[other] == 0 and launches["decompress"] == 0
+            and not oracle and summary["logits_finite"]):
+        raise AssertionError(f"engine {run}: launches {launches}, dispatch "
+                             f"{summary['kernel_dispatch']}, finite "
+                             f"{summary['logits_finite']}")
+    if summary["completed"] != len(trace) or set(tokens) != {r.rid for r in trace}:
+        raise AssertionError(f"engine {run}: {summary['completed']} of "
+                             f"{len(trace)} requests completed")
+    pool = eng.page_pool
+    if pool.free_count != pool.n_pages - 1 or pool.allocated:
+        raise AssertionError(f"engine {run}: pool not clean: {pool.free_count} of "
+                             f"{pool.n_pages - 1} free")
+    static_s = _check_tokens(run, model, params, trace, tokens, plan=plan)
+    row = {"phase": "moe_engine", "run": run, "cell": cell, "prefill_chunk": chunk,
+           "launches": launches[kernel], "kernel_dispatch": summary["kernel_dispatch"],
+           "bit_equal_to_static_generate": True, "static_generate_s": static_s,
+           "pool_clean": True,
+           **{k: summary[k] for k in (
+               "completed", "steps", "generated_tokens", "warmup_s", "steady_tok_per_s",
+               "p50_latency_s", "p99_latency_s", "step_ms_p50", "step_ms_p99",
+               "logits_finite") if k in summary}}
+    log(row)
+    return row
+
+
+def phase_moe_profile(sl: dict) -> None:
+    """One steady static decode step of qwen2-moe-a2.7b (batch 4) under its
+    plan, under ``torch.profiler``: device ms by kernel and by class (the
+    SoD kernels; the routed experts' products, ``aten::bmm`` over the E
+    padded experts; the MoE dispatch's sort, scatter and gathers
+    (DISPATCH_OPS); attention's other ``aten::bmm``; the dense GEMMs of
+    the router and the shared gate), and the idle share against the median
+    wall of 7 unprofiled steps.  The routed products read every expert's
+    weights at decode (capacity 128 slots an expert), and their byte bound
+    is logged beside them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model, params, tokens, plan = sl["model"], sl["params"], sl["tokens"], sl["plan"]
+    cfg = model.cfg
+    spec = transformer.moe_spec(cfg)
+    decode = steps_mod.make_decode_step(model, plan=plan)
+    with torch.inference_mode():
+        _, cache, pos = serve.prefill_cache(model, params, tokens, 48, plan=plan)
+        tok = torch.zeros((tokens.shape[0], 1), dtype=torch.long, device="cuda")
+        decode(params, cache, tok, pos)
+        step_ms = []
+        for t in range(1, 8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode(params, cache, tok, pos + t)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            decode(params, cache, tok, pos + 8)
+            torch.cuda.synchronize()
+    per_kernel: dict[str, tuple[float, int]] = {}
+    classes = {"routed_expert_bmm": 0.0, "dispatch": 0.0, "attention_bmm": 0.0,
+               "dense_gemm": 0.0}
+    calls = dict.fromkeys(classes, 0)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            us, n = per_kernel.get(ev.name, (0.0, 0))
+            per_kernel[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+            continue
+        self_us = getattr(ev, "self_device_time_total", 0.0)
+        if not self_us:
+            continue
+        cls = None
+        if ev.name == "aten::bmm":
+            # the experts' products are (E, blocks · capacity, d_model or d_ff)
+            # @ (E, ., .); attention's batch is rows × KV heads, which qwen's
+            # 4 × 16 makes E too, so the trailing dims tell them apart
+            first = (ev.input_shapes or [[]])[0] or [0]
+            routed = (len(first) == 3 and first[0] == spec.n_experts_padded
+                      and first[1] % 128 == 0 and first[2] in (spec.d_model, spec.d_ff))
+            cls = "routed_expert_bmm" if routed else "attention_bmm"
+        elif ev.name in DISPATCH_OPS:
+            cls = "dispatch"
+        elif ev.name == "aten::mm":
+            cls = "dense_gemm"
+        if cls:
+            classes[cls] += self_us
+            calls[cls] += 1
+    rows = sorted(((us, k, n) for k, (us, n) in per_kernel.items()), reverse=True)
+    total_ms = sum(r[0] for r in rows) / 1e3
+    sod_us = sum(us for k, (us, _) in per_kernel.items()
+                 if "sod_matmul" in k or "block_matmul" in k)
+    step = statistics.median(step_ms)
+    expert_bytes = 3 * spec.n_experts_padded * spec.d_model * spec.d_ff * 2 * cfg.n_layers
+    measured = bool(rows)
+    log({"phase": "moe_profile", "cell": "qwen2_moe_tiled_csc", "arch": cfg.name,
+         "what": "one static decode step, batch 4, full width and depth, bf16",
+         "step_ms_median_of_7": step,
+         "device_ms": total_ms if measured else "not measured",
+         "device_idle_share": (1 - total_ms / step) if measured else "not measured",
+         "sod_kernels_ms": sod_us / 1e3 if measured else "not measured",
+         **{f"{k}_ms": (v / 1e3 if any(classes.values()) else "not measured")
+            for k, v in classes.items()},
+         "calls": calls,
+         "routed_expert_bytes_a_step": expert_bytes,
+         "routed_expert_bound_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+         "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": c} for us, k, c in rows[:15]]})
+
+
+def phase_moe_train(tmp: str) -> dict:
+    """``train_granite``: full-width, full-depth granite-moe-1b-a400m under a
+    plan without routed entries (built on the seed's raw weights), batch 8
+    × seq 128, remat on, MOE_TRAIN_STEPS steps, gated on finite losses,
+    gradient norms and router aux losses, every aux loss above 0, integer
+    leaves bit-equal to the initial pack, the routed experts still dense,
+    only ``cuda_fused`` dispatched, and the launches: 2 × 96 packed
+    attention projections (remat) of ``sod_matmul`` and 96 of
+    ``decompress`` a step; then one steady step is profiled."""
+    ck = tempfile.mkdtemp(prefix="chip_smoke_train_granite_")
+    args = train.parse_args(MOE_TRAIN_ARGV)
+    cfg = configs.get_config(args.arch)
+    plan_path, plan_row = _moe_plan(
+        "train_granite", cfg, SoDConfig(mode=args.sod, density=args.density, min_dim=64),
+        args.seed, (TRAIN_M,), tmp)
+    argv = MOE_TRAIN_ARGV + ["--plan", plan_path, "--steps", str(MOE_TRAIN_STEPS),
+                             "--ckpt-dir", ck]
+    try:
+        t0 = time.perf_counter()
+        prep = train.prepare(train.parse_args(argv))
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        ints = {k: v.clone() for k, v in leaves_with_path(prep[1])
+                if not v.is_floating_point()}
+        n_packed, train_cfg = len(_packed(prep[1])), prep[0].cfg
+        reset_counts()
+        summary = train.main(argv, prepared=prep)
+        launches = {name: mod.launches for name, mod in COUNTERS.items()}
+        del prep
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    params = summary["state"]["params"]
+    losses, gnorms, auxes = summary["losses"], summary["grad_norms"], summary["aux_losses"]
+    remat = 2 if train_cfg.remat else 1
+    want = {"sod_matmul": remat * n_packed * MOE_TRAIN_STEPS, "block_matmul": 0,
+            "decompress": n_packed * MOE_TRAIN_STEPS}
+    final_ints = {k: v for k, v in leaves_with_path(params) if not v.is_floating_point()}
+    gates = {
+        "attention_packed": n_packed == MOE_CELLS["granite_moe_tiled_csc"][4] * train_cfg.n_layers,
+        "finite": all(map(math.isfinite, losses + gnorms + auxes)),
+        "aux_positive": all(a > 0 for a in auxes),
+        "integer_leaves_bit_equal": final_ints.keys() == ints.keys() and all(
+            torch.equal(v, ints[k]) for k, v in final_ints.items()),
+        "routed_experts_dense": all(isinstance(layer["moe"][n], torch.Tensor)
+                                    for layer in params["layers"] for n in moe.ROUTED),
+        "dispatch_only_cuda_fused": bool(summary["kernel_dispatch"]) and all(
+            k.startswith("cuda_fused[") for k in summary["kernel_dispatch"]),
+        "launches": launches == want and summary["kernel_launches"] == want,
+    }
+    row = {"phase": "moe_train", "run": "train_granite", "steps": MOE_TRAIN_STEPS,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "plan": plan_row,
+           "prepare_s": prepare_s, "losses": losses, "aux_losses": auxes,
+           "grad_norms": gnorms, "launches": launches, "launches_want": want,
+           "kernel_dispatch": summary["kernel_dispatch"],
+           **{k: summary[k] for k in ("step_s", "tok_s", "peak_mem_gb", "wall_s")},
+           "gates": gates}
+    log(row)
+    if not all(gates.values()):
+        raise AssertionError(f"train_granite: a gate failed: {gates}")
+    phase_train_profile(summary, "train_granite", MOE_TRAIN_ARGV)
+    return {"launches": launches}
+
+
+def phase_moe(timed) -> dict:
+    """Phase 10: the kernels at the MoE shapes, each cell with its engine
+    runs (qwen's decode step profiled), each freed before the next, then
+    ``train_granite``; every step through ``timed``.  Plans are written to a
+    temporary directory, deleted at the end."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        out = {"kernels": timed("moe:kernels", phase_family_kernels, MOE_SHAPES, MOE_QMODES,
+                                6000, "moe_kernels"),
+               "launches": {}, "engine": {}}
+        cells = {}
+        for cell in MOE_CELLS:
+            sl = cells[cell] = timed(f"moe:{cell}", phase_moe_serve, cell, tmp)
+            out["launches"][cell] = {k: sl[k] for k in ("launches", "decompress_launches")}
+            for run, (of, _) in MOE_ENGINE_RUNS.items():
+                if of == cell:
+                    out["engine"][run] = timed(f"moe:engine:{run}", phase_moe_engine,
+                                               run, cells)
+            if cell == "qwen2_moe_tiled_csc":
+                timed("moe:profile", phase_moe_profile, sl)
+            for key in ("model", "params", "tokens", "plan"):
+                sl.pop(key)
+            torch.cuda.empty_cache()
+        out["train"] = timed("moe:train", phase_moe_train, tmp)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _moe_entry(name: str, qmode: str, moe_out: dict) -> dict:
+    """Phase 10's numbers of one kernel in one qmode: its launches in each
+    MoE cell, engine run and ``train_granite`` (counted from 0 around each
+    run), and its rows at the MoE shapes."""
+    if qmode != "none":
+        return {}
+    launches = {}
+    for cell, (_, _, _, kernel, _) in MOE_CELLS.items():
+        if name == kernel:
+            launches[cell] = moe_out["launches"][cell]["launches"]
+        elif name == "decompress" and kernel == "sod_matmul":
+            launches[f"{cell}:densified"] = moe_out["launches"][cell]["decompress_launches"]
+    launches.update({f"engine:{run}": row["launches"] for run, row in moe_out["engine"].items()
+                     if MOE_CELLS[row["cell"]][3] == name})
+    if name != "block_matmul":
+        launches["train_granite"] = moe_out["train"]["launches"][name]
+    rows = [r for (kn, q, *_), r in moe_out["kernels"].items() if kn == name and q == qmode]
+    return {"moe_launches": launches,
+            "moe_shapes": [{k: r[k] for k in ("shape", "K", "N", "M", "out_dtype",
+                                              "max_abs_err", "kernel_ms", "plain_ms",
+                                              "library_ms", "bound_ms", "bound_by")}
+                           for r in rows]}
+
+
 def _entry(name: str, qmode: str, kern: dict, launches: int) -> dict:
     """One kernel's line in one qmode: the seven projections of one layer
     (M = 4 at decode for the matmuls, and M = 128 at prefill beside it),
@@ -2098,6 +2571,7 @@ def main() -> None:
         del summary
     timed("train_resume", phase_train_resume)
     family = phase_family(timed)
+    moe_out = phase_moe(timed)
     shutil.rmtree(cache_dir, ignore_errors=True)
 
     entries = []
@@ -2126,6 +2600,7 @@ def main() -> None:
             if qmode == "none" and name in train_ms:
                 entry.update({f"train_{k}": v for k, v in train_ms[name].items()})
             entry.update(_family_entry(name, qmode, family))
+            entry.update(_moe_entry(name, qmode, moe_out))
             entries.append(entry)
     log({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     log(smi)

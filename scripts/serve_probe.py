@@ -5,7 +5,7 @@ invariance that the engine's equality with static serving rests on.
     python3 scripts/serve_probe.py prefill [--src DIR] [--prompt-lens 512 2048]
                                            [--batch 4]
     python3 scripts/serve_probe.py decode [--src DIR] [--repeats 5]
-    python3 scripts/serve_probe.py invariance
+    python3 scripts/serve_probe.py invariance [--skip-engine]
     python3 scripts/serve_probe.py dispatch [--src DIR]
 
 Run from the root of a checkout.  ``--src`` names the ``src`` directory
@@ -28,16 +28,25 @@ bf16 with seeded random weights, as in ``chip_smoke.py``.
   time.
 - ``invariance``: (1) at the shapes the engine compares with static
   serving, how many rows change bits with the rows beside them or the
-  cache's length (RMSNorm of a row alone against inside 4 rows; decode
+  cache's length (RMSNorm of a row alone against inside 4 rows, and every
+  row of 4 at d_model 1024 and 2048, its float32 mean of squares apart;
+  decode
   attention at batch 1 over ``plen + 16`` positions against batch 4 over
   80; prefill attention over the prompt against its page bucket and
   against 16-row chunks over 80 pool positions; the verify pass of k + 1
   positions against k + 1 sequential decode steps, k in {2, 4}, 4 slots,
   full width's attention layer with packed weights, with the reference's
   batched core and with the kept one, and RMSNorm at 4·(k + 1) rows at once
-  against 4), and (2) ``chip_smoke.py``'s engine runs
+  against 4; the MoE block's router logits and shared gate, the two dense
+  GEMMs that pick a token's experts and weight its shared expert, and its
+  whole output, at
+  granite-moe-1b-a400m's and qwen2-moe-a2.7b's widths: a row alone against
+  inside 4 rows and inside 128, and a prompt's rows against its page bucket
+  and 16-row chunks; and decode and prefill attention at their heads,
+  qwen's one query head a KV head also with the query heads not doubled),
+  and (2) ``chip_smoke.py``'s engine runs
   (``ENGINE_RUNS`` and ``FEATURE_RUNS``) against ``static_generate``: the
-  requests whose tokens differ.
+  requests whose tokens differ (``--skip-engine`` leaves (2) out).
 - ``dispatch``: the host's cost of dispatching one packed matmul through
   the kernel registry, as every projection of a served step does: its
   problem key (``registry.problem_key``) and its resolution
@@ -173,6 +182,7 @@ def invariance_unit(torch) -> None:
     four = torch.stack([layers.rms_norm(x[i], gain)[0] for i in range(256)])
     log({"what": "rms_norm, row alone vs inside 4 rows", "rows": 256,
          "rows_that_differ": _rows_that_differ(torch, alone, four)})
+    invariance_norm_rows(torch, g)
     n, d_bucket, d_chunk = 0, 0, 0
     for plen in range(33, 65, 3):
         bucket = -(-plen // 16) * 16
@@ -187,11 +197,69 @@ def invariance_unit(torch) -> None:
          "rows": n, "rows_that_differ_bucket": d_bucket,
          "rows_that_differ_chunks": d_chunk})
 
+    log({"what": "decode attention, batch 4 over 80 positions vs batch 1 "
+                 "over plen + 16", **_decode_attention_rows(torch, g, spec)})
+    log({"what": "prefill attention, prompt vs page bucket and vs 16-row "
+                 "chunks over 80 positions", **_prefill_attention_rows(torch, g, spec)})
+    invariance_verify(torch, g, spec)
+    invariance_moe(torch, g)
+
+
+def invariance_norm_rows(torch, g) -> None:
+    """Every row of RMSNorm at the engine's decode shape (4, 1, d) against
+    the row alone (1, 1, d), residual-stream magnitudes (N(0, 30²)), at
+    d_model 1024 and 2048: the rows whose float32 mean of squares (torch's
+    reduction, which ``layers.rms_norm`` no longer uses on the card) and
+    whose ``layers.rms_norm`` output differ."""
+    from repro_torch.models import layers
+
+    for d in (1024, 2048):
+        gain = torch.randn(d, generator=g, device="cuda") * 0.1
+        x = (torch.randn(256, 4, 1, d, generator=g, device="cuda") * 30).bfloat16()
+        mean_differ = norm_differ = 0
+        for i in range(256):
+            xf = x[i].float()
+            four_mean = torch.mean(xf * xf, dim=-1)
+            four = layers.rms_norm(x[i], gain)
+            for r in range(4):
+                one = xf[r:r + 1]
+                mean_differ += int(not torch.equal(four_mean[r],
+                                                   torch.mean(one * one, dim=-1)[0]))
+                norm_differ += int(not torch.equal(four[r],
+                                                   layers.rms_norm(x[i, r:r + 1], gain)[0]))
+        log({"what": f"rms_norm d {d}, every row of (4, 1, d) vs alone", "rows": 1024,
+             "float32_mean_rows_that_differ": mean_differ,
+             "rms_norm_rows_that_differ": norm_differ})
+
+
+def _decode_attention_rows(torch, g, spec) -> dict:
+    """Decode attention rows at batch 4 over 80 cached positions against
+    the same row at batch 1 over ``plen + 16`` (static serving's cache);
+    with one query head a KV head, also with the query heads not doubled
+    (``attention._groups`` bypassed: cuBLAS's own behaviour there)."""
+    from repro_torch.models import attention as attn
+
+    out = _decode_attention_count(torch, g, spec)
+    if spec.n_heads == spec.n_kv_heads:
+        groups = attn._groups
+        attn._groups = lambda q: q
+        try:
+            out["rows_that_differ_undoubled"] = _decode_attention_count(
+                torch, g, spec)["rows_that_differ"]
+        finally:
+            attn._groups = groups
+    return out
+
+
+def _decode_attention_count(torch, g, spec) -> dict:
+    from repro_torch.models import attention as attn
+
+    h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     n, differ = 0, 0
     for trial in range(64):
-        q = torch.randn(4, 1, 32, 64, generator=g, device="cuda").bfloat16()
-        k = torch.randn(4, 80, 8, 64, generator=g, device="cuda").bfloat16()
-        v = torch.randn(4, 80, 8, 64, generator=g, device="cuda").bfloat16()
+        q = torch.randn(4, 1, h, hd, generator=g, device="cuda").bfloat16()
+        k = torch.randn(4, 80, kv, hd, generator=g, device="cuda").bfloat16()
+        v = torch.randn(4, 80, kv, hd, generator=g, device="cuda").bfloat16()
         pos = torch.randint(32, 79, (4,), generator=g, device="cuda")
         batch = attn._attend_cached(q, k, v, pos, spec, None)
         for row in range(4):
@@ -202,40 +270,108 @@ def invariance_unit(torch) -> None:
                                       v[row:row + 1, :s], p, spec, None)
             n += 1
             differ += _rows_that_differ(torch, batch[row:row + 1], one)
-    log({"what": "decode attention, batch 4 over 80 positions vs batch 1 "
-                 "over plen + 16", "rows": n, "rows_that_differ": differ})
+    return {"heads": [h, kv, hd], "rows": n, "rows_that_differ": differ}
 
+
+def _prefill_attention_rows(torch, g, spec) -> dict:
+    """Prefill attention rows of a prompt against its page bucket and
+    against 16-row chunks over the 80 positions of the pool's pages."""
+    from repro_torch.models import attention as attn
+
+    h, kv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     n, d_bucket, d_chunk = 0, 0, 0
     for plen in range(33, 65, 3):
         bucket = -(-plen // 16) * 16
-        q = torch.randn(1, 80, 32, 64, generator=g, device="cuda").bfloat16()
-        k = torch.randn(1, 80, 8, 64, generator=g, device="cuda").bfloat16()
-        v = torch.randn(1, 80, 8, 64, generator=g, device="cuda").bfloat16()
+        q = torch.randn(1, 80, h, hd, generator=g, device="cuda").bfloat16()
+        k = torch.randn(1, 80, kv, hd, generator=g, device="cuda").bfloat16()
+        v = torch.randn(1, 80, kv, hd, generator=g, device="cuda").bfloat16()
         bare = attn.chunked_attention(q[:, :plen], k[:, :plen], v[:, :plen], spec)
         padded = attn.chunked_attention(q[:, :bucket], k[:, :bucket],
                                         v[:, :bucket], spec)[:, :plen]
         # a 16-row chunk against the 80 gathered positions, as the pool's
-        qh = q.reshape(1, 80, 8, 4, 64)
+        # (paged_prefill_attention's core)
+        grp = h // kv
+        qh = attn._groups(q.reshape(1, 80, kv, grp, hd))
+        gp = qh.shape[3]
         pos = torch.arange(80, device="cuda")
         outs = []
         for start in range(0, plen, 16):
             idx = start + torch.arange(16, device="cuda")
             mask = (pos[None, :] <= idx[:, None])[None, None, None]
-            init = (torch.full((1, 8, 4, 16), attn.NEG_INF, device="cuda"),
-                    torch.zeros((1, 8, 4, 16), device="cuda"),
-                    torch.zeros((1, 8, 4, 16, 64), device="cuda"))
+            init = (torch.full((1, kv, gp, 16), attn.NEG_INF, device="cuda"),
+                    torch.zeros((1, kv, gp, 16), device="cuda"),
+                    torch.zeros((1, kv, gp, 16, hd), device="cuda"))
             _, l, acc = attn._online_block(
                 init, attn._block_scores(qh[:, start:start + 16], k, spec), v, mask)
-            out = acc / torch.clamp(l, min=1e-30)[..., None]
-            outs.append(out.permute(0, 3, 1, 2, 4).reshape(1, 16, 32, 64))
+            out = (acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :grp]
+            outs.append(out.permute(0, 3, 1, 2, 4).reshape(1, 16, h, hd))
         chunked = torch.cat(outs, dim=1)[:, :plen].to(q.dtype)
         n += plen
         d_bucket += _rows_that_differ(torch, bare[0], padded[0])
         d_chunk += _rows_that_differ(torch, bare[0], chunked[0])
-    log({"what": "prefill attention, prompt vs page bucket and vs 16-row "
-                 "chunks over 80 positions", "rows": n,
-         "rows_that_differ_bucket": d_bucket, "rows_that_differ_chunks": d_chunk})
-    invariance_verify(torch, g, spec)
+    return {"heads": [h, kv, hd], "rows": n, "rows_that_differ_bucket": d_bucket,
+            "rows_that_differ_chunks": d_chunk}
+
+
+# MoE widths: (d_model, real experts, padded experts, top-k, expert d_ff,
+# shared d_ff, attention heads / KV heads / head dim)
+MOE_WIDTHS = {"granite-moe-1b-a400m": (1024, 32, 32, 8, 512, 0, (16, 8, 64)),
+              "qwen2-moe-a2.7b": (2048, 60, 64, 4, 1408, 5632, (16, 16, 128))}
+
+
+def invariance_moe(torch, g) -> None:
+    """At granite-moe-1b-a400m's and qwen2-moe-a2.7b's widths: rows whose
+    bits change with the rows beside them, at the shapes the engine
+    compares with static serving, of the router logits and the shared gate
+    (bf16 activations, float32 weights as ``init_moe`` makes them), of the
+    whole MoE block (seeded weights, the shared expert packed tiled_csc at
+    0.3 as the serving cells pack it; a token alone against inside 4, 64
+    and 128 tokens), and of decode and prefill attention at the configs'
+    heads."""
+    from repro_torch.core.sod import SoDConfig, pack_param
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+
+    for arch, (d, e, e_pad, top_k, d_ff, d_shared, heads) in MOE_WIDTHS.items():
+        spec = moe.MoESpec(n_experts=e, n_experts_padded=e_pad, top_k=top_k, d_model=d,
+                           d_ff=d_ff, n_shared=int(d_shared > 0), d_shared_ff=d_shared)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1)
+        params = moe.init_moe(gen, spec, torch.bfloat16, torch.device("cuda"))
+        if d_shared:
+            sod = SoDConfig(mode="tiled_csc", density=0.3, min_dim=64)
+            params["shared"] = {k: pack_param(w, sod) for k, w in params["shared"].items()}
+        fns = {"router": lambda xt: moe.router_logits(params, xt, spec),
+               "block": lambda xt: moe.moe_mlp(params, xt[None], spec)[0][0]}
+        if d_shared:
+            fns["shared_gate"] = lambda xt: moe.shared_gate(params, xt)
+        x = torch.randn(256, 4, d, generator=g, device="cuda").bfloat16()
+        prompts = torch.randn(64, d, generator=g, device="cuda").bfloat16()
+        for name, fn in fns.items():
+            alone = torch.cat([fn(x[i, :1]) for i in range(256)])
+            four = torch.stack([fn(x[i])[0] for i in range(256)])
+            wide = torch.stack([fn(x.reshape(-1, d)[4 * i:4 * i + 128])[0]
+                                for i in range(0, 224)])
+            n = d_bucket = d_chunk = 0
+            for plen in range(33, 65, 3):
+                bucket = -(-plen // 16) * 16
+                bare = fn(prompts[:plen])
+                chunks = torch.cat([fn(prompts[s:s + 16]) for s in range(0, plen, 16)])
+                n += plen
+                d_bucket += _rows_that_differ(torch, bare, fn(prompts[:bucket])[:plen])
+                d_chunk += _rows_that_differ(torch, bare, chunks[:plen])
+            log({"what": f"moe {name}, {arch}: row alone vs inside 4 and 128 rows; "
+                         "prompt rows vs page bucket and 16-row chunks",
+                 "d": d, "rows": 256,
+                 "rows_that_differ_4": _rows_that_differ(torch, alone, four),
+                 "rows_that_differ_128": _rows_that_differ(torch, alone[:224], wide),
+                 "prompt_rows": n, "rows_that_differ_bucket": d_bucket,
+                 "rows_that_differ_chunks": d_chunk})
+        aspec = attn.AttnSpec(n_heads=heads[0], n_kv_heads=heads[1], head_dim=heads[2])
+        log({"what": f"decode attention, {arch}: batch 4 over 80 positions vs batch 1 "
+                     "over plen + 16", **_decode_attention_rows(torch, g, aspec)})
+        log({"what": f"prefill attention, {arch}: prompt vs page bucket and vs 16-row "
+                     "chunks over 80 positions", **_prefill_attention_rows(torch, g, aspec)})
 
 
 def _verify_batched(torch, tp, x, pool, tables, start, spec):
@@ -404,6 +540,8 @@ def main() -> None:
     ap.add_argument("--prompt-lens", type=int, nargs="+", default=[512, 2048])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--skip-engine", action="store_true",
+                    help="invariance: the unit measurements only, not the engine runs")
     args = ap.parse_args()
     sys.path.insert(0, str(args.src.resolve()))
     import torch
@@ -427,7 +565,8 @@ def main() -> None:
         decode(torch, args)
     else:
         invariance_unit(torch)
-        invariance_engine(torch)
+        if not args.skip_engine:
+            invariance_engine(torch)
     log(smi)
     log({"ok": True})
 

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_config(arch)`` + reduced variants.
 
 Only the architectures whose model path is ported are listed: the dense
-family.
+and MoE families.
 """
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "yi-34b": "yi_34b",
     "gemma2-27b": "gemma2_27b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
 }
 
 ARCH_NAMES = tuple(_MODULES)

@@ -24,9 +24,16 @@ def magnitude_prune(w: torch.Tensor, density: float) -> torch.Tensor:
         raise ValueError(f"density must be in (0, 1], got {density}")
     if density >= 1.0:
         return w
-    k = max(int(round(w.numel() * density)), 1)
+    n = w.numel()
+    k = max(int(round(n * density)), 1)
     mag = w.abs().float()      # exact for bf16/f32: the threshold compares equal
-    thresh = torch.kthvalue(mag.reshape(-1), w.numel() - k + 1).values
+    if mag.is_cuda:
+        # the same k-th largest value from a sort: torch.kthvalue on CUDA
+        # selects within one thread block (planning qwen2-moe-a2.7b took 77 s
+        # with it, 1.5 s with the sort; H100)
+        thresh = torch.sort(mag.reshape(-1)).values[n - k]
+    else:
+        thresh = torch.kthvalue(mag.reshape(-1), n - k + 1).values
     return torch.where(mag >= thresh, w, torch.zeros_like(w))
 
 

@@ -13,7 +13,11 @@ The port keeps per-layer dicts in ``params["layers"]``; a plan keeps the
 reference's paths and stacks: ``layers[l].attn.wq`` is the plan's
 ``.blocks.attn.wq`` with ``lead=(groups, period)``, one entry (and one
 ``cap``) for the whole stack, so a plan file of either package replays in
-the other (:func:`plan_leaves`).
+the other (:func:`plan_leaves`).  An MoE layer's routed experts are one
+``(E, d, f)`` leaf: its entry's lead is ``(groups, period, E)``, each
+expert pruned on its own, and each layer gets an ``(E,)``-stacked pack,
+which :func:`repro_torch.models.moe.moe_mlp` refuses, as the reference
+does (fault R4: serve MoE under a plan without routed-expert entries).
 """
 from __future__ import annotations
 
@@ -92,6 +96,18 @@ def prune_weight(w: torch.Tensor, density: float, method: str = "magnitude",
         return pruning.nm_prune(F.pad(w, (0, 0, 0, pad)), n=n, m=m,
                                 axis=0)[: w.shape[0]]
     return pruning.magnitude_prune(w, density)
+
+
+def _prune_leaf(w: torch.Tensor, density: float, method: str, tile, br: int
+                ) -> torch.Tensor:
+    """:func:`prune_weight` of one layer's leaf: a 2-D weight as it is, a
+    stacked one (the routed experts' (E, d, f)) one matrix at a time, as
+    the reference's ``_prune_leaf``."""
+    if w.ndim == 2:
+        return prune_weight(w, density, method, tile, br)
+    flat = w.reshape((-1,) + tuple(w.shape[-2:]))
+    return torch.stack([prune_weight(m, density, method, tile, br)
+                        for m in flat]).reshape(w.shape)
 
 
 def _pack(w: torch.Tensor, mode: str, tile, br: int, qmode: str,
@@ -195,16 +211,20 @@ def plan_leaves(params: dict[str, Any], period: int = 1
     """``(plan path, tensors, lead)`` of every leaf, in the reference's
     naming: a per-layer leaf ``layers[l].<name>`` is the stack
     ``.blocks.<name>`` of every layer's tensor with ``lead = (layers //
-    period, period)``; a top-level leaf ``<name>`` is ``.<name>`` with no
-    lead.  ``period`` is the model's layer-pattern period (1 for llama)."""
+    period, period)`` and the leaf's own stack dims (an MoE layer's ``E``
+    routed experts) after them; a top-level leaf ``<name>`` is ``.<name>``
+    with no lead.  ``period`` is the model's layer-pattern period (1 for
+    llama)."""
     layers = params.get("layers", [])
     for name, leaf in _named_leaves({k: v for k, v in params.items()
                                      if k != "layers"}):
         yield f".{name}", [leaf], ()
     if layers:
         lead = (len(layers) // period, period)
-        for name, _ in _named_leaves(layers[0]):
-            yield f".blocks.{name}", [_get(layer, name) for layer in layers], lead
+        for name, leaf in _named_leaves(layers[0]):
+            own = tuple(int(d) for d in leaf.shape[:-2])
+            yield (f".blocks.{name}", [_get(layer, name) for layer in layers],
+                   lead + own)
 
 
 def _packable(name: str, shape) -> bool:
@@ -239,8 +259,8 @@ def _pack_planned(name: str, ws: list[torch.Tensor], entry: PackPlan,
     entry (the plan chooses the storage format, not whether the layer is
     sparse), else each layer's slice of the stacked pack."""
     if prune and entry.density < 1.0:
-        ws = [prune_weight(w, entry.density, entry.prune_method, entry.tile,
-                           entry.br) for w in ws]
+        ws = [_prune_leaf(w, entry.density, entry.prune_method, entry.tile,
+                          entry.br) for w in ws]
     if entry.mode == "dense":
         return ws
     stack = torch.stack(ws)
@@ -279,8 +299,8 @@ def sodify_params(params: dict[str, Any], cfg: SoDConfig, prune: bool = True,
                 continue
             packed = _pack_planned(path, ws, entry, prune)
         elif _packable(path, ws[0].shape) and min(ws[0].shape[-2:]) >= cfg.min_dim:
-            stack = torch.stack([prune_weight(w, cfg.density, cfg.prune_method,
-                                              cfg.tile, cfg.br) if prune else w
+            stack = torch.stack([_prune_leaf(w, cfg.density, cfg.prune_method,
+                                             cfg.tile, cfg.br) if prune else w
                                  for w in ws])
             whole = _pack(stack, cfg.mode, cfg.tile, cfg.br, cfg.qmode)
             del stack

@@ -49,7 +49,9 @@ def params_from_numpy(tree: dict[str, Any], cfg,
     ``tree`` is the JAX attention-family tree as numpy arrays: ``embed``,
     ``final_norm``, ``head`` when the embeddings are untied, and ``blocks``
     whose leaves are stacked ``(G, P, ...)`` (layer groups × pattern
-    period; the post norms among them).  Layer ``l`` is
+    period; the post norms among them, and an MoE block's ``moe`` subtree:
+    the float32 ``router`` and ``shared_gate``, the routed experts'
+    ``(E, d, f)`` stacks and the ``shared`` MLP).  Layer ``l`` is
     ``blocks[l // P, l % P]``.
     """
     blocks = tree["blocks"]

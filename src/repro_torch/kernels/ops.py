@@ -44,17 +44,20 @@ _RESOLVED: dict[tuple, tuple[registry.KernelImpl, dict, str]] = {}
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` for 2-D operands as the reference's ``jnp.dot(a, b,
+    """``a @ b`` for 2-D operands, or 3-D ones batched over their first dim,
+    as the reference's ``jnp.dot`` / ``jnp.einsum(...,
     preferred_element_type=float32)``: the operands promoted to one dtype,
     products summed in float32, float32 out.  On CUDA with 16-bit operands
-    one cuBLAS call keeps the f32 sums (``aten::mm.dtype``); the CPU build
+    one cuBLAS call keeps the f32 sums (``aten::mm.dtype``,
+    ``aten::bmm.dtype``; never a 16-bit split-K reduction); the CPU build
     has no such kernel, so there the operands are widened first, which
     gives the same sums of exact products.  Not differentiable: autograd
     goes through :func:`dense_matmul`."""
     dtype = torch.promote_types(a.dtype, b.dtype)
+    mm = torch.bmm if a.ndim == 3 else torch.mm
     if a.device.type == "cuda" and dtype in (torch.bfloat16, torch.float16):
-        return torch.mm(a.to(dtype), b.to(dtype), out_dtype=torch.float32)
-    return torch.mm(a.float(), b.float())
+        return mm(a.to(dtype), b.to(dtype), out_dtype=torch.float32)
+    return mm(a.float(), b.float())
 
 
 class _MmF32(torch.autograd.Function):
@@ -71,8 +74,8 @@ class _MmF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        ga = mm_f32(g, b.T).to(a.dtype) if ctx.needs_input_grad[0] else None
-        gb = mm_f32(a.T, g).to(b.dtype) if ctx.needs_input_grad[1] else None
+        ga = mm_f32(g, b.mT).to(a.dtype) if ctx.needs_input_grad[0] else None
+        gb = mm_f32(a.mT, g).to(b.dtype) if ctx.needs_input_grad[1] else None
         return ga, gb
 
 
@@ -81,10 +84,11 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> to
     preferred_element_type=float32).astype(out_dtype)``: the operands
     promoted to one dtype (bf16 activations meet an f32 weight as f32),
     products summed in float32 (:func:`mm_f32`), the sums cast once to
-    ``out_dtype``.  Differentiable: under autograd the cuBLAS call goes
-    through :class:`_MmF32`; the CPU path's widening differentiates as it
-    is."""
-    x2 = x.reshape(-1, x.shape[-1])
+    ``out_dtype``.  A 3-D ``w`` (E, K, N) takes x (E, M, K), one product a
+    leading index (the MoE experts' ``ebcd,edf->ebcf``).  Differentiable:
+    under autograd the cuBLAS call goes through :class:`_MmF32`; the CPU
+    path's widening differentiates as it is."""
+    x2 = x if w.ndim == 3 else x.reshape(-1, x.shape[-1])
     on_card = x.device.type == "cuda" and torch.promote_types(
         x.dtype, w.dtype) in (torch.bfloat16, torch.float16)
     if on_card and torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):

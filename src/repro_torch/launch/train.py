@@ -170,7 +170,9 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None, prepared=None) -> dict:
     """CLI entry point: trains, prints the summary JSON and returns it, with
-    the per-step ``losses`` and ``grad_norms`` and the final ``state``
+    the per-step ``losses``, ``aux_losses`` (the MoE router aux loss within
+    each loss; 0 for the dense family) and ``grad_norms`` and the final
+    ``state``
     (``{"params", "opt"}``, not printed).  ``prepared`` is ``(model,
     params, plan)`` from :func:`prepare` on the same flags, trained instead
     of a fresh draw."""
@@ -207,7 +209,7 @@ def main(argv=None, prepared=None) -> dict:
         fault=FaultConfig(ckpt_every=args.ckpt_every),
         state_of=lambda: state, load_state=state.update)
 
-    losses, gnorms, seconds = [], [], []
+    losses, auxes, gnorms, seconds = [], [], [], []
     launches0 = {k: mod.launches for k, mod in KERNELS.items()}
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -220,6 +222,7 @@ def main(argv=None, prepared=None) -> dict:
                 res = runner.run_step(step)
             loss = float(res.metrics["loss"])
             losses.append(loss)
+            auxes.append(float(res.metrics["aux"]))
             gnorms.append(float(res.metrics["grad_norm"]))
             seconds.append(res.seconds)
             if mets is not None:
@@ -246,7 +249,7 @@ def main(argv=None, prepared=None) -> dict:
                         if device.type == "cuda" else None),
         "kernel_launches": launches, "kernel_dispatch": dispatch_counts,
         "checkpoints": ckpt.history,
-        "losses": losses, "grad_norms": gnorms,
+        "losses": losses, "aux_losses": auxes, "grad_norms": gnorms,
     }
     if plan is not None:
         summary["plan_layers"] = len(plan)

@@ -14,7 +14,12 @@ reductions and cuBLAS's einsums keep a row's bits between one row and four
 at decode, between a prompt and its page bucket, and between a whole prompt
 and its 16-row chunks at prefill (``scripts/serve_probe.py invariance``;
 ``tests/test_torch_cuda.py`` holds it).  That is a property of the
-libraries at those shapes, not of the code.  The speculative verify path
+libraries at those shapes, not of the code.  With one query head a KV
+head (multi-head attention, qwen2-moe-a2.7b's 16/16 heads) cuBLAS runs the
+einsums at a shape whose rows did change bits (every decode row at batch 4
+against batch 1), so the core then computes each query head twice
+(:func:`_groups`), the shape of the two-a-group configs, which kept them,
+and keeps the first copy.  The speculative verify path
 (:func:`paged_verify_attention`) calls the decode core once a window
 position, so its rows equal C sequential decode steps by construction.
 """
@@ -76,6 +81,15 @@ def _project_qkv(params: Params, x: torch.Tensor, spec: AttnSpec,
     return q, k, v
 
 
+def _groups(q: torch.Tensor) -> torch.Tensor:
+    """Query heads grouped (B, Cq, KV, G, hd), with a lone query head a
+    group (G = 1) given twice: the einsums then run as for G = 2, where
+    cuBLAS keeps a row's bits whatever the batch and the cache length
+    (``scripts/serve_probe.py invariance``); callers keep the first copy
+    of the output (``[:, :, :, :G]`` of (B, KV, G, ...) or the G axis)."""
+    return q.expand(-1, -1, -1, 2, -1).contiguous() if q.shape[3] == 1 else q
+
+
 def _block_scores(q: torch.Tensor, k: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
     """q (B,Cq,KV,G,hd) × k (B,Ck,KV,hd) → (B,KV,G,Cq,Ck) float32."""
     s = torch.einsum("bqkgh,bckh->bkgqc", q.float(), k.float())
@@ -117,16 +131,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"seq {s} not divisible by chunks ({cq},{ck})")
     nq, nk = s // cq, s // ck
     qc = q.reshape(b, nq, cq, kvh, g, hd)
+    gp = max(g, 2)
     n_rel = (window + cq) // ck + 1 if window is not None else None
     dev = q.device
     outs = []
     for i in range(nq):
-        qi = qc[:, i]
+        qi = _groups(qc[:, i])
         q_pos = i * cq + torch.arange(cq, device=dev)
         carry = (
-            torch.full((b, kvh, g, cq), NEG_INF, dtype=torch.float32, device=dev),
-            torch.zeros((b, kvh, g, cq), dtype=torch.float32, device=dev),
-            torch.zeros((b, kvh, g, cq, hd), dtype=torch.float32, device=dev),
+            torch.full((b, kvh, gp, cq), NEG_INF, dtype=torch.float32, device=dev),
+            torch.zeros((b, kvh, gp, cq), dtype=torch.float32, device=dev),
+            torch.zeros((b, kvh, gp, cq, hd), dtype=torch.float32, device=dev),
         )
         for c in range(n_rel if window is not None else nk):
             if window is not None:
@@ -147,7 +162,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             carry = _online_block(carry, _block_scores(qi, k_blk, spec), v_blk,
                                   mask[None, None, None])
         _, l, acc = carry
-        out = acc / torch.clamp(l, min=1e-30)[..., None]       # (B,KV,G,Cq,hd)
+        out = (acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :g]   # (B,KV,G,Cq,hd)
         outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, cq, h, hd))
     return torch.cat(outs, dim=1).to(q.dtype)
 
@@ -192,7 +207,7 @@ def _attend_cached(q, k_cache, v_cache, pos, spec: AttnSpec,
     s_max = k_cache.shape[1]
     kvh = spec.n_kv_heads
     g = spec.n_heads // kvh
-    qh = q.reshape(b, 1, kvh, g, spec.head_dim)
+    qh = _groups(q.reshape(b, 1, kvh, g, spec.head_dim))
     scores = _block_scores(qh, k_cache, spec)   # (B,KV,G,1,Smax)
     k_pos = torch.arange(s_max, device=q.device)
     if isinstance(pos, torch.Tensor):           # (B,): a mask per row
@@ -207,7 +222,7 @@ def _attend_cached(q, k_cache, v_cache, pos, spec: AttnSpec,
     scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p.to(v_cache.dtype).float(),
-                       v_cache.float())
+                       v_cache.float())[:, :, :, :g]
     return out.reshape(b, 1, spec.n_heads * spec.head_dim)
 
 
@@ -291,18 +306,19 @@ def paged_prefill_attention(params: Params, x: torch.Tensor, pool: Params,
     k_cache, v_cache = _gather_pages(pool, block_tables, spec)
     s_max = k_cache.shape[1]
 
-    scores = _block_scores(q.reshape(b, c, kvh, g, hd), k_cache, spec)
+    scores = _block_scores(_groups(q.reshape(b, c, kvh, g, hd)), k_cache, spec)
+    gp = scores.shape[2]
     k_pos = torch.arange(s_max, device=dev)
     mask = k_pos[None, :] <= idx[:, None]
     if window is not None:
         mask &= k_pos[None, :] > idx[:, None] - window
     init = (
-        torch.full((b, kvh, g, c), NEG_INF, dtype=torch.float32, device=dev),
-        torch.zeros((b, kvh, g, c), dtype=torch.float32, device=dev),
-        torch.zeros((b, kvh, g, c, hd), dtype=torch.float32, device=dev),
+        torch.full((b, kvh, gp, c), NEG_INF, dtype=torch.float32, device=dev),
+        torch.zeros((b, kvh, gp, c), dtype=torch.float32, device=dev),
+        torch.zeros((b, kvh, gp, c, hd), dtype=torch.float32, device=dev),
     )
     _, l, acc = _online_block(init, scores, v_cache, mask[None, None, None])
-    out = acc / torch.clamp(l, min=1e-30)[..., None]          # (B,KV,G,C,hd)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :g]   # (B,KV,G,C,hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, c, spec.n_heads * hd)
     return out.to(x.dtype), pool
 

@@ -45,9 +45,21 @@ def init_rms_norm(d: int, device: torch.device) -> torch.Tensor:
 # norms, RoPE, activations
 # ---------------------------------------------------------------------------
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in float32 with the ``1 + gamma`` gain, cast back to x's dtype."""
+    """RMSNorm in float32 with the ``1 + gamma`` gain, cast back to x's dtype.
+
+    On the card the mean of the float32 squares is summed in float64 and
+    rounded once to float32: a float64 sum of 2048 float32 squares is
+    exact, or nearly, in any order, so a row's mean does not depend on how
+    torch splits the reduction, which on the card it does by the number of
+    rows (summed in float32, 96 of 1024 means of 2048-wide rows differed
+    between 4 rows and 1, and now and then a normed row's bits with them;
+    H100, torch 2.11, ``scripts/serve_probe.py invariance``).  On the CPU
+    the float32 mean, as the reference's."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if xf.is_cuda:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True, dtype=torch.float64).float()
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
     return (xf * (1.0 + gamma.float())).to(x.dtype)
 

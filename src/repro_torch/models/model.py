@@ -3,7 +3,7 @@
 Twin of :class:`repro.models.model.LM` and :func:`repro.models.model.build_model`
 for training (``loss``), the static serving path and the continuous-batching
 engine's paged decode, chunked prefill and speculative verification, for
-the dense family.
+the dense and MoE families.
 """
 from __future__ import annotations
 
@@ -31,17 +31,22 @@ class LM:
         return transformer.init_transformer(generator, self.cfg, torch.device(device))
 
     def apply(self, params: Params, tokens: torch.Tensor, want_cache: bool = False):
-        """Full-sequence forward: (logits (B, S, V), cache or None)."""
-        return transformer.transformer_forward(params, tokens, self.cfg, want_cache)
+        """Full-sequence forward: (logits (B, S, V), cache or None); the
+        router aux loss is :meth:`loss`'s."""
+        logits, _, cache = transformer.transformer_forward(params, tokens, self.cfg,
+                                                           want_cache)
+        return logits, cache
 
     def loss(self, params: Params, batch: dict[str, torch.Tensor]):
         """``(loss, {"loss", "ce", "aux"})`` of a batch ``{"tokens",
         "targets"}`` (int, (B, S)) with an optional ``"loss_mask"``: the
-        mean token cross-entropy of the float32 logits; ``aux`` (a router
-        loss in the reference's MoE family) is 0 for the dense family."""
-        logits, _ = self.apply(params, batch["tokens"])
+        mean token cross-entropy of the float32 logits plus ``aux``, the
+        MoE blocks' router aux losses summed over the layers (0 for the
+        dense family)."""
+        logits, aux, _ = transformer.transformer_forward(params, batch["tokens"],
+                                                         self.cfg)
         ce = layers.cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
-        aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 

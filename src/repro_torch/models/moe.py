@@ -1,0 +1,211 @@
+"""Mixture-of-Experts MLP with top-k routing and a shared expert.
+
+Twin of :mod:`repro.models.moe` for its meshless path, which covers the two
+MoE configs: granite-moe-1b-a400m (32 routed experts, top-8) and
+qwen2-moe-a2.7b (60 routed experts padded to 64, top-4, and a shared
+expert behind a sigmoid gate).  Dispatch is the reference's capacity
+buffer: each token's k assignments are ranked first-come within their
+expert (a stable sort), scattered into an (E, blocks, capacity, d) buffer,
+run through three batched expert products and gathered back, weighted by
+the normalised gate values.  Assignments past an expert's capacity are
+dropped (their weight is 0).
+
+The router, the shared gate and the expert products are dense products
+outside any Sparse-on-Dense kernel, as in the reference; they keep its
+float32 sums (:func:`repro_torch.kernels.ops.dense_matmul`).  The shared expert's MLP runs
+through ``sod.apply`` like any MLP.
+
+The reference's ``a2a_axis`` exchange (``_a2a_dispatch``) and its sharding
+constraints act only under a device mesh; meshless the exchange returns
+None, so the port ignores ``a2a_axis``.  Packed routed experts are refused
+(:func:`moe_mlp`): the reference's batched einsum cannot take a packed
+operand either.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core.formats import BlockCSR, TiledCSC
+from repro_torch.core.plan import ModelPlan
+from repro_torch.kernels import ops
+from repro_torch.models import layers
+
+Params = dict[str, Any]
+
+ROUTED = ("w_gate", "w_up", "w_down")
+# plan paths of the routed experts' stacks
+ROUTED_PATHS = tuple(f".blocks.moe.{n}" for n in ROUTED)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """Routing and expert shapes of one MoE layer (the reference's fields)."""
+
+    n_experts: int          # real experts
+    n_experts_padded: int   # ceil-padded to the EP axis; the router masks padding
+    top_k: int
+    d_model: int
+    d_ff: int               # per-expert hidden
+    n_shared: int = 0       # shared experts (always on)
+    d_shared_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    act: str = "silu"
+    dispatch_blocks: int = 1    # rank and dispatch within this many token blocks
+    a2a_axis: str | None = None  # mesh-only in the reference; ignored meshless
+
+    def capacity(self, n_tokens: int) -> int:
+        """Slots an expert has for ``n_tokens`` tokens: ``n · k / E ·
+        capacity_factor``, rounded up to a multiple of 128, at least 128."""
+        c = int(n_tokens * self.top_k / max(self.n_experts, 1)
+                * self.capacity_factor)
+        return max((c + 127) // 128 * 128, 128)
+
+
+def pad_experts(n_experts: int, ep_axis: int = 16) -> int:
+    """``n_experts`` rounded up to a multiple of ``ep_axis``."""
+    return (n_experts + ep_axis - 1) // ep_axis * ep_axis
+
+
+def init_moe(gen: torch.Generator, spec: MoESpec, dtype: torch.dtype,
+             device: torch.device) -> Params:
+    """Router (d, E) float32, the routed experts' stacks ``w_gate``/``w_up``
+    (E, d, f) and ``w_down`` (E, f, d) at N(0, 1/d_in), and with
+    ``spec.n_shared`` the shared MLP and its gate (d, 1) float32."""
+    e, d, f = spec.n_experts_padded, spec.d_model, spec.d_ff
+
+    def expert_init(d_in, d_out):
+        w = torch.randn((e, d_in, d_out), generator=gen, dtype=torch.float32,
+                        device=device)
+        return (w * (1.0 / d_in) ** 0.5).to(dtype)
+
+    params: Params = {
+        "router": layers.dense_init(gen, d, e, torch.float32, device),
+        "w_gate": expert_init(d, f),
+        "w_up": expert_init(d, f),
+        "w_down": expert_init(f, d),
+    }
+    if spec.n_shared:
+        params["shared"] = layers.init_mlp(
+            gen, d, spec.d_shared_ff or spec.d_ff * spec.n_shared, dtype, device)
+        params["shared_gate"] = layers.dense_init(gen, d, 1, torch.float32, device)
+    return params
+
+
+def _rank_in_expert(assign: torch.Tensor, e: int) -> torch.Tensor:
+    """First-come slot rank of each assignment within its expert, for every
+    row of ``assign`` (..., A) apart: a stable sort by expert, then each
+    assignment's place after its expert's start.  The reference's
+    ``_rank_in_expert`` on one row, batched over the leading dims."""
+    lead, a = assign.shape[:-1], assign.shape[-1]
+    flat = assign.reshape(-1, a)
+    order = torch.sort(flat, dim=-1, stable=True).indices
+    sorted_e = torch.gather(flat, 1, order)
+    hist = torch.zeros((flat.shape[0], e), dtype=torch.long, device=assign.device)
+    hist.scatter_add_(1, flat, torch.ones_like(flat))
+    starts = torch.cumsum(hist, 1) - hist
+    rank = torch.arange(a, device=assign.device) - torch.gather(starts, 1, sorted_e)
+    return torch.empty_like(flat).scatter_(1, order, rank).reshape(*lead, a)
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last dim, equal values in
+    index order (a stable descending sort; ``torch.topk`` promises no order
+    among ties)."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def without_routed(plan: ModelPlan) -> ModelPlan:
+    """``plan`` with the routed experts' entries dropped, so replaying it
+    keeps them dense (unplanned leaves stay as they are) while attention,
+    the shared expert and the head pack as planned: the way to serve MoE
+    through the Sparse-on-Dense kernels (fault R4)."""
+    return ModelPlan({p: e for p, e in plan.entries.items() if p not in ROUTED_PATHS},
+                     mesh=plan.mesh, meta=plan.meta)
+
+
+def router_logits(params: Params, xt: torch.Tensor, spec: MoESpec) -> torch.Tensor:
+    """Router logits (T, E) in float32: ``xt @ router`` with the router in
+    xt's dtype and float32 sums, the padded experts at -1e30."""
+    logits = ops.dense_matmul(xt, params["router"].to(xt.dtype), torch.float32)
+    if spec.n_experts_padded > spec.n_experts:
+        pad = torch.arange(spec.n_experts_padded, device=xt.device) >= spec.n_experts
+        logits = torch.where(pad, -1e30, logits)
+    return logits
+
+
+def shared_gate(params: Params, xt: torch.Tensor) -> torch.Tensor:
+    """The shared expert's gate (T, 1) in xt's dtype: the sigmoid of ``xt @
+    shared_gate``, the product rounded to xt's dtype first (the reference's
+    dot has no float32 preference here)."""
+    return torch.sigmoid(ops.dense_matmul(xt, params["shared_gate"].to(xt.dtype),
+                                          xt.dtype))
+
+
+def _check_dense_experts(params: Params) -> None:
+    packed = [n for n in ROUTED if isinstance(params[n], (TiledCSC, BlockCSR))]
+    if packed:
+        raise ValueError(
+            f"packed routed experts {packed} (fault R4, kept from the reference: "
+            "its batched expert einsum takes no packed operand, and neither does "
+            "the port); serve MoE under a pack plan without routed-expert "
+            "entries (.blocks.moe.w_gate / w_up / w_down; moe.without_routed), "
+            "which keeps them dense")
+
+
+def moe_mlp(params: Params, x: torch.Tensor, spec: MoESpec, plans=None):
+    """x (B, S, D) → (y (B, S, D), router aux loss (float32 scalar)).
+
+    ``plans`` maps the shared expert's projection names to their
+    :class:`repro_torch.core.plan.PackPlan`.  The routed experts must be
+    dense: a packed one raises ``ValueError`` (fault R4).
+    """
+    _check_dense_experts(params)
+    b, s, d = x.shape
+    t, k = b * s, spec.top_k
+    e = spec.n_experts_padded
+    xt = x.reshape(t, d)
+
+    probs = torch.softmax(router_logits(params, xt, spec), dim=-1)   # (T, E) f32
+    gate_vals, expert_ids = _top_k(probs, k)                  # (T, K)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+
+    # capacity dispatch, ranked within each of nb contiguous token blocks
+    nb = spec.dispatch_blocks if t % spec.dispatch_blocks == 0 else 1
+    tb = t // nb
+    cap = spec.capacity(tb)
+    slot = _rank_in_expert(expert_ids.reshape(nb, tb * k), e).reshape(t, k)
+    keep = slot < cap
+    flat_e = expert_ids.reshape(-1)
+    flat_b = torch.arange(nb, device=x.device).repeat_interleave(tb * k)
+    flat_slot = torch.where(keep, slot, cap).reshape(-1)      # cap: the drop bin
+    src = xt[:, None, :].expand(t, k, d).reshape(-1, d)
+    # every kept (e, b, slot) is unique, so a store equals the reference's add
+    # into zeros; only the drop bin, sliced away, takes more than one row
+    dispatched = torch.index_put(xt.new_zeros((e, nb, cap + 1, d)),
+                                 (flat_e, flat_b, flat_slot), src)
+    dispatched = dispatched[:, :, :cap].reshape(e, nb * cap, d)
+
+    h_gate = ops.dense_matmul(dispatched, params["w_gate"], xt.dtype)
+    h_up = ops.dense_matmul(dispatched, params["w_up"], xt.dtype)
+    h = layers.activate(h_gate, spec.act) * h_up
+    out_e = ops.dense_matmul(h, params["w_down"], xt.dtype).reshape(e, nb, cap, d)
+
+    gathered = out_e[flat_e, flat_b, flat_slot.clamp(0, cap - 1)]
+    gathered = torch.where(keep.reshape(-1, 1), gathered, 0)
+    weights = (gate_vals * keep).reshape(-1, 1).to(xt.dtype)
+    combined = (gathered * weights).reshape(t, k, d).sum(1)
+
+    if "shared" in params:
+        combined = combined + shared_gate(params, xt) * layers.mlp(
+            params["shared"], xt, spec.act, plans=plans)
+
+    # Switch-style load-balance loss; the reference's unused ``ce`` is skipped
+    me = probs.mean(0)
+    frac = torch.bincount(expert_ids.reshape(-1), minlength=e).float() / (t * k)
+    aux = spec.router_aux_weight * (frac * me).sum() * e
+    return combined.reshape(b, s, d), aux

@@ -1,18 +1,22 @@
 """Attention-family decoder: full-sequence forward and cached decode.
 
 Twin of the ``TransformerLM`` functions of :mod:`repro.models.transformer`
-for the dense family: tied or untied LM head, gemma-2's post norms, final
-logit soft-cap and local/global layers.  Layers are a Python loop
-over per-layer parameter dicts — the reference's ``scan_layers=False``
-lowering — so every packed projection is one unstacked operand and runs the
-fused kernel.  The paged functions serve the continuous-batching engine:
-its KV pool is ``{"k", "v"}`` of shape (L, n_pages, page, KV, hd) — layer,
-page id, offset in the page, KV head, head dim — where the reference stacks
-(G, P, n_pages, page, KV, hd); every layer indexes its pool with the same
-block tables.  The pool, like the static cache, is updated in place.  An
-untied head is a packed ``head`` leaf like any projection, so it runs the
-Sparse-on-Dense kernel with float32 out.  MoE, the hybrid and xLSTM
-assemblies and the VLM and audio frontends are not ported yet.
+for the dense and MoE families: tied or untied LM head, gemma-2's post
+norms, final logit soft-cap and local/global layers, and a block's MLP
+either dense or the Mixture-of-Experts block of :mod:`repro_torch.models.moe`
+(whose router aux loss the full forward sums over the layers; the decode,
+prefill-chunk and verify paths drop it, as the reference does).  Layers are
+a Python loop over per-layer parameter dicts — the reference's
+``scan_layers=False`` lowering — so every packed projection is one
+unstacked operand and runs the fused kernel.  The paged functions serve the
+continuous-batching engine: its KV pool is ``{"k", "v"}`` of shape (L,
+n_pages, page, KV, hd) — layer, page id, offset in the page, KV head, head
+dim — where the reference stacks (G, P, n_pages, page, KV, hd); every layer
+indexes its pool with the same block tables.  The pool, like the static
+cache, is updated in place.  An untied head is a packed ``head`` leaf like
+any projection, so it runs the Sparse-on-Dense kernel with float32 out.
+The hybrid and xLSTM assemblies and the VLM and audio frontends are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import sod
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 
 Params = dict[str, Any]
 
@@ -36,8 +40,9 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a model family the port does not have yet (all but dense)."""
-    if cfg.family != "dense":
+    """Raise for a model family the port does not have yet (all but dense
+    and MoE)."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} not ported yet")
 
@@ -51,20 +56,36 @@ def attn_spec(cfg: ModelConfig) -> attn.AttnSpec:
         chunk_k=cfg.attn_chunk)
 
 
+def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
+    """The MoE spec of every layer of an MoE ``cfg``."""
+    return moe.MoESpec(
+        n_experts=cfg.n_experts,
+        n_experts_padded=moe.pad_experts(cfg.n_experts, cfg.ep_axis),
+        top_k=cfg.top_k, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        n_shared=cfg.n_shared_experts, d_shared_ff=cfg.d_shared_ff,
+        capacity_factor=cfg.capacity_factor,
+        router_aux_weight=cfg.router_aux_weight, act=cfg.act,
+        dispatch_blocks=cfg.moe_dispatch_blocks, a2a_axis=cfg.moe_a2a_axis)
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 def init_attn_block(gen: torch.Generator, cfg: ModelConfig,
                     device: torch.device) -> Params:
-    """One layer: two RMSNorm gains, attention and MLP projections, and with
-    ``cfg.use_post_norms`` the gains of the norms after attention and MLP."""
+    """One layer: two RMSNorm gains, attention projections, the MLP (``moe``
+    for the MoE family, else ``mlp``), and with ``cfg.use_post_norms`` the
+    gains of the norms after attention and MLP."""
     dt = dtype_of(cfg)
     p: Params = {
         "norm1": layers.init_rms_norm(cfg.d_model, device),
         "norm2": layers.init_rms_norm(cfg.d_model, device),
         "attn": attn.init_attention(gen, cfg.d_model, attn_spec(cfg), dt, device),
-        "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe.init_moe(gen, moe_spec(cfg), dt, device)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
     if cfg.use_post_norms:
         p["norm1_post"] = layers.init_rms_norm(cfg.d_model, device)
         p["norm2_post"] = layers.init_rms_norm(cfg.d_model, device)
@@ -111,15 +132,21 @@ def _post_norm(bp: Params, name: str, y: torch.Tensor, cfg: ModelConfig,
     return layers.rms_norm(y, bp[name], cfg.norm_eps)
 
 
-def _mlp(bp: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    # the active plan's entries for this block's projections (the layer
-    # stack shares one path, hence one entry)
-    return layers.mlp(bp["mlp"], h, cfg.act, plans=plan_mod.active_subplans("mlp"))
+def _apply_mlp(bp: Params, h: torch.Tensor, cfg: ModelConfig):
+    """The block's MLP: ``(y, aux)``, the MoE block's router aux loss or 0.
+    The active plan's entries for the block's projections go with it (the
+    layer stack shares one path, hence one entry): the MLP's, or the MoE
+    shared expert's."""
+    if cfg.family == "moe":
+        return moe.moe_mlp(bp["moe"], h, moe_spec(cfg),
+                           plans=plan_mod.active_subplans("shared"))
+    return layers.mlp(bp["mlp"], h, cfg.act,
+                      plans=plan_mod.active_subplans("mlp")), 0.0
 
 
 def attn_block_full(bp: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, window: int | None):
-    """Full-sequence block.  Returns (x, (k, v))."""
+    """Full-sequence block.  Returns (x, (k, v), aux)."""
     spec = attn_spec(cfg)
     h = layers.rms_norm(x, bp["norm1"], cfg.norm_eps)
     q, k, v = attn._project_qkv(bp["attn"], h, spec, positions)
@@ -130,7 +157,8 @@ def attn_block_full(bp: Params, x: torch.Tensor, cfg: ModelConfig,
                    plan=plan_mod.active_entry("attn.wo"))
     x = x + _post_norm(bp, "norm1_post", ao, cfg)
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + _post_norm(bp, "norm2_post", _mlp(bp, h2, cfg), cfg), (k, v)
+    mo, aux = _apply_mlp(bp, h2, cfg)
+    return x + _post_norm(bp, "norm2_post", mo, cfg), (k, v), aux
 
 
 def attn_block_decode(bp: Params, x: torch.Tensor, cache: Params, pos,
@@ -152,7 +180,7 @@ def attn_block_decode(bp: Params, x: torch.Tensor, cache: Params, pos,
             valid_len=valid_len)
     x = x + _post_norm(bp, "norm1_post", ao, cfg)
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + _post_norm(bp, "norm2_post", _mlp(bp, h2, cfg), cfg), cache
+    return x + _post_norm(bp, "norm2_post", _apply_mlp(bp, h2, cfg)[0], cfg), cache
 
 
 def attn_block_prefill_chunk(bp: Params, x: torch.Tensor, layer_pool: Params,
@@ -171,7 +199,7 @@ def attn_block_prefill_chunk(bp: Params, x: torch.Tensor, layer_pool: Params,
     ao = sod.apply(ao, bp["attn"]["wo"], plan=plan_mod.active_entry("attn.wo"))
     x = x + _post_norm(bp, "norm1_post", ao, cfg)
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
-    return x + _post_norm(bp, "norm2_post", _mlp(bp, h2, cfg), cfg), layer_pool
+    return x + _post_norm(bp, "norm2_post", _apply_mlp(bp, h2, cfg)[0], cfg), layer_pool
 
 
 def _norm_rows(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
@@ -201,7 +229,7 @@ def attn_block_verify(bp: Params, x: torch.Tensor, layer_pool: Params,
         attn_spec(cfg), window=window)
     x = x + _post_norm(bp, "norm1_post", ao, cfg, rows=True)
     h2 = _norm_rows(x, bp["norm2"], cfg.norm_eps)
-    mo = _post_norm(bp, "norm2_post", _mlp(bp, h2, cfg), cfg, rows=True)
+    mo = _post_norm(bp, "norm2_post", _apply_mlp(bp, h2, cfg)[0], cfg, rows=True)
     return x + mo, layer_pool
 
 
@@ -255,23 +283,28 @@ def _remat_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def transformer_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                         want_cache: bool = False):
-    """Logits (B, S, V) and, with ``want_cache``, the KV cache
-    ``{"k", "v"}`` of shape (L, B, S, KV, hd).  Under ``cfg.remat`` (full
-    width) a forward that records gradients checkpoints every block."""
+    """``(logits (B, S, V), aux, cache)``: ``aux`` is the MoE blocks'
+    router aux losses summed over the layers (a float32 scalar; the float 0
+    for the dense family), ``cache`` with ``want_cache`` the KV cache
+    ``{"k", "v"}`` of shape (L, B, S, KV, hd), else None.  Under
+    ``cfg.remat`` (full width) a forward that records gradients checkpoints
+    every block."""
     x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     ks, vs = [], []
+    aux = 0.0
     remat = cfg.remat and not want_cache and torch.is_grad_enabled()
     block = _remat_block if remat else attn_block_full
     for i, bp in enumerate(params["layers"]):
-        x, (k, v) = block(bp, x, cfg, positions, cfg.window_for(i))
+        x, (k, v), a = block(bp, x, cfg, positions, cfg.window_for(i))
+        aux = aux + a
         if want_cache:
             ks.append(k)
             vs.append(v)
     logits = project_logits(params, x, cfg)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache else None
-    return logits, cache
+    return logits, aux, cache
 
 
 def transformer_decode(params: Params, cache: Params, tokens: torch.Tensor,

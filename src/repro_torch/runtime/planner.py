@@ -71,8 +71,8 @@ def _pruned(ws, sod_cfg: SoDConfig, tile, prune: bool) -> list[torch.Tensor]:
     prunes twice by design: here to observe capacities, there to pack, so
     the plan stays a pure value; pruning is deterministic)."""
     if prune and sod_cfg.density < 1.0:
-        return [sod.prune_weight(w, sod_cfg.density, sod_cfg.prune_method, tile,
-                                 sod_cfg.br) for w in ws]
+        return [sod._prune_leaf(w, sod_cfg.density, sod_cfg.prune_method, tile,
+                                sod_cfg.br) for w in ws]
     return ws
 
 
@@ -146,7 +146,7 @@ def _select_qmode(e: PackPlan, ws, requested: str, drift_budget: float,
     if _is_abstract(ws):
         drifts, tag = dict(NOMINAL_QDRIFT), "nominal"
     else:
-        w2 = ws[0]
+        w2 = ws[0].reshape((-1,) + tuple(ws[0].shape[-2:]))[0]   # the first matrix
         if prune and sod_cfg.density < 1.0:
             w2 = sod.prune_weight(w2, sod_cfg.density, e.prune_method, e.tile, e.br)
         drifts, tag = _measured_qdrift(w2, e), "measured"

@@ -66,7 +66,14 @@ LM head is one cuBLAS GEMM, at one row in static serving and ``max_slots``
 either, so two logits within a rounding of each other can break an argmax
 tie the other way.  An untied head is a packed operand like any projection:
 it runs the SoD kernel, whose rows are equal across M by design (the K
-splits come from one M block; fault C3 in ``ROADMAP.md``).
+splits come from one M block; fault C3 in ``ROADMAP.md``).  The MoE
+family's router and shared gate are dense cuBLAS GEMMs held row-invariant
+at these shapes the same way (``scripts/serve_probe.py invariance``).  One
+exception is the reference's own: MoE routing is batch-global, so when an
+expert's capacity (at least 128 slots a forward) overflows, an engine
+batch can drop other tokens than a batch-1 run, and the engine can then
+differ from :func:`static_generate`.  A forward of at most 128 tokens
+drops none: an expert takes at most one assignment a token.
 
 Tensors live on the device of the model's parameters.  Block tables,
 positions, tokens and write cutoffs are kept in numpy on the host and go up

@@ -1344,3 +1344,191 @@ def test_decompress_every_plan_bit_equal(cuda, launch, qmode, monkeypatch):
             _check_decompress(q, dtype)
     finally:
         dk.plan_launch.cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# the MoE block on the card
+# ---------------------------------------------------------------------------
+def _moe_on(tree, dev, dtype):
+    """MoE weights on ``dev``: the router and shared gate in float32, as
+    ``init_moe`` makes them, the rest in ``dtype``."""
+    return {k: _moe_on(v, dev, dtype) if isinstance(v, dict) else
+            v.to(dev, torch.float32 if k in ("router", "shared_gate") else dtype)
+            for k, v in tree.items()}
+
+
+def _moe_case(dev, spec, dtype, seed=0, t=64):
+    """(CPU float32 weights, CPU x (2, t/2, d), the same on ``dev`` in
+    ``dtype``) of an MoE block drawn from ``seed``."""
+    from repro_torch.models import moe
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    params = moe.init_moe(g, spec, torch.float32, torch.device("cpu"))
+    params["router"] = params["router"] * 8      # sharper routing than N(0, 1/d)
+    x = torch.randn(2, t // 2, spec.d_model, generator=g)
+    return params, x, _moe_on(params, dev, dtype), x.to(dev, dtype)
+
+
+MOE_SPECS = {"granite": dict(n_experts=32, n_experts_padded=32, top_k=8, d_model=1024,
+                             d_ff=512),
+             "qwen": dict(n_experts=60, n_experts_padded=64, top_k=4, d_model=2048,
+                          d_ff=1408, n_shared=4, d_shared_ff=5632)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_SPECS)
+def test_moe_mlp_on_card_matches_cpu_f32(cuda, arch):
+    """The MoE block at the configs' widths in float32: the card's output and
+    aux loss against the CPU run of the same weights (sums in another
+    order, TF32 off), the same experts chosen."""
+    from repro_torch.models import moe
+
+    spec = moe.MoESpec(**MOE_SPECS[arch])
+    params, x, dparams, dx = _moe_case(cuda, spec, torch.float32)
+    want, want_aux = moe.moe_mlp(params, x, spec)
+    got, aux = moe.moe_mlp(dparams, dx, spec)
+    tol = TOL[torch.float32] * want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= tol
+    assert abs(aux.item() - want_aux.item()) <= 1e-5 * want_aux.item()
+    ids = lambda p, xx: moe._top_k(torch.softmax(moe.router_logits(  # noqa: E731
+        p, xx.reshape(-1, spec.d_model), spec), -1), spec.top_k)[1]
+    assert torch.equal(ids(dparams, dx).cpu(), ids(params, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduced_precision", [False, True])
+def test_moe_expert_products_keep_f32_sums(cuda, reduced_precision, monkeypatch):
+    """``ops.dense_matmul`` on bf16 expert stacks sums in float32 whatever
+    ``allow_bf16_reduced_precision_reduction`` says: its f32 result is the
+    widened operands' f32 product (sums in another order), far inside
+    what a bf16 reduction would drift, and so are both gradients."""
+    from repro_torch.kernels import ops
+
+    monkeypatch.setattr(torch.backends.cuda.matmul,
+                        "allow_bf16_reduced_precision_reduction", reduced_precision)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    a = torch.randn(64, 128, 2048, generator=g, device=cuda).bfloat16()
+    b = (torch.randn(64, 2048, 1408, generator=g, device=cuda) / 45).bfloat16()
+    want = torch.bmm(a.float(), b.float())
+    got = ops.mm_f32(a, b)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(ops.dense_matmul(a, b, torch.bfloat16), got.bfloat16())
+    a.requires_grad_(True)
+    b.requires_grad_(True)
+    cot = torch.randn(64, 128, 1408, generator=g, device=cuda)
+    ops.dense_matmul(a, b, torch.float32).backward(cot)
+    ga = torch.bmm(cot, b.detach().float().transpose(1, 2))
+    gb = torch.bmm(a.detach().float().transpose(1, 2), cot)
+    assert a.grad.dtype == b.grad.dtype == torch.bfloat16
+    assert (a.grad.float() - ga).abs().max().item() <= 2**-7 * ga.abs().max().item()
+    assert (b.grad.float() - gb).abs().max().item() <= 2**-7 * gb.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE_SPECS)
+def test_router_and_shared_gate_rows_invariant(cuda, arch):
+    """The router logits and the shared gate in bf16: a row's bits are the
+    same alone (static decode), among the engine's 4 slots, at a 64-token
+    prompt bucket and at 128 rows (static prefill), so the experts chosen
+    for a token do not depend on the rows beside it."""
+    from repro_torch.models import moe
+
+    spec = moe.MoESpec(**MOE_SPECS[arch])
+    _, _, params, x = _moe_case(cuda, spec, torch.bfloat16, t=128)
+    xt = x.reshape(-1, spec.d_model)
+    fns = {"router": lambda m: moe.router_logits(params, xt[:m], spec)}
+    if spec.n_shared:
+        fns["shared_gate"] = lambda m: moe.shared_gate(params, xt[:m])
+    for name, fn in fns.items():
+        outs = {m: fn(m) for m in (1, 4, 64, 128)}
+        for row in (0, 3, 37, 127):
+            for m, y in outs.items():
+                if row < m:
+                    alone = (outs[1] if row == 0 else
+                             (moe.router_logits(params, xt[row:row + 1], spec)
+                              if name == "router" else
+                              moe.shared_gate(params, xt[row:row + 1])))
+                    assert torch.equal(y[row], alone[0]), (name, row, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,density", [((2048, 1408), 0.3), ((300, 260), 0.05),
+                                           ((64, 1024, 512), 0.3), ((128, 128), 1e-6)])
+def test_magnitude_prune_on_card_equals_cpu(cuda, shape, density, dtype):
+    """The card's threshold (a sort) is the CPU's (``torch.kthvalue``): the
+    same mask bit for bit, ties at the threshold (frequent in bf16) kept
+    alike."""
+    from repro_torch.core.pruning import magnitude_prune
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(11)
+    w = torch.randn(*shape, generator=g).to(dtype)
+    assert torch.equal(magnitude_prune(w.to(cuda), density).cpu(),
+                       magnitude_prune(w, density))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(16, 16, 128), (16, 8, 64), (32, 8, 64)])
+def test_decode_attention_rows_invariant_at_moe_heads(cuda, heads):
+    """Decode attention in bf16 at qwen2-moe-a2.7b's heads (one query head
+    a KV head), granite-moe's and llama's: a row at batch 4 over the
+    engine's 80 gathered positions has the bits of that row alone over
+    static serving's shorter cache."""
+    from repro_torch.models import attention as attn
+
+    h, kv, hd = heads
+    spec = attn.AttnSpec(n_heads=h, n_kv_heads=kv, head_dim=hd)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(12)
+    for _ in range(8):
+        q = torch.randn(4, 1, h, hd, generator=g, device=cuda).bfloat16()
+        k = torch.randn(4, 80, kv, hd, generator=g, device=cuda).bfloat16()
+        v = torch.randn(4, 80, kv, hd, generator=g, device=cuda).bfloat16()
+        pos = torch.randint(32, 79, (4,), generator=g, device=cuda)
+        batch = attn._attend_cached(q, k, v, pos, spec, None)
+        for row in range(4):
+            p = int(pos[row])
+            for s in (p + 1, min(p + 9, 80)):
+                one = attn._attend_cached(q[row:row + 1], k[row:row + 1, :s],
+                                          v[row:row + 1, :s], p, spec, None)
+                assert torch.equal(batch[row], one[0]), (row, s)
+
+
+@pytest.mark.cuda
+def test_prefill_attention_rows_invariant_at_mha_heads(cuda):
+    """Prefill attention at qwen2-moe-a2.7b's heads: a prompt's rows keep
+    their bits at its page bucket."""
+    from repro_torch.models import attention as attn
+
+    spec = attn.AttnSpec(n_heads=16, n_kv_heads=16, head_dim=128)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(13)
+    for plen in (33, 47, 52, 64):
+        bucket = -(-plen // 16) * 16
+        q, k, v = (torch.randn(1, bucket, 16, 128, generator=g, device=cuda).bfloat16()
+                   for _ in range(3))
+        bare = attn.chunked_attention(q[:, :plen], k[:, :plen], v[:, :plen], spec)
+        padded = attn.chunked_attention(q, k, v, spec)[:, :plen]
+        assert torch.equal(bare, padded), plen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1024, 2048])
+def test_rms_norm_rows_of_four_equal_rows_alone(cuda, d):
+    """RMSNorm at the engine's decode shape (4, 1, d) against static
+    decode's (1, 1, d), every row, residual-stream magnitudes: no row's
+    bits differ (its mean of squares is summed in float64)."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=cuda)
+    g.manual_seed(14)
+    gain = torch.randn(d, generator=g, device=cuda) * 0.1
+    x = (torch.randn(512, 4, 1, d, generator=g, device=cuda) * 30).bfloat16()
+    for i in range(512):
+        four = layers.rms_norm(x[i], gain)
+        for r in range(4):
+            assert torch.equal(four[r], layers.rms_norm(x[i, r:r + 1], gain)[0]), (i, r)
