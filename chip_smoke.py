@@ -149,13 +149,38 @@ Phases, each of which raises on failure (so the script exits non-zero):
    idle share); ``train_granite`` trains full depth under its own plan,
    batch 8 × seq 128, 4 steps (finite losses, gradient norms and aux
    losses, every aux above 0, 2 × 96 ``sod_matmul`` and 96
-   ``decompress`` launches a step, only ``cuda_fused`` dispatched).
+   ``decompress`` launches a step, only ``cuda_fused`` dispatched);
+11. recurrent_family — the recurrent families at full width, through the
+   SoD kernels (every Mamba2, mLSTM, shared-block and head projection
+   packed; Mamba2's w_b, w_c, w_dt, mLSTM's w_if and sLSTM's gates dense,
+   as the reference).  First each kernel at the shapes the families add
+   (RECURRENT_SHAPES: zamba2's 2560 × 5120, 5120 × 2560 and shared MLP,
+   both heads at f32 out, xlstm's 1536 × 1536 and 768 × 3072), at M = 4
+   and 128, as phase 9 runs them.  Then three static cells (batch 4,
+   prompt 32, 16 tokens, density 0.3): ``zamba2_tiled_csc`` (full depth:
+   54 Mamba2 blocks, the shared block applied 9 times, untied head),
+   ``zamba2_block_csr`` (block-pruned, 12 layers) and ``xlstm_tiled_csc``
+   (full depth), each prompt replayed through the decode step, so a cell
+   launches its kernel _recurrent_per_step × 48 times ((54 · 3 + 9 · 7 +
+   1) × 48 = 10,848 for zamba2, (9 · 5 + 1) × 48 = 2,208 for xlstm) and
+   no other, with no ``torch_oracle`` dispatch, finite logits and the
+   last prompt position's logits within LOGIT_TOL of the densified
+   weights' (both stepped); zamba2's chunked SSD forward (``LM.apply``)
+   held against its stepped decode at that position within LOGIT_TOL; one
+   zamba2 decode step profiled by class (SoD kernels, scan and conv, the
+   dense GEMMs, attention, the head alone); engine runs in the slot
+   regime on zamba2's and xlstm's weights over phase 6's trace, every
+   request equal to ``static_generate`` bit for bit; ``train_xlstm`` and
+   ``train_zamba2`` at full width and depth (batch 8 × seq 128, 4 steps,
+   remat: finite losses and gradient norms, (2 · (per step - 1) + 1)
+   ``sod_matmul`` and per-step ``decompress`` launches a step, only
+   ``cuda_fused`` dispatched), one step of each profiled.
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
 kernel and qmode, with the launches and registry dispatches of phase 7's
 runs, the launches and gradient error of phase 8, and phase 9's launches
-by cell and its shapes' times, and phase 10's the same way), and
+by cell and its shapes' times, and phases 10 and 11 the same way), and
 ``{"ok": true, "device": {...}}``.  The whole run reads and
 writes a tuning cache of its own in a temporary directory, so phases 4-6
 dispatch on a cold cache (the untuned launches).
@@ -634,12 +659,17 @@ def _routing(record: list | None = None, replay: list | None = None):
 
 
 def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int,
-                   per_layer: int = 7) -> dict:
+                   per_layer: int = 7, want_packed: int | None = None,
+                   prefill=None) -> dict:
     """The same weights, prefill through the kernel and through the dense
     matmul on the weights densified by ops.decompress: logits within
     LOGIT_TOL of the dense path's largest, and ``decompress`` launched once
     a packed TiledCSC projection (all ``layers`` x ``per_layer`` of them,
-    and a packed head, when the ``kernel`` is ``sod_matmul``).  An MoE
+    and a packed head, when the ``kernel`` is ``sod_matmul``; a recurrent
+    model's ``want_packed``, every packed leaf of its tree).  ``prefill``
+    (weights → (last logits, cache)) replaces ``model.prefill``: a
+    recurrent model's is the serve path's, the prompt stepped through the
+    decode step.  An MoE
     model's dense path routes every token to the experts the kernel path
     chose (:func:`_routing`): a top-k choice is a step function of the
     router's logits, so a rounding apart between the paths can send a token
@@ -648,13 +678,15 @@ def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int,
     agreement, and the share of (token, layer) expert sets that differ).
     Returns the logged row (without the logits, which are under
     ``"logits"``)."""
-    proj = _projections(params)
+    proj = (_recurrent_packed(params) if want_packed is not None
+            else _projections(params))
+    prefill = prefill or (lambda p: model.prefill(p, tokens))
     packed = [w for ws in proj.values() for w in ws]
     routed = model.cfg.family == "moe"
     kernel_ids, free_ids, free = [], [], {}
     with torch.inference_mode():
         with _routing(record=kernel_ids) if routed else contextlib.nullcontext():
-            lk, _ = model.prefill(params, tokens)
+            lk, _ = prefill(params)
         dk.launches = 0
         dense = _densify(params)
         decompress_launches = dk.launches
@@ -671,7 +703,7 @@ def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int,
                     "own_routing_expert_sets_that_differ": statistics.mean(flips)}
             del lf
         with _routing(replay=list(kernel_ids)) if routed else contextlib.nullcontext():
-            ld, _ = model.prefill(dense, tokens)
+            ld, _ = prefill(dense)
         del dense
         ld = ld[:, :vocab].float()
         err = (lk - ld).abs().max().item()
@@ -680,7 +712,8 @@ def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int,
     want_decompress = sum(isinstance(w, TiledCSC) for w in packed)
     if decompress_launches != want_decompress or (
             kernel == "sod_matmul"
-            and want_decompress != layers * per_layer + ("head" in proj)):
+            and want_decompress != (want_packed if want_packed is not None
+                                    else layers * per_layer + ("head" in proj))):
         raise AssertionError(f"{label}: densifying launched decompress "
                              f"{decompress_launches} times, want {want_decompress}")
     row = {"phase": "slice_vs_dense", "cell": label, "max_abs_err": err,
@@ -2521,6 +2554,410 @@ def _family_entry(name: str, qmode: str, family: dict) -> dict:
         out["family_head_grad_max_abs_err"] = family["train"]["head_grad_err"]
     return out
 
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent families
+# ---------------------------------------------------------------------------
+# (K, N) -> (what, the output dtype on the model's path)
+RECURRENT_SHAPES = {
+    "sod_matmul": {(2560, 5120): ("zamba2 w_z+w_x", torch.bfloat16),
+                   (5120, 2560): ("zamba2 out_proj", torch.bfloat16),
+                   (2560, 10240): ("zamba2 shared w_gate+w_up", torch.bfloat16),
+                   (2560, 32000): ("zamba2 head", torch.float32),
+                   (1536, 1536): ("xlstm wq+wk+wv", torch.bfloat16),
+                   (768, 3072): ("xlstm w_up", torch.bfloat16),
+                   (768, 50304): ("xlstm head", torch.float32)},
+    "block_matmul": {(2560, 5120): ("zamba2 w_z+w_x", torch.bfloat16),
+                     (5120, 2560): ("zamba2 out_proj", torch.bfloat16),
+                     (2560, 32000): ("zamba2 head", torch.float32)},
+    "decompress": {(2560, 5120): ("zamba2 w_z+w_x", None),
+                   (5120, 2560): ("zamba2 out_proj", None),
+                   (1536, 1536): ("xlstm wq+wk+wv", None)},
+}
+RECURRENT_QMODES = {"sod_matmul": ("none", "int8"), "block_matmul": ("none",),
+                    "decompress": ("none",)}
+# cell -> (arch, layers (None: full depth), flags, caller's SoDConfig, kernel)
+RECURRENT_CELLS = {
+    "zamba2_tiled_csc": ("zamba2-2.7b", None, FAMILY_TILED, None, "sod_matmul"),
+    # two of the nine groups, full width: enough to run block_matmul at every
+    # shape of the model, and the phase's time stays within the script's
+    "zamba2_block_csr": ("zamba2-2.7b", 12, [], _block_sod(), "block_matmul"),
+    "xlstm_tiled_csc": ("xlstm-125m", None, FAMILY_TILED, None, "sod_matmul"),
+}
+RECURRENT_ENGINE_RUNS = {"zamba2_tiled_csc": "zamba2_tiled_csc",
+                         "xlstm_tiled_csc": "xlstm_tiled_csc"}
+# run -> arch; both at full width and depth
+RECURRENT_TRAIN_RUNS = {"train_xlstm": "xlstm-125m", "train_zamba2": "zamba2-2.7b"}
+RECURRENT_TRAIN_STEPS = 4
+# a recurrent cell replays its 32-token prompt through the decode step, then
+# decodes 16 tokens: 48 decode steps, each running every packed projection
+# once (the hybrid's shared block once an application)
+RECURRENT_DECODE_STEPS = 32 + 16
+
+
+def _recurrent_per_step(cfg) -> int:
+    """Packed projections one forward runs, from the config: the hybrid's
+    3 a Mamba2 block (w_z, w_x, out_proj), 7 a shared-block application
+    (wq, wk, wv, wo, w_gate, w_up, w_down; one every hybrid_attn_every
+    blocks) and the head; the xLSTM's 5 an mLSTM block (w_up, wq, wk, wv,
+    w_down; sLSTM's gates stay dense) and the head."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers * 3 + cfg.n_layers // cfg.hybrid_attn_every * 7 + 1
+    return cfg.n_layers // cfg.slstm_every * (cfg.slstm_every - 1) * 5 + 1
+
+
+def _recurrent_packed(params) -> dict[str, list]:
+    """The packed leaves of a recurrent tree by path: each stack's
+    (``mamba_blocks.mamba.w_z``: one a block), the shared block's and the
+    head."""
+    out = {}
+    for key, v in params.items():
+        if isinstance(v, list):
+            blocks = sod_mod._flat(v)[0]
+            out.update({f"{key}.{p}": [_at(b, p) for b in blocks]
+                        for p in _packed_paths(blocks[0])})
+        elif isinstance(v, dict):
+            out.update({f"{key}.{p}": [_at(v, p)] for p in _packed_paths(v)})
+        elif isinstance(v, (TiledCSC, BlockCSR)):
+            out[key] = [v]
+    return out
+
+
+def _runs_a_step(params, cfg) -> int:
+    """Packed projections one forward runs, counted on the packed tree."""
+    apps = cfg.n_layers // cfg.hybrid_attn_every if cfg.family == "hybrid" else 1
+    return sum(len(ws) * (apps if path.startswith("shared_attn.") else 1)
+               for path, ws in _recurrent_packed(params).items())
+
+
+def phase_recurrent_serve(cell: str) -> dict:
+    """One RECURRENT_CELLS cell at full width: its weights prepared (at its
+    depth cut through ``prepare(cfg=...)``), served through ``serve.main``
+    with every launch count read around the run (the prompt replayed
+    through the decode step: _recurrent_per_step × 48 launches of its
+    kernel, none of the others, no ``torch_oracle`` dispatch), then its
+    last prompt position's logits held against the densified weights'
+    (both through the serve path: the prompt stepped through the decode
+    step)."""
+    arch, layers, flags, sod, kernel = RECURRENT_CELLS[cell]
+    argv = ["--arch", arch, *FAMILY_BASE, *flags]
+    args = serve.parse_args(argv)
+    full = configs.get_config(arch)
+    t0 = time.perf_counter()
+    model, params, tokens, *_ = serve.prepare(
+        args, sod, full.with_(n_layers=layers) if layers else None)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    cfg = model.cfg
+    per_step = _recurrent_per_step(cfg)
+    if _runs_a_step(params, cfg) != per_step or not isinstance(params["head"],
+                                                               (TiledCSC, BlockCSR)):
+        raise AssertionError(f"{cell}: {_runs_a_step(params, cfg)} packed projections a "
+                             f"step, want {per_step}; head {type(params['head'])}")
+    reset_counts()
+    summary = serve.main(argv, sod=sod, prepared=(model, params, tokens))
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    expect = {"sod_matmul": 0, "block_matmul": 0, "decompress": 0}
+    expect[kernel] = per_step * RECURRENT_DECODE_STEPS
+    oracle = [k for k in summary["kernel_dispatch"] if k.startswith("torch_oracle")]
+    if launches != expect or oracle or summary["kernel_launches"] != {
+            k: v for k, v in expect.items() if k != "decompress"}:
+        raise AssertionError(f"{cell}: launches {launches} (summary "
+                             f"{summary['kernel_launches']}), want {expect}; dispatch "
+                             f"{summary['kernel_dispatch']}")
+    wb = summary["weight_bytes"]
+    if not (summary["logits_finite"] and wb["compressed"] < wb["dense"]):
+        raise AssertionError(f"{cell}: non-finite logits or packed bytes not below "
+                             f"dense: {summary['logits_finite']}, {wb}")
+    log({"phase": "recurrent", "cell": cell, "arch": arch, "layers": cfg.n_layers,
+         "depth_cut": f"{full.n_layers} -> {layers}" if layers else None,
+         "pack_s": pack_s, "launches": launches,
+         "launches_want": f"{per_step} a step x {RECURRENT_DECODE_STEPS} steps",
+         "kernel_dispatch": summary["kernel_dispatch"],
+         "prefill_s": summary["prefill_s"], "warmup_s": summary["warmup_s"],
+         "steady_tok_per_s": summary["steady_tok_per_s"],
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "sample": summary["sample"], "weight_bytes": wb})
+    n_packed = sum(len(ws) for ws in _recurrent_packed(params).values())
+    row = check_vs_dense(cell, model, params, tokens, kernel, 1, want_packed=n_packed,
+                         prefill=lambda p: serve.prefill_cache(model, p, tokens,
+                                                               tokens.shape[1])[:2])
+    return {"launches": launches[kernel], "decompress_launches": row["decompress_launches"],
+            "model": model, "params": params, "tokens": tokens, "logits": row["logits"]}
+
+
+def phase_recurrent_chunked(cell: str, sl: dict) -> None:
+    """``LM.apply`` (the chunked SSD form, which static serving never runs)
+    against the stepped decode path at the last prompt position, on the
+    cell's packed weights: within LOGIT_TOL of the stepped logits' largest
+    magnitude (both round to bf16, in other places of the sums)."""
+    model, params, tokens = sl["model"], sl["params"], sl["tokens"]
+    with torch.inference_mode():
+        chunked = model.prefill(params, tokens)[0]
+    chunked = chunked[:, :model.cfg.vocab].float()
+    stepped = sl["logits"]                   # check_vs_dense's kernel-path prefill
+    err = (chunked - stepped).abs().max().item()
+    scale = stepped.abs().max().item()
+    agree = (chunked.argmax(-1) == stepped.argmax(-1)).float().mean().item()
+    log({"phase": "recurrent_chunked_vs_stepped", "cell": cell, "max_abs_err": err,
+         "max_abs_logit": scale, "tol": LOGIT_TOL * scale, "argmax_agreement": agree})
+    if not err <= LOGIT_TOL * scale:
+        raise AssertionError(f"{cell}: the chunked forward's last logits differ from the "
+                             f"stepped decode's: {err} > {LOGIT_TOL * scale}")
+
+
+def phase_recurrent_engine(run: str, cells: dict) -> dict:
+    """One engine run (the slot regime, fused admission: each prompt
+    replayed through the batch-1 decode step) through ``serve.main
+    --engine`` on a cell's packed weights over phase 6's trace (4 slots),
+    every request held against ``static_generate`` bit for bit; the cell's
+    kernel launched and the others not, no ``torch_oracle`` dispatch."""
+    cell = RECURRENT_ENGINE_RUNS[run]
+    arch, *_, kernel = RECURRENT_CELLS[cell]
+    sl = cells[cell]
+    model, params = sl["model"], sl["params"]
+    reset_counts()
+    summary = serve.main(["--arch", arch] + ENGINE_ARGV[2:],
+                         prepared=(model, params, sl["tokens"]))
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    trace, tokens = summary["trace"], summary["tokens"]
+    other = "block_matmul" if kernel == "sod_matmul" else "sod_matmul"
+    oracle = [k for k in summary["kernel_dispatch"] if k.startswith("torch_oracle")]
+    if not (launches[kernel] > 0 and launches[other] == 0 and launches["decompress"] == 0
+            and not oracle and summary["logits_finite"]
+            and summary["page_size"] is None):
+        raise AssertionError(f"engine {run}: launches {launches}, dispatch "
+                             f"{summary['kernel_dispatch']}, finite "
+                             f"{summary['logits_finite']}, page size {summary['page_size']}")
+    if summary["completed"] != len(trace) or set(tokens) != {r.rid for r in trace}:
+        raise AssertionError(f"engine {run}: {summary['completed']} of "
+                             f"{len(trace)} requests completed")
+    static_s = _check_tokens(run, model, params, trace, tokens)
+    row = {"phase": "recurrent_engine", "run": run, "cell": cell,
+           "launches": launches[kernel], "kernel_dispatch": summary["kernel_dispatch"],
+           "prompt_lens": [len(r.tokens) for r in trace],
+           "bit_equal_to_static_generate": True, "static_generate_s": static_s,
+           **{k: summary[k] for k in (
+               "completed", "steps", "generated_tokens", "warmup_s", "steady_tok_per_s",
+               "p50_latency_s", "p99_latency_s", "ttft_p50_s", "ttft_p99_s",
+               "step_ms_p50", "step_ms_p99", "logits_finite")}}
+    log(row)
+    return row
+
+
+@contextlib.contextmanager
+def _ranges(spots):
+    """While open, each ``(module, function name, label)`` of ``spots``
+    runs inside ``torch.profiler.record_function(label)``."""
+    from torch.profiler import record_function
+
+    saved = [(mod, name, getattr(mod, name), label) for mod, name, label in spots]
+
+    def wrap(fn, label):
+        def inner(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return inner
+
+    for mod, name, fn, label in saved:
+        setattr(mod, name, wrap(fn, label))
+    try:
+        yield
+    finally:
+        for mod, name, fn, _ in saved:
+            setattr(mod, name, fn)
+
+
+def phase_recurrent_profile(sl: dict) -> None:
+    """One steady static decode step of zamba2-2.7b (batch 4, full width and
+    depth) under ``torch.profiler``: device ms by class — the SoD kernels
+    (the head's call among them), the Mamba2 blocks' scan and conv (their
+    operators but the dense GEMMs of w_b, w_c, w_dt, which are apart), the
+    shared block's attention core, and the rest — the head alone timed as
+    phase 9 times it, and the idle share against the median wall of 7
+    unprofiled steps.  Operators are classed by the labelled range they
+    run in (``record_function`` around ``ssm.mamba_decode_step`` and
+    ``attention._attend_cached``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import attention, ssm
+
+    model, params, tokens = sl["model"], sl["params"], sl["tokens"]
+    cfg = model.cfg
+    spots = [(ssm, "mamba_decode_step", "mamba"),
+             (attention, "_attend_cached", "attention_core")]
+    with torch.inference_mode():
+        _, cache, pos = serve.prefill_cache(model, params, tokens, 48)
+        tok = torch.zeros((tokens.shape[0], 1), dtype=torch.long, device="cuda")
+        model.decode_step(params, cache, tok, pos)
+        step_ms = []
+        for t in range(1, 8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.decode_step(params, cache, tok, pos + t)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        with _ranges(spots), profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA]) as prof:
+            model.decode_step(params, cache, tok, pos + 8)
+            torch.cuda.synchronize()
+        h = torch.randn(tokens.shape[0], 1, cfg.d_model, device="cuda").bfloat16()
+        head_ms = _time_ms(lambda: transformer._head(params, h, cfg), timing.flush_buffer())
+    per_kernel: dict[str, tuple[float, int]] = {}
+    classes = {"mamba_scan_conv": 0.0, "mamba_dense_gemm": 0.0, "attention_core": 0.0,
+               "other_ops": 0.0}
+    labels = {label for *_, label in spots}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            if ev.name in labels:     # a labelled range's span, not a kernel
+                continue
+            us, n = per_kernel.get(ev.name, (0.0, 0))
+            per_kernel[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
+            continue
+        self_us = getattr(ev, "self_device_time_total", 0.0)
+        if not self_us or ev.name in labels:
+            continue
+        rng, p = None, getattr(ev, "cpu_parent", None)
+        while p is not None and rng is None:
+            rng = p.name if p.name in labels else None
+            p = p.cpu_parent
+        if rng == "mamba":
+            dense = ev.name.startswith("aten::mm")
+            classes["mamba_dense_gemm" if dense else "mamba_scan_conv"] += self_us
+        elif rng == "attention_core":
+            classes["attention_core"] += self_us
+        else:
+            classes["other_ops"] += self_us
+    rows = sorted(((us, k, n) for k, (us, n) in per_kernel.items()), reverse=True)
+    total_ms = sum(r[0] for r in rows) / 1e3
+    sod = [(us, n) for k, (us, n) in per_kernel.items()
+           if "sod_matmul" in k or "block_matmul" in k]
+    step = statistics.median(step_ms)
+    measured = bool(rows)
+    log({"phase": "recurrent_profile", "cell": "zamba2_tiled_csc", "arch": cfg.name,
+         "what": "one static decode step, batch 4, full width and depth, bf16",
+         "step_ms_median_of_7": step,
+         "device_ms": total_ms if measured else "not measured",
+         "device_idle_share": (1 - total_ms / step) if measured else "not measured",
+         "sod_kernels_ms": sum(us for us, _ in sod) / 1e3 if measured else "not measured",
+         "sod_kernel_calls": sum(n for _, n in sod), "head_alone_ms": head_ms,
+         **{f"{k}_ms": (v / 1e3 if any(classes.values()) else "not measured")
+            for k, v in classes.items()},
+         "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": c} for us, k, c in rows[:15]]})
+
+
+def phase_recurrent_train(run: str) -> dict:
+    """``train_xlstm`` / ``train_zamba2``: full width and depth, tiled_csc
+    0.3, batch 8 × seq 128, remat on (every layer group checkpointed),
+    RECURRENT_TRAIN_STEPS steps, gated on finite losses and gradient norms,
+    integer leaves bit-equal to the initial pack, only ``cuda_fused``
+    dispatched, and the launches a step: the groups' packed projections
+    twice (remat) and the head once of ``sod_matmul``, and every forward
+    call once of ``decompress`` (each backward re-densifies its weight; the
+    hybrid's shared block once an application); then one steady step is
+    profiled."""
+    arch = RECURRENT_TRAIN_RUNS[run]
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{run}_")
+    argv = (["--arch", arch] + FAMILY_TRAIN_ARGV[2:]
+            + ["--steps", str(RECURRENT_TRAIN_STEPS), "--ckpt-dir", tmp])
+    try:
+        t0 = time.perf_counter()
+        prep = train.prepare(train.parse_args(argv))
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        ints = {k: v.clone() for k, v in leaves_with_path(prep[1])
+                if not v.is_floating_point()}
+        cfg = prep[0].cfg
+        per_step = _recurrent_per_step(cfg)
+        counted = _runs_a_step(prep[1], cfg)
+        reset_counts()
+        summary = train.main(argv, prepared=prep)
+        launches = {name: mod.launches for name, mod in COUNTERS.items()}
+        del prep
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    params = summary["state"]["params"]
+    losses, gnorms = summary["losses"], summary["grad_norms"]
+    remat = 2 if cfg.remat else 1
+    want = {"sod_matmul": (remat * (per_step - 1) + 1) * RECURRENT_TRAIN_STEPS,
+            "block_matmul": 0, "decompress": per_step * RECURRENT_TRAIN_STEPS}
+    final_ints = {k: v for k, v in leaves_with_path(params) if not v.is_floating_point()}
+    gates = {
+        "packed_a_step": counted == per_step,
+        "finite": all(map(math.isfinite, losses + gnorms)),
+        "integer_leaves_bit_equal": final_ints.keys() == ints.keys() and all(
+            torch.equal(v, ints[k]) for k, v in final_ints.items()),
+        "dispatch_only_cuda_fused": bool(summary["kernel_dispatch"]) and all(
+            k.startswith("cuda_fused[") for k in summary["kernel_dispatch"]),
+        "launches": launches == want and summary["kernel_launches"] == want,
+    }
+    row = {"phase": "recurrent_train", "run": run, "arch": arch, "layers": cfg.n_layers,
+           "steps": RECURRENT_TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "prepare_s": prepare_s, "losses": losses, "grad_norms": gnorms,
+           "launches": launches, "launches_want": want,
+           "kernel_dispatch": summary["kernel_dispatch"],
+           **{k: summary[k] for k in ("step_s", "tok_s", "peak_mem_gb", "wall_s")},
+           "gates": gates}
+    log(row)
+    if not all(gates.values()):
+        raise AssertionError(f"{run}: a gate failed: {gates}")
+    phase_train_profile(summary, run, argv)
+    return {"launches": launches}
+
+
+def phase_recurrent(timed) -> dict:
+    """Phase 11: the kernels at the recurrent families' shapes, each cell
+    with its engine run (zamba2's chunked forward held against its stepped
+    decode and one decode step profiled), each freed before the next, then
+    ``train_xlstm`` and ``train_zamba2``; every step through ``timed``."""
+    out = {"kernels": timed("recurrent:kernels", phase_family_kernels, RECURRENT_SHAPES,
+                            RECURRENT_QMODES, 7000, "recurrent_kernels"),
+           "launches": {}, "engine": {}, "train": {}}
+    cells = {}
+    for cell in RECURRENT_CELLS:
+        sl = cells[cell] = timed(f"recurrent:{cell}", phase_recurrent_serve, cell)
+        out["launches"][cell] = {k: sl[k] for k in ("launches", "decompress_launches")}
+        if cell == "zamba2_tiled_csc":
+            timed("recurrent:chunked", phase_recurrent_chunked, cell, sl)
+            timed("recurrent:profile", phase_recurrent_profile, sl)
+        for run, of in RECURRENT_ENGINE_RUNS.items():
+            if of == cell:
+                out["engine"][run] = timed(f"recurrent:engine:{run}",
+                                           phase_recurrent_engine, run, cells)
+        for key in ("model", "params", "tokens", "logits"):
+            sl.pop(key)
+        torch.cuda.empty_cache()
+    for run in RECURRENT_TRAIN_RUNS:
+        out["train"][run] = timed(f"recurrent:{run}", phase_recurrent_train, run)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _recurrent_entry(name: str, qmode: str, rec: dict) -> dict:
+    """Phase 11's numbers of one kernel in one qmode: its launches in each
+    recurrent cell, engine run and training run (counted from 0 around each
+    run), and its rows at the recurrent shapes."""
+    out = {}
+    if qmode == "none":
+        launches = {}
+        for cell, (*_, kernel) in RECURRENT_CELLS.items():
+            if name == kernel:
+                launches[cell] = rec["launches"][cell]["launches"]
+            elif name == "decompress" and kernel == "sod_matmul":
+                launches[f"{cell}:densified"] = rec["launches"][cell]["decompress_launches"]
+        launches.update({f"engine:{run}": row["launches"] for run, row in
+                         rec["engine"].items() if RECURRENT_CELLS[row["cell"]][4] == name})
+        if name != "block_matmul":
+            launches.update({run: r["launches"][name] for run, r in rec["train"].items()})
+        out["recurrent_launches"] = launches
+    rows = [r for (kn, q, *_), r in rec["kernels"].items() if kn == name and q == qmode]
+    if rows:
+        out["recurrent_shapes"] = [
+            {k: r[k] for k in ("shape", "K", "N", "M", "out_dtype", "max_abs_err",
+                               "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")} for r in rows]
+    return out
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -2572,6 +3009,7 @@ def main() -> None:
     timed("train_resume", phase_train_resume)
     family = phase_family(timed)
     moe_out = phase_moe(timed)
+    rec_out = phase_recurrent(timed)
     shutil.rmtree(cache_dir, ignore_errors=True)
 
     entries = []
@@ -2601,6 +3039,7 @@ def main() -> None:
                 entry.update({f"train_{k}": v for k, v in train_ms[name].items()})
             entry.update(_family_entry(name, qmode, family))
             entry.update(_moe_entry(name, qmode, moe_out))
+            entry.update(_recurrent_entry(name, qmode, rec_out))
             entries.append(entry)
     log({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     log(smi)

@@ -43,7 +43,13 @@ bf16 with seeded random weights, as in ``chip_smoke.py``.
   granite-moe-1b-a400m's and qwen2-moe-a2.7b's widths: a row alone against
   inside 4 rows and inside 128, and a prompt's rows against its page bucket
   and 16-row chunks; and decode and prefill attention at their heads,
-  qwen's one query head a KV head also with the query heads not doubled),
+  qwen's one query head a KV head also with the query heads not doubled;
+  the recurrent decode operations at zamba2-2.7b's and xlstm-125m's full
+  widths, a row alone against inside 4, as the port computes them and
+  with the reference's float32 sums: the Mamba2 state readout, the chunk-1
+  mLSTM step, sLSTM's recurrent product and step, the dense GEMMs at
+  M = batch, RMSNorm at the blocks' widths, zamba2's decode attention,
+  and whole packed Mamba2 and mLSTM decode blocks),
   and (2) ``chip_smoke.py``'s engine runs
   (``ENGINE_RUNS`` and ``FEATURE_RUNS``) against ``static_generate``: the
   requests whose tokens differ (``--skip-engine`` leaves (2) out).
@@ -203,6 +209,7 @@ def invariance_unit(torch) -> None:
                  "chunks over 80 positions", **_prefill_attention_rows(torch, g, spec)})
     invariance_verify(torch, g, spec)
     invariance_moe(torch, g)
+    invariance_recurrent(torch, g)
 
 
 def invariance_norm_rows(torch, g) -> None:
@@ -372,6 +379,166 @@ def invariance_moe(torch, g) -> None:
                      "over plen + 16", **_decode_attention_rows(torch, g, aspec)})
         log({"what": f"prefill attention, {arch}: prompt vs page bucket and vs 16-row "
                      "chunks over 80 positions", **_prefill_attention_rows(torch, g, aspec)})
+
+
+@contextlib.contextmanager
+def _plain_sums(torch):
+    """While open, ``layers.einsum_f32`` sums in float32 on the card too:
+    the reference's formulation, before the float64 repair."""
+    from repro_torch.models import layers
+
+    kept = layers.einsum_f32
+    layers.einsum_f32 = lambda eq, *ops: torch.einsum(eq, *(o.float() for o in ops))
+    try:
+        yield
+    finally:
+        layers.einsum_f32 = kept
+
+
+def _batch_vs_alone(torch, fn, inputs, trials: int = 64) -> int:
+    """Rows of ``fn`` at batch 4 (of 4 · ``trials``) whose bits differ from
+    the same row run alone; ``inputs()`` draws one batch of 4 (a tuple of
+    tensors or tuples of tensors, batch first), ``fn`` returns a tensor or
+    a tuple of them, batch first."""
+    def rows(out, r):
+        outs = out if isinstance(out, tuple) else (out,)
+        return [o[r:r + 1] for o in outs]
+
+    def take(a, r):
+        return tuple(take(t, r) for t in a) if isinstance(a, tuple) else a[r:r + 1]
+
+    differ = 0
+    for _ in range(trials):
+        args = inputs()
+        four = fn(*args)
+        for r in range(4):
+            one = fn(*(take(a, r) for a in args))
+            differ += int(any(not torch.equal(a, b)
+                              for a, b in zip(rows(four, r), rows(one, 0))))
+    return differ
+
+
+# the recurrent families' full widths: zamba2-2.7b's Mamba2 block (d_model,
+# d_inner, d_state, heads of 64) and shared attention heads; xlstm-125m's
+# mLSTM (d_model, d_inner, heads of 384) and sLSTM (heads of 192)
+ZAMBA2 = {"d": 2560, "di": 5120, "ds": 64, "nh": 80, "hd": 64, "attn": (32, 32, 80)}
+XLSTM = {"d": 768, "di": 1536, "nh": 4, "hd": 384, "s_hd": 192}
+
+
+def invariance_recurrent(torch, g) -> None:
+    """At zamba2-2.7b's and xlstm-125m's full widths, every row of the
+    recurrent decode operations at the engine's batch of 4 against the row
+    alone (static serving's batch 1), each as the port computes it and
+    with ``layers.einsum_f32`` summing in float32 (``plain``: the
+    reference's sums where the port repairs them, in sLSTM's recurrence,
+    fault C8): the Mamba2 state readout (a sum over
+    d_state), the chunk-1 mLSTM step (sums over its 384-wide heads),
+    sLSTM's recurrent product (a GEMM with M = batch), the dense GEMMs at
+    M = batch (sLSTM's ``x @ w_gates``, mLSTM's ``w_if``, Mamba2's ``w_b``,
+    ``w_c``, ``w_dt``), RMSNorm at the blocks' widths, zamba2's decode
+    attention (32 / 32 heads of 80: one query head a KV head, also with the
+    query heads not doubled), and the whole Mamba2 and mLSTM decode blocks
+    on seeded weights packed tiled_csc at 0.3."""
+    from repro_torch.core.sod import SoDConfig, pack_param
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers, ssm, xlstm
+
+    dev = "cuda"
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    z, xl = ZAMBA2, XLSTM
+    mamba = ssm.MambaSpec(d_model=z["d"], d_state=z["ds"], headdim=z["hd"])
+    xspec = xlstm.XLSTMSpec(d_model=xl["d"], n_heads=xl["nh"])
+    sod = SoDConfig(mode="tiled_csc", density=0.3, min_dim=64)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    mp = ssm.init_mamba(gen, mamba, torch.bfloat16, torch.device(dev))
+    mp = {k: pack_param(w, sod) if k in ("w_z", "w_x", "out_proj") else w
+          for k, w in mp.items()}
+    xp = xlstm.init_mlstm(gen, xspec, torch.bfloat16, torch.device(dev))
+    xp = {k: pack_param(w, sod) if k in ("w_up", "wq", "wk", "wv", "w_down") else w
+          for k, w in xp.items()}
+    sp = xlstm.init_slstm(gen, xspec, torch.bfloat16, torch.device(dev))
+
+    def mamba_state():
+        return {"ssm": randn(4, z["nh"], z["ds"], z["hd"]),
+                "conv": {"x": randn(4, 3, z["di"], dtype=torch.bfloat16),
+                         "b": randn(4, 3, z["ds"], dtype=torch.bfloat16),
+                         "c": randn(4, 3, z["ds"], dtype=torch.bfloat16)}}
+
+    def mlstm_state():
+        return (randn(4, xl["nh"], xl["hd"], xl["hd"], scale=0.1),
+                randn(4, xl["nh"], xl["hd"]), randn(4, xl["nh"]))
+
+    def slstm_state():
+        return tuple(randn(4, xl["nh"], xl["s_hd"]) for _ in range(3)) + (
+            randn(4, xl["nh"], xl["s_hd"]),)
+
+    def mamba_block(x, st):
+        out, new = ssm.mamba_decode_step(
+            mp, x, {"ssm": st[0], "conv": dict(zip("xbc", st[1:]))}, mamba)
+        return out, new["ssm"]
+
+    def mamba_inputs():
+        st = mamba_state()
+        return (randn(4, 1, z["d"], dtype=torch.bfloat16),
+                (st["ssm"], *st["conv"].values()))
+
+    def mlstm_block(x, st):
+        c, n, m, conv = st
+        out, new = xlstm.mlstm_block(xp, x, xspec, cache={"c": c, "n": n, "m": m,
+                                                         "conv": conv}, decode=True)
+        return out, new["c"], new["n"]
+
+    ops_ = {
+        "mamba state readout, einsum bs,bhsp->bhp": (
+            lambda c, st: torch.einsum("bs,bhsp->bhp", c, st),
+            lambda: (randn(4, z["ds"]), randn(4, z["nh"], z["ds"], z["hd"]))),
+        "mlstm chunk-1 step (sums over head dim 384)": (
+            lambda q, k, v, li, lf, st: xlstm.mlstm_chunked(q, k, v, li, lf, 1, st)[0],
+            lambda: (randn(4, 1, xl["nh"], xl["hd"], dtype=torch.bfloat16),
+                     randn(4, 1, xl["nh"], xl["hd"], dtype=torch.bfloat16),
+                     randn(4, 1, xl["nh"], xl["hd"], dtype=torch.bfloat16),
+                     randn(4, 1, xl["nh"]), randn(4, 1, xl["nh"]) - 3, mlstm_state())),
+        "slstm recurrent einsum bhd,hde->bhe": (
+            lambda h: layers.einsum_f32("bhd,hde->bhe", h, sp["r_gates"]),
+            lambda: (randn(4, xl["nh"], xl["s_hd"]),)),
+        "slstm step": (
+            lambda x, st: xlstm.slstm_scan(sp, x, xspec, st)[1],
+            lambda: (randn(4, 1, xl["d"], dtype=torch.bfloat16), slstm_state())),
+        "dense x @ w_gates (M = batch, 768 x 3072)": (
+            lambda x: ops.dense_matmul(x, sp["w_gates"].to(x.dtype), torch.float32),
+            lambda: (randn(4, xl["d"], dtype=torch.bfloat16),)),
+        "dense w_if (M = batch, 1536 x 8)": (
+            lambda x: ops.dense_matmul(x, xp["w_if"].to(x.dtype), torch.float32),
+            lambda: (randn(4, xl["di"], dtype=torch.bfloat16),)),
+        **{f"dense {w} (M = batch, 2560 x {mp[w].shape[1]})": (
+            lambda x, w=w: ops.dense_matmul(x, mp[w], x.dtype),
+            lambda: (randn(4, z["d"], dtype=torch.bfloat16),)) for w in ("w_b", "w_c", "w_dt")},
+        **{f"rms_norm d {d}": (
+            lambda x, gain=randn(d, scale=0.1): layers.rms_norm(x, gain),
+            lambda d=d: (randn(4, 1, d, scale=30, dtype=torch.bfloat16),))
+           for d in (z["d"], z["di"], xl["d"], xl["di"])},
+        "mamba decode block (packed)": (mamba_block, mamba_inputs),
+        "mlstm decode block (packed)": (
+            mlstm_block,
+            lambda: (randn(4, 1, xl["d"], dtype=torch.bfloat16),
+                     (*mlstm_state(), randn(4, 3, xl["di"], dtype=torch.bfloat16)))),
+    }
+    with torch.inference_mode():
+        for what, (fn, inputs) in ops_.items():
+            row = {"what": f"recurrent {what}: every row of batch 4 vs alone",
+                   "rows": 4 * 64, "rows_that_differ": _batch_vs_alone(torch, fn, inputs)}
+            with _plain_sums(torch):
+                row["rows_that_differ_plain"] = _batch_vs_alone(torch, fn, inputs)
+            log(row)
+    aspec = attn.AttnSpec(n_heads=z["attn"][0], n_kv_heads=z["attn"][1],
+                          head_dim=z["attn"][2])
+    log({"what": "decode attention, zamba2-2.7b: batch 4 over 80 positions vs batch 1 "
+                 "over plen + 16", **_decode_attention_rows(torch, g, aspec)})
 
 
 def _verify_batched(torch, tp, x, pool, tables, start, spec):

@@ -9,11 +9,14 @@ matmul entry point every model layer calls: dense tensors bypass
 decompression, packed operands dispatch through the kernel registry
 (:func:`repro_torch.kernels.ops.sod_matmul`) with their layer's plan.
 
-The port keeps per-layer dicts in ``params["layers"]``; a plan keeps the
-reference's paths and stacks: ``layers[l].attn.wq`` is the plan's
-``.blocks.attn.wq`` with ``lead=(groups, period)``, one entry (and one
-``cap``) for the whole stack, so a plan file of either package replays in
-the other (:func:`plan_leaves`).  An MoE layer's routed experts are one
+The port keeps per-layer dicts in ``params["layers"]`` (the recurrent
+families in ``mamba_blocks[g][j]``, ``mlstm_blocks[g][j]`` and
+``slstm_blocks[g]``); a plan keeps the reference's paths and stacks:
+``layers[l].attn.wq`` is the plan's ``.blocks.attn.wq`` with
+``lead=(groups, period)``, ``mamba_blocks[g][j].mamba.w_z`` is
+``.mamba_blocks.mamba.w_z`` with lead (G, P), one entry (and one ``cap``)
+for the whole stack, so a plan file of either package replays in the
+other (:func:`plan_leaves`).  An MoE layer's routed experts are one
 ``(E, d, f)`` leaf: its entry's lead is ``(groups, period, E)``, each
 expert pruned on its own, and each layer gets an ``(E,)``-stacked pack,
 which :func:`repro_torch.models.moe.moe_mlp` refuses, as the reference
@@ -203,27 +206,54 @@ def _set(tree, name, value):
 
 
 def _copy(tree):
-    return {k: _copy(v) if isinstance(v, dict) else v for k, v in tree.items()}
+    if isinstance(tree, dict):
+        return {k: _copy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy(v) for v in tree]
+    return tree
+
+
+def _flat(blocks: list) -> tuple[list, tuple[int, ...]]:
+    """A stack's per-block trees in order, and its nesting dims: a list of
+    G groups of P blocks is (G, P), a flat list of G blocks (G,)."""
+    if blocks and isinstance(blocks[0], list):
+        return [b for g in blocks for b in g], (len(blocks), len(blocks[0]))
+    return list(blocks), (len(blocks),)
+
+
+def _stacks(params: dict[str, Any], period: int):
+    """``(reference stack name, per-block trees, lead)`` of every list in
+    the tree: the attention family's ``layers`` is the reference's
+    ``blocks`` with lead ``(layers // period, period)``; the recurrent
+    families' ``mamba_blocks``, ``mlstm_blocks`` (lists of groups) and
+    ``slstm_blocks`` keep their names and take their nesting as lead."""
+    for key, v in params.items():
+        if key == "layers":
+            yield "blocks", list(v), (len(v) // period, period)
+        elif isinstance(v, list):
+            yield (key, *_flat(v))
 
 
 def plan_leaves(params: dict[str, Any], period: int = 1
                 ) -> Iterator[tuple[str, list[torch.Tensor], tuple[int, ...]]]:
     """``(plan path, tensors, lead)`` of every leaf, in the reference's
-    naming: a per-layer leaf ``layers[l].<name>`` is the stack
-    ``.blocks.<name>`` of every layer's tensor with ``lead = (layers //
-    period, period)`` and the leaf's own stack dims (an MoE layer's ``E``
-    routed experts) after them; a top-level leaf ``<name>`` is ``.<name>``
-    with no lead.  ``period`` is the model's layer-pattern period (1 for
-    llama)."""
-    layers = params.get("layers", [])
+    naming and stacking: a leaf ``<name>`` of every block of a stack
+    (:func:`_stacks`: ``layers[l]``, ``mamba_blocks[g][j]``,
+    ``mlstm_blocks[g][j]``, ``slstm_blocks[g]``) is the stacked leaf
+    ``.<stack>.<name>`` with the stack's lead and the leaf's own stack dims
+    (an MoE layer's ``E`` routed experts) after it; any other leaf
+    ``<name>``, in a dict of the top level too (the hybrid's
+    ``shared_attn``), is ``.<name>`` with no lead.  ``period`` is the
+    attention family's layer-pattern period (1 for llama)."""
     for name, leaf in _named_leaves({k: v for k, v in params.items()
-                                     if k != "layers"}):
+                                     if not isinstance(v, list)}):
         yield f".{name}", [leaf], ()
-    if layers:
-        lead = (len(layers) // period, period)
-        for name, leaf in _named_leaves(layers[0]):
+    for stack, blocks, lead in _stacks(params, period):
+        if not blocks:
+            continue
+        for name, leaf in _named_leaves(blocks[0]):
             own = tuple(int(d) for d in leaf.shape[:-2])
-            yield (f".blocks.{name}", [_get(layer, name) for layer in layers],
+            yield (f".{stack}.{name}", [_get(block, name) for block in blocks],
                    lead + own)
 
 
@@ -290,8 +320,7 @@ def sodify_params(params: dict[str, Any], cfg: SoDConfig, prune: bool = True,
     """
     if plan is None and not cfg.enabled:
         return params
-    out = {**_copy({k: v for k, v in params.items() if k != "layers"}),
-           "layers": [_copy(layer) for layer in params.get("layers", [])]}
+    out = _copy(params)
     for path, ws, _ in plan_leaves(params):
         if plan is not None:
             entry = plan.get(path)
@@ -311,14 +340,16 @@ def sodify_params(params: dict[str, Any], cfg: SoDConfig, prune: bool = True,
     return out
 
 
-def _place(tree: dict[str, Any], path: str, per_layer: list) -> None:
-    """Set a plan path's per-layer results back into the port's tree."""
+def _place(tree: dict[str, Any], path: str, per_block: list) -> None:
+    """Set a plan path's per-block results back into the port's tree."""
     name = path.strip(".")
-    if name.startswith("blocks."):
-        for layer, value in zip(tree["layers"], per_layer):
-            _set(layer, name[len("blocks."):], value)
+    stack, _, rest = name.partition(".")
+    stack = "layers" if stack == "blocks" else stack
+    if isinstance(tree.get(stack), list):
+        for block, value in zip(_flat(tree[stack])[0], per_block):
+            _set(block, rest, value)
     else:
-        _set(tree, name, per_layer[0])
+        _set(tree, name, per_block[0])
 
 
 # ---------------------------------------------------------------------------
@@ -376,8 +407,7 @@ def sodify_abstract(params: dict[str, Any], cfg: SoDConfig,
     tiled_cap` / :func:`~repro_torch.core.plan.block_bcap`)."""
     if plan is None and not cfg.enabled:
         return params
-    out = {**_copy({k: v for k, v in params.items() if k != "layers"}),
-           "layers": [_copy(layer) for layer in params.get("layers", [])]}
+    out = _copy(params)
     for path, ws, _ in plan_leaves(params):
         if plan is not None:
             e = plan.get(path)

@@ -26,7 +26,7 @@ class SyntheticLMData:
     branching: int = 4     # out-degree of the bigram chain
 
     def __post_init__(self):
-        if self.cfg.family not in ("dense", "moe"):
+        if self.cfg.family in ("vlm", "audio"):
             raise NotImplementedError(
                 f"family {self.cfg.family!r}: only token-only batches are "
                 "ported")

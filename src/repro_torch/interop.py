@@ -42,34 +42,53 @@ def _map(tree, fn):
     return fn(tree)
 
 
+# the recurrent families' stacks: name -> leading stack dims
+_STACKS = {"mamba_blocks": 2, "mlstm_blocks": 2, "slstm_blocks": 1}
+
+
+def _unstack(tree, n_lead: int, device, index=()):
+    """A stack of per-block trees as nested lists, ``n_lead`` deep."""
+    if len(index) == n_lead:
+        return _map(tree, lambda a: to_torch(np.asarray(a)[index], device))
+    n = next(iter(_leaves(tree))).shape[len(index)]
+    return [_unstack(tree, n_lead, device, index + (i,)) for i in range(int(n))]
+
+
 def params_from_numpy(tree: dict[str, Any], cfg,
                       device: str | torch.device = "cuda") -> dict[str, Any]:
-    """The port's per-layer parameters from the JAX parameter pytree.
+    """The port's parameters from the JAX parameter pytree (numpy arrays).
 
-    ``tree`` is the JAX attention-family tree as numpy arrays: ``embed``,
-    ``final_norm``, ``head`` when the embeddings are untied, and ``blocks``
-    whose leaves are stacked ``(G, P, ...)`` (layer groups × pattern
-    period; the post norms among them, and an MoE block's ``moe`` subtree:
-    the float32 ``router`` and ``shared_gate``, the routed experts'
-    ``(E, d, f)`` stacks and the ``shared`` MLP).  Layer ``l`` is
-    ``blocks[l // P, l % P]``.
+    Attention family: ``embed``, ``final_norm``, ``head`` when the
+    embeddings are untied, and ``blocks`` whose leaves are stacked ``(G, P,
+    ...)`` (layer groups × pattern period; the post norms among them, and
+    an MoE block's ``moe`` subtree: the float32 ``router`` and
+    ``shared_gate``, the routed experts' ``(E, d, f)`` stacks and the
+    ``shared`` MLP); layer ``l`` is ``blocks[l // P, l % P]`` of the port's
+    ``layers`` list.  The hybrid's ``mamba_blocks`` (G, P) and the xLSTM's
+    ``mlstm_blocks`` (G, n_m) become lists of lists of per-block trees,
+    ``slstm_blocks`` (G,) a list; an unstacked subtree (the hybrid's
+    ``shared_attn``) converts leaf by leaf.
     """
-    blocks = tree["blocks"]
-    lead = next(iter(_leaves(blocks))).shape[:2]
-    n_groups, period = int(lead[0]), int(lead[1])
-    if n_groups * period != cfg.n_layers:
-        raise ValueError(f"blocks stack {lead} does not hold {cfg.n_layers} "
-                         "layers")
-    layers = [
-        _map(blocks, lambda a, g=l // period, p=l % period:
-             to_torch(np.asarray(a)[g, p], device))
-        for l in range(cfg.n_layers)
-    ]
-    out = {"embed": to_torch(tree["embed"], device),
-           "final_norm": to_torch(tree["final_norm"], device)}
-    if "head" in tree:
-        out["head"] = to_torch(tree["head"], device)
-    return {**out, "layers": layers}
+    out: dict[str, Any] = {}
+    first = ("embed", "final_norm", "head")     # the order of the port's init
+    for name in sorted(tree, key=lambda n: (n not in first, first.index(n)
+                                            if n in first else 0)):
+        sub = tree[name]
+        if name == "blocks":
+            lead = next(iter(_leaves(sub))).shape[:2]
+            n_groups, period = int(lead[0]), int(lead[1])
+            if n_groups * period != cfg.n_layers:
+                raise ValueError(f"blocks stack {lead} does not hold "
+                                 f"{cfg.n_layers} layers")
+            out["layers"] = [
+                _map(sub, lambda a, g=l // period, p=l % period:
+                     to_torch(np.asarray(a)[g, p], device))
+                for l in range(cfg.n_layers)]
+        elif name in _STACKS:
+            out[name] = _unstack(sub, _STACKS[name], device)
+        else:
+            out[name] = _map(sub, lambda a: to_torch(a, device))
+    return out
 
 
 def _leaves(tree):

@@ -3,7 +3,10 @@ engine (``--engine``).
 
 Twin of :mod:`repro.launch.serve`.  Static mode: one batch of synthetic
 prompts is prefilled in one forward, the KV cache grown to the generation
-horizon, and ``--gen`` greedy tokens decoded step by step.  ``--engine``
+horizon, and ``--gen`` greedy tokens decoded step by step; the recurrent
+families (``zamba2-2.7b``, ``xlstm-125m``) build their state by stepping
+the prompt through the decode step instead, and their engine keeps one
+slot-state cache (it refuses the paged-KV features).  ``--engine``
 replays a synthetic Poisson trace of ``--requests`` requests (prompts of
 ``--prompt-len // 2`` to ``--prompt-len`` tokens) through
 :class:`repro_torch.serving.Engine`: ``--max-slots`` running rows over a
@@ -65,7 +68,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import registry as kreg
 from repro_torch.kernels import sod_matmul as sod_matmul_kernel
 from repro_torch.launch import steps as steps_mod
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, RECURRENT
 from repro_torch.runtime import planner
 from repro_torch.serving import Engine, bucket_len, poisson_trace
 
@@ -198,9 +201,12 @@ def m_values(args: argparse.Namespace, cfg: ModelConfig) -> tuple[int, int]:
     """The (prefill M, decode M) the planner hints and the autotuner tunes
     at, as the reference: static serving prefills ``batch · prompt`` rows
     and decodes ``batch``; the engine prefills one prompt at its page bucket
-    (or a chunk) and decodes ``max_slots`` rows."""
+    (or a chunk) and decodes ``max_slots`` rows — a recurrent family's
+    engine replays a prompt through the batch-1 decode step (M = 1)."""
     if not args.engine:
         return args.batch * args.prompt_len, args.batch
+    if cfg.family in RECURRENT:
+        return 1, args.max_slots
     prefill = args.prefill_chunk or bucket_len(args.prompt_len, args.page_size,
                                                cfg.attn_chunk)
     return prefill, args.max_slots
@@ -293,11 +299,21 @@ def prepare_draft(args: argparse.Namespace, model: LM, raw=None):
 
 def prefill_cache(model: LM, params, tokens: torch.Tensor, max_len: int,
                   plan: ModelPlan | None = None):
-    """(last-position logits, KV cache grown to ``max_len``, prompt length),
-    the prefill dispatched under ``plan``."""
+    """(last-position logits, cache for ``max_len`` positions, prompt
+    length), dispatched under ``plan``: the attention families' fused
+    prefill with the KV cache grown to ``max_len``; the recurrent families
+    (``hybrid``, ``ssm``) step the prompt through the decode step from a
+    zeroed cache, which builds their state exactly, as the reference
+    does."""
+    b, s = tokens.shape
     with use_plan(plan):
+        if model.cfg.family in RECURRENT:
+            cache = model.init_cache(b, max_len, tokens.device)
+            for t in range(s):
+                logits, cache = model.decode_step(params, cache, tokens[:, t:t + 1], t)
+            return logits[:, -1], cache, s
         last_logits, cache = model.prefill(params, tokens)
-    return last_logits, model.grow_cache(cache, max_len), tokens.shape[1]
+    return last_logits, model.grow_cache(cache, max_len), s
 
 
 def _sync(device: torch.device) -> None:
@@ -320,7 +336,10 @@ def engine_main(args: argparse.Namespace, model: LM, params, draft=None,
     tiers included)."""
     cfg = model.cfg
     page = args.page_size
-    max_len = bucket_len(args.prompt_len, page, cfg.attn_chunk) + args.gen
+    if cfg.family in RECURRENT:
+        max_len = args.prompt_len + args.gen
+    else:
+        max_len = bucket_len(args.prompt_len, page, cfg.attn_chunk) + args.gen
     eng = Engine(model, params, max_slots=args.max_slots, page_size=page,
                  max_len=max_len, plan=plan, prefill_chunk=args.prefill_chunk,
                  preemption=args.preemption, prefix_sharing=args.prefix_sharing,
@@ -334,7 +353,7 @@ def engine_main(args: argparse.Namespace, model: LM, params, draft=None,
     res = eng.run(trace)
     summary = {
         "engine": True, "arch": cfg.name, "requests": args.requests,
-        "max_slots": args.max_slots, "page_size": page,
+        "max_slots": args.max_slots, "page_size": page if eng.paged else None,
         "prefill_chunk": args.prefill_chunk, "preemption": args.preemption,
         "prefix_sharing": args.prefix_sharing, "spec_decode": args.spec_decode,
         "prefix_cache_budget": args.prefix_cache_budget,

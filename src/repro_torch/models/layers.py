@@ -64,6 +64,20 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (xf * (1.0 + gamma.float())).to(x.dtype)
 
 
+def einsum_f32(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with float32 out and sums at least as wide, as the
+    reference's ``einsum(..., preferred_element_type=float32)``.  On the
+    card the operands are widened to float64 and the sums rounded once to
+    float32: cuBLAS picks its kernel, and with it the order of a sum, by
+    the batch, so a float32 sum of a row could change with the number of
+    rows beside it (as RMSNorm's mean did); a float64 sum of float32
+    products rounds to the same float32 in any order, or nearly.  On the
+    CPU the float32 sums of the reference."""
+    if operands[0].is_cuda:
+        return torch.einsum(eq, *(o.double() for o in operands)).float()
+    return torch.einsum(eq, *(o.float() for o in operands))
+
+
 def rope_frequencies(head_dim: int, theta: float, device) -> torch.Tensor:
     """RoPE inverse frequencies, (head_dim/2,) float32."""
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim

@@ -1,9 +1,12 @@
-"""Model facade: init / prefill / decode over the attention-family decoder.
+"""Model facade: init / apply / loss / prefill / decode over the assemblies.
 
 Twin of :class:`repro.models.model.LM` and :func:`repro.models.model.build_model`
 for training (``loss``), the static serving path and the continuous-batching
-engine's paged decode, chunked prefill and speculative verification, for
-the dense and MoE families.
+engine, dispatching by family: the attention-family decoder (dense, MoE),
+the hybrid (``hybrid``: zamba2) and the xLSTM (``ssm``).  The paged decode,
+chunked prefill and speculative verification are the attention family's;
+the recurrent families keep O(1) state a slot and raise there, with the
+reference's messages.
 """
 from __future__ import annotations
 
@@ -13,11 +16,26 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import cache as cache_mod
 from repro_torch.core.tree import tree_leaves
+from repro_torch.models import cache as cache_mod
 from repro_torch.models import layers, transformer
 
 Params = dict[str, Any]
+
+RECURRENT = ("hybrid", "ssm")
+
+# family -> (init, forward, decode, init_cache, cache_spec)
+_FAMILIES = {
+    "hybrid": (transformer.init_hybrid, transformer.hybrid_forward,
+               transformer.hybrid_decode, transformer.hybrid_init_cache,
+               transformer.hybrid_cache_spec),
+    "ssm": (transformer.init_xlstm_lm, transformer.xlstm_forward,
+            transformer.xlstm_decode, transformer.xlstm_init_cache,
+            transformer.xlstm_cache_spec),
+}
+_ATTENTION = (transformer.init_transformer, transformer.transformer_forward,
+              transformer.transformer_decode, transformer.transformer_init_cache,
+              transformer.transformer_cache_spec)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,15 +44,21 @@ class LM:
 
     cfg: ModelConfig
 
+    @property
+    def _fns(self) -> tuple:
+        return _FAMILIES.get(self.cfg.family, _ATTENTION)
+
     def init(self, generator: torch.Generator, device: torch.device | str) -> Params:
         """Random weights drawn from ``generator`` on ``device``."""
-        return transformer.init_transformer(generator, self.cfg, torch.device(device))
+        transformer.check_supported(self.cfg)
+        return self._fns[0](generator, self.cfg, torch.device(device))
 
     def apply(self, params: Params, tokens: torch.Tensor, want_cache: bool = False):
         """Full-sequence forward: (logits (B, S, V), cache or None); the
-        router aux loss is :meth:`loss`'s."""
-        logits, _, cache = transformer.transformer_forward(params, tokens, self.cfg,
-                                                           want_cache)
+        router aux loss is :meth:`loss`'s.  A recurrent family's cache is
+        the hybrid's shared-block KV only, or None (the xLSTM): its state is
+        built by stepping the prompt."""
+        logits, _, cache = self._fns[1](params, tokens, self.cfg, want_cache)
         return logits, cache
 
     def loss(self, params: Params, batch: dict[str, torch.Tensor]):
@@ -43,37 +67,52 @@ class LM:
         mean token cross-entropy of the float32 logits plus ``aux``, the
         MoE blocks' router aux losses summed over the layers (0 for the
         dense family)."""
-        logits, aux, _ = transformer.transformer_forward(params, batch["tokens"],
-                                                         self.cfg)
+        logits, aux, _ = self._fns[1](params, batch["tokens"], self.cfg)
         ce = layers.cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
         aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
     def prefill(self, params: Params, tokens: torch.Tensor):
-        """(last-position logits (B, V), KV cache sized to the prompt)."""
+        """(last-position logits (B, V), KV cache sized to the prompt).  The
+        attention families' fused prefill; the recurrent families build
+        their state by stepping (``launch/serve.py:prefill_cache``)."""
         logits, cache = self.apply(params, tokens, want_cache=True)
         return logits[:, -1], cache
 
     def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor,
-                    pos: int):
-        """tokens (B, 1) at scalar position ``pos`` → (logits (B, 1, V),
-        cache); the cache is updated in place."""
-        return transformer.transformer_decode(params, cache, tokens, pos, self.cfg)
+                    pos):
+        """tokens (B, 1) → (logits (B, 1, V), cache); the cache is updated in
+        place.  ``pos`` is an int (every row at one position) or a (B,)
+        int64 tensor (each row at its own, the engine's slots)."""
+        return self._fns[2](params, cache, tokens, pos, self.cfg)
 
     def init_cache(self, batch: int, max_len: int, device: torch.device | str) -> Params:
-        """Zeroed KV cache for ``batch`` rows of ``max_len`` positions."""
-        return transformer.transformer_init_cache(self.cfg, batch, max_len,
-                                                  torch.device(device))
+        """Zeroed decode cache for ``batch`` rows of ``max_len`` positions."""
+        return self._fns[3](self.cfg, batch, max_len, torch.device(device))
+
+    # -- cache geometry (serving engine / serve path) ------------------------
+    def cache_spec(self) -> Params:
+        """The decode cache's tree of
+        :class:`repro_torch.models.cache.CacheAxes`: every leaf's batch and
+        sequence axes."""
+        return self._fns[4](self.cfg)
 
     def grow_cache(self, cache: Params, new_len: int) -> Params:
-        """Zero-pad the cache's sequence axis out to ``new_len``."""
-        return cache_mod.grow_cache(cache, new_len)
+        """Zero-pad the cache's sequence axes (and only those) out to
+        ``new_len``."""
+        return cache_mod.grow_cache(cache, self.cache_spec(), new_len)
+
+    def _paged_only(self, what: str) -> None:
+        if self.cfg.family in RECURRENT:
+            raise ValueError(f"family {self.cfg.family!r} {what}")
 
     # -- paged decode (continuous-batching engine) -----------------------------
     def init_paged_pool(self, n_pages: int, page_size: int,
                         device: torch.device | str) -> Params:
         """Zeroed KV page pool (L, n_pages, page, KV, hd); page 0 is trash."""
+        self._paged_only("keeps O(1) recurrent state per slot; only "
+                         "attention-family KV caches are paged")
         return transformer.transformer_init_paged_pool(
             self.cfg, n_pages, page_size, torch.device(device))
 
@@ -84,6 +123,7 @@ class LM:
         block_tables (B, max_pages), optional per-row write cutoff
         ``valid_len`` (B,), all int64.  Returns (logits, pool); the pool is
         updated in place."""
+        self._paged_only("has no paged decode path")
         return transformer.transformer_decode_paged(
             params, pool, block_tables, tokens, pos, self.cfg,
             valid_len=valid_len)
@@ -94,6 +134,8 @@ class LM:
         """Chunked prefill against the paged pool: tokens (B, C) covering
         prompt positions [start, start+C), zero-padded past ``valid_len``.
         Returns (logits for all C positions, pool)."""
+        self._paged_only("has no paged prefill path — recurrent prompts replay "
+                         "through the decode step")
         return transformer.transformer_prefill_chunk(
             params, pool, block_tables, tokens, start, valid_len, self.cfg)
 
@@ -104,6 +146,8 @@ class LM:
         [start[b], start[b] + C) a row, writes cut off at ``valid_len[b]``.
         Returns (logits for all C positions, pool); row i's logits are what
         C sequential paged decode steps give at their i-th."""
+        self._paged_only("has no paged verify path — speculative decoding "
+                         "needs the paged-KV cache")
         return transformer.transformer_verify_chunk(
             params, pool, block_tables, tokens, start, valid_len, self.cfg)
 

@@ -1,22 +1,39 @@
-"""Attention-family decoder: full-sequence forward and cached decode.
+"""Model assemblies: full-sequence forward and cached decode.
 
-Twin of the ``TransformerLM`` functions of :mod:`repro.models.transformer`
-for the dense and MoE families: tied or untied LM head, gemma-2's post
-norms, final logit soft-cap and local/global layers, and a block's MLP
-either dense or the Mixture-of-Experts block of :mod:`repro_torch.models.moe`
-(whose router aux loss the full forward sums over the layers; the decode,
-prefill-chunk and verify paths drop it, as the reference does).  Layers are
-a Python loop over per-layer parameter dicts — the reference's
-``scan_layers=False`` lowering — so every packed projection is one
-unstacked operand and runs the fused kernel.  The paged functions serve the
-continuous-batching engine: its KV pool is ``{"k", "v"}`` of shape (L,
-n_pages, page, KV, hd) — layer, page id, offset in the page, KV head, head
-dim — where the reference stacks (G, P, n_pages, page, KV, hd); every layer
-indexes its pool with the same block tables.  The pool, like the static
-cache, is updated in place.  An untied head is a packed ``head`` leaf like
-any projection, so it runs the Sparse-on-Dense kernel with float32 out.
-The hybrid and xLSTM assemblies and the VLM and audio frontends are not
-ported yet.
+Twin of :mod:`repro.models.transformer` for three assemblies:
+
+* the attention-family decoder (dense and MoE): tied or untied LM head,
+  gemma-2's post norms, final logit soft-cap and local/global layers, and a
+  block's MLP either dense or the Mixture-of-Experts block of
+  :mod:`repro_torch.models.moe` (whose router aux loss the full forward
+  sums over the layers; the decode, prefill-chunk and verify paths drop
+  it, as the reference does).  Layers are a Python loop over per-layer
+  parameter dicts in ``params["layers"]`` — the reference's
+  ``scan_layers=False`` lowering — so every packed projection is one
+  unstacked operand and runs the fused kernel.  The paged functions serve
+  the continuous-batching engine: its KV pool is ``{"k", "v"}`` of shape
+  (L, n_pages, page, KV, hd) — layer, page id, offset in the page, KV
+  head, head dim — where the reference stacks (G, P, n_pages, page, KV,
+  hd); every layer indexes its pool with the same block tables.  The pool,
+  like the static cache, is updated in place.  An untied head is a packed
+  ``head`` leaf like any projection, so it runs the Sparse-on-Dense kernel
+  with float32 out;
+* the hybrid (zamba2): groups of ``hybrid_attn_every`` Mamba2 blocks
+  (``params["mamba_blocks"][g][j]``), each group followed by the one
+  weight-shared attention + MLP block ``params["shared_attn"]``, which
+  keeps a KV cache of its own for every application;
+* the xLSTM: groups of ``slstm_every - 1`` mLSTM blocks
+  (``params["mlstm_blocks"][g][j]``) and one sLSTM block
+  (``params["slstm_blocks"][g]``).
+
+The recurrent assemblies' decode caches keep the reference's stacked
+layout, (G, P, B, ...) for per-block state and (G, B, S, KV, hd) for the
+shared block's KV, updated in place; their full forward returns no
+recurrent state (the serve path and the engine build it by stepping the
+prompt through the decode step, as the reference does).  Under
+``cfg.remat`` a forward that records gradients checkpoints every layer
+group of these two (every block of the attention family).
+The VLM and audio frontends are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,7 +46,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import sod
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe
+from repro_torch.models import cache as cache_mod
+from repro_torch.models import layers, moe, ssm, xlstm
 
 Params = dict[str, Any]
 
@@ -40,9 +58,9 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a model family the port does not have yet (all but dense
-    and MoE)."""
-    if cfg.family not in ("dense", "moe"):
+    """Raise for a model family the port does not have yet (the VLM and
+    audio frontends)."""
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} not ported yet")
 
@@ -66,6 +84,19 @@ def moe_spec(cfg: ModelConfig) -> moe.MoESpec:
         capacity_factor=cfg.capacity_factor,
         router_aux_weight=cfg.router_aux_weight, act=cfg.act,
         dispatch_blocks=cfg.moe_dispatch_blocks, a2a_axis=cfg.moe_a2a_axis)
+
+
+def mamba_spec(cfg: ModelConfig) -> ssm.MambaSpec:
+    """The Mamba2 spec of every block of a hybrid ``cfg``."""
+    return ssm.MambaSpec(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                         expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                         conv_width=cfg.ssm_conv, chunk=cfg.ssm_chunk)
+
+
+def xlstm_spec(cfg: ModelConfig) -> xlstm.XLSTMSpec:
+    """The xLSTM spec of every block of an ``ssm`` ``cfg``."""
+    return xlstm.XLSTMSpec(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                           proj_factor=cfg.xlstm_proj_factor, chunk=cfg.ssm_chunk)
 
 
 # ---------------------------------------------------------------------------
@@ -267,18 +298,21 @@ def _head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # forward / decode
 # ---------------------------------------------------------------------------
-def _remat_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, window: int | None):
-    """:func:`attn_block_full` under activation checkpointing (the
-    reference's ``jax.checkpoint`` of ``cfg.remat``): the block keeps only
-    its inputs, and autograd runs its forward again, under the pack plan
-    active now, before its backward — every matmul of the block launches
-    twice a step."""
+def _remat(fn, *args):
+    """``fn(*args)`` under activation checkpointing (the reference's
+    ``jax.checkpoint`` of ``cfg.remat``): only the inputs are kept, and
+    autograd runs ``fn`` again, under the pack plan active now, before its
+    backward — every matmul inside launches twice a step."""
     plan = plan_mod.active_plan()
-    return checkpoint(attn_block_full, bp, x, cfg, positions, window,
-                      use_reentrant=False,
+    return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=lambda: (plan_mod.use_plan(plan),
                                           plan_mod.use_plan(plan)))
+
+
+def _remat_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, window: int | None):
+    """:func:`attn_block_full` under :func:`_remat`."""
+    return _remat(attn_block_full, bp, x, cfg, positions, window)
 
 
 def transformer_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
@@ -325,6 +359,13 @@ def transformer_init_cache(cfg: ModelConfig, batch: int, max_len: int,
     dt = dtype_of(cfg)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def transformer_cache_spec(cfg: ModelConfig) -> Params:
+    """Axis roles of :func:`transformer_init_cache`'s leaves: batch axis 1,
+    sequence axis 2."""
+    kv = cache_mod.CacheAxes(batch=1, seq=2)
+    return {"k": kv, "v": kv}
 
 
 # ---------------------------------------------------------------------------
@@ -404,3 +445,220 @@ def transformer_verify_chunk(params: Params, pool: Params,
         x, _ = attn_block_verify(bp, x, _layer_pool(pool, i), block_tables,
                                  start, valid_len, cfg, cfg.window_for(i))
     return _head(params, _norm_rows(x, params["final_norm"], cfg.norm_eps), cfg), pool
+
+
+# ---------------------------------------------------------------------------
+# the hybrid (zamba2): Mamba2 groups + one shared attention block
+# ---------------------------------------------------------------------------
+def _groups_of(cfg: ModelConfig, period: int) -> int:
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole groups "
+                         f"of {period}")
+    return cfg.n_layers // period
+
+
+def init_hybrid(gen: torch.Generator, cfg: ModelConfig,
+                device: torch.device) -> Params:
+    """``{"embed", "final_norm", ["head",] "mamba_blocks", "shared_attn"}``:
+    ``mamba_blocks[g][j]`` is the ``{"norm", "mamba"}`` block j of group g
+    (G = n_layers / hybrid_attn_every groups), ``shared_attn`` one attention
+    + MLP block."""
+    period = cfg.hybrid_attn_every
+    n_groups = _groups_of(cfg, period)
+    mspec, dt = mamba_spec(cfg), dtype_of(cfg)
+    blocks = [[{"norm": layers.init_rms_norm(cfg.d_model, device),
+                "mamba": ssm.init_mamba(gen, mspec, dt, device)}
+               for _ in range(period)] for _ in range(n_groups)]
+    return {**init_embed_head(gen, cfg, device), "mamba_blocks": blocks,
+            "shared_attn": init_attn_block(gen, cfg, device)}
+
+
+def _hybrid_group(gp: list, shared: Params, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor):
+    """One group: its Mamba2 blocks, then the shared block.  Returns (x,
+    (k, v))."""
+    mspec = mamba_spec(cfg)
+    for bp in gp:
+        x = x + ssm.mamba_forward(bp["mamba"], layers.rms_norm(x, bp["norm"],
+                                                               cfg.norm_eps), mspec)
+    x, kv, _ = attn_block_full(shared, x, cfg, positions, None)
+    return x, kv
+
+
+def hybrid_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                   want_cache: bool = False):
+    """``(logits, 0.0, cache)``: with ``want_cache`` the shared block's KV
+    cache ``{"k", "v"}`` of shape (G, B, S, KV, hd), one for every
+    application (the Mamba2 state is built by stepping, as the reference
+    notes), else None."""
+    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    remat = cfg.remat and not want_cache and torch.is_grad_enabled()
+    ks, vs = [], []
+    for gp in params["mamba_blocks"]:
+        if remat:
+            x, (k, v) = _remat(_hybrid_group, gp, params["shared_attn"], x, cfg,
+                               positions)
+        else:
+            x, (k, v) = _hybrid_group(gp, params["shared_attn"], x, cfg, positions)
+        if want_cache:
+            ks.append(k)
+            vs.append(v)
+    logits = project_logits(params, x, cfg)
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache else None
+    return logits, 0.0, cache
+
+
+def hybrid_decode(params: Params, cache: Params, tokens: torch.Tensor, pos,
+                  cfg: ModelConfig):
+    """One decode step, ``pos`` an int or (B,) int64: tokens (B, 1) →
+    (logits (B, 1, V), cache); the cache is updated in place."""
+    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    mspec = mamba_spec(cfg)
+    conv = cache["conv"]
+    for g, gp in enumerate(params["mamba_blocks"]):
+        for j, bp in enumerate(gp):
+            state = {"ssm": cache["ssm"][g, j],
+                     "conv": {n: t[g, j] for n, t in conv.items()}}
+            mo, new = ssm.mamba_decode_step(
+                bp["mamba"], layers.rms_norm(x, bp["norm"], cfg.norm_eps), state,
+                mspec)
+            x = x + mo
+            state["ssm"].copy_(new["ssm"])
+            for n, t in state["conv"].items():
+                t.copy_(new["conv"][n])
+        slot = {"k": cache["k"][g], "v": cache["v"][g]}     # views into the cache
+        x, _ = attn_block_decode(params["shared_attn"], x, slot, pos, cfg, None)
+    return project_logits(params, x, cfg), cache
+
+
+def hybrid_init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                      device: torch.device) -> Params:
+    """Zeroed decode cache: ``ssm`` (G, P, B, H, d_state, headdim) float32,
+    ``conv`` ``{"x", "b", "c"}`` (G, P, B, W - 1, C), and the shared
+    block's ``k``/``v`` (G, B, max_len, KV, hd)."""
+    period = cfg.hybrid_attn_every
+    lead = (_groups_of(cfg, period), period)
+    dt = dtype_of(cfg)
+    one = ssm.init_mamba_cache(batch, mamba_spec(cfg), dt, device)
+    kv = (lead[0], batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"ssm": one["ssm"].new_zeros(lead + tuple(one["ssm"].shape)),
+            "conv": {n: t.new_zeros(lead + tuple(t.shape))
+                     for n, t in one["conv"].items()},
+            "k": torch.zeros(kv, dtype=dt, device=device),
+            "v": torch.zeros(kv, dtype=dt, device=device)}
+
+
+def hybrid_cache_spec(cfg: ModelConfig) -> Params:
+    """Axis roles of :func:`hybrid_init_cache`: the Mamba2 state stacked
+    under (G, P) with no sequence axis, the shared block's KV under (G,)."""
+    m_axes = cache_mod.shift_axes(ssm.mamba_cache_axes(), 2)
+    kv = cache_mod.CacheAxes(batch=1, seq=2)
+    return {"ssm": m_axes["ssm"], "conv": m_axes["conv"], "k": kv, "v": kv}
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM: groups of (slstm_every - 1) mLSTM blocks + 1 sLSTM block
+# ---------------------------------------------------------------------------
+def _xlstm_layout(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, mLSTM blocks a group)."""
+    period = cfg.slstm_every or cfg.n_layers
+    n_m = period - 1 if cfg.slstm_every else cfg.n_layers
+    return _groups_of(cfg, period), n_m
+
+
+def init_xlstm_lm(gen: torch.Generator, cfg: ModelConfig,
+                  device: torch.device) -> Params:
+    """``{"embed", "final_norm", ["head",] "mlstm_blocks", ["slstm_blocks"]}``:
+    ``mlstm_blocks[g][j]`` and ``slstm_blocks[g]`` are ``{"norm", "cell"}``."""
+    xs, dt = xlstm_spec(cfg), dtype_of(cfg)
+    n_groups, n_m = _xlstm_layout(cfg)
+    params = {**init_embed_head(gen, cfg, device), "mlstm_blocks": [
+        [{"norm": layers.init_rms_norm(cfg.d_model, device),
+          "cell": xlstm.init_mlstm(gen, xs, dt, device)} for _ in range(n_m)]
+        for _ in range(n_groups)]}
+    if cfg.slstm_every:
+        params["slstm_blocks"] = [{"norm": layers.init_rms_norm(cfg.d_model, device),
+                                   "cell": xlstm.init_slstm(gen, xs, dt, device)}
+                                  for _ in range(n_groups)]
+    return params
+
+
+def _xlstm_group(mgp: list, sp: Params | None, x: torch.Tensor, cfg: ModelConfig):
+    xs = xlstm_spec(cfg)
+    for bp in mgp:
+        x = x + xlstm.mlstm_block(bp["cell"], layers.rms_norm(x, bp["norm"],
+                                                              cfg.norm_eps), xs)[0]
+    if sp is not None:
+        x = x + xlstm.slstm_scan(sp["cell"], layers.rms_norm(x, sp["norm"],
+                                                             cfg.norm_eps), xs)[0]
+    return x
+
+
+def xlstm_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                  want_cache: bool = False):
+    """``(logits, 0.0, None)``: the recurrent state is built by stepping
+    the prompt, as the reference does."""
+    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    remat = cfg.remat and not want_cache and torch.is_grad_enabled()
+    s_blocks = params.get("slstm_blocks")
+    for g, mgp in enumerate(params["mlstm_blocks"]):
+        sp = s_blocks[g] if s_blocks is not None else None
+        x = _remat(_xlstm_group, mgp, sp, x, cfg) if remat else _xlstm_group(
+            mgp, sp, x, cfg)
+    return project_logits(params, x, cfg), 0.0, None
+
+
+def xlstm_decode(params: Params, cache: Params, tokens: torch.Tensor, pos,
+                 cfg: ModelConfig):
+    """One decode step (``pos`` unused: the state is all there is): tokens
+    (B, 1) → (logits (B, 1, V), cache); the cache is updated in place."""
+    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    xs = xlstm_spec(cfg)
+    mc = cache["mlstm"]
+    s_blocks = params.get("slstm_blocks")
+    for g, mgp in enumerate(params["mlstm_blocks"]):
+        for j, bp in enumerate(mgp):
+            state = {n: t[g, j] for n, t in mc.items()}
+            mo, new = xlstm.mlstm_block(
+                bp["cell"], layers.rms_norm(x, bp["norm"], cfg.norm_eps), xs,
+                cache=state, decode=True)
+            x = x + mo
+            for n, t in state.items():
+                t.copy_(new[n])
+        if s_blocks is not None:
+            sp = s_blocks[g]
+            state = tuple(t[g] for t in cache["slstm"])
+            so, new = xlstm.slstm_scan(
+                sp["cell"], layers.rms_norm(x, sp["norm"], cfg.norm_eps), xs,
+                state=state)
+            x = x + so
+            for t, n in zip(state, new):
+                t.copy_(n)
+    return project_logits(params, x, cfg), cache
+
+
+def xlstm_init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     device: torch.device) -> Params:
+    """Zeroed decode cache: ``mlstm`` (the cell's state stacked (G, n_m,
+    ...)) and, with sLSTM blocks, ``slstm`` (its (h, c, n, m) stacked (G,
+    ...)); ``max_len`` is unused, the state being O(1) in it."""
+    xs = xlstm_spec(cfg)
+    n_groups, n_m = _xlstm_layout(cfg)
+    one = xlstm.init_mlstm_cache(batch, xs, dtype_of(cfg), device)
+    cache = {"mlstm": {n: t.expand((n_groups, n_m) + tuple(t.shape)).clone()
+                       for n, t in one.items()}}
+    if cfg.slstm_every:
+        cache["slstm"] = tuple(t.expand((n_groups,) + tuple(t.shape)).clone()
+                               for t in xlstm.init_slstm_cache(batch, xs, device))
+    return cache
+
+
+def xlstm_cache_spec(cfg: ModelConfig) -> Params:
+    """Axis roles of :func:`xlstm_init_cache`: mLSTM state stacked under
+    (G, n_m), sLSTM state under (G,); all O(1) in sequence length."""
+    spec = {"mlstm": cache_mod.shift_axes(xlstm.mlstm_cache_axes(), 2)}
+    if cfg.slstm_every:
+        spec["slstm"] = cache_mod.shift_axes(xlstm.slstm_cache_axes(), 1)
+    return spec

@@ -1,9 +1,10 @@
 """Continuous-batching inference engine over Sparse-on-Dense weights.
 
-Twin of :mod:`repro.serving.engine` for the attention family, every stage:
-paged decode with FIFO admission, chunked prefill, preemption with page
-swapping, copy-on-write prefix sharing, speculative decoding and the
-persistent prefix cache.
+Twin of :mod:`repro.serving.engine`, every stage: for the attention
+families paged decode with FIFO admission, chunked prefill, preemption
+with page swapping, copy-on-write prefix sharing, speculative decoding and
+the persistent prefix cache; for the recurrent families (``hybrid``,
+``ssm``) the slot-state regime.
 
 One :class:`Engine` owns a fixed number of *slots* (rows of the batched
 decode step) and admits and evicts requests every step, so sequences of
@@ -15,7 +16,17 @@ The KV cache is a pool of fixed-size pages per layer
 (:func:`repro_torch.models.transformer.transformer_init_paged_pool`, updated
 in place) with a host-side refcounted allocator
 (:class:`repro_torch.serving.pool.PagePool`) and one block table per slot.
-Every feature is off by default and composes with every other:
+The recurrent families keep O(1) state a sequence instead: one batched
+decode cache of ``max_slots`` rows (``model.init_cache``), admission
+replays the prompt through the batch-1 decode step from a zeroed cache and
+writes that state into the sequence's slot
+(:func:`repro_torch.models.cache.write_slot`), and the batched decode step
+runs every slot at its own position; idle and finished rows ride along
+with whatever state their slot holds, which the next admission
+overwrites.  Chunked prefill, preemption, prefix sharing, the prefix cache
+and speculative decoding are paged-KV features, which the engine refuses
+for these families, as the reference does.  For the attention families
+every feature is off by default and composes with every other:
 
 * **chunked prefill** (``prefill_chunk=C``): admission places a sequence in
   the *prefilling* state and one C-token chunk of its prompt runs per
@@ -94,7 +105,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.launch import steps as steps_mod
-from repro_torch.models.model import LM
+from repro_torch.models import cache as cache_mod
+from repro_torch.models.model import LM, RECURRENT
 from repro_torch.serving.pool import PagePool, PoolExhausted, PrefixTrie
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import Request, Scheduler, SeqPhase, SeqState
@@ -178,6 +190,18 @@ class Engine:
                  spec_k: int = 0, draft_params: Params | None = None,
                  draft_plan=None, prefix_cache_budget: int = 0,
                  prefix_cache_dir: str | None = None, tracer=None):
+        family = model.cfg.family
+        if family in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"engine serves token-in/token-out families; {family!r} "
+                "needs frontend plumbing (prefix embeds / codebook stacks)")
+        self.paged = family not in RECURRENT
+        if not self.paged and (prefill_chunk or preemption or prefix_sharing
+                               or prefix_cache_budget or prefix_cache_dir):
+            raise ValueError(
+                f"family {family!r} keeps O(1) recurrent state per slot; "
+                "chunked prefill / preemption / prefix sharing / the prefix "
+                "cache are paged-KV scheduler features")
         if prefix_sharing and not prefill_chunk:
             raise ValueError(
                 "prefix sharing needs chunked prefill (prefill_chunk=...): "
@@ -188,6 +212,11 @@ class Engine:
                 "the prefix cache retains trie-held prompt pages: pass "
                 "prefix_sharing=True (and prefill_chunk=...) to enable it")
         self.spec_k = int(spec_k or 0)
+        if self.spec_k and not self.paged:
+            raise ValueError(
+                f"family {family!r} keeps O(1) recurrent state per slot; "
+                "speculative decoding verifies windows against the paged KV "
+                "cache")
         if self.spec_k and draft_params is None:
             raise ValueError(
                 "spec_k > 0 needs draft_params — a second (aggressively "
@@ -232,8 +261,16 @@ class Engine:
         self._finite = torch.ones((), dtype=torch.bool, device=self.device)
         self._pos = np.zeros(self.max_slots, np.int64)
         self._tok = np.zeros((self.max_slots, 1), np.int64)
-
+        self.prefix_cache: PrefixCache | None = None
         self.page_size = int(page_size)
+        if not self.paged:
+            # one batched slot cache; admission writes a replayed prompt's
+            # state into its slot
+            self.cache = model.init_cache(self.max_slots, self.max_len, self.device)
+            self._cache_spec = model.cache_spec()
+            self._decode = steps_mod.make_decode_step(model, plan=plan)
+            return
+
         self._chunk = model.cfg.attn_chunk
         # a draft window probes up to spec_k positions past a sequence's
         # lifetime; the wider block tables keep those (trash-redirected)
@@ -244,7 +281,6 @@ class Engine:
         self.page_pool = PagePool(n_pages, self.page_size)
         self.trie = PrefixTrie(self.page_size) if prefix_sharing else None
         self.pool = model.init_paged_pool(n_pages, self.page_size, self.device)
-        self.prefix_cache: PrefixCache | None = None
         if prefix_cache_budget or prefix_cache_dir:
             k = self.pool["k"]
             page_nbytes = 2 * (k.numel() // k.shape[1]) * k.element_size()
@@ -293,6 +329,14 @@ class Engine:
         (prompt + generation budget within ``max_len`` and the page
         pool); admission happens later, when a slot and pages free up."""
         plen = len(req.tokens)
+        if not self.paged:
+            end = plen + req.max_new - 1
+            if end > self.max_len:
+                raise ValueError(f"request {req.rid}: needs {end} positions; "
+                                 f"engine max_len={self.max_len}")
+            self._submitted.append(req)
+            self.sched.submit(req)
+            return
         if self.prefill_chunk and self._chunk and plen > self._chunk:
             raise ValueError(
                 f"request {req.rid}: prompt of {plen} tokens exceeds "
@@ -447,6 +491,21 @@ class Engine:
         self.stats["prompt_pages_fresh"] += n
         return self._post_admit(seq)
 
+    def _admit_state(self, req: Request) -> list[tuple[int, int]]:
+        """Recurrent admission: replay the prompt through the batch-1
+        decode step from a zeroed cache (as :func:`static_generate` does),
+        emit the first token, and write the state into the slot."""
+        prompt = self._up(np.asarray(req.tokens)[None])
+        sub = self.model.init_cache(1, self.max_len, self.device)
+        for t in range(prompt.shape[1]):
+            nxt, logits, sub = self._decode(self.params, sub, prompt[:, t:t + 1], t)
+        self._check_finite(logits)
+        seq = self.sched.place(req, pos=prompt.shape[1],
+                               first_token=int(nxt.reshape(-1)[0]), pages=[],
+                               ready_wall=self._first_seen[req.rid])
+        cache_mod.write_slot(self.cache, sub, self._cache_spec, seq.slot)
+        return self._post_admit(seq)
+
     def _gather_page_host(self, page: int) -> Params:
         """One page's KV for the prefix cache's demotion (views on the
         device; the cache copies them to the host)."""
@@ -540,10 +599,11 @@ class Engine:
         self.metrics.observe("ttft_s", seq.first_token_wall - seq.ready_wall)
         self.metrics.observe("tpot_s", (seq.done_wall - seq.first_token_wall)
                              / max(len(seq.generated) - 1, 1))
-        if self.prefix_cache is not None:
-            self._cache_hold(seq)
-        self._drop_from_trie(self.page_pool.free(seq.pages))
-        self.block_tables[slot, :] = PagePool.TRASH_PAGE
+        if self.paged:
+            if self.prefix_cache is not None:
+                self._cache_hold(seq)
+            self._drop_from_trie(self.page_pool.free(seq.pages))
+            self.block_tables[slot, :] = PagePool.TRASH_PAGE
         self._pos[slot] = 0
         self._tok[slot, 0] = 0
         self._finished[seq.req.rid] = seq
@@ -750,10 +810,16 @@ class Engine:
     # -- decode / speculative window -----------------------------------------
     def _phase_decode(self, decoding: dict[int, SeqState]) -> list[tuple[int, int]]:
         """One ragged batched decode step; every decoding slot commits one
-        token.  Prefilling and idle rows ride along with write cutoff 0."""
-        bt, tok, pos, valid = self._decode_inputs(self._valid_lens())
-        nxt, logits, self.pool = self._decode(self.params, self.pool, bt, tok, pos,
-                                              valid)
+        token.  Prefilling and idle rows ride along with write cutoff 0
+        (paged) or with whatever state their slot holds (recurrent)."""
+        if self.paged:
+            bt, tok, pos, valid = self._decode_inputs(self._valid_lens())
+            nxt, logits, self.pool = self._decode(self.params, self.pool, bt, tok,
+                                                  pos, valid)
+        else:
+            state = self._up(np.concatenate([self._tok, self._pos[:, None]], 1))
+            nxt, logits, self.cache = self._decode(self.params, self.cache,
+                                                   state[:, 0:1], state[:, 1])
         self._check_finite(logits[list(decoding)])
         nxt = nxt.reshape(self.max_slots).cpu().numpy()
         events: list[tuple[int, int]] = []
@@ -850,7 +916,7 @@ class Engine:
             if r.arrival > now:
                 break                        # pending is arrival-sorted
             self._first_seen.setdefault(r.rid, now_wall)
-        while self.sched.swapped and self.sched.has_free_slot():
+        while self.paged and self.sched.swapped and self.sched.has_free_slot():
             seq = self.sched.peek_swapped()
             if not self._provide(seq.host_kv[1]):
                 break
@@ -860,6 +926,9 @@ class Engine:
             req = self.sched.peek_ready(now)
             if req is None:
                 break
+            if not self.paged:
+                events += self._admit_state(req)
+                continue
             # one trie walk per attempt, shared by the check and the admission
             share = self._share_plan(req) if self.prefill_chunk else None
             if not self._can_admit(req, share):
@@ -888,8 +957,9 @@ class Engine:
             if self.prefill_chunk:
                 with tr.span("prefill", track="engine"):
                     events += self._phase_prefill()
-            with tr.span("capacity", track="engine"):
-                self._phase_capacity()
+            if self.paged:
+                with tr.span("capacity", track="engine"):
+                    self._phase_capacity()
             decoding = {slot: seq for slot, seq in self.sched.active.items()
                         if seq.phase is SeqPhase.DECODING}
             if decoding and self.spec_k:
@@ -898,7 +968,8 @@ class Engine:
             elif decoding:
                 with tr.span("decode", track="engine"):
                     events += self._phase_decode(decoding)
-            self._sample_pool()
+            if self.paged:
+                self._sample_pool()
         self._step_s.append(time.perf_counter() - t0)
         self._step_idx += 1
         return events
@@ -950,9 +1021,22 @@ class Engine:
         a swap gather and scatter and a cache page get and set — so the
         kernels and their launch plans are built before steady state is
         timed.  Only the trash page is written; no other engine state
-        changes."""
+        changes.  A recurrent engine runs the batch-1 step on a cache of its
+        own and the batched step on a copy of the slot cache."""
         with self.tracer.span("warmup", track="engine"):
             t0 = time.perf_counter()
+            if not self.paged:
+                tok = torch.zeros((1, 1), dtype=torch.int64, device=self.device)
+                sub = self.model.init_cache(1, self.max_len, self.device)
+                self._decode(self.params, sub, tok, 0)
+                scratch = cache_mod.write_slot(
+                    self.model.init_cache(self.max_slots, self.max_len, self.device),
+                    sub, self._cache_spec, 0)
+                state = self._up(np.concatenate([self._tok, self._pos[:, None]], 1))
+                self._decode(self.params, scratch, state[:, 0:1], state[:, 1])[0].cpu()
+                dt = time.perf_counter() - t0
+                self.stats["warmup_s"] += dt
+                return dt
             tiers = [(self.params, self.pool, "")]
             if self.spec_k:
                 tiers.append((self.draft_params, self.draft_pool, "_draft"))
@@ -1069,15 +1153,21 @@ def static_generate(model: LM, params: Params, req: Request,
                     plan=None) -> list[int]:
     """Per-request static greedy generation — the reference the engine must
     match token for token: the static serve path at batch 1 (fused prefill
-    of the bare prompt, the cache grown to prompt + ``max_new`` positions,
-    scalar-position decode steps), dispatched under ``plan``."""
+    of the bare prompt and the cache grown to prompt + ``max_new``
+    positions, or for a recurrent family the prompt replayed through the
+    decode step from a zeroed cache; then scalar-position decode steps),
+    dispatched under ``plan``."""
     device = _param_device(params)
     prompt = torch.as_tensor(np.asarray(req.tokens, np.int64), device=device)[None]
     plen = prompt.shape[1]
-    prefill = steps_mod.make_prefill_step(model, plan=plan)
     decode = steps_mod.make_decode_step(model, plan=plan)
-    nxt, cache = prefill(params, prompt)
-    cache = model.grow_cache(cache, plen + req.max_new)
+    if model.cfg.family in RECURRENT:
+        cache = model.init_cache(1, plen + req.max_new, device)
+        for t in range(plen):
+            nxt, _, cache = decode(params, cache, prompt[:, t:t + 1], t)
+    else:
+        nxt, cache = steps_mod.make_prefill_step(model, plan=plan)(params, prompt)
+        cache = model.grow_cache(cache, plen + req.max_new)
     out = [int(nxt.reshape(-1)[0])]
     tok = nxt.reshape(1, 1)
     for t in range(req.max_new - 1):

@@ -1532,3 +1532,140 @@ def test_rms_norm_rows_of_four_equal_rows_alone(cuda, d):
         four = layers.rms_norm(x[i], gain)
         for r in range(4):
             assert torch.equal(four[r], layers.rms_norm(x[i, r:r + 1], gain)[0]), (i, r)
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (zamba2-2.7b, xlstm-125m) at full width
+# ---------------------------------------------------------------------------
+# (K, N, output dtype): zamba2's Mamba2 w_z / w_x and out_proj, its head;
+# xlstm's wq / wk / wv and w_up, its head
+RECURRENT_SHAPES = [(2560, 5120, None), (5120, 2560, None), (2560, 32000, torch.float32),
+                    (1536, 1536, None), (768, 3072, None), (768, 50304, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("k,n,out_dtype", RECURRENT_SHAPES)
+@pytest.mark.parametrize("kernel,qmode", [("sod_matmul", "none"), ("sod_matmul", "int8"),
+                                          ("block_matmul", "none")])
+def test_kernels_at_recurrent_shapes(cuda, kernel, qmode, k, n, out_dtype, m):
+    """Each matmul kernel at the recurrent families' shapes, bf16
+    activations, against its plain version; ``decompress`` bit for bit."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(k + n + m)
+    w = torch.randn(k, n, generator=g, device=cuda).bfloat16()
+    x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+    if kernel == "block_matmul":
+        p = pack_block_csr(block_prune(w, 0.3))
+        y, yr = bmm.block_matmul(x, p, out_dtype), ref.sod_matmul_ref(x, p, out_dtype)
+    else:
+        p = pack_tiled_csc(magnitude_prune(w, 0.3))
+        if qmode != "none":
+            p = quantize_packed(p, qmode)
+        y, yr = sm.sod_matmul(x, p, out_dtype), ref.sod_matmul_ref(x, p, out_dtype)
+        if m == 4:
+            assert torch.equal(dk.decompress(p), ref.decompress_tiled_ref(p))
+    torch.cuda.synchronize()
+    assert y.dtype == yr.dtype
+    tol = TOL[torch.bfloat16] * yr.float().abs().max().item()
+    assert (y.float() - yr.float()).abs().max().item() <= tol
+
+
+def _recurrent_blocks(dev):
+    """Seeded full-width Mamba2 (zamba2-2.7b), mLSTM and sLSTM (xlstm-125m)
+    weights, bf16, the Sparse-on-Dense projections packed tiled_csc at 0.3."""
+    from repro_torch.core.sod import SoDConfig, pack_param
+    from repro_torch.models import ssm, xlstm
+
+    sod = SoDConfig(mode="tiled_csc", density=0.3, min_dim=64)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    mspec = ssm.MambaSpec(d_model=2560, d_state=64, headdim=64)
+    xspec = xlstm.XLSTMSpec(d_model=768, n_heads=4)
+    mp = ssm.init_mamba(gen, mspec, torch.bfloat16, dev)
+    mp = {k: pack_param(w, sod) if k in ("w_z", "w_x", "out_proj") else w
+          for k, w in mp.items()}
+    xp = xlstm.init_mlstm(gen, xspec, torch.bfloat16, dev)
+    xp = {k: pack_param(w, sod) if k in ("w_up", "wq", "wk", "wv", "w_down") else w
+          for k, w in xp.items()}
+    sp = xlstm.init_slstm(gen, xspec, torch.bfloat16, dev)
+    return mspec, mp, xspec, xp, sp
+
+
+def _rows(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+@pytest.mark.cuda
+def test_slstm_recurrence_rows_of_four_equal_rows_alone(cuda):
+    """Fault C8: sLSTM's recurrent product ``einsum("bhd,hde->bhe")`` at
+    xlstm-125m's heads (4 of 192) in float32 changed every row's bits on
+    the card between batch 4 and 1; summed in float64 and rounded once
+    (``layers.einsum_f32``), each row of 4 has the bits of the row alone,
+    and so has a whole sLSTM step's state."""
+    from repro_torch.models import layers, xlstm
+
+    _, _, xspec, _, sp = _recurrent_blocks(cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(22)
+    with torch.inference_mode():
+        for _ in range(16):
+            h = torch.randn(4, 4, 192, generator=g, device=cuda)
+            four = layers.einsum_f32("bhd,hde->bhe", h, sp["r_gates"])
+            x = torch.randn(4, 1, 768, generator=g, device=cuda).bfloat16()
+            st = tuple(torch.randn(4, 4, 192, generator=g, device=cuda) for _ in range(4))
+            y4, s4 = xlstm.slstm_scan(sp, x, xspec, st)
+            for r in range(4):
+                assert torch.equal(four[r], layers.einsum_f32(
+                    "bhd,hde->bhe", h[r:r + 1], sp["r_gates"])[0]), r
+                y1, s1 = xlstm.slstm_scan(sp, x[r:r + 1], xspec,
+                                          tuple(t[r:r + 1] for t in st))
+                assert torch.equal(y4[r], y1[0]) and all(
+                    torch.equal(a[r], b[0]) for a, b in zip(s4, s1)), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", ["mamba", "mlstm"])
+def test_recurrent_decode_rows_of_four_equal_rows_alone(cuda, block):
+    """A Mamba2 decode step (zamba2-2.7b) and an mLSTM decode step
+    (xlstm-125m) on packed bf16 weights: each row at the engine's batch of 4
+    — output and new state — has the bits of the row alone (static
+    serving's batch 1)."""
+    from repro_torch.models import ssm, xlstm
+
+    mspec, mp, xspec, xp, _ = _recurrent_blocks(cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(23)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=cuda) * scale).to(dtype)
+
+    with torch.inference_mode():
+        for _ in range(8):
+            if block == "mamba":
+                x = randn(4, 1, 2560, dtype=torch.bfloat16)
+                st = {"ssm": randn(4, 80, 64, 64),
+                      "conv": {"x": randn(4, 3, 5120, dtype=torch.bfloat16),
+                               "b": randn(4, 3, 64, dtype=torch.bfloat16),
+                               "c": randn(4, 3, 64, dtype=torch.bfloat16)}}
+
+                def run(r):
+                    sub = {"ssm": st["ssm"][r], "conv": {k: t[r] for k, t in
+                                                         st["conv"].items()}}
+                    y, new = ssm.mamba_decode_step(mp, x[r], sub, mspec)
+                    return (y, new["ssm"], *new["conv"].values())
+            else:
+                x = randn(4, 1, 768, dtype=torch.bfloat16)
+                st = {"c": randn(4, 4, 384, 384, scale=0.1), "n": randn(4, 4, 384),
+                      "m": randn(4, 4), "conv": randn(4, 3, 1536, dtype=torch.bfloat16)}
+
+                def run(r):
+                    y, new = xlstm.mlstm_block(xp, x[r], xspec,
+                                               cache={k: t[r] for k, t in st.items()},
+                                               decode=True)
+                    return (y, *new.values())
+            four = run(slice(0, 4))
+            for r in range(4):
+                one = run(slice(r, r + 1))
+                for a, b in zip(four, one, strict=True):
+                    assert torch.equal(a[r], b[0]), r

@@ -47,7 +47,9 @@ def test_importing_the_serve_path_loads_no_jax():
             "repro_torch.runtime.fault, "
             "repro_torch.serving, repro_torch.obs, repro_torch.kernels.registry, "
             "repro_torch.kernels.autotune, repro_torch.kernels.timing, "
-            "repro_torch.runtime.planner, "
+            "repro_torch.runtime.planner, repro_torch.models.ssm, "
+            "repro_torch.models.xlstm, repro_torch.configs.zamba2_2_7b, "
+            "repro_torch.configs.xlstm_125m, "
             "repro_torch.core.plan; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; "
