@@ -30,7 +30,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    and ``tiled_csc_int8`` (magnitude-pruned to density 0.3; the second is
    this slice's main path, ``--quantize int8``), ``block_csr`` and
    ``block_csr_fp8`` (block-pruned to density 0.3), and
-   ``tiled_csc_codebook`` at 2 layers (the codebook is fitted on the host,
+   ``tiled_csc_codebook`` at 1 layer (the codebook is fitted on the host,
    see CODEBOOK_LAYERS).  Each cell's weights are prepared once, served
    through ``serve.main`` with its kernel's launch count read around the
    run, then its prefill is held against the same weights densified
@@ -157,12 +157,12 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (RECURRENT_SHAPES: zamba2's 2560 × 5120, 5120 × 2560 and shared MLP,
    both heads at f32 out, xlstm's 1536 × 1536 and 768 × 3072), at M = 4
    and 128, as phase 9 runs them.  Then three static cells (batch 4,
-   prompt 32, 16 tokens, density 0.3): ``zamba2_tiled_csc`` (full depth:
-   54 Mamba2 blocks, the shared block applied 9 times, untied head),
+   prompt 32, 16 tokens, density 0.3): ``zamba2_tiled_csc`` (12 of 54
+   layers: 12 Mamba2 blocks, the shared block applied twice, untied head),
    ``zamba2_block_csr`` (block-pruned, 12 layers) and ``xlstm_tiled_csc``
    (full depth), each prompt replayed through the decode step, so a cell
-   launches its kernel _recurrent_per_step × 48 times ((54 · 3 + 9 · 7 +
-   1) × 48 = 10,848 for zamba2, (9 · 5 + 1) × 48 = 2,208 for xlstm) and
+   launches its kernel _recurrent_per_step × 48 times ((12 · 3 + 2 · 7 +
+   1) × 48 = 2,448 for zamba2, (9 · 5 + 1) × 48 = 2,208 for xlstm) and
    no other, with no ``torch_oracle`` dispatch, finite logits and the
    last prompt position's logits within LOGIT_TOL of the densified
    weights' (both stepped); zamba2's chunked SSD forward (``LM.apply``)
@@ -170,17 +170,42 @@ Phases, each of which raises on failure (so the script exits non-zero):
    zamba2 decode step profiled by class (SoD kernels, scan and conv, the
    dense GEMMs, attention, the head alone); engine runs in the slot
    regime on zamba2's and xlstm's weights over phase 6's trace, every
-   request equal to ``static_generate`` bit for bit; ``train_xlstm`` and
-   ``train_zamba2`` at full width and depth (batch 8 × seq 128, 4 steps,
+   request equal to ``static_generate`` bit for bit; ``train_xlstm`` (full
+   depth) and ``train_zamba2`` (12 layers) at full width (batch 8 × seq
+   128, 4 steps,
    remat: finite losses and gradient norms, (2 · (per step - 1) + 1)
    ``sod_matmul`` and per-step ``decompress`` launches a step, only
-   ``cuda_fused`` dispatched), one step of each profiled.
+   ``cuda_fused`` dispatched), one step of each profiled;
+12. frontends — the VLM and audio families at full width, through the SoD
+   kernels (every projection and the untied head packed; pixtral's
+   ``patch_proj`` and the embeddings dense, as the reference).  First each
+   kernel at the shapes they add (FRONTEND_SHAPES: pixtral's w_gate and
+   w_down, both heads at f32 out, musicgen's 1536 × 8192 over its 4
+   codebooks), at M = 4 and 128, as phase 9 runs them.  Then three static
+   cells at full depth (FRONTEND_CELLS, density 0.3, 16 tokens):
+   ``pixtral_tiled_csc`` (batch 2, 1024 patches + 512 text tokens),
+   ``musicgen_tiled_csc`` and ``musicgen_block_csr`` (block-pruned; batch
+   4, prompt 32), each launching its kernel (layers · 7 + 1) × 17 times
+   ((40 · 7 + 1) × 17 = 4,777 for pixtral, (48 · 7 + 1) × 17 = 5,729 for
+   musicgen) and no other, with no ``torch_oracle`` dispatch, finite logits,
+   musicgen's ids (B, 16, 4) below 2048, and the last prompt position's
+   logits within LOGIT_TOL of the densified weights' (each prefill timed);
+   pixtral's decode at its true position (n_patches + text) held against
+   the full forward within LOGIT_TOL (static serving decodes at the text's
+   length, the reference's fault R5); one decode step of pixtral and of
+   musicgen profiled by class (SoD kernels, attention, the head alone, the
+   rest); ``train_musicgen`` (full depth, batch 8 × seq 128) and
+   ``train_pixtral`` (2 layers, batch 1 × seq 1536, the loss on the text),
+   4 steps each: the frontend leaf's gradient finite and not 0, finite
+   losses and gradient norms, (2 · layers · 7 + 1) ``sod_matmul`` and
+   (layers · 7 + 1) ``decompress`` launches a step, only ``cuda_fused``
+   dispatched, one step profiled.
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
 kernel and qmode, with the launches and registry dispatches of phase 7's
 runs, the launches and gradient error of phase 8, and phase 9's launches
-by cell and its shapes' times, and phases 10 and 11 the same way), and
+by cell and its shapes' times, and phases 10 to 12 the same way), and
 ``{"ok": true, "device": {...}}``.  The whole run reads and
 writes a tuning cache of its own in a temporary directory, so phases 4-6
 dispatch on a cold cache (the untuned launches).
@@ -220,7 +245,7 @@ from repro_torch.kernels import decompress as dk  # noqa: E402
 from repro_torch.kernels import sod_matmul as sm  # noqa: E402
 from repro_torch.kernels import vjp  # noqa: E402
 from repro_torch.core.tree import leaves_with_path  # noqa: E402
-from repro_torch.data.pipeline import SyntheticLMData  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLMData, to_device  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
@@ -248,9 +273,10 @@ LOGIT_TOL = 0.05
 DENSITY = 0.3
 LAYERS = 16
 # The codebook cell's depth: its shared-value tables are fitted on the host
-# with numpy (Lloyd k-means, as the reference), about 40 s a full-width layer
-# on one CPU core, so the cell runs at full width but 2 layers.
-CODEBOOK_LAYERS = 2
+# with numpy (Lloyd k-means, as the reference), about 25 s a full-width layer
+# on one CPU core, so the cell runs at full width but 1 layer (2 until the
+# frontends' phase 12 needed the time).
+CODEBOOK_LAYERS = 1
 QMODES = ("int8", "fp8", "codebook")
 BASE_ARGV = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "32",
              "--gen", "16", "--seed", "0", "--device", "cuda"]
@@ -677,7 +703,8 @@ def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int,
     dense path routed by its own logits is logged beside (its error, argmax
     agreement, and the share of (token, layer) expert sets that differ).
     Returns the logged row (without the logits, which are under
-    ``"logits"``)."""
+    ``"logits"``; the seconds of both prefills under ``kernel_prefill_s``
+    and ``dense_prefill_s``)."""
     proj = (_recurrent_packed(params) if want_packed is not None
             else _projections(params))
     prefill = prefill or (lambda p: model.prefill(p, tokens))
@@ -685,8 +712,12 @@ def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int,
     routed = model.cfg.family == "moe"
     kernel_ids, free_ids, free = [], [], {}
     with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         with _routing(record=kernel_ids) if routed else contextlib.nullcontext():
             lk, _ = prefill(params)
+        torch.cuda.synchronize()
+        kernel_prefill_s = time.perf_counter() - t0
         dk.launches = 0
         dense = _densify(params)
         decompress_launches = dk.launches
@@ -702,8 +733,12 @@ def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int,
                         (lk.argmax(-1) == lf.argmax(-1)).float().mean().item(),
                     "own_routing_expert_sets_that_differ": statistics.mean(flips)}
             del lf
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         with _routing(replay=list(kernel_ids)) if routed else contextlib.nullcontext():
             ld, _ = prefill(dense)
+        torch.cuda.synchronize()
+        dense_prefill_s = time.perf_counter() - t0
         del dense
         ld = ld[:, :vocab].float()
         err = (lk - ld).abs().max().item()
@@ -719,6 +754,7 @@ def check_vs_dense(label: str, model, params, tokens, kernel: str, layers: int,
     row = {"phase": "slice_vs_dense", "cell": label, "max_abs_err": err,
            "max_abs_logit": scale, "tol": LOGIT_TOL * scale,
            "argmax_agreement": agree, "decompress_launches": decompress_launches,
+           "kernel_prefill_s": kernel_prefill_s, "dense_prefill_s": dense_prefill_s,
            **({"routing": "the kernel path's expert choices", **free} if routed else {}),
            "projection_bytes": sum(sod_mod.weight_bytes(w) for w in packed),
            "projection_bytes_dense": sum(w.nbytes_dense() if hasattr(w, "nbytes_dense")
@@ -1619,7 +1655,7 @@ def phase_train_profile(summary: dict, run: str = "train_tiled_csc",
     step = steps_mod.make_train_step(model, AdamW(AdamWConfig(lr=args.lr)))
     state = summary["state"]
     data = SyntheticLMData(cfg, args.batch, args.seq, seed=args.seed)
-    batch = {k: torch.from_numpy(v).long().cuda() for k, v in data.batch(12).items()}
+    batch = to_device(data.batch(12), "cuda")
 
     def one():
         state["params"], state["opt"], _ = step(state["params"], state["opt"], batch)
@@ -1668,7 +1704,8 @@ def phase_train_profile(summary: dict, run: str = "train_tiled_csc",
     wall = statistics.median(walls)
     rows = sorted(((us, k, n) for k, (us, n) in per_kernel.items()), reverse=True)
     log({"phase": "train_profile", "run": run, "arch": cfg.name,
-         "what": "one steady training step, batch 8 × seq 128, full width, bf16",
+         "what": f"one steady training step, batch {args.batch} × seq {args.seq}, "
+                 "full width, bf16",
          "step_s_median_of_3": wall, "tok_s": TRAIN_M / wall, "peak_mem_gb": peak,
          "device_ms": total_us / 1e3 if total_us else "not measured",
          "device_idle_share": (1 - total_us / 1e6 / wall) if total_us else "not measured",
@@ -2576,17 +2613,20 @@ RECURRENT_SHAPES = {
 RECURRENT_QMODES = {"sod_matmul": ("none", "int8"), "block_matmul": ("none",),
                     "decompress": ("none",)}
 # cell -> (arch, layers (None: full depth), flags, caller's SoDConfig, kernel)
+# zamba2 at two of its nine groups, full width: every shape of the model
+# runs, and the phase's time (the engine replays every prompt through the
+# decode step) leaves the script room for phase 12 within its limit
 RECURRENT_CELLS = {
-    "zamba2_tiled_csc": ("zamba2-2.7b", None, FAMILY_TILED, None, "sod_matmul"),
-    # two of the nine groups, full width: enough to run block_matmul at every
-    # shape of the model, and the phase's time stays within the script's
+    "zamba2_tiled_csc": ("zamba2-2.7b", 12, FAMILY_TILED, None, "sod_matmul"),
     "zamba2_block_csr": ("zamba2-2.7b", 12, [], _block_sod(), "block_matmul"),
     "xlstm_tiled_csc": ("xlstm-125m", None, FAMILY_TILED, None, "sod_matmul"),
 }
 RECURRENT_ENGINE_RUNS = {"zamba2_tiled_csc": "zamba2_tiled_csc",
                          "xlstm_tiled_csc": "xlstm_tiled_csc"}
-# run -> arch; both at full width and depth
-RECURRENT_TRAIN_RUNS = {"train_xlstm": "xlstm-125m", "train_zamba2": "zamba2-2.7b"}
+# run -> (arch, layers (None: full depth)); both at full width, zamba2 at two
+# of its nine groups, as its cells
+RECURRENT_TRAIN_RUNS = {"train_xlstm": ("xlstm-125m", None),
+                        "train_zamba2": ("zamba2-2.7b", 12)}
 RECURRENT_TRAIN_STEPS = 4
 # a recurrent cell replays its 32-token prompt through the decode step, then
 # decodes 16 tokens: 48 decode steps, each running every packed projection
@@ -2767,28 +2807,17 @@ def _ranges(spots):
             setattr(mod, name, fn)
 
 
-def phase_recurrent_profile(sl: dict) -> None:
-    """One steady static decode step of zamba2-2.7b (batch 4, full width and
-    depth) under ``torch.profiler``: device ms by class — the SoD kernels
-    (the head's call among them), the Mamba2 blocks' scan and conv (their
-    operators but the dense GEMMs of w_b, w_c, w_dt, which are apart), the
-    shared block's attention core, and the rest — the head alone timed as
-    phase 9 times it, and the idle share against the median wall of 7
-    unprofiled steps.  Operators are classed by the labelled range they
-    run in (``record_function`` around ``ssm.mamba_decode_step`` and
-    ``attention._attend_cached``)."""
+def _profile_decode_step(model, params, cache, tok, pos: int, spots) -> tuple:
+    """One warm decode step at ``pos``, 7 timed ones after it, then one more
+    under ``torch.profiler`` with each ``(module, function name, label)`` of
+    ``spots`` inside a labelled range (:func:`_ranges`).  Returns the median
+    wall ms of the 7, device µs and calls by kernel name, and the operators'
+    self device µs by the range they ran in ("" outside every range) and
+    operator name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import attention, ssm
-
-    model, params, tokens = sl["model"], sl["params"], sl["tokens"]
-    cfg = model.cfg
-    spots = [(ssm, "mamba_decode_step", "mamba"),
-             (attention, "_attend_cached", "attention_core")]
     with torch.inference_mode():
-        _, cache, pos = serve.prefill_cache(model, params, tokens, 48)
-        tok = torch.zeros((tokens.shape[0], 1), dtype=torch.long, device="cuda")
         model.decode_step(params, cache, tok, pos)
         step_ms = []
         for t in range(1, 8):
@@ -2801,54 +2830,85 @@ def phase_recurrent_profile(sl: dict) -> None:
                                                  ProfilerActivity.CUDA]) as prof:
             model.decode_step(params, cache, tok, pos + 8)
             torch.cuda.synchronize()
-        h = torch.randn(tokens.shape[0], 1, cfg.d_model, device="cuda").bfloat16()
-        head_ms = _time_ms(lambda: transformer._head(params, h, cfg), timing.flush_buffer())
-    per_kernel: dict[str, tuple[float, int]] = {}
-    classes = {"mamba_scan_conv": 0.0, "mamba_dense_gemm": 0.0, "attention_core": 0.0,
-               "other_ops": 0.0}
     labels = {label for *_, label in spots}
+    per_kernel: dict[str, tuple[float, int]] = {}
+    by_range: dict[str, dict[str, float]] = {}
     for ev in prof.events():
+        if ev.name in labels:         # a labelled range's span, not an operator
+            continue
         if ev.device_type == DeviceType.CUDA:
-            if ev.name in labels:     # a labelled range's span, not a kernel
-                continue
             us, n = per_kernel.get(ev.name, (0.0, 0))
             per_kernel[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
             continue
         self_us = getattr(ev, "self_device_time_total", 0.0)
-        if not self_us or ev.name in labels:
+        if not self_us:
             continue
         rng, p = None, getattr(ev, "cpu_parent", None)
         while p is not None and rng is None:
             rng = p.name if p.name in labels else None
             p = p.cpu_parent
-        if rng == "mamba":
-            dense = ev.name.startswith("aten::mm")
-            classes["mamba_dense_gemm" if dense else "mamba_scan_conv"] += self_us
-        elif rng == "attention_core":
-            classes["attention_core"] += self_us
-        else:
-            classes["other_ops"] += self_us
-    rows = sorted(((us, k, n) for k, (us, n) in per_kernel.items()), reverse=True)
-    total_ms = sum(r[0] for r in rows) / 1e3
+        ops = by_range.setdefault(rng or "", {})
+        ops[ev.name] = ops.get(ev.name, 0.0) + self_us
+    return statistics.median(step_ms), per_kernel, by_range
+
+
+def _sod_kernels(per_kernel: dict) -> tuple[float, int]:
+    """(ms, calls) of the SoD matmul kernels among a step's kernels."""
     sod = [(us, n) for k, (us, n) in per_kernel.items()
            if "sod_matmul" in k or "block_matmul" in k]
-    step = statistics.median(step_ms)
+    return sum(us for us, _ in sod) / 1e3, sum(n for _, n in sod)
+
+
+def phase_recurrent_profile(sl: dict) -> None:
+    """One steady static decode step of zamba2-2.7b (batch 4, full width, the
+    cell's depth) under ``torch.profiler``: device ms by class — the SoD kernels
+    (the head's call among them), the Mamba2 blocks' scan and conv (their
+    operators but the dense GEMMs of w_b, w_c, w_dt, which are apart), the
+    shared block's attention core, and the rest — the head alone timed as
+    phase 9 times it, and the idle share against the median wall of 7
+    unprofiled steps.  Operators are classed by the labelled range they
+    run in (``record_function`` around ``ssm.mamba_decode_step`` and
+    ``attention._attend_cached``)."""
+    from repro_torch.models import attention, ssm
+
+    model, params, tokens = sl["model"], sl["params"], sl["tokens"]
+    cfg = model.cfg
+    spots = [(ssm, "mamba_decode_step", "mamba"),
+             (attention, "_attend_cached", "attention_core")]
+    with torch.inference_mode():
+        _, cache, pos = serve.prefill_cache(model, params, tokens, 48)
+    tok = torch.zeros((tokens.shape[0], 1), dtype=torch.long, device="cuda")
+    step, per_kernel, by_range = _profile_decode_step(model, params, cache, tok, pos, spots)
+    with torch.inference_mode():
+        h = torch.randn(tokens.shape[0], 1, cfg.d_model, device="cuda").bfloat16()
+        head_ms = _time_ms(lambda: transformer._head(params, h, cfg), timing.flush_buffer())
+    mamba = by_range.get("mamba", {})
+    classes = {"mamba_scan_conv": sum(us for op, us in mamba.items()
+                                      if not op.startswith("aten::mm")),
+               "mamba_dense_gemm": sum(us for op, us in mamba.items()
+                                       if op.startswith("aten::mm")),
+               "attention_core": sum(by_range.get("attention_core", {}).values()),
+               "other_ops": sum(by_range.get("", {}).values())}
+    rows = sorted(((us, k, n) for k, (us, n) in per_kernel.items()), reverse=True)
+    total_ms = sum(r[0] for r in rows) / 1e3
+    sod_ms, sod_calls = _sod_kernels(per_kernel)
     measured = bool(rows)
     log({"phase": "recurrent_profile", "cell": "zamba2_tiled_csc", "arch": cfg.name,
-         "what": "one static decode step, batch 4, full width and depth, bf16",
+         "what": f"one static decode step, batch 4, full width, {cfg.n_layers} layers, "
+                 "bf16",
          "step_ms_median_of_7": step,
          "device_ms": total_ms if measured else "not measured",
          "device_idle_share": (1 - total_ms / step) if measured else "not measured",
-         "sod_kernels_ms": sum(us for us, _ in sod) / 1e3 if measured else "not measured",
-         "sod_kernel_calls": sum(n for _, n in sod), "head_alone_ms": head_ms,
+         "sod_kernels_ms": sod_ms if measured else "not measured",
+         "sod_kernel_calls": sod_calls, "head_alone_ms": head_ms,
          **{f"{k}_ms": (v / 1e3 if any(classes.values()) else "not measured")
             for k, v in classes.items()},
          "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": c} for us, k, c in rows[:15]]})
 
 
 def phase_recurrent_train(run: str) -> dict:
-    """``train_xlstm`` / ``train_zamba2``: full width and depth, tiled_csc
-    0.3, batch 8 × seq 128, remat on (every layer group checkpointed),
+    """``train_xlstm`` / ``train_zamba2``: full width (zamba2 at 12 layers),
+    tiled_csc 0.3, batch 8 × seq 128, remat on (every layer group checkpointed),
     RECURRENT_TRAIN_STEPS steps, gated on finite losses and gradient norms,
     integer leaves bit-equal to the initial pack, only ``cuda_fused``
     dispatched, and the launches a step: the groups' packed projections
@@ -2856,13 +2916,14 @@ def phase_recurrent_train(run: str) -> dict:
     call once of ``decompress`` (each backward re-densifies its weight; the
     hybrid's shared block once an application); then one steady step is
     profiled."""
-    arch = RECURRENT_TRAIN_RUNS[run]
+    arch, layers = RECURRENT_TRAIN_RUNS[run]
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{run}_")
     argv = (["--arch", arch] + FAMILY_TRAIN_ARGV[2:]
             + ["--steps", str(RECURRENT_TRAIN_STEPS), "--ckpt-dir", tmp])
     try:
         t0 = time.perf_counter()
-        prep = train.prepare(train.parse_args(argv))
+        prep = train.prepare(train.parse_args(argv), configs.get_config(arch).with_(
+            n_layers=layers) if layers else None)
         torch.cuda.synchronize()
         prepare_s = time.perf_counter() - t0
         ints = {k: v.clone() for k, v in leaves_with_path(prep[1])
@@ -2959,6 +3020,316 @@ def _recurrent_entry(name: str, qmode: str, rec: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the VLM and audio frontends
+# ---------------------------------------------------------------------------
+# (K, N) -> (what, the output dtype on the model's path: f32 for a head)
+FRONTEND_SHAPES = {
+    "sod_matmul": {(5120, 14336): ("pixtral w_gate+w_up", torch.bfloat16),
+                   (14336, 5120): ("pixtral w_down", torch.bfloat16),
+                   (5120, 131072): ("pixtral head", torch.float32),
+                   (1536, 8192): ("musicgen head (4 codebooks)", torch.float32)},
+    "block_matmul": {(5120, 14336): ("pixtral w_gate+w_up", torch.bfloat16),
+                     (14336, 5120): ("pixtral w_down", torch.bfloat16),
+                     (5120, 131072): ("pixtral head", torch.float32),
+                     (1536, 8192): ("musicgen head (4 codebooks)", torch.float32)},
+    "decompress": {(5120, 14336): ("pixtral w_gate+w_up", None),
+                   (14336, 5120): ("pixtral w_down", None),
+                   (1536, 8192): ("musicgen head (4 codebooks)", None)},
+}
+FRONTEND_QMODES = {"sod_matmul": ("none", "int8"), "block_matmul": ("none",),
+                   "decompress": ("none",)}
+FRONTEND_GEN = 16
+# cell -> (arch, flags, caller's SoDConfig, kernel); full width and depth.
+# pixtral: batch 2 of 1024 patches + 512 text tokens (a VLM prompt is
+# n_patches + 512·k at attn_chunk 512), 3072 prefill rows
+FRONTEND_CELLS = {
+    "pixtral_tiled_csc": ("pixtral-12b", ["--batch", "2", "--prompt-len", "1536"],
+                          None, "sod_matmul"),
+    "musicgen_tiled_csc": ("musicgen-medium", ["--batch", "4", "--prompt-len", "32"],
+                           None, "sod_matmul"),
+    "musicgen_block_csr": ("musicgen-medium", ["--batch", "4", "--prompt-len", "32"],
+                           _block_sod(), "block_matmul"),
+}
+# run -> (arch, layers (None: full depth), batch, seq); pixtral at 2 layers:
+# AdamW's float32 state of ≈ 12 B parameters does not fit beside them
+FRONTEND_TRAIN_RUNS = {"train_musicgen": ("musicgen-medium", None, TRAIN_BATCH, TRAIN_SEQ),
+                       "train_pixtral": ("pixtral-12b", 2, 1, 1536)}
+FRONTEND_TRAIN_STEPS = 4
+
+
+def phase_frontend_serve(cell: str) -> dict:
+    """One FRONTEND_CELLS cell at full width and depth: its weights prepared
+    (``patch_proj`` and the embeddings dense, the head packed), served
+    through ``serve.main`` with every launch count read around the run ((layers
+    · 7 + the head) × 17 of its kernel, none of the others, no
+    ``torch_oracle`` dispatch; musicgen's decoded ids (B, 16, 4), each
+    below its vocabulary), then the last prompt position's logits held
+    against the densified weights' (the head included), both prefills
+    timed."""
+    arch, flags, sod, kernel = FRONTEND_CELLS[cell]
+    argv = ["--arch", arch, *flags, "--gen", str(FRONTEND_GEN), "--seed", "0",
+            "--device", "cuda"] + ([] if sod else FAMILY_TILED)
+    args = serve.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prep = serve.prepare(args, sod)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    model, params, tokens, patches = prep.model, prep.params, prep.tokens, prep.patch_embeds
+    cfg = model.cfg
+    leaves = {k: type(params[k]).__name__ for k in ("embed", "patch_proj", "head")
+              if k in params}
+    if not (leaves["head"] in ("TiledCSC", "BlockCSR")
+            and all(leaves[k] == "Tensor" for k in leaves if k != "head")
+            and (patches is not None) == (cfg.family == "vlm")):
+        raise AssertionError(f"{cell}: frontend leaves {leaves}, patches "
+                             f"{patches is not None}")
+    reset_counts()
+    summary = serve.main(argv, sod=sod, prepared=prep)
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    expect = {"sod_matmul": 0, "block_matmul": 0, "decompress": 0}
+    expect[kernel] = (cfg.n_layers * 7 + 1) * (1 + FRONTEND_GEN)
+    oracle = [k for k in summary["kernel_dispatch"] if k.startswith("torch_oracle")]
+    if launches != expect or oracle or summary["kernel_launches"] != {
+            k: v for k, v in expect.items() if k != "decompress"}:
+        raise AssertionError(f"{cell}: launches {launches} (summary "
+                             f"{summary['kernel_launches']}), want {expect}; dispatch "
+                             f"{summary['kernel_dispatch']}")
+    ids = torch.tensor(summary["generated_ids"])
+    want_ids = (args.batch, FRONTEND_GEN) + ((cfg.n_codebooks,) if cfg.family == "audio"
+                                             else ())
+    wb = summary["weight_bytes"]
+    if not (summary["logits_finite"] and wb["compressed"] < wb["dense"]
+            and tuple(ids.shape) == want_ids and int(ids.min()) >= 0
+            and int(ids.max()) < cfg.vocab):
+        raise AssertionError(f"{cell}: finite {summary['logits_finite']}, bytes {wb}, "
+                             f"ids {tuple(ids.shape)} (want {want_ids}) in "
+                             f"[{int(ids.min())}, {int(ids.max())}]")
+    log({"phase": "frontend", "cell": cell, "arch": arch, "layers": cfg.n_layers,
+         "batch": args.batch, "prompt_len": args.prompt_len,
+         "n_patches": cfg.n_patches if cfg.family == "vlm" else None,
+         "pack_s": pack_s, "launches": launches,
+         "launches_want": f"({cfg.n_layers} * 7 + 1) * {1 + FRONTEND_GEN}",
+         "kernel_dispatch": summary["kernel_dispatch"],
+         "prefill_s": summary["prefill_s"], "warmup_s": summary["warmup_s"],
+         "steady_tok_per_s": summary["steady_tok_per_s"],
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "generated_ids_shape": list(ids.shape), "sample": summary["sample"],
+         "weight_bytes": wb})
+    row = check_vs_dense(cell, model, params, tokens, kernel, cfg.n_layers,
+                         prefill=lambda p: model.prefill(p, tokens, patch_embeds=patches))
+    return {"launches": launches[kernel], "decompress_launches": row["decompress_launches"],
+            "prefill_s": summary["prefill_s"], "kernel_prefill_s": row["kernel_prefill_s"],
+            "dense_prefill_s": row["dense_prefill_s"], "model": model, "params": params,
+            "tokens": tokens, "patch_embeds": patches}
+
+
+def phase_frontend_decode(sl: dict) -> dict:
+    """pixtral's decode step at the position its cache gives the next
+    token, ``n_patches`` + the text's length (static serving decodes at the
+    text's length: fault R5, the reference's), against the full forward
+    over the prompt and that token (``LM.apply`` with one attention chunk
+    over all 1537 positions: 1537 divides into no 512-chunks), on the cell's
+    packed weights: within LOGIT_TOL of the forward's largest logit.  The
+    decode at R5's position is logged beside it."""
+    model, params, tokens, patches = (sl[k] for k in ("model", "params", "tokens",
+                                                       "patch_embeds"))
+    cfg = model.cfg
+    with torch.inference_mode():
+        last, cache = model.prefill(params, tokens, patch_embeds=patches)
+        s = cfg.n_patches + tokens.shape[1]
+        cache = model.grow_cache(cache, s + 1)
+        r5 = {k: v.clone() for k, v in cache.items()}
+        nxt = last.argmax(dim=-1).reshape(-1, 1)
+        step, _ = model.decode_step(params, cache, nxt, s)
+        wrong, _ = model.decode_step(params, r5, nxt, tokens.shape[1])
+        del r5, cache
+        full = LM(cfg.with_(attn_chunk=s + 1)).apply(
+            params, torch.cat([tokens, nxt], 1), patch_embeds=patches)[0][:, -1]
+    vocab = cfg.vocab
+    step, wrong, full = (t[:, 0, :vocab].float() if t.dim() == 3 else t[:, :vocab].float()
+                         for t in (step, wrong, full))
+    err = (step - full).abs().max().item()
+    scale = full.abs().max().item()
+    row = {"phase": "frontend_decode", "cell": "pixtral_tiled_csc", "position": s,
+           "max_abs_err": err, "max_abs_logit": scale, "tol": LOGIT_TOL * scale,
+           "argmax_agreement": (step.argmax(-1) == full.argmax(-1)).float().mean().item(),
+           "r5_position": tokens.shape[1],
+           "r5_max_abs_err": (wrong - full).abs().max().item()}
+    log(row)
+    if not (torch.isfinite(step).all() and err <= LOGIT_TOL * scale):
+        raise AssertionError(f"pixtral: the decode step at {s} differs from the forward: "
+                             f"{err} > {LOGIT_TOL * scale}")
+    return row
+
+
+def phase_frontend_profile(cell: str, sl: dict) -> dict:
+    """One steady static decode step of the cell (full width and depth, its
+    batch, the cache at the prompt's length; the step's cost does not depend
+    on the cache's values, so it starts from a zeroed one) under
+    ``torch.profiler``: device ms by class — the SoD kernels (the head's
+    among them), attention (``attention._attend_cached``, labelled), the
+    rest — the head alone timed as phase 9 times it, and the idle share
+    against the median wall of 7 unprofiled steps."""
+    from repro_torch.models import attention
+
+    model, params, tokens = sl["model"], sl["params"], sl["tokens"]
+    cfg = model.cfg
+    b = tokens.shape[0]
+    pos = tokens.shape[1] + (cfg.n_patches if cfg.family == "vlm" else 0)
+    tok = torch.zeros((b, 1) + ((cfg.n_codebooks,) if cfg.family == "audio" else ()),
+                      dtype=torch.long, device="cuda")
+    cache = model.init_cache(b, pos + 16, "cuda")
+    step, per_kernel, by_range = _profile_decode_step(
+        model, params, cache, tok, pos,
+        [(attention, "_attend_cached", "attention_core")])
+    with torch.inference_mode():
+        h = torch.randn(b, 1, cfg.d_model, device="cuda").bfloat16()
+        head_ms = _time_ms(lambda: transformer._head(params, h, cfg), timing.flush_buffer())
+    rows = sorted(((us, k, n) for k, (us, n) in per_kernel.items()), reverse=True)
+    total_ms = sum(r[0] for r in rows) / 1e3
+    sod_ms, sod_calls = _sod_kernels(per_kernel)
+    attention_ms = sum(by_range.get("attention_core", {}).values()) / 1e3
+    measured = bool(rows)
+    row = {"phase": "frontend_profile", "cell": cell, "arch": cfg.name,
+           "what": f"one static decode step, batch {b}, full width and depth, bf16, "
+                   f"at position {pos}",
+           "step_ms_median_of_7": step,
+           "device_ms": total_ms if measured else "not measured",
+           "device_idle_share": (1 - total_ms / step) if measured else "not measured",
+           "sod_kernels_ms": sod_ms if measured else "not measured",
+           "sod_kernel_calls": sod_calls, "head_alone_ms": head_ms,
+           "attention_ms": attention_ms if measured else "not measured",
+           "rest_ms": (total_ms - sod_ms - attention_ms) if measured else "not measured",
+           "top": [{"kernel": k[:80], "ms": us / 1e3, "calls": c} for us, k, c in rows[:12]]}
+    log(row)
+    return row
+
+
+def phase_frontend_train(run: str) -> dict:
+    """``train_musicgen`` (full width and depth, batch 8 × seq 128) and
+    ``train_pixtral`` (full width, 2 layers, batch 1 × seq 1536: 1024
+    patches and 512 text tokens, the loss on the text), tiled_csc 0.3,
+    remat on, FRONTEND_TRAIN_STEPS steps.  First one gradient of the loss:
+    ``patch_proj``'s (pixtral) or the embedding stack's (musicgen) finite
+    and not all 0.  Then ``train.main``, gated on finite losses and
+    gradient norms, integer leaves bit-equal to the initial pack, only
+    ``cuda_fused`` dispatched, and the launches a step: every layer's 7
+    projections twice (remat) and the head once of ``sod_matmul``, each
+    once and the head of ``decompress``; one steady step profiled."""
+    arch, layers, batch, seq = FRONTEND_TRAIN_RUNS[run]
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{run}_")
+    argv = (["--arch", arch, "--batch", str(batch), "--seq", str(seq)]
+            + FAMILY_TRAIN_ARGV[6:]
+            + ["--steps", str(FRONTEND_TRAIN_STEPS), "--ckpt-dir", tmp])
+    try:
+        args = train.parse_args(argv)
+        t0 = time.perf_counter()
+        full = configs.get_config(arch)
+        prep = train.prepare(args, full.with_(n_layers=layers) if layers else None)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        model, params, plan = prep
+        cfg = model.cfg
+        frontend = "patch_proj" if cfg.family == "vlm" else "embed"
+        data = SyntheticLMData(cfg, batch, seq, seed=args.seed)
+        _, _, grads = steps_mod.make_loss_and_grads(model, plan)(
+            params, to_device(data.batch(0), "cuda"))
+        g = grads[frontend]
+        grad_row = {"leaf": frontend, "shape": list(g.shape),
+                    "max_abs": g.float().abs().max().item(),
+                    "finite": bool(torch.isfinite(g).all())}
+        del grads, g
+        ints = {k: v.clone() for k, v in leaves_with_path(params)
+                if not v.is_floating_point()}
+        reset_counts()
+        summary = train.main(argv, prepared=prep)
+        launches = {name: mod.launches for name, mod in COUNTERS.items()}
+        del prep, params
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    final = summary["state"]["params"]
+    losses, gnorms = summary["losses"], summary["grad_norms"]
+    remat = 2 if cfg.remat else 1
+    per_fwd = cfg.n_layers * 7
+    want = {"sod_matmul": (remat * per_fwd + 1) * FRONTEND_TRAIN_STEPS,
+            "block_matmul": 0, "decompress": (per_fwd + 1) * FRONTEND_TRAIN_STEPS}
+    final_ints = {k: v for k, v in leaves_with_path(final) if not v.is_floating_point()}
+    gates = {
+        "frontend_grad_nonzero_and_finite": grad_row["finite"] and grad_row["max_abs"] > 0,
+        "finite": all(map(math.isfinite, losses + gnorms)),
+        "integer_leaves_bit_equal": final_ints.keys() == ints.keys() and all(
+            torch.equal(v, ints[k]) for k, v in final_ints.items()),
+        "head_packed": isinstance(final["head"], TiledCSC),
+        "dispatch_only_cuda_fused": bool(summary["kernel_dispatch"]) and all(
+            k.startswith("cuda_fused[") for k in summary["kernel_dispatch"]),
+        "launches": launches == want and summary["kernel_launches"] == want,
+    }
+    row = {"phase": "frontend_train", "run": run, "arch": arch, "layers": cfg.n_layers,
+           "steps": FRONTEND_TRAIN_STEPS, "batch": batch, "seq": seq,
+           "prepare_s": prepare_s, "frontend_grad": grad_row, "losses": losses,
+           "grad_norms": gnorms, "launches": launches, "launches_want": want,
+           "kernel_dispatch": summary["kernel_dispatch"],
+           **{k: summary[k] for k in ("step_s", "tok_s", "peak_mem_gb", "wall_s")},
+           "gates": gates}
+    log(row)
+    if not all(gates.values()):
+        raise AssertionError(f"{run}: a gate failed: {gates}")
+    phase_train_profile(summary, run, argv)
+    return {"launches": launches, "step_s": summary["step_s"],
+            "peak_mem_gb": summary["peak_mem_gb"]}
+
+
+def phase_frontends(timed) -> dict:
+    """Phase 12: the kernels at the frontend families' shapes, each cell
+    (pixtral's decode at its true position and one decode step of pixtral
+    and of musicgen_tiled_csc profiled), each freed before the next, then
+    ``train_musicgen`` and ``train_pixtral``; every step through
+    ``timed``."""
+    out = {"kernels": timed("frontends:kernels", phase_family_kernels, FRONTEND_SHAPES,
+                            FRONTEND_QMODES, 9000, "frontend_kernels"),
+           "launches": {}, "train": {}}
+    for cell in FRONTEND_CELLS:
+        sl = timed(f"frontends:{cell}", phase_frontend_serve, cell)
+        out["launches"][cell] = {k: sl[k] for k in ("launches", "decompress_launches")}
+        if cell == "pixtral_tiled_csc":
+            timed("frontends:decode", phase_frontend_decode, sl)
+        if cell != "musicgen_block_csr":
+            timed("frontends:profile", phase_frontend_profile, cell, sl)
+        for key in ("model", "params", "tokens", "patch_embeds"):
+            sl.pop(key)
+        torch.cuda.empty_cache()
+    for run in FRONTEND_TRAIN_RUNS:
+        out["train"][run] = timed(f"frontends:{run}", phase_frontend_train, run)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _frontend_entry(name: str, qmode: str, fe: dict) -> dict:
+    """Phase 12's numbers of one kernel in one qmode: its launches in each
+    frontend cell and training run (counted from 0 around each run), and
+    its rows at the frontend shapes."""
+    out = {}
+    if qmode == "none":
+        launches = {}
+        for cell, (*_, kernel) in FRONTEND_CELLS.items():
+            if name == kernel:
+                launches[cell] = fe["launches"][cell]["launches"]
+            elif name == "decompress" and kernel == "sod_matmul":
+                launches[f"{cell}:densified"] = fe["launches"][cell]["decompress_launches"]
+        if name != "block_matmul":
+            launches.update({run: r["launches"][name] for run, r in fe["train"].items()})
+        out["frontend_launches"] = launches
+    rows = [r for (kn, q, *_), r in fe["kernels"].items() if kn == name and q == qmode]
+    if rows:
+        out["frontend_shapes"] = [
+            {k: r[k] for k in ("shape", "K", "N", "M", "out_dtype", "max_abs_err",
+                               "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")} for r in rows]
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -3010,6 +3381,7 @@ def main() -> None:
     family = phase_family(timed)
     moe_out = phase_moe(timed)
     rec_out = phase_recurrent(timed)
+    fe_out = phase_frontends(timed)
     shutil.rmtree(cache_dir, ignore_errors=True)
 
     entries = []
@@ -3040,6 +3412,7 @@ def main() -> None:
             entry.update(_family_entry(name, qmode, family))
             entry.update(_moe_entry(name, qmode, moe_out))
             entry.update(_recurrent_entry(name, qmode, rec_out))
+            entry.update(_frontend_entry(name, qmode, fe_out))
             entries.append(entry)
     log({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     log(smi)

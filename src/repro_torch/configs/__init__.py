@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``get_config(arch)`` + reduced variants.
 
-Only the architectures whose model path is ported are listed: the dense,
-MoE, hybrid (zamba2) and xLSTM families.
+Every architecture of the reference is listed: the dense, MoE, VLM
+(pixtral-12b), audio (musicgen-medium), hybrid (zamba2) and xLSTM families.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ _MODULES = {
     "gemma2-27b": "gemma2_27b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "pixtral-12b": "pixtral_12b",
+    "musicgen-medium": "musicgen_medium",
     "zamba2-2.7b": "zamba2_2_7b",
     "xlstm-125m": "xlstm_125m",
 }

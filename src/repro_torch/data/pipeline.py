@@ -4,13 +4,19 @@ The successor table is the reference's (``np.random.default_rng(seed)``),
 so both packages walk the same bigram chain.  The walk itself draws from
 numpy where the reference draws from ``jax.random``, which torch cannot
 reproduce: the two give different tokens for one seed, and parity tests feed
-the reference's tokens to both.
+the reference's tokens to both.  The batches' shapes are the reference's: a
+VLM's text is ``seq_len - n_patches`` tokens beside ``patch_embeds`` (B,
+n_patches, frontend_dim), standard normal from the batch's generator, kept
+in float32 (numpy has no bfloat16; the model rounds them to its working
+dtype where it uses them); an audio batch walks one chain a codebook,
+tokens and targets (B, S, n_codebooks).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -26,19 +32,31 @@ class SyntheticLMData:
     branching: int = 4     # out-degree of the bigram chain
 
     def __post_init__(self):
-        if self.cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"family {self.cfg.family!r}: only token-only batches are "
-                "ported")
+        if self.cfg.family == "vlm" and self.seq_len <= self.cfg.n_patches:
+            raise ValueError(f"seq_len {self.seq_len} leaves no text after "
+                             f"{self.cfg.n_patches} patches")
         rng = np.random.default_rng(self.seed)
         v = self.cfg.vocab
         # each token has `branching` likely successors
         self._succ = rng.integers(0, v, size=(v, self.branching))
 
     def batch(self, step: int) -> dict[str, np.ndarray]:
-        """``{"tokens", "targets"}``, int32 (B, S) each."""
-        toks = self._chain(np.random.default_rng(self.seed * 1_000_003 + step),
-                           self.batch_size, self.seq_len + 1)
+        """``{"tokens", "targets"}``, int32 (B, S) each; a VLM's text is S -
+        n_patches long and ``"patch_embeds"`` (B, n_patches, frontend_dim)
+        float32 go with it; audio's are (B, S, n_codebooks)."""
+        rng = np.random.default_rng(self.seed * 1_000_003 + step)
+        b, s, cfg = self.batch_size, self.seq_len, self.cfg
+        if cfg.family == "vlm":
+            toks = self._chain(rng, b, s - cfg.n_patches + 1)
+            patches = rng.standard_normal((b, cfg.n_patches, cfg.frontend_dim),
+                                          dtype=np.float32)
+            return {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+                    "patch_embeds": patches}
+        if cfg.family == "audio":
+            toks = np.stack([self._chain(rng, b, s + 1)
+                             for _ in range(cfg.n_codebooks)], axis=-1)
+            return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        toks = self._chain(rng, b, s + 1)
         return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
 
     def host_slice(self, batch: dict, host_id: int, n_hosts: int) -> dict:
@@ -61,3 +79,12 @@ class SyntheticLMData:
             tok = self._succ[tok, choices[:, t]]
             out[:, t] = tok
         return out
+
+
+def to_device(batch: dict[str, np.ndarray],
+              device: torch.device | str) -> dict[str, torch.Tensor]:
+    """A numpy batch as tensors on ``device``: ids as int64, floats (a VLM's
+    ``patch_embeds``) as they are."""
+    return {k: (torch.from_numpy(np.ascontiguousarray(v)) if v.dtype.kind == "f"
+                else torch.from_numpy(np.ascontiguousarray(v)).long()).to(device)
+            for k, v in batch.items()}

@@ -67,10 +67,13 @@ def params_from_numpy(tree: dict[str, Any], cfg,
     ``layers`` list.  The hybrid's ``mamba_blocks`` (G, P) and the xLSTM's
     ``mlstm_blocks`` (G, n_m) become lists of lists of per-block trees,
     ``slstm_blocks`` (G,) a list; an unstacked subtree (the hybrid's
-    ``shared_attn``) converts leaf by leaf.
+    ``shared_attn``) converts leaf by leaf, and so does any other array:
+    the audio model's ``embed`` stack (n_codebooks, vocab, d) and the VLM's
+    dense ``patch_proj`` (frontend_dim, d).
     """
     out: dict[str, Any] = {}
-    first = ("embed", "final_norm", "head")     # the order of the port's init
+    # the order of the port's init (transformer.init_embed_head)
+    first = ("embed", "final_norm", "head", "patch_proj")
     for name in sorted(tree, key=lambda n: (n not in first, first.index(n)
                                             if n in first else 0)):
         sub = tree[name]

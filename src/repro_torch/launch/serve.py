@@ -6,7 +6,14 @@ prompts is prefilled in one forward, the KV cache grown to the generation
 horizon, and ``--gen`` greedy tokens decoded step by step; the recurrent
 families (``zamba2-2.7b``, ``xlstm-125m``) build their state by stepping
 the prompt through the decode step instead, and their engine keeps one
-slot-state cache (it refuses the paged-KV features).  ``--engine``
+slot-state cache (it refuses the paged-KV features).  ``pixtral-12b`` (the
+VLM) serves a prompt of ``--prompt-len`` positions: its ``n_patches`` patch
+embeddings, then the text; so ``--prompt-len`` must exceed ``n_patches``
+and, once above ``attn_chunk``, be a multiple of it.  As in the reference,
+its decode starts at the text's length, not the prompt's (fault R5, kept:
+``ROADMAP.md`` §C).  ``musicgen-medium`` (audio) decodes the 4 codebooks of
+a step at once, tokens (B, 1, 4).  The engine refuses both families, as
+the reference's does.  ``--engine``
 replays a synthetic Poisson trace of ``--requests`` requests (prompts of
 ``--prompt-len // 2`` to ``--prompt-len`` tokens) through
 :class:`repro_torch.serving.Engine`: ``--max-slots`` running rows over a
@@ -61,7 +68,7 @@ from repro_torch import configs
 from repro_torch.configs import ModelConfig
 from repro_torch.core.plan import ModelPlan, use_plan
 from repro_torch.core.sod import SoDConfig, sodify_params, tree_weight_bytes
-from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.data.pipeline import SyntheticLMData, to_device
 from repro_torch.kernels import autotune
 from repro_torch.kernels import block_matmul as block_matmul_kernel
 from repro_torch.kernels import build
@@ -184,9 +191,11 @@ def resolve_device(name: str) -> torch.device:
 class Prepared(NamedTuple):
     """What a run serves: the model, its (packed) weights and prompt tokens,
     the pack plan they were packed under (or None), the draft tier's packed
-    weights and plan (``--spec-decode``), the autotuner's stats, and the
-    wall seconds of planning (``plan_s``: building or loading the plan, the
-    drift pass of ``--quantize auto`` included) and of ``autotune_s``."""
+    weights and plan (``--spec-decode``), the autotuner's stats, the wall
+    seconds of planning (``plan_s``: building or loading the plan, the
+    drift pass of ``--quantize auto`` included) and of ``autotune_s``, and
+    a VLM prompt's patch embeddings (float32; None for the other
+    families)."""
     model: LM
     params: dict
     tokens: torch.Tensor
@@ -195,12 +204,14 @@ class Prepared(NamedTuple):
     draft_plan: ModelPlan | None = None
     tune_stats: dict | None = None
     seconds: dict | None = None
+    patch_embeds: torch.Tensor | None = None
 
 
 def m_values(args: argparse.Namespace, cfg: ModelConfig) -> tuple[int, int]:
     """The (prefill M, decode M) the planner hints and the autotuner tunes
     at, as the reference: static serving prefills ``batch · prompt`` rows
-    and decodes ``batch``; the engine prefills one prompt at its page bucket
+    and decodes ``batch`` (a VLM's prompt counts its patches); the engine
+    prefills one prompt at its page bucket
     (or a chunk) and decodes ``max_slots`` rows — a recurrent family's
     engine replays a prompt through the batch-1 decode step (M = 1)."""
     if not args.engine:
@@ -275,9 +286,9 @@ def prepare(args: argparse.Namespace, sod: SoDConfig | None = None,
     if args.plan_json and plan is not None:
         plan.save(args.plan_json)
     data = SyntheticLMData(cfg, args.batch, args.prompt_len, seed=args.seed)
-    tokens = torch.from_numpy(data.batch(0)["tokens"]).long().to(device)
-    return Prepared(model, params, tokens, plan, draft, draft_plan, tune_stats,
-                    seconds)
+    prompt = to_device(data.batch(0), device)
+    return Prepared(model, params, prompt["tokens"], plan, draft, draft_plan,
+                    tune_stats, seconds, prompt.get("patch_embeds"))
 
 
 def prepare_draft(args: argparse.Namespace, model: LM, raw=None):
@@ -298,27 +309,39 @@ def prepare_draft(args: argparse.Namespace, model: LM, raw=None):
 
 
 def prefill_cache(model: LM, params, tokens: torch.Tensor, max_len: int,
-                  plan: ModelPlan | None = None):
-    """(last-position logits, cache for ``max_len`` positions, prompt
-    length), dispatched under ``plan``: the attention families' fused
-    prefill with the KV cache grown to ``max_len``; the recurrent families
-    (``hybrid``, ``ssm``) step the prompt through the decode step from a
-    zeroed cache, which builds their state exactly, as the reference
-    does."""
-    b, s = tokens.shape
+                  plan: ModelPlan | None = None,
+                  patch_embeds: torch.Tensor | None = None):
+    """(last-position logits, cache for ``max_len`` positions, the position
+    decoding starts at), dispatched under ``plan``: the attention families'
+    fused prefill with the KV cache grown to ``max_len``; the recurrent
+    families (``hybrid``, ``ssm``) step the prompt through the decode step
+    from a zeroed cache, which builds their state exactly, as the reference
+    does.  A VLM's ``patch_embeds`` go before its text in the cache, but
+    the position returned is the text's length, as the reference's
+    (``src/repro/launch/serve.py:31-48``): fault R5, kept for parity, so
+    its first decode step writes over a patch's slot (``ROADMAP.md`` §C)."""
+    b, s = tokens.shape[:2]
     with use_plan(plan):
         if model.cfg.family in RECURRENT:
             cache = model.init_cache(b, max_len, tokens.device)
             for t in range(s):
                 logits, cache = model.decode_step(params, cache, tokens[:, t:t + 1], t)
             return logits[:, -1], cache, s
-        last_logits, cache = model.prefill(params, tokens)
+        last_logits, cache = model.prefill(params, tokens, patch_embeds=patch_embeds)
     return last_logits, model.grow_cache(cache, max_len), s
 
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def step_tokens(nxt: torch.Tensor, batch: int, cfg: ModelConfig) -> torch.Tensor:
+    """Greedy ids as the next decode step's tokens: (B, 1), or (B, 1,
+    n_codebooks) for audio (every codebook of a step at once)."""
+    if cfg.family == "audio":
+        return nxt.reshape(batch, 1, cfg.n_codebooks)
+    return nxt.reshape(batch, 1)
 
 
 def _launches() -> dict[str, int]:
@@ -434,19 +457,20 @@ def _serve_static(args: argparse.Namespace, prep: Prepared) -> dict:
         _sync(device)
         t0 = time.perf_counter()
         last_logits, cache, pos0 = prefill_cache(model, params, tokens, max_len,
-                                                 plan=plan)
+                                                 plan=plan,
+                                                 patch_embeds=prep.patch_embeds)
         _sync(device)
         prefill_s = time.perf_counter() - t0
 
         decode = steps_mod.make_decode_step(model, plan=plan)
-        tok = last_logits.argmax(dim=-1).reshape(args.batch, 1)
+        tok = step_tokens(last_logits.argmax(dim=-1), args.batch, model.cfg)
         logits = last_logits
         outs = []
         warmup_s = steady_s = 0.0
         t0 = time.perf_counter()
         for t in range(args.gen):
             nxt, logits, cache = decode(params, cache, tok, pos0 + t)
-            tok = nxt.reshape(args.batch, 1)
+            tok = step_tokens(nxt, args.batch, model.cfg)
             outs.append(nxt)
             if t == 0:   # the first step pays one-time costs: reported apart
                 _sync(device)
@@ -467,9 +491,10 @@ def _serve_static(args: argparse.Namespace, prep: Prepared) -> dict:
         "warmup_s": warmup_s,
         "steady_tok_per_s": (args.batch * (args.gen - 1) / steady_s
                              if steady_s > 0 else 0.0),
+        # row 0's id a step (codebook 0 of an audio step)
         "sample": [int(o.reshape(-1)[0]) for o in outs[:8]],
-        "generated_ids": (torch.cat([o.reshape(-1, 1) for o in outs], 1).tolist()
-                          if outs else []),
+        # (B, gen), or (B, gen, n_codebooks) for audio
+        "generated_ids": torch.cat(outs, 1).tolist() if outs else [],
         "logits_finite": bool(torch.isfinite(logits).all()),
         "kernel_launches": launches,
         "weight_bytes": tree_weight_bytes(params),

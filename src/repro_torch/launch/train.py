@@ -11,7 +11,11 @@ width (``cfg.remat``) every block is checkpointed, so each forward kernel
 launches twice a step.  The optimizer is AdamW with float32 masters and
 moments the size of the stored slots (:mod:`repro_torch.optim`); the
 padding slots and the integer leaves never move, so training stays on the
-pruning mask.
+pruning mask.  Every family trains through :meth:`LM.loss` on the synthetic
+batches of :mod:`repro_torch.data.pipeline`: a VLM's ``--seq`` counts its
+patches (the loss reads the text after them; ``patch_proj`` trains through
+autograd of its dense product), an audio model's loss averages every
+codebook.
 
 Runs on CUDA unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it raises.  The flags are the reference's, and the
@@ -43,7 +47,7 @@ import torch
 from repro_torch import configs, obs
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core.sod import SoDConfig, sodify_params, tree_weight_bytes
-from repro_torch.data.pipeline import SyntheticLMData
+from repro_torch.data.pipeline import SyntheticLMData, to_device
 from repro_torch.kernels import autotune, build
 from repro_torch.kernels import block_matmul as block_matmul_kernel
 from repro_torch.kernels import decompress as decompress_kernel
@@ -117,17 +121,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def prepare(args: argparse.Namespace):
+def prepare(args: argparse.Namespace, cfg: configs.ModelConfig | None = None):
     """``(model, packed params, plan or None)`` on the requested device:
     weights drawn from a ``torch.Generator`` seeded with ``--seed``, then
     (with ``--sod``) planned, pruned, packed and quantized, with the tuning
     cache of ``--tuning-cache`` installed first and, with ``--autotune``,
-    the packed layouts tuned at M = batch·seq.  On CUDA the kernels are
-    built here."""
+    the packed layouts tuned at M = batch·seq.  ``cfg`` replaces the model
+    config that ``--arch``/``--reduced`` select (a caller's depth cut).  On
+    CUDA the kernels are built here."""
     device = resolve_device(args.device)
-    cfg = configs.get_config(args.arch)
-    if args.reduced:
-        cfg = configs.reduced(cfg)
+    if cfg is None:
+        cfg = configs.get_config(args.arch)
+        if args.reduced:
+            cfg = configs.reduced(cfg)
     if args.sod:
         cfg = cfg.with_(sod=SoDConfig(
             mode=args.sod, density=args.density, min_dim=64,
@@ -197,8 +203,7 @@ def main(argv=None, prepared=None) -> dict:
         print(f"resumed from step {start}")
 
     def do_step(step: int) -> dict:
-        batch = {k: torch.from_numpy(v).long().to(device)
-                 for k, v in data.batch(step).items()}
+        batch = to_device(data.batch(step), device)
         p, o, metrics = train_step(state["params"], state["opt"], batch)
         state["params"], state["opt"] = p, o
         _sync(device)

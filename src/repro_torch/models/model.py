@@ -2,8 +2,11 @@
 
 Twin of :class:`repro.models.model.LM` and :func:`repro.models.model.build_model`
 for training (``loss``), the static serving path and the continuous-batching
-engine, dispatching by family: the attention-family decoder (dense, MoE),
-the hybrid (``hybrid``: zamba2) and the xLSTM (``ssm``).  The paged decode,
+engine, dispatching by family: the attention-family decoder (dense, MoE,
+and the VLM and audio backbones), the hybrid (``hybrid``: zamba2) and the
+xLSTM (``ssm``).  A VLM's patch embeddings ride beside its tokens
+(``patch_embeds``) and its loss reads only the text's logits; an audio
+model's tokens and targets are (B, S, n_codebooks).  The paged decode,
 chunked prefill and speculative verification are the attention family's;
 the recurrent families keep O(1) state a slot and raise there, with the
 reference's messages.
@@ -53,38 +56,52 @@ class LM:
         transformer.check_supported(self.cfg)
         return self._fns[0](generator, self.cfg, torch.device(device))
 
-    def apply(self, params: Params, tokens: torch.Tensor, want_cache: bool = False):
+    def apply(self, params: Params, tokens: torch.Tensor, want_cache: bool = False,
+              *, patch_embeds: torch.Tensor | None = None):
         """Full-sequence forward: (logits (B, S, V), cache or None); the
-        router aux loss is :meth:`loss`'s.  A recurrent family's cache is
-        the hybrid's shared-block KV only, or None (the xLSTM): its state is
-        built by stepping the prompt."""
-        logits, _, cache = self._fns[1](params, tokens, self.cfg, want_cache)
+        router aux loss is :meth:`loss`'s.  A VLM's ``patch_embeds`` (B,
+        n_patches, frontend_dim) go before its text, so S counts them; an
+        audio model's tokens are (B, S, C) and its logits (B, S, C, V).  A
+        recurrent family's cache is the hybrid's shared-block KV only, or
+        None (the xLSTM): its state is built by stepping the prompt."""
+        logits, _, cache = self._fns[1](params, tokens, self.cfg, want_cache,
+                                        patch_embeds=patch_embeds)
         return logits, cache
 
     def loss(self, params: Params, batch: dict[str, torch.Tensor]):
         """``(loss, {"loss", "ce", "aux"})`` of a batch ``{"tokens",
-        "targets"}`` (int, (B, S)) with an optional ``"loss_mask"``: the
-        mean token cross-entropy of the float32 logits plus ``aux``, the
-        MoE blocks' router aux losses summed over the layers (0 for the
-        dense family)."""
-        logits, aux, _ = self._fns[1](params, batch["tokens"], self.cfg)
-        ce = layers.cross_entropy(logits, batch["targets"], batch.get("loss_mask"))
+        "targets"}`` (int, (B, S), or (B, S, C) for audio) with an optional
+        ``"loss_mask"`` and, for a VLM, ``"patch_embeds"``: the mean token
+        cross-entropy of the float32 logits (a VLM's over its text only,
+        an audio model's over every codebook) plus ``aux``, the MoE blocks'
+        router aux losses summed over the layers (0 for the dense
+        family)."""
+        logits, aux, _ = self._fns[1](params, batch["tokens"], self.cfg,
+                                      patch_embeds=batch.get("patch_embeds"))
+        targets = batch["targets"]
+        if self.cfg.family == "vlm":       # the patches' positions carry no loss
+            logits = logits[:, logits.shape[1] - targets.shape[1]:]
+        ce = layers.cross_entropy(logits, targets, batch.get("loss_mask"))
         aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}
 
-    def prefill(self, params: Params, tokens: torch.Tensor):
-        """(last-position logits (B, V), KV cache sized to the prompt).  The
-        attention families' fused prefill; the recurrent families build
-        their state by stepping (``launch/serve.py:prefill_cache``)."""
-        logits, cache = self.apply(params, tokens, want_cache=True)
+    def prefill(self, params: Params, tokens: torch.Tensor, *,
+                patch_embeds: torch.Tensor | None = None):
+        """(last-position logits (B, V), KV cache sized to the prompt, a
+        VLM's patches included).  The attention families' fused prefill;
+        the recurrent families build their state by stepping
+        (``launch/serve.py:prefill_cache``)."""
+        logits, cache = self.apply(params, tokens, want_cache=True,
+                                   patch_embeds=patch_embeds)
         return logits[:, -1], cache
 
     def decode_step(self, params: Params, cache: Params, tokens: torch.Tensor,
                     pos):
-        """tokens (B, 1) → (logits (B, 1, V), cache); the cache is updated in
-        place.  ``pos`` is an int (every row at one position) or a (B,)
-        int64 tensor (each row at its own, the engine's slots)."""
+        """tokens (B, 1) → (logits (B, 1, V), cache), or for audio (B, 1, C)
+        → (B, 1, C, V); the cache is updated in place.  ``pos`` is an int
+        (every row at one position) or a (B,) int64 tensor (each row at its
+        own, the engine's slots)."""
         return self._fns[2](params, cache, tokens, pos, self.cfg)
 
     def init_cache(self, batch: int, max_len: int, device: torch.device | str) -> Params:

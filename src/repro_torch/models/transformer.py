@@ -2,7 +2,8 @@
 
 Twin of :mod:`repro.models.transformer` for three assemblies:
 
-* the attention-family decoder (dense and MoE): tied or untied LM head,
+* the attention-family decoder (dense, MoE, and the VLM and audio
+  backbones): tied or untied LM head,
   gemma-2's post norms, final logit soft-cap and local/global layers, and a
   block's MLP either dense or the Mixture-of-Experts block of
   :mod:`repro_torch.models.moe` (whose router aux loss the full forward
@@ -17,7 +18,11 @@ Twin of :mod:`repro.models.transformer` for three assemblies:
   hd); every layer indexes its pool with the same block tables.  The pool,
   like the static cache, is updated in place.  An untied head is a packed
   ``head`` leaf like any projection, so it runs the Sparse-on-Dense kernel
-  with float32 out;
+  with float32 out.  The frontends (:func:`embed_inputs`) are the
+  reference's stubs: the VLM projects precomputed patch embeddings through
+  a dense ``patch_proj`` and prepends them to the text; the audio model
+  sums one embedding table a codebook stream and its untied head predicts
+  every codebook at once, logits (..., n_codebooks, padded vocab);
 * the hybrid (zamba2): groups of ``hybrid_attn_every`` Mamba2 blocks
   (``params["mamba_blocks"][g][j]``), each group followed by the one
   weight-shared attention + MLP block ``params["shared_attn"]``, which
@@ -33,7 +38,6 @@ recurrent state (the serve path and the engine build it by stepping the
 prompt through the decode step, as the reference does).  Under
 ``cfg.remat`` a forward that records gradients checkpoints every layer
 group of these two (every block of the attention family).
-The VLM and audio frontends are not ported yet.
 """
 from __future__ import annotations
 
@@ -57,12 +61,14 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
+FAMILIES = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a model family the port does not have yet (the VLM and
-    audio frontends)."""
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+    """Raise for a model family the reference does not have."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} not ported yet")
+            f"{cfg.name}: family {cfg.family!r} is not one of {FAMILIES}")
 
 
 def attn_spec(cfg: ModelConfig) -> attn.AttnSpec:
@@ -125,17 +131,25 @@ def init_attn_block(gen: torch.Generator, cfg: ModelConfig,
 
 def init_embed_head(gen: torch.Generator, cfg: ModelConfig,
                     device: torch.device) -> Params:
-    """``{"embed", "final_norm"}``, and ``"head"`` (d_model, padded vocab)
-    when the embeddings are untied.  The VLM and audio frontends raise."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} frontend is not ported yet")
+    """``{"embed", "final_norm"}``, ``"head"`` (d_model, padded vocab) when
+    the embeddings are untied, and the VLM's ``"patch_proj"``
+    (frontend_dim, d_model).  The audio model's ``"embed"`` is a stack of
+    one table a codebook, (n_codebooks, padded vocab, d_model), and its
+    ``"head"`` (d_model, n_codebooks · padded vocab) is untied whatever
+    ``tie_embeddings`` says, as the reference's."""
     dt = dtype_of(cfg)
-    p: Params = {"embed": layers.embed_init(gen, cfg.padded_vocab, cfg.d_model,
-                                            dt, device),
-                 "final_norm": layers.init_rms_norm(cfg.d_model, device)}
+    v, d = cfg.padded_vocab, cfg.d_model
+    if cfg.family == "audio":
+        return {"embed": torch.stack([layers.embed_init(gen, v, d, dt, device)
+                                      for _ in range(cfg.n_codebooks)]),
+                "final_norm": layers.init_rms_norm(d, device),
+                "head": layers.dense_init(gen, d, cfg.n_codebooks * v, dt, device)}
+    p: Params = {"embed": layers.embed_init(gen, v, d, dt, device),
+                 "final_norm": layers.init_rms_norm(d, device)}
     if not cfg.tie_embeddings:
-        p["head"] = layers.dense_init(gen, cfg.d_model, cfg.padded_vocab, dt, device)
+        p["head"] = layers.dense_init(gen, d, v, dt, device)
+    if cfg.family == "vlm":
+        p["patch_proj"] = layers.dense_init(gen, cfg.frontend_dim, d, dt, device)
     return p
 
 
@@ -265,8 +279,32 @@ def attn_block_verify(bp: Params, x: torch.Tensor, layer_pool: Params,
 
 
 # ---------------------------------------------------------------------------
-# embedding / head
+# embedding / head / frontends
 # ---------------------------------------------------------------------------
+def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                 patch_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """The residual stream's input, (B, S, d_model) in the working dtype.
+
+    Audio: ``tokens`` (B, S, n_codebooks), the sum of each codebook's
+    embedding, added from 0 in codebook order in the working dtype, as the
+    reference's ``sum``.  Otherwise ``tokens`` (B, S) through the table
+    (gemma's sqrt(d) scale under ``cfg.embed_scale``).  VLM with
+    ``patch_embeds`` (B, n_patches, frontend_dim): the patches cast to the
+    working dtype, projected by the dense ``patch_proj`` through
+    :func:`repro_torch.core.sod.apply` (float32 sums rounded once to the
+    working dtype) and put before the text, so the stream is (B, n_patches
+    + S, d_model)."""
+    if cfg.family == "audio":
+        x = sum(layers.embed(params["embed"][c], tokens[..., c])
+                for c in range(cfg.n_codebooks))
+    else:
+        x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    if cfg.family == "vlm" and patch_embeds is not None:
+        prefix = sod.apply(patch_embeds.to(x.dtype), params["patch_proj"])
+        x = torch.cat([prefix, x], dim=1)
+    return x
+
+
 def project_logits(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Final norm and LM head: float32 logits over the padded vocabulary,
     soft-capped, padded ids masked to -1e30."""
@@ -284,11 +322,15 @@ def _head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     never rounded to bfloat16 on the way.  Untied: the ``head`` weight
     through :func:`repro_torch.core.sod.apply` with float32 out and the
     active plan's ``head`` entry, so a packed head runs the SoD kernel.
+    Audio: the untied head, its (..., n_codebooks · padded vocab) logits
+    read as (..., n_codebooks, padded vocab), the codebook the slower index.
     """
-    tied = cfg.tie_embeddings
+    tied = cfg.tie_embeddings and cfg.family != "audio"
     logits = layers.lm_head(h, params["embed"] if tied else params["head"], tied,
                             cfg.final_softcap, plan=plan_mod.active_entry("head"))
     v = cfg.padded_vocab
+    if cfg.family == "audio":     # the soft-cap is elementwise: before or after
+        logits = logits.reshape(*h.shape[:-1], cfg.n_codebooks, v)
     if v != cfg.vocab:
         pad = torch.arange(v, device=logits.device) >= cfg.vocab
         logits = torch.where(pad, -1e30, logits)
@@ -316,14 +358,16 @@ def _remat_block(bp: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def transformer_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                        want_cache: bool = False):
+                        want_cache: bool = False,
+                        patch_embeds: torch.Tensor | None = None):
     """``(logits (B, S, V), aux, cache)``: ``aux`` is the MoE blocks'
     router aux losses summed over the layers (a float32 scalar; the float 0
     for the dense family), ``cache`` with ``want_cache`` the KV cache
-    ``{"k", "v"}`` of shape (L, B, S, KV, hd), else None.  Under
-    ``cfg.remat`` (full width) a forward that records gradients checkpoints
-    every block."""
-    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    ``{"k", "v"}`` of shape (L, B, S, KV, hd), else None.  S counts a VLM's
+    patches before its text (:func:`embed_inputs`); audio logits are (B, S,
+    n_codebooks, V).  Under ``cfg.remat`` (full width) a forward that
+    records gradients checkpoints every block."""
+    x = embed_inputs(params, tokens, cfg, patch_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     ks, vs = [], []
@@ -343,9 +387,10 @@ def transformer_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
 def transformer_decode(params: Params, cache: Params, tokens: torch.Tensor,
                        pos: int, cfg: ModelConfig):
-    """One decode step at scalar ``pos``: tokens (B, 1) → logits (B, 1, V);
-    the cache is updated in place and returned."""
-    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    """One decode step at scalar ``pos``: tokens (B, 1) → logits (B, 1, V)
+    (audio: (B, 1, C) → (B, 1, C, V)); the cache is updated in place and
+    returned."""
+    x = embed_inputs(params, tokens, cfg)
     for i, bp in enumerate(params["layers"]):
         slot = {"k": cache["k"][i], "v": cache["v"][i]}   # views into the cache
         x, _ = attn_block_decode(bp, x, slot, pos, cfg, cfg.window_for(i))
@@ -396,7 +441,7 @@ def transformer_decode_paged(params: Params, pool: Params,
     all int64.  ``valid_len`` (optional, (B,)) gates each row's KV write:
     rows at or beyond their cutoff write to the trash page.  Returns
     (logits (B, 1, V), pool); the pool is updated in place."""
-    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    x = embed_inputs(params, tokens, cfg)
     for i, bp in enumerate(params["layers"]):
         x, _ = attn_block_decode(bp, x, _layer_pool(pool, i), pos, cfg,
                                  cfg.window_for(i), block_tables=block_tables,
@@ -414,7 +459,7 @@ def transformer_prefill_chunk(params: Params, pool: Params,
     ``valid_len`` (pad KV goes to the trash page).  Returns (logits for all
     C positions (B, C, V), pool); the engine takes the last real prompt
     position's row for the sequence's first token."""
-    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    x = embed_inputs(params, tokens, cfg)
     for i, bp in enumerate(params["layers"]):
         x, _ = attn_block_prefill_chunk(bp, x, _layer_pool(pool, i),
                                         block_tables, start, valid_len, cfg,
@@ -440,7 +485,7 @@ def transformer_verify_chunk(params: Params, pool: Params,
     GEMM is not held row-invariant, an untied head's SoD kernel is by
     design (its K splits do not depend on M).  Returns (logits (B, C, V), pool); the pool is updated
     in place."""
-    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    x = embed_inputs(params, tokens, cfg)
     for i, bp in enumerate(params["layers"]):
         x, _ = attn_block_verify(bp, x, _layer_pool(pool, i), block_tables,
                                  start, valid_len, cfg, cfg.window_for(i))
@@ -486,12 +531,14 @@ def _hybrid_group(gp: list, shared: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def hybrid_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                   want_cache: bool = False):
+                   want_cache: bool = False,
+                   patch_embeds: torch.Tensor | None = None):
     """``(logits, 0.0, cache)``: with ``want_cache`` the shared block's KV
     cache ``{"k", "v"}`` of shape (G, B, S, KV, hd), one for every
     application (the Mamba2 state is built by stepping, as the reference
-    notes), else None."""
-    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    notes), else None.  ``patch_embeds`` is the attention family's
+    argument; a hybrid has no frontend."""
+    x = embed_inputs(params, tokens, cfg, patch_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     remat = cfg.remat and not want_cache and torch.is_grad_enabled()
@@ -514,7 +561,7 @@ def hybrid_decode(params: Params, cache: Params, tokens: torch.Tensor, pos,
                   cfg: ModelConfig):
     """One decode step, ``pos`` an int or (B,) int64: tokens (B, 1) →
     (logits (B, 1, V), cache); the cache is updated in place."""
-    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    x = embed_inputs(params, tokens, cfg)
     mspec = mamba_spec(cfg)
     conv = cache["conv"]
     for g, gp in enumerate(params["mamba_blocks"]):
@@ -597,10 +644,12 @@ def _xlstm_group(mgp: list, sp: Params | None, x: torch.Tensor, cfg: ModelConfig
 
 
 def xlstm_forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                  want_cache: bool = False):
+                  want_cache: bool = False,
+                  patch_embeds: torch.Tensor | None = None):
     """``(logits, 0.0, None)``: the recurrent state is built by stepping
-    the prompt, as the reference does."""
-    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    the prompt, as the reference does (``patch_embeds`` as in
+    :func:`hybrid_forward`)."""
+    x = embed_inputs(params, tokens, cfg, patch_embeds)
     remat = cfg.remat and not want_cache and torch.is_grad_enabled()
     s_blocks = params.get("slstm_blocks")
     for g, mgp in enumerate(params["mlstm_blocks"]):
@@ -614,7 +663,7 @@ def xlstm_decode(params: Params, cache: Params, tokens: torch.Tensor, pos,
                  cfg: ModelConfig):
     """One decode step (``pos`` unused: the state is all there is): tokens
     (B, 1) → (logits (B, 1, V), cache); the cache is updated in place."""
-    x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+    x = embed_inputs(params, tokens, cfg)
     xs = xlstm_spec(cfg)
     mc = cache["mlstm"]
     s_blocks = params.get("slstm_blocks")

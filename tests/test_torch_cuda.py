@@ -1669,3 +1669,108 @@ def test_recurrent_decode_rows_of_four_equal_rows_alone(cuda, block):
                 one = run(slice(r, r + 1))
                 for a, b in zip(four, one, strict=True):
                     assert torch.equal(a[r], b[0]), r
+
+
+# ---------------------------------------------------------------------------
+# the VLM and audio frontends (pixtral-12b, musicgen-medium) at full width
+# ---------------------------------------------------------------------------
+# (K, N, output dtype): pixtral's w_gate / w_up and w_down, its head;
+# musicgen's head over its 4 codebooks
+FRONTEND_SHAPES = [(5120, 14336, None), (14336, 5120, None), (5120, 131072, torch.float32),
+                   (1536, 8192, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,out_dtype", FRONTEND_SHAPES)
+@pytest.mark.parametrize("kernel,qmode", [("sod_matmul", "none"), ("sod_matmul", "int8"),
+                                          ("block_matmul", "none")])
+def test_kernels_at_frontend_shapes(cuda, kernel, qmode, k, n, out_dtype):
+    """Each matmul kernel at the frontend families' shapes, bf16
+    activations, at M = 4 and 128, against its plain version;
+    ``decompress`` bit for bit."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(k + n)
+    w = torch.randn(k, n, generator=g, device=cuda).bfloat16()
+    if kernel == "block_matmul":
+        p, fn = pack_block_csr(block_prune(w, 0.3)), bmm.block_matmul
+    else:
+        p, fn = pack_tiled_csc(magnitude_prune(w, 0.3)), sm.sod_matmul
+        if qmode != "none":
+            p = quantize_packed(p, qmode)
+        assert torch.equal(dk.decompress(p), ref.decompress_tiled_ref(p))
+    del w
+    for m in (4, 128):
+        x = torch.randn(m, k, generator=g, device=cuda).bfloat16()
+        y, yr = fn(x, p, out_dtype), ref.sod_matmul_ref(x, p, out_dtype)
+        torch.cuda.synchronize()
+        assert y.dtype == yr.dtype
+        tol = TOL[torch.bfloat16] * yr.float().abs().max().item()
+        assert (y.float() - yr.float()).abs().max().item() <= tol, m
+
+
+def _full_width(arch: str, layers: int):
+    """The full-width config at ``layers``, bf16, with its seeded weights
+    packed tiled_csc at density 0.3 on the card."""
+    from repro_torch import configs
+    from repro_torch.core.sod import SoDConfig, sodify_params
+    from repro_torch.models.model import LM
+
+    sod = SoDConfig(mode="tiled_csc", density=0.3, min_dim=64)
+    cfg = configs.get_config(arch).with_(n_layers=layers, sod=sod)
+    model = LM(cfg)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    return model, sodify_params(model.init(gen, "cuda"), sod)
+
+
+@pytest.mark.cuda
+def test_audio_head_reshaped_logits_equal_the_flat_kernel_output(cuda):
+    """musicgen's packed head at decode (M = 4): the (4, 1, 4, 2048) logits
+    are the kernel's (4, 8192) float32 output read codebook-major, bit for
+    bit."""
+    from repro_torch.core.formats import TiledCSC
+    from repro_torch.models import transformer
+
+    model, params = _full_width("musicgen-medium", 1)
+    head = params["head"]
+    assert isinstance(head, TiledCSC) and head.shape == (1536, 4 * 2048)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(32)
+    h = torch.randn(4, 1, 1536, generator=g, device=cuda).bfloat16()
+    with torch.inference_mode():
+        logits = transformer._head(params, h, model.cfg)
+        flat = sm.sod_matmul(h.reshape(4, 1536), head, torch.float32)
+    assert logits.shape == (4, 1, 4, 2048) and logits.dtype == torch.float32
+    assert torch.equal(logits, flat.reshape(4, 1, 4, 2048))
+
+
+@pytest.mark.cuda
+def test_pixtral_decode_at_the_true_end_matches_its_forward(cuda):
+    """pixtral-12b at full width and 2 layers, 1024 patches + 512 text
+    tokens: the decode step at position 1536 (n_patches + text, where the
+    cache puts the next token) equals the full forward over the prompt and
+    that token (one attention chunk over 1537 positions) within 5 % of the
+    largest logit, as ``chip_smoke.py`` holds the densified path; the
+    decode at the text's length (R5, the reference's serving) does not."""
+    from repro_torch.models.model import LM
+
+    model, params = _full_width("pixtral-12b", 2)
+    cfg = model.cfg
+    g = torch.Generator(device=cuda)
+    g.manual_seed(33)
+    tokens = torch.randint(0, cfg.vocab, (1, 512), generator=g, device=cuda)
+    patches = torch.randn(1, cfg.n_patches, cfg.frontend_dim, generator=g, device=cuda)
+    with torch.inference_mode():
+        last, cache = model.prefill(params, tokens, patch_embeds=patches)
+        s = cfg.n_patches + tokens.shape[1]
+        cache = model.grow_cache(cache, s + 1)
+        nxt = last.argmax(-1).reshape(1, 1)
+        wrong, _ = model.decode_step(params, {k: v.clone() for k, v in cache.items()},
+                                     nxt, tokens.shape[1])
+        step, _ = model.decode_step(params, cache, nxt, s)
+        full = LM(cfg.with_(attn_chunk=s + 1)).apply(
+            params, torch.cat([tokens, nxt], 1), patch_embeds=patches)[0][:, -1]
+    scale = full.abs().max().item()
+    assert torch.isfinite(step).all()
+    assert (step[:, 0] - full).abs().max().item() <= 0.05 * scale
+    assert (wrong[:, 0] - full).abs().max().item() > 0.05 * scale

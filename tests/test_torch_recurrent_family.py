@@ -497,15 +497,22 @@ def test_engine_and_model_refuse_paged_features(arch):
 
 
 def test_families_admitted_and_frontends_refused():
-    for arch in ARCHS:
-        transformer.check_supported(configs.get_config(arch))
-        SyntheticLMData(configs.reduced(configs.get_config(arch)), 2, 8).batch(0)
-    for family in ("vlm", "audio"):
-        cfg = configs.get_config("llama3.2-1b").with_(family=family)
-        with pytest.raises(NotImplementedError):
-            transformer.check_supported(cfg)
-        with pytest.raises(NotImplementedError):
-            SyntheticLMData(cfg, 2, 8)
+    """Every family of the reference is admitted and has batches (the VLM's
+    text after its patches, audio's a codebook stream each); the frontends
+    are refused by the engine only (``tests/test_torch_frontend_family.py``)."""
+    families = set()
+    for arch in configs.ARCH_NAMES:
+        cfg = configs.reduced(configs.get_config(arch))
+        transformer.check_supported(cfg)
+        batch = SyntheticLMData(cfg, 2, 24).batch(0)
+        text = 24 - cfg.n_patches if cfg.family == "vlm" else 24
+        lead = (2, text) + ((cfg.n_codebooks,) if cfg.family == "audio" else ())
+        assert batch["tokens"].shape == batch["targets"].shape == lead, arch
+        assert ("patch_embeds" in batch) == (cfg.family == "vlm"), arch
+        families.add(cfg.family)
+    assert families == set(transformer.FAMILIES)
+    with pytest.raises(NotImplementedError):
+        transformer.check_supported(configs.get_config("llama3.2-1b").with_(family="cnn"))
 
 
 @pytest.mark.parametrize("arch,mode", SERVE_CASES)
