@@ -199,7 +199,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
    4 steps each: the frontend leaf's gradient finite and not 0, finite
    losses and gradient norms, (2 · layers · 7 + 1) ``sod_matmul`` and
    (layers · 7 + 1) ``decompress`` launches a step, only ``cuda_fused``
-   dispatched, one step profiled.
+   dispatched, one step profiled;
+13. paper — the twins of three of the reference's examples
+   (``examples/torch_*.py``), in-process on the card.  ``torch_quickstart``:
+   a seeded 1024 × 1024 float32 matrix magnitude-pruned to 0.3 and packed
+   (its bytes and ratio printed), the forced ``sod_matmul`` at M = 256
+   against ``x @ w_sparse`` (max |err| < 1e-3), one batch's loss of the
+   reduced llama3.2-1b (1 + 2 · 7 launches, nothing else, no
+   ``torch_oracle``).  ``torch_serve_decode``: its four ``serve.main`` runs
+   (llama dense, llama tiled_csc 0.3, zamba2 dense, the engine with ``--plan
+   auto``), each run's launches derived from its config (0, 2 · 7 × 17, 0,
+   and the engine's packed operands × its step calls), finite logits, every
+   engine request equal to ``static_generate`` under the plan bit for bit.
+   ``torch_train_sparse_lm --full --steps 4``: xlstm-125m at full width,
+   batch 8 × seq 512, phase 11's launches a step, finite losses, only
+   ``cuda_fused``; the seconds a step and the peak memory printed.  Last,
+   ``H100_SXM`` beside the card's properties, and this script, the probe
+   and the autotuner gated on reading it.
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
@@ -214,6 +230,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -237,6 +254,7 @@ from repro_torch.core.formats import (BlockCSR, TiledCSC,  # noqa: E402
                                       pack_block_csr, pack_tiled_csc,
                                       quantize_packed)
 from repro_torch.core.pruning import block_prune, magnitude_prune  # noqa: E402
+from repro_torch.core.topology import H100_SXM  # noqa: E402
 from repro_torch.core import sod as sod_mod  # noqa: E402
 from repro_torch.core.sod import SoDConfig  # noqa: E402
 from repro_torch.kernels import block_matmul as bmm  # noqa: E402
@@ -256,9 +274,11 @@ from repro_torch.serving import (Engine, bucket_len, poisson_trace,  # noqa: E40
                                  repeated_prompt_trace, shared_prefix_trace,
                                  static_generate, stress_spec_trace)
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12,   # tensor cores, bf16
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit),
+# from the port's one chip spec; ChipSpec has no float32 field, so that rate
+# stays here.
+HBM_BYTES_PER_S = H100_SXM.hbm_bandwidth
+PEAK_OPS_PER_S = {torch.bfloat16: H100_SXM.peak_bf16_flops,   # tensor cores, bf16
                   torch.float32: 67e12}     # float32 outside the tensor cores
 # Kernel vs plain version, as a fraction of the plain output's largest
 # magnitude: float32 sums in another order (1e-4); bf16 may round the output
@@ -990,9 +1010,10 @@ def _matmul_launches() -> int:
 @contextlib.contextmanager
 def _engine_probe(target_params):
     """While open, every engine built counts the matmul launches of its steps
-    by tier (the target's weights or any other: the draft's), and the
-    engines ``serve.main`` builds are kept."""
-    seen = {"target": 0, "draft": 0, "engines": []}
+    by tier (the target's weights or any other: the draft's) and its step
+    calls (each a forward over every layer), and the engines ``serve.main``
+    builds are kept."""
+    seen = {"target": 0, "draft": 0, "engines": [], "calls": 0}
     builders = {name: getattr(steps_mod, name) for name in STEP_BUILDERS}
     serve_engine = serve.Engine
 
@@ -1005,6 +1026,7 @@ def _engine_probe(target_params):
                 out = step(params, *a, **kw)
                 tier = "target" if params is target_params else "draft"
                 seen[tier] += _matmul_launches() - n0
+                seen["calls"] += 1
                 return out
             return run
         return make
@@ -3330,6 +3352,199 @@ def _frontend_entry(name: str, qmode: str, fe: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the paper-claims layer's examples, run in-process on the card
+# ---------------------------------------------------------------------------
+PAPER_TRAIN_STEPS = 4
+
+
+def _script(path: pathlib.Path):
+    """A script of the checkout (an example, the probe) as a module."""
+    spec = importlib.util.spec_from_file_location(f"_chip_smoke_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod      # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _twin(name: str):
+    """One of the reference examples' twins, ``examples/<name>.py``."""
+    return _script(ROOT / "examples" / f"{name}.py")
+
+
+def _attention_per_forward(cfg) -> int:
+    """Packed projections one forward of the dense family runs, from the
+    config: 7 a layer (wq, wk, wv, wo, w_gate, w_up, w_down; at the reduced
+    size every one is at least min_dim = 64 wide) and an untied head."""
+    return cfg.n_layers * 7 + (0 if cfg.tie_embeddings else 1)
+
+
+def _packed_leaves(params) -> int:
+    """Packed operands in a tree: each runs once a forward."""
+    return sum(isinstance(leaf, (TiledCSC, BlockCSR))
+               for leaf in sod_mod._all_leaves(params))
+
+
+def _no_oracle(what: str, dispatch: dict) -> None:
+    oracle = [k for k in dispatch if k.startswith("torch_oracle")]
+    if oracle:
+        raise AssertionError(f"{what}: the plain version dispatched on the card: "
+                             f"{dispatch}")
+
+
+def phase_paper_quickstart() -> dict:
+    """``torch_quickstart``: the 1024 × 1024 pack's bytes and ratio, the
+    forced ``sod_matmul`` at M = 256 against ``x @ w_sparse`` (max |err| <
+    1e-3, float32), and one batch's loss of the reduced llama3.2-1b packed
+    with min_dim 64: 1 + 2 · 7 launches, no other kernel, no ``torch_oracle``."""
+    qs = _twin("torch_quickstart")
+    reset_counts()
+    out = qs.main(["--device", "cuda"])
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    cfg = configs.reduced(configs.get_config("llama3.2-1b"))
+    want = {"sod_matmul": 1 + _attention_per_forward(cfg), "block_matmul": 0,
+            "decompress": 0}
+    _no_oracle("quickstart", out["kernel_dispatch"])
+    gates = {"launches": launches == want
+             and out["kernel_launches"] == want["sod_matmul"],
+             "max_abs_err": out["max_abs_err"] < qs.TOL,
+             "loss_finite": math.isfinite(out["loss"]),
+             "packed_below_dense": out["compressed_bytes"] < out["dense_bytes"]}
+    row = {"phase": "paper", "twin": "torch_quickstart", "launches": launches,
+           "launches_want": want, **{k: out[k] for k in (
+               "density", "dense_bytes", "compressed_bytes", "compression_ratio",
+               "max_abs_err", "loss", "model_bytes", "kernel_dispatch")},
+           "gates": gates}
+    log(row)
+    if not all(gates.values()):
+        raise AssertionError(f"quickstart: a gate failed: {gates}")
+    return {"launches": launches}
+
+
+def phase_paper_serve() -> dict:
+    """``torch_serve_decode``'s four runs: each run's launches derived from
+    its config (dense and zamba2 unpacked: none; llama tiled_csc: 2 · 7 a
+    forward × 17 forwards; the engine under its plan: the packed operands of
+    its weights × its step calls), finite logits, no ``torch_oracle``, and
+    every engine request equal to ``static_generate`` under the plan on the
+    card, bit for bit."""
+    sd = _twin("torch_serve_decode")
+    reset_counts()
+    # no target weights exist before the run: every step's launches count as
+    # the "draft" tier's
+    with _engine_probe(None) as seen:
+        out = sd.main(["--device", "cuda"])
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    (eng,) = seen["engines"]
+    runs = {}
+    for run, summary in out.items():
+        _no_oracle(f"serve_decode {run}", summary["kernel_dispatch"])
+        argv = sd.RUNS[run][1]
+        cfg = configs.reduced(configs.get_config(argv[argv.index("--arch") + 1]))
+        if run == "engine":
+            per_forward, forwards = _packed_leaves(eng.params), seen["calls"]
+        elif "--sod" in argv:
+            per_forward, forwards = _attention_per_forward(cfg), 1 + int(
+                argv[argv.index("--gen") + 1])
+        else:
+            per_forward, forwards = 0, 0
+        runs[run] = {"launches": summary["kernel_launches"],
+                     "want": {"sod_matmul": per_forward * forwards, "block_matmul": 0},
+                     "per_forward": per_forward, "forwards": forwards,
+                     "logits_finite": summary["logits_finite"]}
+    static_s = _engine_gate("serve_decode engine", out["engine"], eng.model, eng.params,
+                            eng.plan)
+    total = sum(r["launches"]["sod_matmul"] for r in runs.values())
+    gates = {"launches": all(r["launches"] == r["want"] for r in runs.values())
+             and launches == {"sod_matmul": total, "block_matmul": 0, "decompress": 0},
+             # every launch of the run was in the engine's step calls
+             "engine_per_forward": runs["engine"]["per_forward"] > 0
+             and seen["draft"] == runs["engine"]["launches"]["sod_matmul"],
+             "logits_finite": all(r["logits_finite"] for r in runs.values()),
+             "engine_bit_equal_to_static_generate": True}
+    log({"phase": "paper", "twin": "torch_serve_decode", "runs": runs,
+         "launches": launches, "engine_steps": out["engine"]["steps"],
+         "static_generate_s": static_s, "gates": gates})
+    if not all(gates.values()):
+        raise AssertionError(f"serve_decode: a gate failed: {gates}")
+    return {"launches": launches}
+
+
+def phase_paper_train() -> dict:
+    """``torch_train_sparse_lm --full --steps 4``: xlstm-125m at full width,
+    batch 8 × seq 512, tiled_csc 0.4: finite losses and gradient norms, only
+    ``cuda_fused`` dispatched, and the launches a step phase 11 derives (the
+    packed projections twice under remat and the head once of
+    ``sod_matmul``, every packed call once of ``decompress``); prints the
+    seconds a step and the peak memory."""
+    tl = _twin("torch_train_sparse_lm")
+    cfg = configs.get_config("xlstm-125m")
+    per_step = _recurrent_per_step(cfg)
+    remat = 2 if cfg.remat else 1
+    want = {"sod_matmul": (remat * (per_step - 1) + 1) * PAPER_TRAIN_STEPS,
+            "block_matmul": 0, "decompress": per_step * PAPER_TRAIN_STEPS}
+    reset_counts()
+    out = tl.main(["--full", "--steps", str(PAPER_TRAIN_STEPS), "--device", "cuda"])
+    launches = {name: mod.launches for name, mod in COUNTERS.items()}
+    losses, gnorms = out["losses"], out["grad_norms"]
+    gates = {"full_width": out["arch"] == cfg.name and out["steps"] == PAPER_TRAIN_STEPS,
+             "finite": all(map(math.isfinite, losses + gnorms)),
+             "dispatch_only_cuda_fused": bool(out["kernel_dispatch"]) and all(
+                 k.startswith("cuda_fused[") for k in out["kernel_dispatch"]),
+             "launches": launches == want and out["kernel_launches"] == want}
+    log({"phase": "paper", "twin": "torch_train_sparse_lm", "arch": out["arch"],
+         "batch": 8, "seq": 512, "steps": out["steps"], "losses": losses,
+         "grad_norms": gnorms, "launches": launches, "launches_want": want,
+         "kernel_dispatch": out["kernel_dispatch"],
+         **{k: out[k] for k in ("step_s", "tok_s", "peak_mem_gb", "wall_s")},
+         "gates": gates})
+    if not all(gates.values()):
+        raise AssertionError(f"train_sparse_lm: a gate failed: {gates}")
+    return {"launches": launches, "step_s": out["step_s"],
+            "peak_mem_gb": out["peak_mem_gb"]}
+
+
+def phase_paper_rates() -> None:
+    """``H100_SXM`` beside what the card reports, and the three places that
+    bound or rank kernels reading it (this script, the probe, the
+    autotuner's prior)."""
+    props = torch.cuda.get_device_properties(0)
+    probe = _script(ROOT / "scripts" / "sod_matmul_probe.py")
+    h = H100_SXM
+    gates = {"chip_smoke": HBM_BYTES_PER_S == h.hbm_bandwidth
+             and PEAK_OPS_PER_S[torch.bfloat16] == h.peak_bf16_flops,
+             "sod_matmul_probe": probe.HBM_BYTES_PER_S == h.hbm_bandwidth
+             and probe.PEAK_BF16_OPS_PER_S == h.peak_bf16_flops,
+             "autotune": autotune._MEM_BW["cuda"] == h.hbm_bandwidth
+             and autotune._PEAK_FLOPS["cuda"] == h.peak_bf16_flops}
+    log({"phase": "paper", "rates": dataclasses.asdict(h),
+         "device": {"name": props.name, "total_memory": props.total_memory,
+                    "sm_count": props.multi_processor_count,
+                    "shared_memory_per_sm": getattr(
+                        props, "shared_memory_per_multiprocessor", None)},
+         "gates": gates})
+    if not all(gates.values()):
+        raise AssertionError(f"rates: a gate failed: {gates}")
+
+
+def phase_paper(timed) -> dict:
+    """Phase 13: the three twins in-process on the card, then the rates."""
+    out = {"quickstart": timed("paper:quickstart", phase_paper_quickstart),
+           "serve_decode": timed("paper:serve_decode", phase_paper_serve),
+           "train_sparse_lm": timed("paper:train_sparse_lm", phase_paper_train)}
+    torch.cuda.empty_cache()
+    timed("paper:rates", phase_paper_rates)
+    return out
+
+
+def _paper_entry(name: str, qmode: str, paper: dict) -> dict:
+    """Phase 13's launches of one kernel (qmode none only), by twin."""
+    if qmode != "none":
+        return {}
+    return {"paper_launches": {twin: row["launches"][name]
+                               for twin, row in paper.items()}}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -3382,6 +3597,7 @@ def main() -> None:
     moe_out = phase_moe(timed)
     rec_out = phase_recurrent(timed)
     fe_out = phase_frontends(timed)
+    paper = phase_paper(timed)
     shutil.rmtree(cache_dir, ignore_errors=True)
 
     entries = []
@@ -3413,6 +3629,7 @@ def main() -> None:
             entry.update(_moe_entry(name, qmode, moe_out))
             entry.update(_recurrent_entry(name, qmode, rec_out))
             entry.update(_frontend_entry(name, qmode, fe_out))
+            entry.update(_paper_entry(name, qmode, paper))
             entries.append(entry)
     log({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     log(smi)

@@ -7,7 +7,7 @@ serving path's shapes.
 
 Run from the root of a checkout on an NVIDIA GPU.  ``--kernel`` picks the
 kernel: ``sod_matmul`` (TiledCSC, magnitude-pruned weights; qmodes
-``none``, ``int8``, ``fp8``) or ``block_matmul`` (BlockCSR of (8, 128)
+``none``, ``int8``, ``fp8``, ``codebook``) or ``block_matmul`` (BlockCSR of (8, 128)
 sub-blocks, block-pruned weights; qmodes ``none``, ``int8``, ``fp8``,
 ``codebook``).  ``--src`` names the ``src`` directory whose ``repro_torch``
 is measured (default: this checkout's), so that two trees, such as a parent
@@ -20,13 +20,20 @@ with bf16 activations and weights pruned to density 0.3, it reports:
   HOST_CALLS back-to-back calls, each block timed with ``perf_counter``
   (the card keeps up with the calls; the launch queue is drained after
   each block, outside the timing);
-- ``decode_ms`` and ``prefill_ms`` (M = 4 and 128): device time per call,
+- ``decode_ms``, ``prefill_ms`` and ``train_ms`` (M = 4, 128 and 1024, the
+  rows of a training step at batch 8 × seq 128): device time per call,
   CUDA events, median of REPS, each call starting with a clean L2 (a 512 MB
   buffer read, not written) behind a spin kernel that hides the host's
   enqueue: the yardstick of this checkout's
   ``src/repro_torch/kernels/timing.py``, which ``chip_smoke.py`` and the
   autotuner use too (loaded from this checkout whatever ``--src`` says, so
   two trees are timed alike);
+- at M = 1024, ``train_bound_ms`` and ``train_bound_by``: the least time
+  for the call, max(bytes / HBM rate, operations / bf16 peak) at
+  ``H100_SXM``'s rates (this checkout's ``src/repro_torch/core/topology.py``),
+  counting each input read once, the bf16 output written once and 2
+  operations a stored value and row of x; and ``train_matmul_ms``, one
+  ``torch.matmul`` of the same x on the dense bf16 weight (the yardstick);
 - at decode, data probes on the same operand.  ``sod_matmul``: every row
   index set to padding (``pad_ms``: the copies, x staging, the walk over
   the slots and the split-K reduction, no gather of x and no multiply-add),
@@ -75,7 +82,7 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # (K, N) of a layer's projections and how many of each (chip_smoke.py's)
 PATH_SHAPES = {(2048, 2048): 2, (2048, 512): 2, (2048, 8192): 2, (8192, 2048): 1}
-QMODES = {"sod_matmul": ("none", "int8", "fp8"),
+QMODES = {"sod_matmul": ("none", "int8", "fp8", "codebook"),
           "block_matmul": ("none", "int8", "fp8", "codebook"),
           "decompress": ("none", "int8", "fp8", "codebook")}
 # decompress's plan constants beside the module's own (decompress.plan_launch)
@@ -83,9 +90,9 @@ DECOMPRESS_PLANS = {"cta1": {"CTAS_PER_SM": 1},
                     "cta1_threads1024": {"CTAS_PER_SM": 1, "THREADS": 1024},
                     "threads256": {"THREADS": 256},
                     "threads1024": {"THREADS": 1024}}
-HBM_BYTES_PER_S = 3.35e12
 DENSITY = 0.3
 REPS = 25
+TRAIN_M = 1024            # a training step's rows at batch 8 × seq 128
 HOST_BLOCKS = 40
 HOST_CALLS = 25
 TOL = 1e-4                # f32 output, relative to the largest |y| (chip_smoke's)
@@ -103,6 +110,23 @@ def _timing():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _topology():
+    """This checkout's chip spec module (it imports only the standard
+    library), loaded from its file, so a tree under ``--src`` that has none
+    is bounded by the same rates."""
+    spec = importlib.util.spec_from_file_location(
+        "_probe_topology", ROOT / "src" / "repro_torch" / "core" / "topology.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod      # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+H100_SXM = _topology().H100_SXM
+HBM_BYTES_PER_S = H100_SXM.hbm_bandwidth
+PEAK_BF16_OPS_PER_S = H100_SXM.peak_bf16_flops
 
 
 def host_us(torch, fn) -> tuple[float, float]:
@@ -167,16 +191,30 @@ def main() -> None:
                 "rows_s": dataclasses.replace(
                     p, rows=slot[:, None].expand(p.rows.shape).contiguous())}
 
+    def work(x, p) -> tuple[int, int]:
+        """(bytes, operations) of one call with bf16 out, as chip_smoke.py
+        counts them."""
+        nb = lambda t: 0 if t is None else t.numel() * t.element_size()  # noqa: E731
+        m, n = x.shape[0], p.shape[1]
+        io = nb(x) + nb(p.scale) + nb(p.codebook) + m * n * x.element_size()
+        if block:
+            tiles = int(p.tile_nnz.sum())
+            stored = tiles * p.br * p.tile[1]
+            return (io + stored * p.block_vals.element_size() + tiles * 4
+                    + nb(p.tile_nnz), 2 * m * stored)
+        return io + nb(p.vals) + nb(p.rows), 2 * m * int((p.rows >= 0).sum())
+
     # the operands, all made before any timing (codebooks fit in numpy, in threads)
-    bases, xs = {}, {}
+    bases, xs, dense = {}, {}, {}
     for i, (k, n) in enumerate(PATH_SHAPES):
         g = torch.Generator(device="cuda")
         g.manual_seed(2000 + i)
         w = torch.randn(k, n, generator=g, device="cuda").to(torch.bfloat16)
         xs[(k, n)] = {m: torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
-                      for m in (4, 128)}
-        bases[(k, n)] = (pack_block_csr(block_prune(w, DENSITY)) if block
-                         else pack_tiled_csc(magnitude_prune(w, DENSITY)))
+                      for m in (4, 128, TRAIN_M)}
+        dense[(k, n)] = block_prune(w, DENSITY) if block else magnitude_prune(w, DENSITY)
+        bases[(k, n)] = (pack_block_csr(dense[(k, n)]) if block
+                         else pack_tiled_csc(dense[(k, n)]))
     jobs = [(kn, q) for kn in PATH_SHAPES for q in qmodes]
     with ThreadPoolExecutor(max_workers=8) as pool:
         ops = dict(zip(jobs, pool.map(
@@ -184,7 +222,8 @@ def main() -> None:
             else quantize_packed(bases[job[0]], job[1]), jobs)))
 
     layer = {q: {"host_us": 0.0, "host_us_min": 0.0, "decode_ms": 0.0,
-                 "prefill_ms": 0.0} for q in qmodes}
+                 "prefill_ms": 0.0, "train_ms": 0.0, "train_bound_ms": 0.0,
+                 "train_matmul_ms": 0.0} for q in qmodes}
     for (k, n), count in PATH_SHAPES.items():
         for qmode in qmodes:
             p = ops[((k, n), qmode)]
@@ -197,13 +236,20 @@ def main() -> None:
                     if not err <= TOL * max(yr.abs().max().item(), 1e-30):
                         raise AssertionError(f"{name} {(k, n, x.shape[0], qmode)}: "
                                              f"max |err| {err}")
-            x4, x128 = xs[(k, n)][4], xs[(k, n)][128]
+            x4, x128, x1024 = (xs[(k, n)][m] for m in (4, 128, TRAIN_M))
             host, host_min = host_us(torch, lambda: kernel(x4, p))
+            nbytes, n_ops = work(x1024, p)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / PEAK_BF16_OPS_PER_S
+            w = dense[(k, n)]
             row = {"src": src, "kernel": args.kernel, "K": k, "N": n, "qmode": qmode,
                    ("bcap" if block else "cap"): p.bcap if block else p.cap,
                    "host_us": host, "host_us_min": host_min,
                    "decode_ms": device_ms(lambda: kernel(x4, p)),
-                   "prefill_ms": device_ms(lambda: kernel(x128, p))}
+                   "prefill_ms": device_ms(lambda: kernel(x128, p)),
+                   "train_ms": device_ms(lambda: kernel(x1024, p)),
+                   "train_bound_ms": max(t_bytes, t_ops) * 1e3,
+                   "train_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "train_matmul_ms": device_ms(lambda: torch.matmul(x1024, w))}
             for name, q in extra.items():
                 row[f"{name}_ms"] = device_ms(lambda: kernel(x4, q))
             log(row)
@@ -211,6 +257,8 @@ def main() -> None:
                 layer[qmode][key] += count * row[key]
     for qmode, sums in layer.items():
         log({"src": src, "kernel": args.kernel, "layer": qmode, **sums})
+    log({"rates": {"chip": H100_SXM.name, "hbm_bytes_per_s": HBM_BYTES_PER_S,
+                   "peak_bf16_ops_per_s": PEAK_BF16_OPS_PER_S}})
     log(smi)
     log({"ok": True})
 

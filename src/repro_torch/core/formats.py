@@ -1,7 +1,8 @@
-"""The executable Sparse-on-Dense formats, :class:`TiledCSC` and
-:class:`BlockCSR`, in PyTorch.
+"""The Sparse-on-Dense formats in PyTorch: the executable :class:`TiledCSC`
+and :class:`BlockCSR`, and the footprint formats :class:`Bitmap` (SIGMA's)
+and the classic pointer CSC.
 
-Twin of :mod:`repro.core.formats` for its two executable formats.
+Twin of :mod:`repro.core.formats`.
 ``TiledCSC`` is the element-granular, paper-faithful one: the matrix is cut
 into (bk, bn) tiles; each tile column stores up to ``cap`` non-zeros as
 (value, in-tile row index).  Padding slots carry value 0 and the sentinel row
@@ -21,7 +22,10 @@ stores int8 indices into one shared-value table per lead slice (entry 0 is
 packing (:func:`quantize_packed`); ``to_dense`` of a quantized operand
 dequantizes first and returns float32.
 
-The Bitmap/CSC footprint formats are not ported yet.
+The footprint formats count bytes for the paper's cost model: a
+:class:`Bitmap` (1 bit an element and the non-zeros in row-major order,
+padded to ``cap``) and a pointer CSC in numpy (:func:`pack_csc`,
+:func:`csc_nbytes`), exact as the reference's.
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ from repro_torch.core.plan import CODEBOOK_SIZE, QMODES, QVALUE_BITS, SCALE_BITS
 __all__ = ["TiledCSC", "pack_tiled_csc", "padded_shape", "observed_tiled_cap",
            "BlockCSR", "pack_block_csr", "observed_block_cap",
            "quantize_packed", "qvalue_bits", "fp8_dtype", "QMODES",
-           "CODEBOOK_SIZE"]
+           "CODEBOOK_SIZE", "density", "Bitmap", "pack_bitmap", "pack_csc",
+           "unpack_csc", "csc_nbytes"]
 
 # Paper accounting: 16-bit values (qmode "none"), 8-bit row indices; BlockCSR
 # counts its block ids at 16 bits.
@@ -67,6 +72,18 @@ def _check_qmode(qmode: str) -> str:
     if qmode not in QMODES:
         raise ValueError(f"unknown qmode {qmode!r} (expected one of {QMODES})")
     return qmode
+
+
+def density(x) -> float:
+    """Fraction of non-zero elements (a tensor or an array)."""
+    if isinstance(x, torch.Tensor):
+        nnz, size = int(torch.count_nonzero(x)), x.numel()
+    else:
+        x = np.asarray(x)
+        nnz, size = np.count_nonzero(x), x.size
+    if size == 0:
+        return 0.0
+    return float(nnz) / float(size)
 
 
 def padded_shape(shape: tuple[int, int], tile: tuple[int, int]) -> tuple[int, int]:
@@ -315,6 +332,10 @@ class TiledCSC:
         """Dense-equivalent 16-bit bytes (lead dims included)."""
         kp, np_ = padded_shape(self.shape, self.tile)
         return _n_lead(self.lead) * kp * np_ * VALUE_BITS // 8
+
+    def compression_ratio(self) -> float:
+        """``nbytes_compressed / nbytes_dense`` — below 1 when packing pays."""
+        return self.nbytes_compressed() / max(self.nbytes_dense(), 1)
 
     def dequantize(self) -> "TiledCSC":
         """The equivalent unquantized operand, values dequantized to
@@ -594,3 +615,91 @@ def pack_block_csr(w: torch.Tensor, tile: tuple[int, int] = (128, 128),
                     block_ids=block_ids.to(torch.int32).contiguous(),
                     tile_nnz=tile_nnz.contiguous(), shape=shape, tile=(bk, bn),
                     br=br)
+
+
+# ---------------------------------------------------------------------------
+# Bitmap — SIGMA-style
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class Bitmap:
+    """Bitmap + row-major packed non-zero values (padded to ``cap``)."""
+
+    mask: torch.Tensor   # (K, N) bool
+    vals: torch.Tensor   # (cap,) packed row-major non-zeros
+    shape: tuple[int, int]
+
+    def nbytes_compressed(self, value_bits: int = 16) -> int:
+        """Bitmap bytes (1 bit/element) plus the stored value list."""
+        bits = self.mask.numel()  # 1 bit/element bitmap
+        return bits // 8 + self.vals.shape[0] * value_bits // 8
+
+    def nbytes_dense(self, value_bits: int = 16) -> int:
+        """Dense-equivalent bytes at ``value_bits``."""
+        return int(np.prod(self.shape)) * value_bits // 8
+
+    def to_dense(self) -> torch.Tensor:
+        """Reconstruct the dense matrix (bitmap-guided scatter)."""
+        flat_mask = self.mask.reshape(-1)
+        pos = torch.cumsum(flat_mask.long(), 0) - 1
+        gathered = self.vals[pos.clamp(0, self.vals.shape[0] - 1)]
+        out = torch.where(flat_mask, gathered, torch.zeros_like(gathered))
+        return out.reshape(self.shape)
+
+
+def pack_bitmap(w: torch.Tensor, cap: int | None = None) -> Bitmap:
+    """Pack into :class:`Bitmap`: 1-bit mask + row-major value list (the
+    first ``cap`` non-zeros; zeros pad a list shorter than ``cap``)."""
+    mask = w != 0
+    flat = w.reshape(-1)
+    flat_mask = mask.reshape(-1)
+    if cap is None:
+        cap = max(int(flat_mask.sum()), 1)
+    # a stable sort puts the non-zeros first, in row-major order
+    order = torch.argsort((~flat_mask).to(torch.uint8), stable=True)[:cap]
+    vals = torch.where(flat_mask[order], flat[order], torch.zeros_like(flat[order]))
+    return Bitmap(mask=mask, vals=vals, shape=tuple(w.shape))
+
+
+# ---------------------------------------------------------------------------
+# Classic pointer CSC (numpy) — exact footprint accounting for the cost model
+# ---------------------------------------------------------------------------
+def pack_csc(w) -> dict[str, np.ndarray]:
+    """Classic CSC: values, row indices, column pointers (numpy, exact; a
+    tensor is read through the host)."""
+    w = w.detach().cpu().numpy() if isinstance(w, torch.Tensor) else np.asarray(w)
+    k, n = w.shape
+    rows = []
+    vals = []
+    ptr = [0]
+    for j in range(n):
+        nz = np.nonzero(w[:, j])[0]
+        rows.append(nz)
+        vals.append(w[nz, j])
+        ptr.append(ptr[-1] + len(nz))
+    return {
+        "values": np.concatenate(vals) if vals else np.zeros((0,), w.dtype),
+        "row_indices": np.concatenate(rows).astype(np.int32)
+        if rows
+        else np.zeros((0,), np.int32),
+        "col_pointers": np.asarray(ptr, np.int64),
+        "shape": np.asarray([k, n]),
+    }
+
+
+def unpack_csc(csc: dict[str, np.ndarray]) -> np.ndarray:
+    """Reconstruct the dense matrix from a :func:`pack_csc` dict."""
+    k, n = (int(x) for x in csc["shape"])
+    out = np.zeros((k, n), csc["values"].dtype)
+    ptr = csc["col_pointers"]
+    for j in range(n):
+        lo, hi = int(ptr[j]), int(ptr[j + 1])
+        out[csc["row_indices"][lo:hi], j] = csc["values"][lo:hi]
+    return out
+
+
+def csc_nbytes(csc: dict[str, np.ndarray], value_bits: int = 16,
+               index_bits: int = 8, pointer_bits: int = 32) -> int:
+    """Byte footprint of a pointer-CSC dict at the given bit widths."""
+    nnz = csc["values"].shape[0]
+    ncols = csc["col_pointers"].shape[0]
+    return (nnz * (value_bits + index_bits) + ncols * pointer_bits) // 8

@@ -39,7 +39,7 @@ from repro_torch.core.plan import QMODES, ModelPlan, PackPlan
 
 __all__ = ["SoDConfig", "DENSE", "prune_weight", "pack_param", "apply",
            "sodify_params", "sodify_abstract", "plan_leaves", "weight_bytes",
-           "tree_weight_bytes"]
+           "tree_weight_bytes", "expected_cap"]
 
 IMPLS = ("auto", "jnp", "cuda", "pallas")
 
@@ -181,6 +181,13 @@ def apply(x: torch.Tensor, w, cfg: SoDConfig | None = None,
 
 _SOD_PATHS = re.compile(
     r"(wq|wk|wv|wo|w_gate|w_up|w_down|head|w_z|w_x|out_proj)$")
+
+
+def expected_cap(bk: int, density: float) -> int:
+    """Static per-column slot budget for Bernoulli(density) sparsity: mean +
+    4σ of Binomial(bk, density), aligned to 8 (the math lives in
+    :mod:`repro_torch.core.plan`; this keeps the reference's name here)."""
+    return plan_mod.expected_cap(bk, density)
 
 
 def _named_leaves(tree, prefix=""):

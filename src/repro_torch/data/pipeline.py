@@ -5,11 +5,11 @@ so both packages walk the same bigram chain.  The walk itself draws from
 numpy where the reference draws from ``jax.random``, which torch cannot
 reproduce: the two give different tokens for one seed, and parity tests feed
 the reference's tokens to both.  The batches' shapes are the reference's: a
-VLM's text is ``seq_len - n_patches`` tokens beside ``patch_embeds`` (B,
-n_patches, frontend_dim), standard normal from the batch's generator, kept
-in float32 (numpy has no bfloat16; the model rounds them to its working
-dtype where it uses them); an audio batch walks one chain a codebook,
-tokens and targets (B, S, n_codebooks).
+VLM's text is ``seq_len - n_patches`` tokens (none at ``seq_len ==
+n_patches``) beside ``patch_embeds`` (B, n_patches, frontend_dim), standard
+normal from the batch's generator, kept in float32 (numpy has no bfloat16;
+the model rounds them to its working dtype where it uses them); an audio
+batch walks one chain a codebook, tokens and targets (B, S, n_codebooks).
 """
 from __future__ import annotations
 
@@ -32,9 +32,6 @@ class SyntheticLMData:
     branching: int = 4     # out-degree of the bigram chain
 
     def __post_init__(self):
-        if self.cfg.family == "vlm" and self.seq_len <= self.cfg.n_patches:
-            raise ValueError(f"seq_len {self.seq_len} leaves no text after "
-                             f"{self.cfg.n_patches} patches")
         rng = np.random.default_rng(self.seed)
         v = self.cfg.vocab
         # each token has `branching` likely successors
@@ -47,7 +44,14 @@ class SyntheticLMData:
         rng = np.random.default_rng(self.seed * 1_000_003 + step)
         b, s, cfg = self.batch_size, self.seq_len, self.cfg
         if cfg.family == "vlm":
-            toks = self._chain(rng, b, s - cfg.n_patches + 1)
+            # the reference walks s - n_patches + 1 tokens: at s == n_patches
+            # (and n_patches - 1) the text is (B, 0); below, its walk of a
+            # negative length raises a TypeError
+            n_walk = s - cfg.n_patches + 1
+            if n_walk < 0:
+                raise TypeError(f"seq_len {s} is below the {cfg.n_patches} patches "
+                                f"less one: a walk of {n_walk} text tokens")
+            toks = self._chain(rng, b, n_walk)
             patches = rng.standard_normal((b, cfg.n_patches, cfg.frontend_dim),
                                           dtype=np.float32)
             return {"tokens": toks[:, :-1], "targets": toks[:, 1:],

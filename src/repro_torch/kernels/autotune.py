@@ -48,6 +48,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.plan import QVALUE_BITS
+from repro_torch.core.topology import H100_SXM
 from repro_torch.kernels import registry, timing
 from repro_torch.kernels.registry import KernelImpl, ProblemKey
 
@@ -69,11 +70,10 @@ CACHE_VERSION = 1
 ENV_VAR = "REPRO_TORCH_TUNING_CACHE"
 
 # Rates of the prior: the H100 SXM's published HBM rate and dense bf16
-# tensor-core peak (NVIDIA data sheet, at the 700 W limit); the CPU's are
-# the reference's (the prior only orders candidates, measurement fixes the
-# magnitudes).
-_PEAK_FLOPS = {"cpu": 5e10, "cuda": 989e12}
-_MEM_BW = {"cpu": 2e10, "cuda": 3.35e12}
+# tensor-core peak (``topology.H100_SXM``); the CPU's are the reference's
+# (the prior only orders candidates, measurement fixes the magnitudes).
+_PEAK_FLOPS = {"cpu": 5e10, "cuda": H100_SXM.peak_bf16_flops}
+_MEM_BW = {"cpu": 2e10, "cuda": H100_SXM.hbm_bandwidth}
 # Fixed cost of one kernel call on the card: about 11 us a call of the
 # port's matmul wrappers, measured on an NVIDIA H100 80GB HBM3 at 700 W.
 _LAUNCH_US = {"cuda": 11.0}

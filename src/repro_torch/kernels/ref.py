@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.core.formats import BlockCSR, TiledCSC
 
-__all__ = ["decompress_tiled_ref", "sod_matmul_ref", "block_matmul_ref"]
+__all__ = ["decompress_tiled_ref", "decompress_block_ref", "sod_matmul_ref",
+           "block_matmul_ref", "dense_matmul_ref"]
 
 
 def decompress_tiled_ref(packed: TiledCSC,
@@ -22,6 +23,19 @@ def decompress_tiled_ref(packed: TiledCSC,
     return dense if out_dtype is None else dense.to(out_dtype)
 
 
+def decompress_block_ref(packed: BlockCSR) -> torch.Tensor:
+    """A BlockCSR's dense matrix at the logical shape, in the value dtype
+    (float32 for a quantized operand)."""
+    return packed.to_dense()
+
+
+def dense_matmul_ref(x: torch.Tensor, w: torch.Tensor,
+                     out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ w`` with float32 sums, cast to ``out_dtype`` (x's dtype by
+    default)."""
+    return torch.matmul(x.float(), w.float()).to(out_dtype or x.dtype)
+
+
 def sod_matmul_ref(x: torch.Tensor, packed: TiledCSC | BlockCSR,
                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x @ decompress(packed)`` unfused: the weight in its value dtype (or
@@ -29,7 +43,7 @@ def sod_matmul_ref(x: torch.Tensor, packed: TiledCSC | BlockCSR,
     w = packed.to_dense()
     if x.shape[-1] != w.shape[0]:
         raise ValueError(f"inner dims mismatch: {tuple(x.shape)} @ {tuple(w.shape)}")
-    return torch.matmul(x.float(), w.float()).to(out_dtype or x.dtype)
+    return dense_matmul_ref(x, w, out_dtype)
 
 
 def block_matmul_ref(x: torch.Tensor, packed: BlockCSR,

@@ -49,10 +49,12 @@ __all__ = [
     "ProblemKey",
     "register",
     "get_impl",
+    "all_impls",
     "candidates",
     "choose",
     "problem_key",
     "format_of",
+    "static_density",
     "current_backend",
     "set_backend_override",
     "kernel_hash",
@@ -60,6 +62,7 @@ __all__ = [
     "count_dispatches",
     "note_dispatch",
     "dispatch_counts",
+    "dispatch_summary",
 ]
 
 BACKENDS = ("cpu", "cuda")
@@ -161,6 +164,11 @@ def get_impl(name: str) -> KernelImpl:
         ) from None
 
 
+def all_impls() -> dict[str, KernelImpl]:
+    """Snapshot of the registry (name → impl)."""
+    return dict(_REGISTRY)
+
+
 def candidates(key: ProblemKey) -> list[KernelImpl]:
     """All implementations able to run this problem, best-priority first."""
     out = [i for i in _REGISTRY.values() if i.supports(key)]
@@ -193,6 +201,25 @@ def format_of(w) -> str:
     if isinstance(w, BlockCSR):
         return "block_csr"
     return "dense"
+
+
+def static_density(w) -> float:
+    """Density proxy from the packed container's static layout.
+
+    For TiledCSC the per-column slot capacity bounds the fill; for BlockCSR
+    the block capacity does.  Dense is 1.0.  Rounded to 1/32 so nearby packs
+    share a tuning-cache entry.
+    """
+    if isinstance(w, TiledCSC):
+        return _fill(w.cap, w.tile[0])
+    if isinstance(w, BlockCSR):
+        return _fill(w.bcap * w.br, w.tile[0])
+    return 1.0
+
+
+def _fill(cap: int, bk: int) -> float:
+    """Slots a tile column holds over its rows, at most 1, to 1/32."""
+    return round(min(cap / bk, 1.0) * 32) / 32
 
 
 def _m_bucket(m: int) -> int:
@@ -231,7 +258,7 @@ def _key(fmt, k, n, tile, slot, br, dtype, qmode, m, backend, mesh) -> ProblemKe
     if fmt == "dense":
         return ProblemKey(fmt, m, k, n, 1.0, _dtype_name(dtype), backend, mesh=mesh)
     cap = slot if fmt == "tiled_csc" else slot * br
-    density = round(min(cap / tile[0], 1.0) * 32) / 32
+    density = _fill(cap, tile[0])      # static_density of the operand
     return ProblemKey(fmt, m, int(k), int(n), density, _dtype_name(dtype), backend,
                       tile=tile, cap=int(cap), kt=-(-int(k) // tile[0]),
                       qmode=qmode, mesh=mesh)
@@ -333,6 +360,20 @@ def dispatch_counts(log: list) -> dict[str, int]:
         k = f"{rec['impl']}[{rec['source']}]"
         out[k] = out.get(k, 0) + 1
     return out
+
+
+def dispatch_summary(log: list) -> list[str]:
+    """Human-readable one-liners, deduplicated, for a recorded log (the
+    reference's format: ``impl[source] fmt m=.. k=.. n=.. backend`` and the
+    params)."""
+    def line(rec) -> str:
+        k = rec["key"]
+        return (f"{rec['impl']}[{rec['source']}] "
+                f"{k.fmt} m={k.m} k={k.k} n={k.n} {k.backend}"
+                + (f" mesh={k.mesh}" if k.mesh else "")
+                + (f" params={rec['params']}" if rec["params"] else ""))
+
+    return list(dict.fromkeys(map(line, log)))
 
 
 def kernel_hash() -> str:

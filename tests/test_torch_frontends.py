@@ -319,9 +319,28 @@ def test_batches_have_the_reference_shapes(arch):
     if arch == "pixtral-12b":
         assert got["tokens"].shape == (B, S - tcfg.n_patches)
         assert abs(float(got["patch_embeds"].std()) - 1.0) < 0.1
-        with pytest.raises(ValueError, match="no text"):
-            SyntheticLMData(tcfg, B, tcfg.n_patches)
     np.testing.assert_array_equal(data.batch(3)["tokens"], data.batch(3)["tokens"])
+
+
+@pytest.mark.parametrize("less", [0, 1])
+def test_vlm_batch_without_text_matches_the_reference(less):
+    """At ``seq_len == n_patches`` (and one less, where the reference's walk
+    is still empty) both packages give text of shape (B, 0), int32, beside
+    the usual patches; two below, both raise ``TypeError`` (the reference's
+    walk of a negative length)."""
+    jcfg, tcfg = _configs("pixtral-12b")
+    seq = tcfg.n_patches - less
+    got = SyntheticLMData(tcfg, B, seq, seed=0).batch(0)
+    want = _reference_batch("pixtral-12b", seq)
+    assert {k: (v.shape, v.dtype) for k, v in got.items()} == {
+        k: (v.shape, v.dtype) for k, v in want.items()}
+    assert got["tokens"].shape == got["targets"].shape == (B, 0)
+    assert got["tokens"].dtype == np.int32
+    assert got["patch_embeds"].shape == (B, tcfg.n_patches, tcfg.frontend_dim)
+    with pytest.raises(TypeError):
+        JData(jcfg, B, tcfg.n_patches - 2, seed=0).batch(0)
+    with pytest.raises(TypeError, match="below the 16 patches"):
+        SyntheticLMData(tcfg, B, tcfg.n_patches - 2, seed=0).batch(0)
 
 
 def test_vlm_prompt_must_divide_into_attention_chunks():

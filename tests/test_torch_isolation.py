@@ -11,7 +11,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "sod_matmul_probe.py",
-    ROOT / "scripts" / "serve_probe.py"]
+    ROOT / "scripts" / "serve_probe.py"] + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _forbidden(module: str) -> bool:
@@ -50,7 +50,7 @@ def test_importing_the_serve_path_loads_no_jax():
             "repro_torch.runtime.planner, repro_torch.models.ssm, "
             "repro_torch.models.xlstm, repro_torch.configs.zamba2_2_7b, "
             "repro_torch.configs.xlstm_125m, "
-            "repro_torch.core.plan; "
+            "repro_torch.core.plan, repro_torch.core, repro_torch.core.cost_model; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'ml_dtypes')]; "
             "assert not bad, bad")
