@@ -215,7 +215,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
    batch 8 × seq 512, phase 11's launches a step, finite losses, only
    ``cuda_fused``; the seconds a step and the peak memory printed.  Last,
    ``H100_SXM`` beside the card's properties, and this script, the probe
-   and the autotuner gated on reading it.
+   and the autotuner gated on reading it;
+14. mesh — the distributed runtime's execution layer: four ranks on the
+   one card (``launch.mesh.run_ranks``), a (2, 2) (data, model) mesh over
+   ``gloo`` (NCCL refuses two ranks on one device), every rank on the
+   kernels the build phase built.  Per cell (MESH_CELLS: llama3.2-1b at
+   full width, bf16, density 0.3, ``mesh_tiled_csc`` magnitude- and
+   ``mesh_block_csr`` block-pruned) each rank packs phase 4's weights,
+   keeps its resident blocks (``runtime.sharding.place``), runs one layer's
+   seven projections under each of the five plan kinds at M = 4 and 128
+   against the single-process kernel (KERNEL_TOL; only the cell's CUDA impl
+   dispatched, under mesh keys; a gather plan receiving exactly the
+   compressed payload less its own block, beside the napkin of
+   ``collective_savings``), then prefill and 16 decode steps through the
+   step builders with ``mesh=`` on its resident blocks, fed the
+   single-process run's tokens: decode logits within LOGIT_TOL of one
+   process's, the greedy agreement printed, (16 · 7) × 17 = 1904 launches
+   a rank.  Last, ``loss_and_grads`` at full width and 4 layers, batch 4 ×
+   128, against one process (loss and each resident block's gradient) with
+   each rank's peak memory.  The phase prints its seconds by part (start,
+   pack, ops, serve, grads).
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
@@ -258,7 +277,7 @@ from repro_torch.core.topology import H100_SXM  # noqa: E402
 from repro_torch.core import sod as sod_mod  # noqa: E402
 from repro_torch.core.sod import SoDConfig  # noqa: E402
 from repro_torch.kernels import block_matmul as bmm  # noqa: E402
-from repro_torch.kernels import autotune, build, ops, ref, timing  # noqa: E402
+from repro_torch.kernels import autotune, build, ops, ref, registry, timing  # noqa: E402
 from repro_torch.kernels import decompress as dk  # noqa: E402
 from repro_torch.kernels import sod_matmul as sm  # noqa: E402
 from repro_torch.kernels import vjp  # noqa: E402
@@ -3256,7 +3275,7 @@ def phase_frontend_train(run: str) -> dict:
         cfg = model.cfg
         frontend = "patch_proj" if cfg.family == "vlm" else "embed"
         data = SyntheticLMData(cfg, batch, seq, seed=args.seed)
-        _, _, grads = steps_mod.make_loss_and_grads(model, plan)(
+        _, _, grads = steps_mod.make_loss_and_grads(model, plan=plan)(
             params, to_device(data.batch(0), "cuda"))
         g = grads[frontend]
         grad_row = {"leaf": frontend, "shape": list(g.shape),
@@ -3545,6 +3564,263 @@ def _paper_entry(name: str, qmode: str, paper: dict) -> dict:
                                for twin, row in paper.items()}}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the distributed runtime's execution layer, four ranks on the card
+# ---------------------------------------------------------------------------
+MESH_SHAPE = (2, 2)                  # (data, model)
+MESH_CELLS = {"mesh_tiled_csc": (TILED_ARGV, None, "sod_matmul"),
+              "mesh_block_csr": (BASE_ARGV, _block_sod(), "block_matmul")}
+MESH_PLANS = {"dp": {"batch_axes": ("data",)},
+              "col": {"batch_axes": ("data",), "col_axis": "model"},
+              "row": {"batch_axes": ("data",), "row_axis": "model"},
+              "gather_model": {"batch_axes": ("data",), "gather_axis": "model"},
+              "gather_data": {"gather_axis": "data"}}
+MESH_GEN = 16
+MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 4, 128
+# the mesh step's packed gradients against one process's, as a fraction of
+# the one-process gradient's largest magnitude: bf16 products whose partial
+# sums are added in another order (the column plan's activation gradient
+# sums two ranks' halves), through 4 layers; and the loss, relative
+MESH_GRAD_TOL, MESH_LOSS_TOL = 0.05, 1e-2
+MESH_TIMEOUT_S = 420                 # the rank group's hard limit
+
+
+def _backend_flags() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _mesh_ops(layer: dict, kernel: str, mesh) -> dict:
+    """One layer's seven projections under each plan kind at M = 4 and 128
+    against the single-process kernel's y; the gather plans' received bytes
+    against the payload and the napkin fraction."""
+    from repro_torch.runtime import spmd, sod_fsdp
+
+    rows, gathered, worst, skipped = [], {}, 0.0, []
+    impl = {"sod_matmul": "cuda_fused", "block_matmul": "cuda_block"}[kernel]
+    for path in _packed_paths(layer):
+        w = _at(layer, path)
+        k, n = w.shape
+        gen = torch.Generator(device="cuda").manual_seed(k * 7 + n)
+        for m in PATH_M.values():
+            x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+            y1 = ops.sod_matmul(x, w, spmd=None)
+            scale = y1.float().abs().max().item()
+            for kind, plan in MESH_PLANS.items():
+                plan = spmd.SpmdPlan(**plan)
+                try:
+                    spmd._validate(plan, mesh, w)
+                except ValueError:      # a grid dim the axis does not divide
+                    skipped.append((path, kind))
+                    continue
+                with registry.record_dispatches() as log, \
+                        spmd.count_collectives() as counts:
+                    y = spmd.sod_matmul_spmd(x, w, mesh=mesh, plan=plan)
+                err = (y.float() - y1.float()).abs().max().item()
+                worst = max(worst, err / scale)
+                if err > KERNEL_TOL[torch.bfloat16] * scale:
+                    raise AssertionError(f"mesh {kind} {path} m={m}: |y - y1| {err} > "
+                                         f"{KERNEL_TOL[torch.bfloat16]} x {scale}")
+                if {r["impl"] for r in log} != {impl} or not all(
+                        r["key"].mesh.endswith(plan.signature()) for r in log):
+                    raise AssertionError(f"mesh {kind} {path}: dispatched "
+                                         f"{[(r['impl'], r['key'].mesh) for r in log]}")
+                if plan.gather_axis and m == PATH_M["decode"]:
+                    g = mesh.shape[plan.gather_axis]
+                    fields = ("vals", "rows") if kernel == "sod_matmul" else (
+                        "block_vals", "block_ids", "tile_nnz")
+                    payload = sum(_nbytes(getattr(w, f)) for f in fields
+                                  if getattr(w, f) is not None)
+                    if counts["gather_bytes"] != payload - payload // g:
+                        raise AssertionError(f"mesh {kind} {path}: gathered "
+                                             f"{counts['gather_bytes']} B, payload {payload}")
+                    row = gathered.setdefault(kind, {"received": 0, "payload": 0,
+                                                     "dense": 0})
+                    row["received"] += counts["gather_bytes"]
+                    row["payload"] += payload
+                    row["dense"] += 2 * k * n
+                rows.append({"path": path, "m": m, "plan": kind, "rel_err": err / scale})
+    napkin = sod_fsdp.collective_savings(DENSITY)["weight_allgather_fraction"]
+    for row in gathered.values():
+        row["payload_fraction_of_dense"] = row["payload"] / row["dense"]
+        row["napkin_bytes"] = napkin * row["dense"]
+    return {"cases": len(rows), "skipped": len(set(skipped)), "worst_rel_err": worst,
+            "gather": gathered, "napkin_fraction": napkin}
+
+
+def _mesh_serve(model, params, placed, tokens, kernel: str, mesh) -> dict:
+    """Prefill and 16 greedy decode steps through the step builders, one
+    process (the whole weights) and the mesh (the resident blocks, fed the
+    one-process run's tokens): logits, greedy agreement, launches."""
+    b, s = tokens.shape
+    out = {}
+    with torch.inference_mode():
+        logits = {}
+        for run, p, m in (("one", params, None), ("mesh", placed, mesh)):
+            prefill = steps_mod.make_prefill_step(model, mesh=m)
+            decode = steps_mod.make_decode_step(model, mesh=m)
+            reset_counts()
+            with registry.count_dispatches() as counts:
+                nxt, cache = prefill(p, tokens)
+                cache = model.grow_cache(cache, s + MESH_GEN + 1)
+                toks, logs = [nxt.reshape(b, 1)], []
+                for t in range(MESH_GEN):
+                    feed = toks[-1] if run == "one" else logits["one_tokens"][t]
+                    nxt, lg, cache = decode(p, cache, feed, s + t)
+                    toks.append(nxt.reshape(b, 1))
+                    logs.append(lg[..., :model.cfg.vocab].float())
+            torch.cuda.synchronize()
+            logits[run] = torch.stack(logs)
+            logits[f"{run}_tokens"] = toks
+            out[run] = {"launches": {k: mod.launches for k, mod in COUNTERS.items()},
+                        "dispatch": counts}
+    ref_logits, mesh_logits = logits["one"], logits["mesh"]
+    err = (mesh_logits - ref_logits).abs().max().item()
+    scale = ref_logits.abs().max().item()
+    agree = torch.stack([(a == b_) for a, b_ in zip(logits["mesh_tokens"][1:],
+                                                   logits["one_tokens"][1:])]).float()
+    out.update({"max_abs_err": err, "max_abs_logit": scale, "tol": LOGIT_TOL * scale,
+                "greedy_agreement": agree.mean().item(),
+                "prefill_tokens_equal": bool(torch.equal(logits["mesh_tokens"][0],
+                                                         logits["one_tokens"][0]))})
+    want = {"sod_matmul": 0, "block_matmul": 0, "decompress": 0}
+    want[kernel] = LAYERS * 7 * (1 + MESH_GEN)
+    if out["mesh"]["launches"] != want:
+        raise AssertionError(f"mesh serve launches {out['mesh']['launches']}, want {want}")
+    if not (torch.isfinite(mesh_logits).all() and err <= LOGIT_TOL * scale):
+        raise AssertionError(f"mesh logits {err} > {LOGIT_TOL} x {scale}")
+    return out
+
+
+def _mesh_grads(mesh) -> dict:
+    """loss_and_grads at full width, 4 layers, batch 4 x 128 (M = 512): one
+    process on the whole weights, the mesh on the resident blocks."""
+    from repro_torch.runtime import sharding, spmd
+
+    args = serve.parse_args(TILED_ARGV)
+    cfg = configs.get_config(args.arch).with_(n_layers=MESH_TRAIN_LAYERS)
+    model, params, *_ = serve.prepare(args, None, cfg)
+    placed = sharding.place(params, sharding.param_specs(params, model.cfg, mesh), mesh)
+    batch = to_device(SyntheticLMData(model.cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ,
+                                      seed=0).batch(0), "cuda")
+    loss1, _, g1 = steps_mod.make_loss_and_grads(model)(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with registry.count_dispatches() as counts, spmd.count_collectives() as moved:
+        loss, _, g = steps_mod.make_loss_and_grads(model, mesh=mesh)(placed, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    worst = 0.0
+    for i, (layer, spec) in enumerate(zip(g["layers"], placed["layers"])):
+        for path in _packed_paths(spec):
+            w = _at(spec, path)
+            g_res, g_whole = _at(layer, path).vals.float(), _at(g1["layers"][i], path).vals.float()
+            for dim, ax in ((0, w.shard.kt_axis if w.shard else None),
+                            (1, w.shard.nt_axis if w.shard else None)):
+                if ax is not None:
+                    size = g_whole.shape[dim] // mesh.shape[ax]
+                    g_whole = g_whole.narrow(dim, mesh.coords[ax] * size, size)
+            scale = g_whole.abs().max().item()
+            worst = max(worst, (g_res - g_whole).abs().max().item() / max(scale, 1e-30))
+    rel_loss = abs(loss.item() - loss1.item()) / abs(loss1.item())
+    row = {"loss": loss.item(), "loss_one_process": loss1.item(), "rel_loss_err": rel_loss,
+           "grad_rel_err": worst, "m": MESH_TRAIN_BATCH * MESH_TRAIN_SEQ,
+           "step_s": step_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": {k: mod.launches for k, mod in COUNTERS.items()},
+           "dispatch": counts, "collective_bytes": moved}
+    if rel_loss > MESH_LOSS_TOL or worst > MESH_GRAD_TOL:
+        raise AssertionError(f"mesh grads: loss {rel_loss}, grads {worst}")
+    return row
+
+
+def mesh_rank(workdir: str, t_launch: str) -> dict:
+    """One rank of phase 14 (started by :func:`phase_mesh` through
+    ``launch.mesh.run_ranks``): the cells' ops, serving and the training
+    step's gradients on a (2, 2) mesh over ``gloo``, the kernels the build
+    phase built."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.runtime import sharding
+
+    _backend_flags()
+    mesh = mesh_mod.make_test_mesh(MESH_SHAPE, device="cuda")
+    rebuilt = {k: v for k, v in build.build_all().items() if v}
+    if rebuilt:
+        raise AssertionError(f"rank {mesh.rank} built {sorted(rebuilt)} again")
+    seconds = {"start": time.time() - float(t_launch)}
+    out = {"rank": mesh.rank, "coords": mesh.coords, "cells": {}}
+    for cell, (argv, sod, kernel) in MESH_CELLS.items():
+        t0 = time.perf_counter()
+        args = serve.parse_args(argv)
+        model, params, tokens, *_ = serve.prepare(args, sod)
+        placed = sharding.place(params, sharding.param_specs(params, model.cfg, mesh), mesh)
+        torch.cuda.synchronize()
+        packed = [w for ws in _projections(params).values() for w in ws]
+        resident = [w for ws in _projections(placed).values() for w in ws]
+        seconds["pack"] = seconds.get("pack", 0.0) + time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ops_row = _mesh_ops(params["layers"][0], kernel, mesh)
+        seconds["ops"] = seconds.get("ops", 0.0) + time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serve_row = _mesh_serve(model, params, placed, tokens, kernel, mesh)
+        seconds["serve"] = seconds.get("serve", 0.0) + time.perf_counter() - t0
+        out["cells"][cell] = {
+            "kernel": kernel, "ops": ops_row, "serve": serve_row,
+            "resident_bytes": sum(w.nbytes_compressed() for w in resident),
+            "whole_bytes": sum(w.nbytes_compressed() for w in packed),
+            "dense_bytes": sum(w.nbytes_dense() for w in packed)}
+        del model, params, placed, packed, resident
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["grads"] = _mesh_grads(mesh)
+    seconds["grads"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def phase_mesh() -> dict:
+    """Phase 14: four ranks on the card, a (2, 2) (data, model) mesh over
+    ``gloo`` (see ROADMAP.md: NCCL takes one rank a device)."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t0 = time.perf_counter()
+    try:
+        ranks = mesh_mod.run_ranks(
+            math.prod(MESH_SHAPE), f"{pathlib.Path(__file__).resolve()}:mesh_rank", work,
+            args=(work, repr(time.time())), timeout=MESH_TIMEOUT_S)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        for cell, row in r["cells"].items():
+            disp = row["serve"]["mesh"]["dispatch"]
+            impl = {"sod_matmul": "cuda_fused", "block_matmul": "cuda_block"}[row["kernel"]]
+            if {k.split("[")[0] for k in disp} != {impl}:
+                raise AssertionError(f"rank {r['rank']} {cell}: dispatched {disp}")
+            if not row["resident_bytes"] < row["whole_bytes"]:
+                raise AssertionError(f"rank {r['rank']} {cell}: resident bytes "
+                                     f"{row['resident_bytes']} not below {row['whole_bytes']}")
+            log({"phase": "mesh", "rank": r["rank"], "coords": r["coords"], "cell": cell,
+                 "dispatch": disp, "launches": row["serve"]["mesh"]["launches"],
+                 "max_abs_err": row["serve"]["max_abs_err"], "tol": row["serve"]["tol"],
+                 "greedy_agreement": row["serve"]["greedy_agreement"],
+                 "prefill_tokens_equal": row["serve"]["prefill_tokens_equal"],
+                 "resident_bytes": row["resident_bytes"], "whole_bytes": row["whole_bytes"],
+                 "ops": row["ops"]})
+        log({"phase": "mesh_grads", "rank": r["rank"], **r["grads"]})
+        log({"phase": "mesh_seconds", "rank": r["rank"], **r["seconds"]})
+    first = ranks[0]["cells"]
+    for cell in first:     # every rank holds the same logits: the same error
+        if len({r["cells"][cell]["serve"]["max_abs_err"] for r in ranks}) != 1:
+            raise AssertionError(f"{cell}: the ranks' logits differ")
+    log({"phase": "mesh", "wall_s": wall, "ranks": len(ranks)})
+    return {cell: first[cell]["serve"]["mesh"]["launches"] for cell in first}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     seconds = {}
@@ -3598,6 +3874,7 @@ def main() -> None:
     rec_out = phase_recurrent(timed)
     fe_out = phase_frontends(timed)
     paper = phase_paper(timed)
+    mesh_launches = timed("mesh", phase_mesh)
     shutil.rmtree(cache_dir, ignore_errors=True)
 
     entries = []
@@ -3630,6 +3907,9 @@ def main() -> None:
             entry.update(_recurrent_entry(name, qmode, rec_out))
             entry.update(_frontend_entry(name, qmode, fe_out))
             entry.update(_paper_entry(name, qmode, paper))
+            if qmode == "none":
+                entry["mesh_launches"] = {cell: n[name] for cell, n in mesh_launches.items()
+                                          if n[name]}
             entries.append(entry)
     log({"phase_seconds": seconds, "total_s": time.perf_counter() - t_start})
     log(smi)

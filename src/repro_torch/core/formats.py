@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.plan import CODEBOOK_SIZE, QMODES, QVALUE_BITS, SCALE_BITS
 
-__all__ = ["TiledCSC", "pack_tiled_csc", "padded_shape", "observed_tiled_cap",
+__all__ = ["Shard", "TiledCSC", "pack_tiled_csc", "padded_shape", "observed_tiled_cap",
            "BlockCSR", "pack_block_csr", "observed_block_cap",
            "quantize_packed", "qvalue_bits", "fp8_dtype", "QMODES",
            "CODEBOOK_SIZE", "density", "Bitmap", "pack_bitmap", "pack_csc",
@@ -268,6 +268,23 @@ def quantize_packed(packed, qmode: str, ncodes: int = CODEBOOK_SIZE):
     raise TypeError(f"cannot quantize {type(packed).__name__}")
 
 
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """Where a resident block of a packed operand sits in the whole one:
+    the operand's tensors hold the tile-grid block of this rank, its
+    ``shape`` is the block's own (whole tiles on a split grid dim), and
+    this records the whole operand's logical ``shape`` and ``grid`` and the
+    mesh axes its Kt and Nt dims are split on (None: whole).  Set by
+    :func:`repro_torch.runtime.sharding.place` and
+    :func:`repro_torch.runtime.sod_fsdp.shard_packed`; read by
+    :func:`repro_torch.runtime.spmd.sod_matmul_spmd`."""
+
+    shape: tuple[int, int]
+    grid: tuple[int, int]
+    kt_axis: str | None = None
+    nt_axis: str | None = None
+
+
 @dataclasses.dataclass
 class TiledCSC:
     """Per-(bk, bn)-tile padded CSC.
@@ -287,6 +304,7 @@ class TiledCSC:
     scale: torch.Tensor | None = None      # (*lead, Kt, Nt) f32: int8, fp8
     codebook: torch.Tensor | None = None   # (*lead, ncodes) f32: codebook
     qmode: str = "none"
+    shard: Shard | None = None             # a rank's resident block, or None
 
     @property
     def cap(self) -> int:
@@ -297,6 +315,17 @@ class TiledCSC:
     def grid(self) -> tuple[int, int]:
         """``(Kt, Nt)`` tile-grid extents."""
         return self.vals.shape[-4], self.vals.shape[-3]
+
+    @property
+    def global_shape(self) -> tuple[int, int]:
+        """Logical (K, N) of the whole operand (of which a resident block
+        holds a part)."""
+        return tuple(self.shard.shape) if self.shard else tuple(self.shape)
+
+    @property
+    def global_grid(self) -> tuple[int, int]:
+        """``(Kt, Nt)`` of the whole operand."""
+        return tuple(self.shard.grid) if self.shard else tuple(self.grid)
 
     @property
     def lead(self) -> tuple[int, ...]:
@@ -466,6 +495,7 @@ class BlockCSR:
     scale: torch.Tensor | None = None      # (*lead, Kt, Nt) f32: int8, fp8
     codebook: torch.Tensor | None = None   # (*lead, ncodes) f32: codebook
     qmode: str = "none"
+    shard: Shard | None = None             # a rank's resident block, or None
 
     @property
     def bcap(self) -> int:
@@ -476,6 +506,17 @@ class BlockCSR:
     def grid(self) -> tuple[int, int]:
         """``(Kt, Nt)`` tile-grid extents."""
         return self.block_vals.shape[-5], self.block_vals.shape[-4]
+
+    @property
+    def global_shape(self) -> tuple[int, int]:
+        """Logical (K, N) of the whole operand (of which a resident block
+        holds a part)."""
+        return tuple(self.shard.shape) if self.shard else tuple(self.shape)
+
+    @property
+    def global_grid(self) -> tuple[int, int]:
+        """``(Kt, Nt)`` of the whole operand."""
+        return tuple(self.shard.grid) if self.shard else tuple(self.grid)
 
     @property
     def lead(self) -> tuple[int, ...]:

@@ -4,8 +4,8 @@ Twin of :mod:`repro.core.plan`, whole: a :class:`PackPlan` is the per-layer
 answer to "how should this weight be stored and dispatched": storage format,
 tile geometry, slot capacity (``cap`` / ``bcap``), pruning settings, a
 dispatch hint (impl + tuned parameters from the tuning cache), and an
-optional SPMD partition plan (kept so plan files round-trip; the port has no
-mesh pass yet).  A :class:`ModelPlan` maps every packable parameter path of
+optional SPMD partition plan (the planner's mesh pass fills it;
+:mod:`repro_torch.runtime.spmd` runs it).  A :class:`ModelPlan` maps every packable parameter path of
 a model to its :class:`PackPlan` and round-trips through JSON, so a plan
 built once replays byte-identically, and a plan file written by either
 package loads in the other: the paths (``.blocks.attn.wq``), the stacked
@@ -273,7 +273,7 @@ class ModelPlan:
     """Per-parameter-path :class:`PackPlan` for one model.
 
     ``mesh`` is the mesh signature the SPMD sub-plans were derived for
-    (empty when meshless, as every plan the port builds is).
+    (``data=4,model=2``; empty when the plan was built without a mesh).
     """
 
     def __init__(self, entries: dict[str, PackPlan], mesh: str = "",

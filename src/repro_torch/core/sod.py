@@ -135,11 +135,30 @@ def pack_param(w: torch.Tensor, cfg: SoDConfig, prune: bool = True):
 
 
 def _layout_key(w) -> tuple:
-    """Layout signature of a packed operand — matches
+    """Layout signature of a packed operand (of the whole one, for a
+    rank's resident block) — matches
     :meth:`repro_torch.core.plan.PackPlan.layout_key`."""
     if isinstance(w, TiledCSC):
-        return ("tiled_csc", tuple(w.shape), tuple(w.tile), w.cap, 0, w.qmode)
-    return ("block_csr", tuple(w.shape), tuple(w.tile), w.bcap, w.br, w.qmode)
+        return ("tiled_csc", w.global_shape, tuple(w.tile), w.cap, 0, w.qmode)
+    return ("block_csr", w.global_shape, tuple(w.tile), w.bcap, w.br, w.qmode)
+
+
+def _plan_spmd(entry: PackPlan):
+    """The :class:`repro_torch.runtime.spmd.SpmdPlan` of a plan entry's
+    serialized ``spmd`` fields — only under an active mesh of the plan's
+    own signature, and never inside a rank's local product."""
+    from repro_torch.runtime import spmd as spmd_mod  # deferred: runtime over core
+
+    mesh = spmd_mod.active_mesh()
+    if mesh is None or spmd_mod.in_spmd_body():
+        return None
+    mp = plan_mod.active_plan()
+    if mp is not None and mp.mesh and mp.mesh != spmd_mod.mesh_key(mesh):
+        return None  # the plan was built for another mesh
+    sp = spmd_mod.SpmdPlan.from_dict(entry.spmd)
+    if not set(sp.axes()) <= set(mesh.axis_names):
+        return None
+    return sp
 
 
 def apply(x: torch.Tensor, w, cfg: SoDConfig | None = None,
@@ -156,8 +175,9 @@ def apply(x: torch.Tensor, w, cfg: SoDConfig | None = None,
     blocks pass it); when omitted and a
     :class:`~repro_torch.core.plan.ModelPlan` is active
     (:func:`repro_torch.core.plan.use_plan`), the operand's layout signature
-    finds it.  The plan supplies the impl hint and the tuned dispatch
-    parameters (which seed a cold cache only); explicit kwargs always win.
+    finds it.  The plan supplies the impl hint, the tuned dispatch
+    parameters (which seed a cold cache only) and, under an active mesh,
+    the layer's SPMD partition plan; explicit kwargs always win.
     """
     from repro_torch.kernels import ops  # local import: kernels depend on core
 
@@ -173,6 +193,10 @@ def apply(x: torch.Tensor, w, cfg: SoDConfig | None = None,
             if (plan.dispatch_params and not user_forced
                     and "fallback_params" not in kw):
                 kw["fallback_params"] = plan.dispatch_params
+            if plan.spmd and kw.get("spmd", "auto") == "auto":
+                sp = _plan_spmd(plan)
+                if sp is not None:
+                    kw["spmd"] = sp
         impl = kw.pop("impl", cfg.impl if cfg else "auto")
         return ops.sod_matmul(x, w, impl=impl, **kw)
     kw.pop("impl", None)
@@ -367,38 +391,41 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def _abstract_qside(kt: int, nt: int, dtype, qmode: str):
+def _abstract_qside(kt: int, nt: int, dtype, qmode: str, lead=()):
     """(value dtype, scale, codebook) of an abstract quantized pack: an f32
     scale per tile for int8/fp8, a shared-value table for codebook."""
     if qmode == "none":
         return dtype, None, None
     if qmode == "codebook":
-        return torch.int8, None, _meta((formats.CODEBOOK_SIZE,), torch.float32)
-    scale = _meta((kt, nt), torch.float32)
+        return torch.int8, None, _meta(lead + (formats.CODEBOOK_SIZE,), torch.float32)
+    scale = _meta(lead + (kt, nt), torch.float32)
     return (formats.fp8_dtype() if qmode == "fp8" else torch.int8), scale, None
 
 
 def abstract_tiled(k: int, n: int, dtype, tile, cap: int,
-                   qmode: str = "none") -> TiledCSC:
-    """A TiledCSC of meta tensors with this exact layout."""
+                   qmode: str = "none", lead: tuple[int, ...] = ()) -> TiledCSC:
+    """A TiledCSC of meta tensors with this exact layout (``lead``: stack
+    dims ahead of the grid, an MoE layer's experts)."""
     bk, bn = tile
     kt, nt = -(-k // bk), -(-n // bn)
-    vdt, scale, codebook = _abstract_qside(kt, nt, dtype, qmode)
+    lead = tuple(lead)
+    vdt, scale, codebook = _abstract_qside(kt, nt, dtype, qmode, lead)
     idx = torch.int8 if bk <= 128 else torch.int32
-    return TiledCSC(vals=_meta((kt, nt, cap, bn), vdt),
-                    rows=_meta((kt, nt, cap, bn), idx), shape=(k, n),
+    return TiledCSC(vals=_meta(lead + (kt, nt, cap, bn), vdt),
+                    rows=_meta(lead + (kt, nt, cap, bn), idx), shape=(k, n),
                     tile=tuple(tile), scale=scale, codebook=codebook, qmode=qmode)
 
 
 def abstract_block(k: int, n: int, dtype, tile, br: int, bcap: int,
-                   qmode: str = "none") -> BlockCSR:
+                   qmode: str = "none", lead: tuple[int, ...] = ()) -> BlockCSR:
     """A BlockCSR of meta tensors with this exact layout."""
     bk, bn = tile
     kt, nt = -(-k // bk), -(-n // bn)
-    vdt, scale, codebook = _abstract_qside(kt, nt, dtype, qmode)
-    return BlockCSR(block_vals=_meta((kt, nt, bcap, br, bn), vdt),
-                    block_ids=_meta((kt, nt, bcap), torch.int32),
-                    tile_nnz=_meta((kt, nt), torch.int32), shape=(k, n),
+    lead = tuple(lead)
+    vdt, scale, codebook = _abstract_qside(kt, nt, dtype, qmode, lead)
+    return BlockCSR(block_vals=_meta(lead + (kt, nt, bcap, br, bn), vdt),
+                    block_ids=_meta(lead + (kt, nt, bcap), torch.int32),
+                    tile_nnz=_meta(lead + (kt, nt), torch.int32), shape=(k, n),
                     tile=tuple(tile), br=br, scale=scale, codebook=codebook,
                     qmode=qmode)
 
@@ -432,9 +459,10 @@ def sodify_abstract(params: dict[str, Any], cfg: SoDConfig,
         else:
             continue
         k, n = ws[0].shape[-2:]
-        one = (abstract_tiled(k, n, ws[0].dtype, tile, cap, qmode)
+        own = tuple(ws[0].shape[:-2])      # an MoE layer's experts stay stacked
+        one = (abstract_tiled(k, n, ws[0].dtype, tile, cap, qmode, own)
                if mode == "tiled_csc" else
-               abstract_block(k, n, ws[0].dtype, tile, br, bcap, qmode))
+               abstract_block(k, n, ws[0].dtype, tile, br, bcap, qmode, own))
         _place(out, path, [one] * len(ws))
     return out
 

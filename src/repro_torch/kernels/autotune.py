@@ -280,6 +280,7 @@ def tune(
     w,
     *,
     backend: str | None = None,
+    mesh: str = "",
     cache: TuningCache | None = None,
     top_k: int | None = None,
     iters: int = 9,
@@ -297,9 +298,13 @@ def tune(
     for tests; ``trials_out`` receives every measured ``(impl_name, params,
     us)``.  On the card the yardstick's 512 MB buffer is allocated here and
     freed when the call returns.
+
+    ``mesh`` is an SPMD signature (:func:`repro_torch.runtime.spmd.mesh_key`
+    and the plan's): ``x`` and ``w`` are then one rank's local problem, and
+    the entry lands under the mesh-qualified key a rank's dispatch reads.
     """
     cache = get_cache() if cache is None else cache
-    key = registry.problem_key(w, m=x.shape[0], backend=backend)
+    key = registry.problem_key(w, m=x.shape[0], backend=backend, mesh=mesh)
     hit = cache.get(key)
     if hit is not None and not force:
         return hit

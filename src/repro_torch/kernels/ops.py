@@ -1,9 +1,8 @@
 """Public entry points over dense and packed weights.
 
-Twin of :mod:`repro.kernels.ops` without SPMD routing (ROADMAP.md queue A
-item 8): a dense weight flows straight to :func:`dense_matmul` (the paper's
-decompression bypass, Fig. 2c); a packed weight dispatches through the
-kernel registry (:mod:`repro_torch.kernels.registry`) with the autotuner's
+Twin of :mod:`repro.kernels.ops`: a dense weight flows straight to
+:func:`dense_matmul` (the paper's decompression bypass, Fig. 2c); a packed
+weight dispatches through the kernel registry (:mod:`repro_torch.kernels.registry`) with the autotuner's
 persisted winners (:mod:`repro_torch.kernels.autotune`):
 
 * ``impl="auto"`` — the tuned entry of this (layout, M bucket, backend) if
@@ -16,6 +15,13 @@ persisted winners (:mod:`repro_torch.kernels.autotune`):
   runs the plain version on a CPU tensor;
 * ``impl="jnp"`` — force ``torch_oracle``, which raises on a CUDA tensor.
 
+Under an active mesh (:func:`repro_torch.launch.mesh.mesh_context`) a
+packed product routes through the SPMD layer (:mod:`repro_torch.runtime.spmd`):
+each rank runs the chosen kernel on its local problem, with the mesh
+signature in the problem key.  ``spmd=None`` opts a call out (the layer's
+own local calls are never wrapped again); ``REPRO_SPMD=0`` turns the routing
+off for the process, as in the reference.
+
 Dispatch runs on every call (PyTorch is eager, where the reference resolves
 once per trace), so a resolution is memoized per problem and cache state;
 nothing is ever measured here (``--autotune`` fills the cache).
@@ -23,6 +29,7 @@ nothing is ever measured here (``--autotune`` fills the cache).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -157,7 +164,8 @@ def resolve(key: registry.ProblemKey, impl: str, params: dict | None = None,
 def sod_matmul(x: torch.Tensor, w, *, impl: str = "auto", bm: int | None = None,
                out_dtype: torch.dtype | None = None, backend: str | None = None,
                params: dict | None = None,
-               fallback_params: dict | None = None) -> torch.Tensor:
+               fallback_params: dict | None = None,
+               spmd: object = "auto") -> torch.Tensor:
     """``x @ W`` where ``W`` is dense, :class:`TiledCSC` or :class:`BlockCSR`.
 
     ``x``: (..., K).  Returns (..., N) in ``out_dtype`` (default: x.dtype).
@@ -165,14 +173,35 @@ def sod_matmul(x: torch.Tensor, w, *, impl: str = "auto", bm: int | None = None,
     the tuned or default choice; ``backend`` overrides the backend taken
     from x's device (``cuda`` / ``cpu``).  A packed W whose values have
     another dtype than x is computed in the promoted dtype (``_promote``).
+
+    ``spmd``: ``"auto"`` routes a packed product through the SPMD layer
+    when a mesh is active; an explicit
+    :class:`repro_torch.runtime.spmd.SpmdPlan` forces a partitioning; None
+    runs the product whole on this process.
     """
     out_dtype = out_dtype or x.dtype
     if not isinstance(w, (TiledCSC, BlockCSR)):
         return dense_matmul(x, w, out_dtype)
-    k, n = w.shape
+    k, n = w.global_shape
     if x.shape[-1] != k:
         raise ValueError(f"x inner dim {x.shape[-1]} != W K {k}")
     x, w = _promote(x, w)
+    if spmd is not None and os.environ.get("REPRO_SPMD", "1") != "0":
+        from repro_torch.runtime import spmd as spmd_mod  # deferred: runtime over kernels
+
+        if not spmd_mod.in_spmd_body():
+            plan = spmd if isinstance(spmd, spmd_mod.SpmdPlan) else None
+            mesh = spmd_mod.active_mesh()
+            if plan is None and spmd == "auto" and mesh is not None:
+                plan = spmd_mod.auto_plan(mesh, w)
+            if plan is not None:
+                return spmd_mod.sod_matmul_spmd(
+                    x, w, mesh=mesh, plan=plan, impl=impl, bm=bm,
+                    out_dtype=out_dtype, backend=backend, params=params,
+                    fallback_params=fallback_params)
+    if w.shard is not None:
+        raise ValueError("a resident block of a packed operand multiplies only "
+                         "under a mesh (repro_torch.launch.mesh.mesh_context)")
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).contiguous()
     key = registry.problem_key(w, m=x2.shape[0],

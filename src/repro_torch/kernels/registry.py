@@ -87,8 +87,9 @@ class ProblemKey:
     cap: int = 0             # TiledCSC slot capacity / BlockCSR bcap*br
     kt: int = 1              # K-tile grid size
     qmode: str = "none"      # value quantization of the packed operand
-    # the reference's SPMD mesh signature; the port has no mesh pass yet,
-    # so it stays empty (kept so the two packages' keys have one shape)
+    # the SPMD mesh signature of a rank's local problem
+    # (``data=4,model=2|dp=data;col=model``, :mod:`repro_torch.runtime.spmd`);
+    # empty outside a mesh
     mesh: str = ""
 
     @functools.cached_property
@@ -118,6 +119,16 @@ class KernelImpl:
     # gradients flow through the runner: the CUDA impls by their
     # autograd.Functions (kernels/vjp.py), the plain ones by autograd itself
     differentiable: bool = True
+    # mesh-axis roles the SPMD layer (repro_torch.runtime.spmd) may shard the
+    # impl over ("data": rows and the compressed gather, "model": column and
+    # row tensor parallelism); empty: plain ops, natively partitionable
+    mesh_axes: tuple[str, ...] = ()
+
+    @property
+    def requires_shard_map(self) -> bool:
+        """Mesh-legal only as a rank's local problem of the SPMD layer (the
+        reference's name: its layer is a ``shard_map``)."""
+        return bool(self.mesh_axes)
 
     def supports(self, key: ProblemKey) -> bool:
         """Whether this impl can run the problem (format, backend, qmode)."""
@@ -476,6 +487,7 @@ register(KernelImpl(
     param_space=_fused_space,
     run=_run_cuda_fused,
     canonicalize=_fused_canonical,
+    mesh_axes=("data", "model"),
 ))
 
 register(KernelImpl(
@@ -486,6 +498,7 @@ register(KernelImpl(
     param_space=_block_space,
     run=_run_cuda_block,
     canonicalize=_block_canonical,
+    mesh_axes=("data", "model"),
 ))
 
 register(KernelImpl(

@@ -16,8 +16,10 @@ float32 sums (:func:`repro_torch.kernels.ops.dense_matmul`).  The shared expert'
 through ``sod.apply`` like any MLP.
 
 The reference's ``a2a_axis`` exchange (``_a2a_dispatch``) and its sharding
-constraints act only under a device mesh; meshless the exchange returns
-None, so the port ignores ``a2a_axis``.  Packed routed experts are refused
+constraints act only under a device mesh.  The port has a mesh
+(:mod:`repro_torch.launch.mesh`), but its all-to-all path waits
+(``ROADMAP.md`` §A), so ``a2a_axis`` is ignored, under a mesh too: every
+rank runs the whole MoE block.  Packed routed experts are refused
 (:func:`moe_mlp`): the reference's batched einsum cannot take a packed
 operand either.
 """
@@ -55,7 +57,7 @@ class MoESpec:
     router_aux_weight: float = 0.01
     act: str = "silu"
     dispatch_blocks: int = 1    # rank and dispatch within this many token blocks
-    a2a_axis: str | None = None  # mesh-only in the reference; ignored meshless
+    a2a_axis: str | None = None  # the reference's all-to-all axis; ignored (not ported)
 
     def capacity(self, n_tokens: int) -> int:
         """Slots an expert has for ``n_tokens`` tokens: ``n · k / E ·

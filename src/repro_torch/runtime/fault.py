@@ -15,7 +15,7 @@ The semantics are the reference's, its faults included (``ROADMAP.md``
 §C): a checkpoint labelled N holds the state *after* step N, and a restart
 replays only the failing step, so the steps between that checkpoint and
 the failure are not run again.  The elastic re-mesh (``surviving_mesh``)
-waits for the distributed runtime.
+waits for the distributed runtime's last slice (``ROADMAP.md`` §A).
 """
 from __future__ import annotations
 

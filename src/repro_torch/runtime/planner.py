@@ -1,7 +1,6 @@
 """Packing planner: tuning cache + cost model → per-layer ModelPlan.
 
-Twin of :mod:`repro.runtime.planner` without its SPMD pass (a ``mesh``
-raises: ROADMAP.md queue A item 8).  :func:`build_plan` walks a parameter
+Twin of :mod:`repro.runtime.planner`.  :func:`build_plan` walks a parameter
 tree — concrete tensors, or ``device="meta"`` tensors standing in for the
 reference's ``ShapeDtypeStruct``s — and emits one
 :class:`~repro_torch.core.plan.PackPlan` per packable stacked leaf, under
@@ -20,7 +19,12 @@ the reference's paths (:func:`repro_torch.core.sod.plan_leaves`):
   pruned weights when concrete, :data:`NOMINAL_QDRIFT` otherwise);
 * **dispatch hint** — the tuning cache's winner at the plan's first M rides
   along in ``dispatch_params`` (it seeds dispatch on a cold cache only);
-  otherwise the prior's choice is recorded in ``note``.
+  otherwise the prior's choice is recorded in ``note``;
+* **SpmdPlan** — with a mesh (an :class:`~repro_torch.launch.mesh.AbstractMesh`
+  or a :class:`~repro_torch.launch.mesh.Mesh`) and a model config, each
+  lead-less entry gets the partition plan of its resident spec
+  (:func:`repro_torch.runtime.sharding.packed_matmul_plans`), and the plan
+  records the mesh signature (``ModelPlan.mesh``).
 
 :func:`choose_draft_density` picks the speculative-decoding draft tier's
 density by the reference's cost model, :func:`build_draft_plan` plans that
@@ -45,10 +49,6 @@ from repro_torch.kernels import registry
 __all__ = ["build_plan", "build_draft_plan", "choose_draft_density",
            "warmup_plan", "load_or_build", "DRAFT_DENSITY_LADDER",
            "NOMINAL_QDRIFT"]
-
-_NO_MESH = ("the planner's SPMD pass (mesh) is not ported yet: ROADMAP.md "
-            "queue A item 8")
-
 
 def _is_abstract(ws: list[torch.Tensor]) -> bool:
     return ws[0].device.type == "meta"
@@ -206,8 +206,6 @@ def build_plan(
     fit runs in numpy on the host).  The dense fallback compares against the
     quantized compressed bytes, so a plan never stores more than dense.
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     req_qmode = sod_cfg.qmode if qmode is None else qmode
     if req_qmode not in (*plan_mod.QMODES, "auto"):
         raise ValueError(f"unknown qmode {req_qmode!r}")
@@ -242,6 +240,18 @@ def build_plan(
                 best = _attach_hint(best, ws[0].dtype, cache, backend,
                                     m_values[0] if m_values else 128)
             entries[name] = best
+    mesh_sig = ""
+    if mesh is not None and cfg is not None and entries:
+        from repro_torch.runtime import sharding as shard_mod
+        from repro_torch.runtime import spmd as spmd_mod
+
+        packed_abs = sod.sodify_abstract(_to_meta(params), sod_cfg,
+                                         plan=ModelPlan(entries))
+        for path, sp in shard_mod.packed_matmul_plans(packed_abs, cfg, mesh).items():
+            e = entries.get(path)
+            if e is not None:
+                entries[path] = dataclasses.replace(e, spmd=_spmd_dict(sp))
+        mesh_sig = spmd_mod.mesh_key(mesh)
     meta = {
         "sod": {"mode": sod_cfg.mode, "density": sod_cfg.density,
                 "prune_method": sod_cfg.prune_method,
@@ -251,7 +261,12 @@ def build_plan(
         "backend": backend or registry.current_backend(),
         "arch": getattr(cfg, "name", ""),
     }
-    return ModelPlan(entries, meta=meta)
+    return ModelPlan(entries, mesh=mesh_sig, meta=meta)
+
+
+def _spmd_dict(sp) -> dict:
+    return {"batch_axes": list(sp.batch_axes), "col_axis": sp.col_axis,
+            "row_axis": sp.row_axis, "gather_axis": sp.gather_axis}
 
 
 # ---------------------------------------------------------------------------
@@ -368,16 +383,14 @@ def build_draft_plan(
     draft_plan)``; the plan's meta records the tier and the diagnostics of
     the density choice.  Pack the draft with ``sodify_params(params,
     draft_cfg, plan=draft_plan)`` on the raw weights."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     diag = None
     if draft_density is None:
         draft_density, diag = choose_draft_density(
             params, sod_cfg, spec_k=spec_k, cfg=cfg, cache=cache,
             m_values=m_values, draft_qmode=draft_qmode)
     draft_cfg = _draft_sod_cfg(sod_cfg, draft_density, qmode=draft_qmode)
-    plan = build_plan(params, draft_cfg, cfg=cfg, cache=cache, backend=backend,
-                      m_values=m_values)
+    plan = build_plan(params, draft_cfg, cfg=cfg, mesh=mesh, cache=cache,
+                      backend=backend, m_values=m_values)
     plan.meta["tier"] = "draft"
     plan.meta["spec_k"] = int(spec_k)
     if diag is not None:
@@ -413,28 +426,61 @@ def warmup_plan(
     plan alone: random weights packed at the planned capacity (a kernel's
     time depends on the static layout, not the values) on ``device`` (the
     backend's: ``cuda`` or ``cpu``), activations in the entry's dtype.
-    Returns ``{"tuned", "cached", "skipped"}`` (dense entries are skipped)."""
+    Returns ``{"tuned", "cached", "skipped"}`` (dense entries are skipped).
+
+    With ``mesh``, an entry that carries an SPMD sub-plan is tuned at its
+    per-local-shard shape under the mesh-qualified key instead (an entry
+    whose plan does not divide the mesh is skipped), as
+    :func:`repro_torch.runtime.spmd.warmup_params_spmd` tunes."""
     from repro_torch.kernels import autotune
 
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     backend = backend or registry.current_backend(device)
     device = torch.device(device or backend)
+    cache = autotune.get_cache() if cache is None else cache
     m_values = tuple(int(m) for m in
                      (m_values or plan.meta.get("m_values") or (128,)))
     operands: dict[tuple, tuple] = {}
+    meshed: dict[tuple, tuple] = {}
     skipped = 0
     for path, e in sorted(plan.entries.items()):
         if e.mode == "dense":
             skipped += 1
             continue
-        sig = e.layout_key() + (e.dtype,)
-        if sig not in operands:
-            gen = torch.Generator(device=device)
-            gen.manual_seed((seed + zlib.crc32(path.encode())) % (2**31))
-            operands[sig] = (_concrete_operand(e, gen), _dtype_of(e.dtype))
+        sig = e.layout_key() + (e.dtype, repr(sorted((e.spmd or {}).items())))
+        if sig in operands or sig in meshed:
+            continue
+        gen = torch.Generator(device=device)
+        gen.manual_seed((seed + zlib.crc32(path.encode())) % (2**31))
+        w = _concrete_operand(e, gen)
+        if mesh is None or not e.spmd:
+            operands[sig] = (w, _dtype_of(e.dtype))
+            continue
+        from repro_torch.runtime import spmd as spmd_mod
+
+        sp = spmd_mod.SpmdPlan.from_dict(e.spmd)
+        try:
+            spmd_mod._validate(sp, mesh, w)
+        except ValueError:
+            skipped += 1
+            continue
+        meshed[sig] = (spmd_mod._local_packed(w, mesh, sp),
+                       f"{spmd_mod.mesh_key(mesh)}|{sp.signature()}",
+                       spmd_mod._axes_size(mesh, sp.batch_axes), _dtype_of(e.dtype))
     stats = autotune.tune_layouts(operands, m_values, backend=backend, cache=cache,
                                   iters=iters, seed=seed)
+    for sig, (w, mesh_sig, dp, dtype) in meshed.items():
+        for m in dict.fromkeys(m_values):
+            m_local = max(-(-m // dp), 1)
+            if cache.get(registry.problem_key(w, m=m_local, backend=backend,
+                                              mesh=mesh_sig)) is not None:
+                stats["cached"] += 1
+                continue
+            gen = torch.Generator(device=w.device)
+            gen.manual_seed((seed + zlib.crc32(repr(sig).encode()) ^ m) % (2**31))
+            x = torch.randn(m_local, w.shape[0], generator=gen, device=w.device)
+            autotune.tune(x.to(dtype), w, backend=backend, mesh=mesh_sig,
+                          cache=cache, iters=iters)
+            stats["tuned"] += 1
     return {**stats, "skipped": skipped}
 
 
@@ -458,6 +504,4 @@ def load_or_build(
     if plan_arg == "auto":
         return build_plan(params, sod_cfg, cfg=cfg, mesh=mesh, cache=cache,
                           m_values=tuple(m_values) or (128, 8), qmode=qmode)
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     return ModelPlan.load(plan_arg)

@@ -1,0 +1,349 @@
+"""Partition rules: parameters, optimizer state, batches and caches → spec
+trees; and :func:`place`, which leaves a rank its resident blocks.
+
+Twin of :mod:`repro.runtime.sharding`.  A spec is a tuple with an axis name,
+a tuple of names, or None for each dim (the reference's ``PartitionSpec``).
+The rules are the reference's, path-pattern based and format-aware: a
+packed leaf (TiledCSC / BlockCSR) shards its tile-grid dims (Kt, Nt) as the
+dense (K, N) it stands for.  ZeRO-1 additionally shards optimizer moments
+and float32 masters over the data axes along the first dim that divides.
+
+The reference stacks the layers of a group into one leaf with lead dims
+(groups, period); the port keeps a dict per layer.  Names and lead dims
+come from :func:`repro_torch.core.sod.plan_leaves`: every rule runs on the
+reference's path and stacked shape, and a port leaf's spec is that stacked
+spec without its lead dims (so a ZeRO shard the reference puts on a layer
+dim leaves the port's per-layer leaf whole).
+
+The port runs every plain op on every rank: :func:`place` leaves each rank
+only the tile-grid block of each packed leaf that its spec names, and
+keeps every other leaf whole (GSPMD's partitioning of plain ops has no
+eager counterpart).  :func:`packed_matmul_plans` gives the planner the
+:class:`~repro_torch.runtime.spmd.SpmdPlan` each lead-less packed leaf's
+resident spec implies; like the reference it gives none to a stacked
+leaf, so the port attaches none to the per-layer leaves of a group (at run
+time the auto plan applies to each layer, as inside the reference's scan).
+"""
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any
+
+import torch
+
+from repro_torch.core import sod
+from repro_torch.core.formats import BlockCSR, Shard, TiledCSC
+from repro_torch.core.tree import PACKED_FIELDS
+from repro_torch.launch.mesh import dp_axes
+
+__all__ = ["param_specs", "opt_state_specs", "batch_specs", "cache_specs",
+           "packed_matmul_plans", "place"]
+
+Params = Any
+
+
+def _axis_size(mesh, name) -> int:
+    if isinstance(name, tuple):
+        n = 1
+        for a in name:
+            n *= mesh.shape[a]
+        return n
+    return mesh.shape[name]
+
+
+def _period(cfg) -> int:
+    return cfg.pattern_period if cfg is not None else 1
+
+
+def _is_packed(leaf) -> bool:
+    return isinstance(leaf, (TiledCSC, BlockCSR))
+
+
+# ---------------------------------------------------------------------------
+# dense-weight rules: the spec of the matrix dims (K, N); lead dims unsharded
+# ---------------------------------------------------------------------------
+def _matrix_spec(path: str, shape: tuple[int, ...], cfg, tp: int) -> tuple:
+    kv_dim = cfg.n_kv_heads * cfg.head_dim
+    kv_ok = cfg.n_kv_heads % tp == 0
+
+    def col_shard(dim):  # shard output/N dim on model axis when divisible
+        return "model" if dim % tp == 0 else None
+
+    if "embed" in path and len(shape) >= 2:
+        # (V, D) vocab-sharded; audio (C, V, D)
+        return ("model", None) if len(shape) == 2 else (None, "model", None)
+    if "patch_proj" in path:
+        return (None, None)
+    if "head" in path:
+        return (None, col_shard(shape[-1]))
+    if re.search(r"w[qkv]\b|wq|wk|wv", path):
+        if ("wk" in path or "wv" in path) and not kv_ok:
+            return (None, None)          # replicate KV when heads < TP
+        if ("wk" in path or "wv" in path):
+            return (None, "model")
+        return (None, col_shard(shape[-1]))
+    if "wo" in path:
+        return (col_shard(shape[-2]), None)
+    if "w_down" in path or "out_proj" in path or "w_out" in path:
+        return (col_shard(shape[-2]), None)
+    if re.search(r"w_gate|w_up|in_proj|w_z|w_x\b", path):
+        return (None, col_shard(shape[-1]))
+    if "router" in path or "w_dt" in path or "w_b" in path or "w_c" in path:
+        return (None, None)
+    if "w_if" in path or "w_gates" in path:
+        return (None, None)
+    return tuple(None for _ in shape[-2:]) if len(shape) >= 2 else (None,)
+
+
+_PACKED_TAIL = {"vals": 2, "rows": 2, "block_vals": 3, "block_ids": 1,
+                "tile_nnz": 0, "scale": 0}
+
+
+def _drop_undivided(shape, spec, mesh) -> tuple:
+    return tuple(None if (ax is not None and dim % _axis_size(mesh, ax) != 0) else ax
+                 for dim, ax in zip(shape, spec))
+
+
+def _leaf_spec(path: str, shape: tuple[int, ...], cfg, mesh) -> tuple:
+    """The reference's spec of the leaf at ``path`` with (stacked) ``shape``."""
+    tp = mesh.shape["model"]
+    nd = len(shape)
+    if nd <= 1:
+        return ()
+    # quantization codebook: a whole-matrix table, always replicated
+    if path.endswith(".codebook"):
+        return (None,) * nd
+    # packed sub-arrays: the (Kt, Nt) grid dims shard like the dense (K, N)
+    m = re.search(r"\.(vals|rows|block_vals|block_ids|tile_nnz|scale)$", path)
+    if m:
+        tail = _PACKED_TAIL[m.group(1)]
+        grid = shape[nd - tail - 2: nd - tail]
+        spec = ((None,) * (nd - tail - 2) + _matrix_spec(path, grid, cfg, tp)
+                + (None,) * tail)
+        return _drop_undivided(shape, spec, mesh)
+    # MoE stacked experts: (..., E, d_in, d_out) — EP on the expert dim
+    if re.search(r"moe.*(w_gate|w_up|w_down)", path) and nd >= 3:
+        ep = "model" if shape[-3] % tp == 0 else None
+        return (None,) * (nd - 3) + (ep, None, None)
+    if "moe" in path and "router" in path:
+        return (None,) * nd
+    mat = _matrix_spec(path, shape, cfg, tp)
+    return _drop_undivided(shape, (None,) * (nd - len(mat)) + mat, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the port's trees in the reference's naming
+# ---------------------------------------------------------------------------
+def _stack_lead(leaf, lead: tuple[int, ...]) -> tuple[int, ...]:
+    """The stack dims of a :func:`~repro_torch.core.sod.plan_leaves` lead
+    (which also holds a stacked leaf's own leading dims)."""
+    own = 0 if _is_packed(leaf) else max(leaf.ndim - 2, 0)
+    return lead[:len(lead) - own]
+
+
+def _per_block(tree, path: str) -> list:
+    """Every block's value at a plan path (the inverse of ``sod._place``)."""
+    name = path.strip(".")
+    stack, _, rest = name.partition(".")
+    stack = "layers" if stack == "blocks" else stack
+    if isinstance(tree.get(stack), list):
+        return [sod._get(block, rest) for block in sod._flat(tree[stack])[0]]
+    return [sod._get(tree, name)]
+
+
+def _map_stacked(fn, tree, period: int, *others):
+    """A tree like ``tree`` with ``fn(name, stacked shape, n_lead, leaf,
+    *others' leaves)`` at every tensor; a packed container maps field by
+    field (``name.<field>``) into a container of the results."""
+    out = sod._copy(tree)
+    for path, ws, lead in sod.plan_leaves(tree, period):
+        n_lead = len(_stack_lead(ws[0], lead))
+        stack = tuple(lead[:n_lead])
+        rest = [_per_block(o, path) for o in others]
+
+        def one(leaf, *o, name=path):
+            if leaf is None:
+                return None
+            if _is_packed(leaf):
+                return dataclasses.replace(leaf, **{
+                    f: one(getattr(leaf, f), *(getattr(x, f) for x in o),
+                           name=f"{name}.{f}")
+                    for f in PACKED_FIELDS[type(leaf)]})
+            return fn(name, stack + tuple(leaf.shape), n_lead, leaf, *o)
+
+        sod._place(out, path, [one(w, *(r[i] for r in rest)) for i, w in enumerate(ws)])
+    return out
+
+
+def param_specs(params: Params, cfg, mesh) -> Params:
+    """Spec tree matching ``params`` (packed leaves as containers of their
+    fields' specs)."""
+    return _map_stacked(
+        lambda name, shape, n_lead, leaf: _leaf_spec(name, shape, cfg, mesh)[n_lead:],
+        params, _period(cfg))
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 optimizer-state specs
+# ---------------------------------------------------------------------------
+def _zero_spec(spec: tuple, shape: tuple[int, ...], mesh, dp: tuple[str, ...]) -> tuple:
+    if not shape:
+        return ()
+    dp_size = _axis_size(mesh, dp if len(dp) > 1 else dp[0])
+    cur = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = list(cur)
+    for i, (dim, ax) in enumerate(zip(shape, cur)):
+        if ax is None and dim % dp_size == 0:
+            out[i] = dp if len(dp) > 1 else dp[0]
+            return tuple(out)
+    return cur
+
+
+def opt_state_specs(opt_state: Params, p_specs: Params, mesh, zero1: bool = True,
+                    cfg=None) -> Params:
+    """Moments and masters mirror the parameter spec, plus ZeRO-1 data-axis
+    sharding; 0-d placeholders (integer leaves) get ``()``.  ``cfg`` gives
+    the layer pattern's period (the reference's stack shape; 1 without)."""
+    dp = dp_axes(mesh)
+
+    def one(name, shape, n_lead, leaf, ps):
+        if leaf.ndim == 0:
+            return ()
+        stacked = (None,) * n_lead + tuple(ps)
+        spec = stacked if len(stacked) <= len(shape) else ()
+        return (_zero_spec(spec, shape, mesh, dp) if zero1 else spec)[n_lead:]
+
+    return {"step": (),
+            **{k: _map_stacked(one, opt_state[k], _period(cfg), p_specs)
+               for k in ("m", "v", "master")}}
+
+
+# ---------------------------------------------------------------------------
+# batch / cache specs
+# ---------------------------------------------------------------------------
+def _map_leaves(fn, tree, path: str = ""):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, f"{path}[{k!r}]") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, f"{path}[{i}]") for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def batch_specs(batch: Params, mesh) -> Params:
+    """Batch rows on the data axes where they divide."""
+    dp = dp_axes(mesh)
+    dp_ax = dp if len(dp) > 1 else dp[0]
+
+    def one(_, leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        if not shape:
+            return ()
+        if shape[0] % _axis_size(mesh, dp_ax) == 0:
+            return (dp_ax,) + (None,) * (len(shape) - 1)
+        return (None,) * len(shape)
+
+    return _map_leaves(one, batch)
+
+
+def cache_specs(cache: Params, cfg, mesh, batch_size: int,
+                seq_len: int | None = None, seq_shard: bool = True) -> Params:
+    """KV caches: batch on the data axes; the cache's sequence dim on
+    ``model`` (attention stays local per rank, the reference's choice)."""
+    dp = dp_axes(mesh)
+    dp_ax = dp if len(dp) > 1 else dp[0]
+    dp_size = _axis_size(mesh, dp_ax)
+    tp = mesh.shape["model"]
+
+    def one(name, leaf):
+        shape = tuple(getattr(leaf, "shape", ()))
+        nd = len(shape)
+        if nd == 0:
+            return ()
+        spec = [None] * nd
+        batch_dim = None
+        for i, d in enumerate(shape):
+            if d == batch_size and d % dp_size == 0:
+                spec[i] = dp_ax
+                batch_dim = i
+                break
+        is_kv = name.endswith("['k']") or name.endswith("['v']") \
+            or ".k" in name or ".v" in name
+        if seq_shard and is_kv and seq_len and nd >= 4:
+            for i in range(nd - 1, -1, -1):
+                if i != batch_dim and shape[i] == seq_len and shape[i] % tp == 0:
+                    spec[i] = "model"
+                    break
+        if batch_dim is None and all(s is None for s in spec):
+            # batch unshardable (e.g. B=1): shard kv heads / feature dim
+            for i in range(nd - 1, 0, -1):
+                if spec[i] is None and shape[i] % tp == 0 and shape[i] >= tp \
+                        and ("ssm" in name or "mlstm" in name):
+                    spec[i] = "model"
+                    break
+        return tuple(spec)
+
+    return _map_leaves(one, cache)
+
+
+# ---------------------------------------------------------------------------
+# SPMD matmul plans for packed leaves
+# ---------------------------------------------------------------------------
+def packed_matmul_plans(params: Params, cfg, mesh) -> dict:
+    """``{plan path: SpmdPlan}`` for every lead-less packed leaf: the plan of
+    its resident spec (:func:`repro_torch.runtime.spmd.plan_from_spec`) — a
+    sharded Kt grid dim becomes row parallelism, a sharded Nt dim column
+    parallelism — so its product reads the block the rank holds."""
+    from repro_torch.runtime import spmd
+
+    plans = {}
+    for path, ws, lead in sod.plan_leaves(params, _period(cfg)):
+        leaf = ws[0]
+        if not _is_packed(leaf) or lead:
+            continue
+        field = "vals" if isinstance(leaf, TiledCSC) else "block_vals"
+        spec = _leaf_spec(f"{path}.{field}", tuple(getattr(leaf, field).shape), cfg, mesh)
+        plans[path] = spmd.plan_from_spec(spec, mesh)
+    return plans
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+def _resident(leaf, spec, mesh):
+    """This rank's block of a whole packed leaf under its spec container."""
+    from repro_torch.runtime.spmd import _block
+
+    field = "vals" if isinstance(leaf, TiledCSC) else "block_vals"
+    kt_ax, nt_ax = tuple(getattr(spec, field))[:2]
+    fields = {f: getattr(leaf, f) for f in PACKED_FIELDS[type(leaf)]}
+    if kt_ax is None and nt_ax is None:
+        return dataclasses.replace(leaf, **{
+            f: None if t is None else t.to(mesh.device) for f, t in fields.items()})
+    kt, nt = leaf.grid
+    bk, bn = leaf.tile
+    k, n = leaf.shape
+    local = {f: None if t is None else (
+        t if f == "codebook" else _block(t, mesh, kt_ax, nt_ax)).contiguous().to(mesh.device)
+        for f, t in fields.items()}
+    shape = ((kt // mesh.shape[kt_ax]) * bk if kt_ax else k,
+             (nt // mesh.shape[nt_ax]) * bn if nt_ax else n)
+    return dataclasses.replace(leaf, **local, shape=shape,
+                               shard=Shard((k, n), (kt, nt), kt_ax, nt_ax))
+
+
+def place(params: Params, specs: Params, mesh) -> Params:
+    """The parameters as a rank holds them (the twin of ``to_shardings`` and
+    ``device_put``): each packed leaf reduced to the tile-grid block its
+    spec names (``w.shard`` records where it sits), every other leaf whole;
+    all on ``mesh.device``."""
+    if _is_packed(params):
+        return _resident(params, specs, mesh)
+    if isinstance(params, dict):
+        return {k: place(v, specs[k], mesh) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(place(v, s, mesh) for v, s in zip(params, specs))
+    if isinstance(params, torch.Tensor):
+        return params.to(mesh.device)
+    return params
+

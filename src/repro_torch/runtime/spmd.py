@@ -1,0 +1,634 @@
+"""SPMD execution layer: packed matmuls over a mesh of ranks.
+
+Twin of :mod:`repro.runtime.spmd`.  The reference wraps a kernel in
+``shard_map`` under a partition *plan*; the port runs the same plan over a
+process group (:class:`repro_torch.launch.mesh.Mesh`), one rank per mesh
+position, each launching the registry's kernel on its own local problem:
+
+* **data-parallel M-sharding** (``batch_axes``) — the flattened rows split
+  over the data axes;
+* **column tensor parallelism** (``col_axis``) — the packed operand's Nt
+  tile-grid dim split; each rank computes its N-slice;
+* **row tensor parallelism** (``row_axis``) — Kt split, ``x`` split along
+  K, the partial products summed (``all_reduce``);
+* **compressed all-gather / SoD-FSDP** (``gather_axis``) — the operand's
+  Nt blocks are all-gathered *compressed* (values and row indices, or block
+  values, ids and counts, and the per-tile scale; the codebook is
+  replicated) and the rank re-densifies only inside its kernel.
+
+Contract of :func:`sod_matmul_spmd`: the *global* ``x`` on every rank in,
+the *global* ``y`` on every rank out (rows and columns all-gathered), as
+the reference's function returns a global array.  The operand is either
+whole on every rank or a rank's resident block (``w.shard``, from
+:func:`repro_torch.runtime.sharding.place`); where the plan reads another
+block than the resident one, the rank all-gathers the compressed resident
+blocks and slices its own — the resharding GSPMD inserts at a
+``shard_map`` boundary.  Nothing dense crosses the wire, and every
+collective's bytes are counted (:func:`count_collectives`).
+
+Dispatch inside a rank is the ordinary registry resolution with the mesh
+signature in the :class:`~repro_torch.kernels.registry.ProblemKey`
+(``data=4,model=2|dp=data;col=model``), so tuned entries are per local
+shard.  Gradients: a ``torch.autograd.Function`` whose backward is
+``shard_map``'s transpose — each rank takes its block of the (replicated)
+output cotangent, runs the local kernel's own backward, sums weight
+gradients over the batch axes and activation gradients over the column
+axis, and gathers what it must; padding slots keep exactly-zero gradients.
+
+Collectives are ``all_gather`` and ``all_reduce`` only.  Every tensor
+crosses as bytes in ``all_gather`` (fp8 codes included); sums go through
+float32.
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import zlib
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.core.formats import BlockCSR, TiledCSC
+from repro_torch.core.tree import PACKED_FIELDS
+from repro_torch.kernels import registry
+
+__all__ = [
+    "SpmdPlan",
+    "active_mesh",
+    "use_mesh",
+    "in_spmd_body",
+    "mesh_key",
+    "auto_plan",
+    "plan_from_spec",
+    "packed_specs",
+    "sod_matmul_spmd",
+    "warmup_params_spmd",
+    "count_collectives",
+    "all_gather",
+    "all_reduce",
+]
+
+_IN_BODY = contextvars.ContextVar("repro_torch_spmd_in_body", default=False)
+# the active meshes, innermost last: process-wide (a rank is a process), so
+# autograd's device threads, which replay checkpointed blocks in a CUDA
+# backward, route through the mesh too
+_MESHES: list = []
+_COUNTS: list[dict] = []
+
+
+def in_spmd_body() -> bool:
+    """True while a rank runs the local kernel of one of this module's
+    products — the guard :func:`repro_torch.kernels.ops.sod_matmul` uses
+    so a body never wraps itself again."""
+    return _IN_BODY.get()
+
+
+def active_mesh():
+    """The mesh of the innermost open :func:`use_mesh` block, or None."""
+    return _MESHES[-1] if _MESHES else None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Route the packed matmuls of the block through ``mesh``."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        for i in range(len(_MESHES) - 1, -1, -1):
+            if _MESHES[i] is mesh:
+                del _MESHES[i]
+                break
+
+
+def mesh_key(mesh) -> str:
+    """Stable signature of a mesh's (axis, size) layout: ``data=4,model=2``."""
+    return ",".join(f"{a}={mesh.shape[a]}" for a in mesh.axis_names)
+
+
+@contextlib.contextmanager
+def count_collectives(counts: dict | None = None):
+    """Count the bytes this rank's collectives move while the context is
+    active: ``gather_bytes`` (a gather plan's compressed operand blocks,
+    received), ``reshard_bytes`` (compressed resident blocks gathered where
+    a plan reads another block), ``output_bytes`` (the gathers of ``y`` and
+    of the activation gradient, received), ``reduce_bytes`` (buffers summed
+    by ``all_reduce``), ``grad_bytes`` (the weight gradients' gathers,
+    received), and ``calls``."""
+    counts = {} if counts is None else counts
+    _COUNTS.append(counts)
+    try:
+        yield counts
+    finally:
+        for i, entry in enumerate(_COUNTS):
+            if entry is counts:
+                del _COUNTS[i]
+                break
+
+
+def _note(kind: str, nbytes: int) -> None:
+    for counts in _COUNTS:
+        counts[kind] = counts.get(kind, 0) + int(nbytes)
+        counts["calls"] = counts.get("calls", 0) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SpmdPlan:
+    """How one packed matmul is partitioned over the mesh.
+
+    ``col_axis``, ``row_axis`` and ``gather_axis`` are mutually exclusive
+    weight shardings (Nt-local, Kt-local, Nt-gathered); ``batch_axes`` may
+    combine with any of them.
+    """
+
+    batch_axes: tuple[str, ...] = ()
+    col_axis: str | None = None
+    row_axis: str | None = None
+    gather_axis: str | None = None
+
+    def __post_init__(self):
+        w_axes = [a for a in (self.col_axis, self.row_axis, self.gather_axis)
+                  if a is not None]
+        if len(w_axes) > 1:
+            raise ValueError(f"plan shards the weight twice: {self}")
+        if set(w_axes) & set(self.batch_axes):
+            raise ValueError(f"axis both batch and weight sharded: {self}")
+
+    def signature(self) -> str:
+        """``dp=data;col=model``-style key part (``replicated`` if empty)."""
+        parts = []
+        if self.batch_axes:
+            parts.append("dp=" + "+".join(self.batch_axes))
+        if self.col_axis:
+            parts.append(f"col={self.col_axis}")
+        if self.row_axis:
+            parts.append(f"row={self.row_axis}")
+        if self.gather_axis:
+            parts.append(f"gather={self.gather_axis}")
+        return ";".join(parts) or "replicated"
+
+    def axes(self) -> tuple[str, ...]:
+        """Every axis the plan names."""
+        return self.batch_axes + tuple(
+            a for a in (self.col_axis, self.row_axis, self.gather_axis)
+            if a is not None)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "SpmdPlan":
+        """Rebuild from the serialized form a
+        :class:`repro_torch.core.plan.PackPlan` carries."""
+        return cls(
+            batch_axes=tuple(d.get("batch_axes", ())),
+            col_axis=d.get("col_axis"),
+            row_axis=d.get("row_axis"),
+            gather_axis=d.get("gather_axis"))
+
+
+def _axes_size(mesh, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def _grid(w) -> tuple[int, int]:
+    return tuple(int(g) for g in w.global_grid)
+
+
+def auto_plan(mesh, w, m: int | None = None) -> SpmdPlan | None:
+    """Default plan for a packed matmul on ``mesh``, or None when wrapping
+    does not apply (one position, stacked layouts): rows over the data
+    axes, and the Nt grid dim over ``model`` where it divides — how
+    :mod:`repro_torch.runtime.sharding` lays projection weights out."""
+    if not isinstance(w, (TiledCSC, BlockCSR)) or w.lead:
+        return None
+    if _axes_size(mesh, mesh.axis_names) <= 1:
+        return None
+    batch = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    if not batch:
+        batch = tuple(a for a in mesh.axis_names if a != "model")
+    col = None
+    if "model" in mesh.axis_names:
+        _, nt = _grid(w)
+        if mesh.shape["model"] > 1 and nt % mesh.shape["model"] == 0:
+            col = "model"
+    if not batch and col is None:
+        return None
+    return SpmdPlan(batch_axes=batch, col_axis=col)
+
+
+def plan_from_spec(vals_spec, mesh, grid_dims: tuple[int, int] = (0, 1)) -> SpmdPlan:
+    """Plan matching a packed leaf's resident spec (the spec tuple
+    :func:`repro_torch.runtime.sharding.param_specs` gives its ``vals``): a
+    sharded Kt grid dim becomes row parallelism, a sharded Nt dim column
+    parallelism, and rows ride the data axes either way."""
+    spec = tuple(vals_spec)
+    kt_dim, nt_dim = grid_dims
+    kt_ax = spec[kt_dim] if kt_dim < len(spec) else None
+    nt_ax = spec[nt_dim] if nt_dim < len(spec) else None
+    if isinstance(kt_ax, tuple):
+        kt_ax = kt_ax[0] if kt_ax else None
+    if isinstance(nt_ax, tuple):
+        nt_ax = nt_ax[0] if nt_ax else None
+    batch = tuple(a for a in mesh.axis_names
+                  if a in ("pod", "data") and a not in (kt_ax, nt_ax))
+    return SpmdPlan(batch_axes=batch, col_axis=nt_ax, row_axis=kt_ax)
+
+
+# ---------------------------------------------------------------------------
+# spec containers
+# ---------------------------------------------------------------------------
+def _qside_specs(w, kt_ax, nt_ax) -> dict:
+    """The per-tile scale shards with the (Kt, Nt) grid; the codebook (a
+    whole-matrix table) is replicated."""
+    specs = {}
+    if w.scale is not None:
+        specs["scale"] = (kt_ax, nt_ax)
+    if w.codebook is not None:
+        specs["codebook"] = (None,) * w.codebook.ndim
+    return specs
+
+
+def packed_specs(w, kt_ax: str | None = None, nt_ax: str | None = None):
+    """Container of the operand's type holding a spec tuple per tensor
+    field, the (Kt, Nt) grid dims on the given axes."""
+    if isinstance(w, TiledCSC):
+        s = (kt_ax, nt_ax, None, None)
+        return TiledCSC(vals=s, rows=s, shape=w.shape, tile=w.tile,
+                        qmode=w.qmode, **_qside_specs(w, kt_ax, nt_ax))
+    if isinstance(w, BlockCSR):
+        return BlockCSR(
+            block_vals=(kt_ax, nt_ax, None, None, None),
+            block_ids=(kt_ax, nt_ax, None), tile_nnz=(kt_ax, nt_ax),
+            shape=w.shape, tile=w.tile, br=w.br,
+            qmode=w.qmode, **_qside_specs(w, kt_ax, nt_ax))
+    raise TypeError(f"not a packed operand: {type(w)}")
+
+
+def _validate(plan: SpmdPlan, mesh, w) -> None:
+    names = set(mesh.axis_names)
+    for a in plan.axes():
+        if a not in names:
+            raise ValueError(f"plan axis {a!r} not in mesh {mesh.axis_names}")
+    kt, nt = _grid(w)
+    if plan.col_axis and nt % mesh.shape[plan.col_axis]:
+        raise ValueError(
+            f"Nt={nt} not divisible by {plan.col_axis}={mesh.shape[plan.col_axis]}")
+    if plan.gather_axis and nt % mesh.shape[plan.gather_axis]:
+        raise ValueError(
+            f"Nt={nt} not divisible by {plan.gather_axis}="
+            f"{mesh.shape[plan.gather_axis]}")
+    if plan.row_axis and kt % mesh.shape[plan.row_axis]:
+        raise ValueError(
+            f"Kt={kt} not divisible by {plan.row_axis}={mesh.shape[plan.row_axis]}")
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+def _axes_of(ax) -> tuple[str, ...]:
+    if ax is None:
+        return ()
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def all_gather(t: torch.Tensor, mesh, axes, dim: int, kind: str) -> torch.Tensor:
+    """Concatenate every rank's ``t`` along ``dim`` over the line of
+    ``axes`` (in :meth:`~repro_torch.launch.mesh.Mesh.index` order); the
+    tensor crosses as bytes, and the bytes received count under ``kind``."""
+    axes = _axes_of(axes)
+    n = _axes_size(mesh, axes)
+    if n == 1:
+        return t
+    t = t.contiguous()
+    raw = t.reshape(-1).view(torch.uint8)
+    parts = [torch.empty_like(raw) for _ in range(n)]
+    dist.all_gather(parts, raw, group=mesh.group(axes))
+    _note(kind, raw.numel() * (n - 1))
+    return torch.cat([p.view(t.dtype).reshape(t.shape) for p in parts], dim=dim)
+
+
+def all_reduce(t: torch.Tensor, mesh, axes, kind: str = "reduce_bytes") -> torch.Tensor:
+    """Sum of every rank's ``t`` over the line of ``axes``, summed in
+    float32 for a float tensor and returned in its dtype (every rank gets
+    the same bits)."""
+    axes = _axes_of(axes)
+    if _axes_size(mesh, axes) == 1:
+        return t
+    buf = t.to(torch.float32, copy=True) if t.is_floating_point() else t.clone()
+    dist.all_reduce(buf, group=mesh.group(axes))
+    _note(kind, buf.numel() * buf.element_size())
+    return buf.to(t.dtype)
+
+
+def _block(t: torch.Tensor, mesh, kt_ax, nt_ax) -> torch.Tensor:
+    """This rank's block of a grid-leading tensor ``(Kt, Nt, ...)``."""
+    for dim, ax in ((0, kt_ax), (1, nt_ax)):
+        if ax is not None:
+            n = mesh.shape[ax]
+            size = t.shape[dim] // n
+            t = t.narrow(dim, mesh.index(ax) * size, size)
+    return t.contiguous()
+
+
+def _unblock(t: torch.Tensor, mesh, kt_ax, nt_ax, kind: str) -> torch.Tensor:
+    """Inverse of :func:`_block`: the whole grid from every rank's block."""
+    t = all_gather(t, mesh, nt_ax, 1, kind)
+    return all_gather(t, mesh, kt_ax, 0, kind)
+
+
+def _layout(w) -> tuple[str | None, str | None]:
+    return (w.shard.kt_axis, w.shard.nt_axis) if w.shard else (None, None)
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+def _keep(t):
+    return t
+
+
+class _Call:
+    """One sharded product on this rank: the static layout of its local
+    problem, and (with gradients) the local graph the backward reads."""
+
+    def __init__(self, x: torch.Tensor, w, mesh, plan: SpmdPlan, impl: str,
+                 bm, out_dtype, backend: str, params, fallback_params):
+        self.mesh, self.plan, self.w = mesh, plan, w
+        self.run_kw = dict(impl=impl, bm=bm, params=params,
+                           fallback_params=fallback_params)
+        self.out_dtype, self.backend = out_dtype, backend
+        self.fields = PACKED_FIELDS[type(w)]
+        self.k, self.n = (int(s) for s in w.global_shape)
+        kt, nt = _grid(w)
+        bk, bn = (int(t) for t in w.tile)
+        self.lead = tuple(x.shape[:-1])
+        self.m = int(torch.Size(self.lead).numel())
+        dp = _axes_size(mesh, plan.batch_axes)
+        self.m_local = -(-self.m // dp)
+        self.row = mesh.shape[plan.row_axis] if plan.row_axis else 1
+        self.col = mesh.shape[plan.col_axis] if plan.col_axis else 1
+        # the local problem's logical shape: whole tile slabs on a split grid
+        # dim (the padding tail is sliced off the gathered output)
+        self.k_local = (kt // self.row) * bk if self.row > 1 else self.k
+        self.n_local = (nt // self.col) * bn if self.col > 1 else self.n
+        self.resident = _layout(w)
+        self.entry = (plan.row_axis, plan.col_axis or plan.gather_axis)
+        self.mesh_sig = f"{mesh_key(mesh)}|{plan.signature()}"
+
+    # -- the operand ---------------------------------------------------------
+    def _local_fields(self, fields: dict) -> dict:
+        """Resident block -> the plan's entry block -> the compute block
+        (the whole Nt under a gather plan); the codebook stays as it is."""
+        mesh, out = self.mesh, {}
+        for name, t in fields.items():
+            if t is None or name == "codebook":
+                out[name] = t
+                continue
+            if self.resident != self.entry:
+                if self.resident != (None, None):
+                    t = _unblock(t, mesh, *self.resident, "reshard_bytes")
+                t = _block(t, mesh, *self.entry)
+            if self.plan.gather_axis:
+                t = all_gather(t, mesh, self.plan.gather_axis, 1, "gather_bytes")
+            out[name] = t
+        return out
+
+    def _resident_grad(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """The compute block's (batch-summed) gradient -> the resident
+        block's: the gather plan's own Nt block, then resharded back."""
+        mesh = self.mesh
+        if name == "codebook":
+            return g
+        if self.plan.gather_axis:
+            g = _block(g, mesh, None, self.plan.gather_axis)
+        if self.resident != self.entry:
+            if self.entry != (None, None):
+                g = _unblock(g, mesh, *self.entry, "grad_bytes")
+            g = _block(g, mesh, *self.resident)
+        return g
+
+    # -- forward / backward --------------------------------------------------
+    def forward(self, x: torch.Tensor, fields: dict, grad: bool) -> torch.Tensor:
+        from repro_torch.kernels import ops  # deferred: runtime layers over kernels
+
+        mesh, plan = self.mesh, self.plan
+        x2 = x.reshape(-1, self.k)
+        dp = _axes_size(mesh, plan.batch_axes)
+        k_pad = self.k_local * self.row - self.k if self.row > 1 else 0
+        m_pad = self.m_local * dp - self.m
+        if m_pad or k_pad:
+            x2 = F.pad(x2, (0, k_pad, 0, m_pad))
+        b = mesh.index(plan.batch_axes)
+        x_l = x2.narrow(0, b * self.m_local, self.m_local)
+        if self.row > 1:
+            x_l = x_l.narrow(1, mesh.index(plan.row_axis) * self.k_local, self.k_local)
+        x_l = x_l.contiguous()
+        local = self._local_fields(fields)
+        self.inputs = []
+        if grad:
+            x_l = x_l.detach().requires_grad_(x.requires_grad)
+            local = {f: (t.detach().requires_grad_(fields[f].requires_grad)
+                         if t is not None and t.is_floating_point() else t)
+                     for f, t in local.items()}
+            self.inputs = [(None, x_l)] if x.requires_grad else []
+            self.inputs += [(f, t) for f, t in local.items()
+                            if t is not None and t.requires_grad]
+        w_l = dataclasses.replace(self.w, **local, shape=(self.k_local, self.n_local),
+                                  shard=None)
+        key = registry.problem_key(w_l, m=self.m_local, backend=self.backend,
+                                   mesh=self.mesh_sig)
+        chosen, run_params = ops.resolve(key, self.run_kw["impl"],
+                                         params=self.run_kw["params"],
+                                         bm=self.run_kw["bm"],
+                                         fallback_params=self.run_kw["fallback_params"])
+        token = _IN_BODY.set(True)
+        try:
+            # the local graph keeps its own saved tensors: inside a
+            # checkpointed block (remat) the checkpoint's hooks would hand
+            # them to a recompute that the backward's own autograd.grad
+            # on this graph would trigger a second time
+            with (torch.enable_grad() if grad else contextlib.nullcontext()), \
+                    torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
+                y_l = chosen.run(x_l, w_l, out_dtype=self.out_dtype, **run_params)
+        finally:
+            _IN_BODY.reset(token)
+        self.y_l = y_l
+        y = y_l.detach()
+        if plan.row_axis:
+            y = all_reduce(y, mesh, plan.row_axis)
+        y = all_gather(y, mesh, plan.col_axis, 1, "output_bytes")
+        y = all_gather(y, mesh, plan.batch_axes, 0, "output_bytes")
+        return y[:self.m, :self.n].reshape(*self.lead, self.n)
+
+    def backward(self, gy: torch.Tensor):
+        mesh, plan = self.mesh, self.plan
+        dp = _axes_size(mesh, plan.batch_axes)
+        gy2 = gy.reshape(-1, self.n)
+        gy2 = F.pad(gy2, (0, self.n_local * self.col - self.n,
+                          0, self.m_local * dp - self.m))
+        gy_l = gy2.narrow(0, mesh.index(plan.batch_axes) * self.m_local, self.m_local)
+        if self.col > 1:
+            gy_l = gy_l.narrow(1, mesh.index(plan.col_axis) * self.n_local, self.n_local)
+        names = [f for f, _ in self.inputs]
+        grads = dict(zip(names, torch.autograd.grad(
+            self.y_l, [t for _, t in self.inputs],
+            grad_outputs=gy_l.to(self.y_l.dtype).contiguous(), allow_unused=True)))
+        self.y_l = self.inputs = None
+        gx = grads.pop(None, None)
+        if gx is not None:
+            gx = all_reduce(gx, mesh, plan.col_axis)
+            gx = all_gather(gx, mesh, plan.row_axis, 1, "output_bytes")
+            gx = all_gather(gx, mesh, plan.batch_axes, 0, "output_bytes")
+            gx = gx[:self.m, :self.k].reshape(*self.lead, self.k)
+        out = []
+        for name in self.fields:
+            g = grads.get(name)
+            if g is not None:
+                axes = plan.batch_axes
+                if name == "codebook":   # every block of the product uses it
+                    axes += _axes_of(plan.row_axis) + _axes_of(plan.col_axis)
+                g = self._resident_grad(name, all_reduce(g, mesh, axes))
+            out.append(g)
+        return gx, out
+
+
+class _SpmdMatmul(torch.autograd.Function):
+    """:class:`_Call` under autograd: inputs ``x`` and the operand's tensor
+    fields, output the global ``y``."""
+
+    @staticmethod
+    def forward(ctx, call: _Call, x, *tensors):
+        ctx.call = call
+        return call.forward(x, dict(zip(call.fields, tensors)), grad=True)
+
+    @staticmethod
+    def backward(ctx, gy):
+        gx, gw = ctx.call.backward(gy)
+        ctx.call = None
+        return (None, gx, *gw)
+
+
+def sod_matmul_spmd(
+    x: torch.Tensor,
+    w,
+    *,
+    mesh=None,
+    plan: SpmdPlan | None = None,
+    impl: str = "auto",
+    bm: int | None = None,
+    out_dtype: torch.dtype | None = None,
+    backend: str | None = None,
+    params: dict | None = None,
+    fallback_params: dict | None = None,
+) -> torch.Tensor:
+    """``x @ W`` with the registry's kernel run by each rank on its local
+    problem of ``plan`` (default: :func:`auto_plan`).
+
+    ``x``: the global (..., K) on every rank; returns the global (..., N) on
+    every rank.  Rows (and K under row parallelism) are zero-padded to
+    divide the mesh and sliced off after.  ``w`` is whole or a resident
+    block (``w.shard``).
+    """
+    mesh = mesh or active_mesh()
+    if mesh is None:
+        raise ValueError("sod_matmul_spmd needs a mesh (argument or use_mesh)")
+    if plan is None:
+        plan = auto_plan(mesh, w)
+        if plan is None:
+            raise ValueError(f"no auto plan for {type(w).__name__} on "
+                             f"{mesh_key(mesh)}")
+    _validate(plan, mesh, w)
+    k = int(w.global_shape[0])
+    if x.shape[-1] != k:
+        raise ValueError(f"x inner dim {x.shape[-1]} != W K {k}")
+    call = _Call(x, w, mesh, plan, impl, bm, out_dtype or x.dtype,
+                 backend or registry.current_backend(x.device), params,
+                 fallback_params)
+    tensors = [getattr(w, f) for f in call.fields]
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t is not None and t.requires_grad for t in tensors)):
+        return _SpmdMatmul.apply(call, x, *tensors)
+    return call.forward(x, dict(zip(call.fields, tensors)), grad=False)
+
+
+# ---------------------------------------------------------------------------
+# per-shard autotuning
+# ---------------------------------------------------------------------------
+def _local_packed(w, mesh, plan: SpmdPlan):
+    """A concrete one-shard slice of a whole ``w`` under ``plan`` — the
+    local problem a rank's kernel sees, for single-device tuning."""
+    kt, nt = _grid(w)
+    row = mesh.shape[plan.row_axis] if plan.row_axis else 1
+    col = mesh.shape[plan.col_axis] if plan.col_axis else 1
+    if row == 1 and col == 1:
+        return w
+    bk, bn = (int(t) for t in w.tile)
+    kt_l, nt_l = kt // row, nt // col
+    k_l = kt_l * bk if row > 1 else int(w.shape[0])
+    n_l = nt_l * bn if col > 1 else int(w.shape[1])
+    fields = {f: (t if t is None or f == "codebook" else t[:kt_l, :nt_l].contiguous())
+              for f, t in ((f, getattr(w, f)) for f in PACKED_FIELDS[type(w)])}
+    return dataclasses.replace(w, **fields, shape=(k_l, n_l))
+
+
+def _packed_leaves(tree):
+    if isinstance(tree, (TiledCSC, BlockCSR)):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _packed_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _packed_leaves(v)
+
+
+def warmup_params_spmd(params, m_values, mesh, *, plan: SpmdPlan | None = None,
+                       backend: str | None = None, cache=None, iters: int = 1,
+                       seed: int = 0) -> dict:
+    """Tune every distinct packed layout at its per-local-shard shape under
+    the mesh-qualified key, so a mesh run's local dispatches hit the cache.
+    ``m_values`` are *global* row counts (the local m is derived per plan).
+    Returns ``{"tuned", "cached", "skipped"}``."""
+    from repro_torch.kernels import autotune
+
+    cache = autotune.get_cache() if cache is None else cache
+    stats = {"tuned": 0, "cached": 0, "skipped": 0}
+    seen: set = set()
+    for leaf in _packed_leaves(params):
+        if leaf.lead:
+            continue
+        p = plan or auto_plan(mesh, leaf)
+        if p is None:
+            stats["skipped"] += 1
+            continue
+        try:
+            _validate(p, mesh, leaf)
+        except ValueError:
+            stats["skipped"] += 1
+            continue
+        local = _local_packed(leaf, mesh, p)
+        sig = (type(leaf).__name__, tuple(local.shape), str(local.dtype),
+               tuple(local.tile), p.signature())
+        if sig in seen:
+            continue
+        seen.add(sig)
+        mesh_sig = f"{mesh_key(mesh)}|{p.signature()}"
+        dp = _axes_size(mesh, p.batch_axes)
+        dtype = local.dtype if local.qmode == "none" else torch.bfloat16
+        for m in dict.fromkeys(int(v) for v in m_values):
+            m_local = max(-(-m // dp), 1)
+            pk = registry.problem_key(local, m=m_local, backend=backend, mesh=mesh_sig)
+            if cache.get(pk) is not None:
+                stats["cached"] += 1
+                continue
+            gen = torch.Generator(device=local.device)
+            gen.manual_seed((seed + zlib.crc32(repr(sig).encode()) ^ m) % (2**31))
+            x = torch.randn(m_local, local.shape[0], generator=gen,
+                            device=local.device).to(dtype)
+            autotune.tune(x, local, backend=backend, mesh=mesh_sig, cache=cache,
+                          iters=iters)
+            stats["tuned"] += 1
+    return stats

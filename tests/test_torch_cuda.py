@@ -1774,3 +1774,35 @@ def test_pixtral_decode_at_the_true_end_matches_its_forward(cuda):
     assert torch.isfinite(step).all()
     assert (step[:, 0] - full).abs().max().item() <= 0.05 * scale
     assert (wrong[:, 0] - full).abs().max().item() > 0.05 * scale
+
+
+@pytest.fixture(scope="module")
+def mesh_plans(tmp_path_factory):
+    """The five partition plans on a (2, 2) mesh of four ranks on the one
+    card (``tests/torch_mesh_cases.py:card_plans``), run once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import pathlib
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    work = tmp_path_factory.mktemp("mesh")
+    cases = pathlib.Path(__file__).resolve().parent / "torch_mesh_cases.py"
+    return mesh_mod.run_ranks(4, f"{cases}:card_plans", work, args=(work,), timeout=300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["dp", "col", "row", "gather_model", "gather_data"])
+def test_mesh_plans_on_four_ranks(mesh_plans, plan):
+    """Each rank launches its format's kernel once on its local problem; the
+    gathered y is the single-process kernel's and the plain version's
+    within the bf16 tolerance, and the same on every rank."""
+    rows = {k: v for k, v in mesh_plans[0].items() if k.endswith(f"-{plan}")}
+    # 2 formats x 2 M x the shapes the plan divides: (2048, 2048) and one
+    # ragged, (300, 512) or, for the row plan, (512, 300); all three for dp
+    assert len(rows) == (12 if plan == "dp" else 8)
+    for name, row in rows.items():
+        assert row["launches"] == 1, name
+        assert row["vs_kernel"] <= TOL[torch.bfloat16], name
+        assert row["vs_plain"] <= TOL[torch.bfloat16], name
+        assert all(r[name]["checksum"] == row["checksum"] for r in mesh_plans), name

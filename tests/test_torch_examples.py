@@ -22,7 +22,8 @@ from repro.core import formats as jformats
 from repro.core import pruning as jpruning
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-TWINS = ("torch_quickstart", "torch_serve_decode", "torch_train_sparse_lm")
+TWINS = ("torch_quickstart", "torch_serve_decode", "torch_train_sparse_lm",
+         "torch_sod_fsdp_demo")
 
 
 @pytest.fixture(autouse=True)
@@ -85,6 +86,24 @@ def test_train_sparse_lm_smoke_on_the_cpu(monkeypatch, tmp_path):
     kept = _twin("torch_train_sparse_lm", monkeypatch).main(
         ["--steps", "1", "--device", "cpu", "--ckpt-dir", str(tmp_path / "ck")])
     assert kept["steps"] == 1 and any((tmp_path / "ck").iterdir())
+
+
+def test_sod_fsdp_demo_on_the_cpu(monkeypatch):
+    """Eight CPU ranks: the compressed all-gather product within the
+    reference demo's float32 error, each rank receiving the compressed
+    payload less its own quarter, the body's dispatch mesh-qualified, and
+    the top-k mean's relative error below 1 (the reference prints it)."""
+    demo = _twin("torch_sod_fsdp_demo", monkeypatch)
+    out = demo.main(["--device", "cpu"])
+    assert len(out["ranks"]) == 8
+    for r in out["ranks"]:
+        assert r["max_abs_err"] < 1e-3 and r["device"] == "cpu"
+        payload = r["payload_bytes"]
+        assert r["resident_bytes"] == payload // 4
+        assert r["gathered_bytes"] == payload - payload // 4
+        assert r["dispatched"] and all("mesh=data=4,model=2|gather=data" in line
+                                       for line in r["dispatched"])
+        assert 0 < r["grad_rel_err"] < 1 and math.isfinite(r["residual_sum"])
 
 
 @pytest.mark.parametrize("name", TWINS)

@@ -54,8 +54,10 @@ def _carry(tree):
     for name, v in tree.items():
         if isinstance(v, (jformats.TiledCSC, jformats.BlockCSR)):
             cls = TiledCSC if isinstance(v, jformats.TiledCSC) else BlockCSR
+            # the layout fields both packages have (the port's ``shard``,
+            # a rank's resident block, is not the reference's)
             static = {f.name: getattr(v, f.name) for f in dataclasses.fields(cls)
-                      if f.name not in PACKED_FIELDS[cls]}
+                      if f.name not in PACKED_FIELDS[cls] and hasattr(v, f.name)}
             out[name] = cls(**static, **{f: _carry_leaf(getattr(v, f))
                                          for f in PACKED_FIELDS[cls]})
         else:

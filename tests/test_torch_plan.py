@@ -273,9 +273,21 @@ def test_plan_pack_abstract_parity(weights):
 
 
 def test_mesh_is_not_ported(weights):
-    _, _, tcfg, tparams = weights
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
-        planner.build_plan(tparams, _cfgs("tiled_csc")[1], mesh=object())
+    """The planner's mesh pass, once missing here, now gives the reference's
+    ``spmd`` entries (none on stacked leaves) and mesh key on (4, 2)."""
+    from jax.sharding import AbstractMesh as JAbstractMesh
+
+    from repro_torch.launch.mesh import AbstractMesh
+
+    jcfg, jparams, tcfg, tparams = weights
+    jsc, tsc = _cfgs("tiled_csc")
+    jp = jplanner.build_plan(jparams, jsc, cfg=jcfg, m_values=(32, 2),
+                             mesh=JAbstractMesh((4, 2), ("data", "model")))
+    tp = planner.build_plan(tparams, tsc, cfg=tcfg, m_values=(32, 2),
+                            mesh=AbstractMesh((4, 2), ("data", "model")))
+    assert tp.mesh == jp.mesh == "data=4,model=2"
+    assert {k: e.spmd for k, e in tp.entries.items()} == {
+        k: e.spmd for k, e in jp.entries.items()}
 
 
 def test_subplans_and_suffix_lookup(weights):

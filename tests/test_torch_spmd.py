@@ -1,0 +1,540 @@
+"""The port's SPMD execution layer on a (4, 2) ``gloo`` group of 8 CPU ranks,
+held against the JAX package.
+
+One group runs every case (``tests/torch_mesh_cases.py``: the five
+partition plans of ``tests/test_spmd.py`` at their ragged shapes, BlockCSR
+gradients, the int8 and codebook qmodes under the column and gather plans,
+a tuned local-shard entry, SoD-FSDP, the compressed gradient reduce, and
+reduced llama3.2-1b's mesh ``loss_and_grads`` and ``train_step``), each
+rank saving what it found.  The reference's unsharded results are computed
+here from the same numpy inputs (its jnp oracle), and the reference's own
+mesh (``sod_matmul_spmd`` and ``compressed_grad_allreduce`` on 8 forced
+host devices) runs in a subprocess beside the group.
+
+Tolerances: ``y`` atol 5e-4 / rtol 1e-4, gradients atol 2e-2 / rtol 1e-3
+(``tests/test_spmd.py``'s); the model's loss 1e-4, its gradients 5e-2 /
+5e-3 (``tests/test_spmd.py::test_sharded_grad_matches_unsharded_step``).
+Padding slots' value gradients are exactly 0; every rank holds the same
+``y``.  The group has 300 s and the reference subprocess 300 s; either
+running over fails the tests.
+"""
+import concurrent.futures
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.core import formats as jformats
+from repro.core import sod as jsod
+from repro.data.pipeline import SyntheticLMData as JData
+from repro.kernels import ops as jops
+from repro.launch import steps as jsteps
+from repro.models.model import LM as JLM
+from repro.runtime import sod_fsdp as jfsdp
+from repro_torch import configs
+from repro_torch.core import formats, pruning, sod
+from repro_torch.core.formats import BlockCSR, TiledCSC
+from repro_torch.core.tree import PACKED_FIELDS, leaves_with_path
+from repro_torch.interop import params_from_numpy, to_torch
+from repro_torch.kernels import autotune, ops, registry
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.runtime import planner, sod_fsdp, spmd
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+N_RANKS, GROUP_TIMEOUT_S = 8, 300
+Y_TOL = dict(atol=5e-4, rtol=1e-4)
+G_TOL = dict(atol=2e-2, rtol=1e-3)
+STEP_LOSS_TOL = dict(atol=1e-4, rtol=1e-4)
+STEP_GRAD_TOL = dict(atol=5e-2, rtol=5e-3)
+MESH = mesh_mod.AbstractMesh((4, 2), ("data", "model"))
+
+# name -> (shape, density, fmt, qmode, plan, seed), the reference test's
+PRODUCTS = {
+    "plan_dp": ((300, 512), 0.25, "tiled_csc", "none", "dp", 4),
+    "plan_col": ((300, 512), 0.25, "tiled_csc", "none", "col", 4),
+    "plan_row": ((512, 300), 0.25, "tiled_csc", "none", "row", 4),
+    "plan_gather_model": ((300, 512), 0.25, "tiled_csc", "none", "gather_model", 4),
+    "plan_gather_data": ((300, 512), 0.25, "tiled_csc", "none", "gather_data", 4),
+    "block_col": ((256, 512), 0.3, "block_csr", "none", "col", 5),
+    "int8_col": ((300, 512), 0.3, "tiled_csc", "int8", "col", 6),
+    "int8_gather_model": ((300, 512), 0.3, "tiled_csc", "int8", "gather_model", 6),
+    "codebook_col": ((300, 512), 0.3, "tiled_csc", "codebook", "col", 7),
+    "codebook_gather_model": ((300, 512), 0.3, "tiled_csc", "codebook", "gather_model", 7),
+}
+PLAN_NAMES = [n for n in PRODUCTS if n.startswith("plan_")]
+REF_PLANS = {
+    "dp": "dict(batch_axes=('data',))",
+    "col": "dict(batch_axes=('data',), col_axis='model')",
+    "row": "dict(batch_axes=('data',), row_axis='model')",
+    "gather_model": "dict(batch_axes=('data',), gather_axis='model')",
+    "gather_data": "dict(gather_axis='data')",
+}
+
+
+def _dense(shape, density, fmt, seed):
+    """A seeded numpy weight: Bernoulli(density) support, or block-pruned."""
+    rng = np.random.default_rng(1000 + seed)
+    w = (rng.standard_normal(shape) * (rng.random(shape) < density)).astype(np.float32)
+    if fmt == "block_csr":
+        w = pruning.block_prune(torch.from_numpy(w), density).numpy()
+    return w
+
+
+def _pack(w, fmt, qmode):
+    """The port's pack of ``w`` (bit-equal to the reference's, as
+    ``tests/test_torch_formats.py`` and ``test_torch_quantize.py`` hold)."""
+    t = torch.from_numpy(w)
+    p = formats.pack_block_csr(t) if fmt == "block_csr" else formats.pack_tiled_csc(t)
+    return formats.quantize_packed(p, qmode)
+
+
+def _to_jax(p):
+    """The reference's container of the same arrays."""
+    a = lambda t: None if t is None else jnp.asarray(t.numpy())
+    side = dict(scale=a(p.scale), codebook=a(p.codebook), qmode=p.qmode)
+    if isinstance(p, BlockCSR):
+        return jformats.BlockCSR(a(p.block_vals), a(p.block_ids), a(p.tile_nnz), p.shape,
+                                 p.tile, p.br, **side)
+    return jformats.TiledCSC(a(p.vals), a(p.rows), p.shape, p.tile, **side)
+
+
+def _jax_product(x, p):
+    """The reference's unsharded y and gradients of ``sum(y ** 2)``."""
+    def loss(x, p):
+        return jnp.sum(jops.sod_matmul(x, p, impl="jnp") ** 2)
+
+    y = jops.sod_matmul(x, p, impl="jnp")
+    gx, gp = jax.grad(loss, argnums=(0, 1), allow_int=True)(x, p)
+    out = {"y": np.asarray(y), "x": np.asarray(gx)}
+    for f in ("vals", "block_vals", "scale", "codebook"):
+        g = getattr(gp, f, None)
+        if g is not None and g.dtype != jax.dtypes.float0:
+            out[f] = np.asarray(g)
+    return out
+
+
+def _model_configs():
+    sc = dict(mode="tiled_csc", density=0.5, min_dim=64)
+    jcfg = jconfigs.reduced(jconfigs.get_config("llama3.2-1b")).with_(
+        dtype="float32", sod=jsod.SoDConfig(**sc))
+    tcfg = configs.reduced(configs.get_config("llama3.2-1b")).with_(
+        dtype="float32", sod=sod.SoDConfig(**sc))
+    return jcfg, tcfg
+
+
+def _to_reference(tparams, np_params):
+    """The reference's tree with the port's per-layer packs stacked (G, P)."""
+    blocks = jax.tree_util.tree_map(jnp.asarray, np_params["blocks"])
+    lead = np_params["blocks"]["norm1"].shape[:2]
+    layers = tparams["layers"]
+    for group in ("attn", "mlp"):
+        for name, w0 in layers[0][group].items():
+            if not isinstance(w0, (TiledCSC, BlockCSR)):
+                continue
+            stacked = {}
+            for f in PACKED_FIELDS[type(w0)]:
+                ts = [getattr(layer[group][name], f) for layer in layers]
+                stacked[f] = None if ts[0] is None else jnp.asarray(
+                    np.stack([t.numpy() for t in ts]).reshape(lead + tuple(ts[0].shape)))
+            blocks[group][name] = jformats.TiledCSC(
+                **stacked, shape=w0.shape, tile=w0.tile, qmode=w0.qmode)
+    return {**{k: jnp.asarray(v) for k, v in np_params.items() if k != "blocks"},
+            "blocks": blocks}
+
+
+def _reference_leaf(jgrads, layer: int, path: str):
+    node = jgrads["blocks"]
+    for part in [p.strip("'") for p in path.replace("]", "").replace("[", ".").split(".")
+                 if p]:
+        node = getattr(node, part) if hasattr(node, part) else node[part]
+    a = np.asarray(node)
+    return a.reshape((-1,) + a.shape[2:])[layer]
+
+
+_REFERENCE_MESH = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh
+from repro.core import formats
+from repro.runtime import spmd, sod_fsdp
+d = np.load(sys.argv[1])
+mesh = Mesh(np.asarray(jax.devices()).reshape(4, 2), ("data", "model"))
+out = {}
+for name, plan in %s.items():
+    x = jnp.asarray(d[name + "_x"]); p = formats.pack_tiled_csc(jnp.asarray(d[name + "_w"]))
+    def loss(x, p, plan=plan):
+        y = spmd.sod_matmul_spmd(x, p, mesh=mesh, plan=spmd.SpmdPlan(**plan))
+        return (y ** 2).sum(), y
+    (_, y), (gx, gp) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True, allow_int=True))(x, p)
+    out[name + "_y"] = np.asarray(y)
+    out[name + "_gx"] = np.asarray(gx); out[name + "_gvals"] = np.asarray(gp.vals)
+with mesh:
+    mean, resid = sod_fsdp.compressed_grad_allreduce(jnp.asarray(d["grad"]), mesh, 0.1)
+out["grad_mean"] = np.asarray(mean); out["grad_resid"] = np.asarray(resid)
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Build every case, start the group and the reference's mesh, and
+    compute the reference's unsharded results while they run."""
+    work = tmp_path_factory.mktemp("spmd")
+    rng = np.random.default_rng(0)
+    products, inputs, ref_inputs = {}, {}, {}
+    for name, (shape, density, fmt, qmode, plan, seed) in PRODUCTS.items():
+        w = _dense(shape, density, fmt, seed)
+        x = rng.standard_normal((32 if fmt == "block_csr" else 44, shape[0])).astype(np.float32)
+        products[name] = (torch.from_numpy(x), _pack(w, fmt, qmode), plan)
+        if name.startswith("plan_"):
+            ref_inputs[f"{plan}_x"], ref_inputs[f"{plan}_w"] = x, w
+    w_fsdp = _dense((1024, 1024), 0.25, "tiled_csc", 10)
+    x_fsdp = rng.standard_normal((64, 1024)).astype(np.float32)
+    grad = rng.standard_normal((8, 65536)).astype(np.float32)
+    ref_inputs["grad"] = grad
+
+    jcfg, tcfg = _model_configs()
+    np_params = jax.tree_util.tree_map(np.asarray, JLM(jcfg).init(jax.random.PRNGKey(1)))
+    tparams = sod.sodify_params(params_from_numpy(np_params, tcfg, device="cpu"), tcfg.sod)
+    jbatch = JData(jcfg, 4, 32, seed=1).batch(0)
+    tbatch = {k: to_torch(np.asarray(v), "cpu").long() for k, v in jbatch.items()}
+
+    wu = _dense((256, 512), 0.3, "tiled_csc", 21)
+    wd = _dense((512, 256), 0.3, "tiled_csc", 22)
+    raw = {"blocks": {"mlp": {"w_up": torch.from_numpy(wu), "w_down": torch.from_numpy(wd)}}}
+    sodc = sod.SoDConfig(mode="tiled_csc", density=0.3)
+    plan = planner.build_plan(raw, sodc, cfg=configs.get_config("llama3.2-1b"), mesh=MESH,
+                              m_values=(48,))
+    x_planned = {n: torch.from_numpy(rng.standard_normal((48, k)).astype(np.float32))
+                 for n, k in (("w_up", 256), ("w_down", 512))}
+    planned = (x_planned, sod.sodify_params(raw, sodc, plan=plan), plan)
+    torch.save({"products": products, "planned": planned,
+                "tuned": _pack(_dense((256, 512), 0.3, "tiled_csc", 9), "tiled_csc", "none"),
+                "fsdp": (torch.from_numpy(x_fsdp), _pack(w_fsdp, "tiled_csc", "none")),
+                "grad": (torch.from_numpy(grad), 0.1),
+                "cfg": tcfg, "params": tparams, "batch": tbatch}, work / "cases.pt")
+    np.savez(work / "ref_in.npz", **ref_inputs)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    ref = subprocess.Popen(
+        [sys.executable, "-c", _REFERENCE_MESH % ("{%s}" % ", ".join(
+            f"{p!r}: {d}" for p, d in REF_PLANS.items())),
+         str(work / "ref_in.npz"), str(work / "ref_out.npz")],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        group = pool.submit(mesh_mod.run_ranks, N_RANKS,
+                            f"{ROOT / 'tests' / 'torch_mesh_cases.py'}:spmd_cases", work,
+                            args=(work,), timeout=GROUP_TIMEOUT_S)
+        try:
+            want = {name: _jax_product(jnp.asarray(x.numpy()), _to_jax(w))
+                    for name, (x, w, _) in products.items()}
+            jloss, _, jgrads = jax.jit(jsteps.make_loss_and_grads(JLM(jcfg)))(
+                _to_reference(tparams, np_params), jbatch)
+            summary = group.result()
+            _, err = ref.communicate(timeout=GROUP_TIMEOUT_S)
+        finally:
+            if ref.poll() is None:
+                ref.kill()
+                ref.wait()
+    assert ref.returncode == 0, err[-3000:]
+    ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(N_RANKS)]
+    return {"ranks": ranks, "summary": summary, "want": want, "products": products,
+            "ref_mesh": dict(np.load(work / "ref_out.npz")), "w_fsdp": w_fsdp,
+            "x_fsdp": x_fsdp, "grad": grad, "tparams": tparams, "planned": planned,
+            "jloss": float(jloss), "jgrads": jgrads}
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _signature(plan):
+    return spmd.SpmdPlan(**{
+        "dp": dict(batch_axes=("data",)),
+        "col": dict(batch_axes=("data",), col_axis="model"),
+        "row": dict(batch_axes=("data",), row_axis="model"),
+        "gather_model": dict(batch_axes=("data",), gather_axis="model"),
+        "gather_data": dict(gather_axis="data")}[plan]).signature()
+
+
+def _check_product(runs, name, fields):
+    _, w, plan = runs["products"][name]
+    want = runs["want"][name]
+    got = runs["ranks"][0][name]
+    np.testing.assert_allclose(_np(got["y"]), want["y"], **Y_TOL)
+    for f in ("x",) + fields:
+        np.testing.assert_allclose(_np(got[f]), want[f], err_msg=f"{name}: d{f}", **G_TOL)
+    for r in runs["ranks"]:        # every rank holds the same y, bit for bit
+        assert torch.equal(r[name]["y"], got["y"])
+    assert set(got["keys"]) == {f"data=4,model=2|{_signature(plan)}"}
+    assert set(got["impls"]) == {"torch_oracle"}
+    return got, w
+
+
+@pytest.mark.parametrize("name", PLAN_NAMES)
+def test_plans_match_unsharded_reference(runs, name):
+    """Forward and gradients under every plan equal the reference's
+    unsharded oracle on the same inputs; padding slots' gradients are 0."""
+    got, w = _check_product(runs, name, ("vals",))
+    assert torch.all(got["vals"][w.rows < 0] == 0)
+
+
+def test_block_csr_grads(runs):
+    got, w = _check_product(runs, "block_col", ("block_vals",))
+    assert torch.all(got["block_vals"][w.block_ids < 0] == 0)
+
+
+@pytest.mark.parametrize("name", [n for n in PRODUCTS if n.split("_")[0] in ("int8", "codebook")])
+def test_quantized_plans(runs, name):
+    side = "scale" if name.startswith("int8") else "codebook"
+    _check_product(runs, name, (side,))
+
+
+@pytest.mark.parametrize("name", [n for n in PRODUCTS if "gather" in n])
+def test_gather_moves_the_compressed_payload(runs, name):
+    """A gather plan's received bytes are the compressed payload (values,
+    row indices, per-tile scale; the codebook stays) less the rank's own
+    slice; the products' gathers of y are counted apart."""
+    _, w, plan = runs["products"][name]
+    payload = sum(t.numel() * t.element_size() for f in ("vals", "rows", "scale")
+                  if (t := getattr(w, f)) is not None)
+    g = MESH.shape[plan.split("_")[1]]
+    for r in runs["ranks"]:
+        assert r[name]["counts"]["gather_bytes"] == payload - payload // g
+
+
+@pytest.mark.parametrize("plan", list(REF_PLANS))
+def test_reference_mesh_agrees(runs, plan):
+    """The reference's own ``sod_matmul_spmd`` on 8 forced host devices and
+    the port's group give the same y and gradients."""
+    ref, got = runs["ref_mesh"], runs["ranks"][3][f"plan_{plan}"]
+    np.testing.assert_allclose(_np(got["y"]), ref[f"{plan}_y"], **Y_TOL)
+    np.testing.assert_allclose(_np(got["x"]), ref[f"{plan}_gx"], **G_TOL)
+    np.testing.assert_allclose(_np(got["vals"]), ref[f"{plan}_gvals"], **G_TOL)
+
+
+def test_tuned_local_entry_feeds_mesh_dispatch(runs):
+    for r in runs["ranks"]:
+        t = r["tuned"]
+        assert t["lookup"] == t["entry"] and t["entry"]["impl"] == "torch_oracle"
+        assert t["sources"] == ["tuned"]
+        assert t["keys"] == ["data=4,model=2|dp=data;col=model"]
+
+
+@pytest.mark.parametrize("name,kind", [("w_up", "col=model"), ("w_down", "row=model")])
+def test_planned_apply_routes_under_the_entry_plan(runs, name, kind):
+    """``build_plan(mesh=)``'s entries route a bare ``sod.apply`` under the
+    mesh through exactly their plan (the reference's column / row plans)."""
+    x, packed, _ = runs["planned"]
+    w = packed["blocks"]["mlp"][name]
+    for r in runs["ranks"]:
+        got = r["planned"][name]
+        assert got["keys"] == [f"data=4,model=2|dp=data;{kind}"]
+        np.testing.assert_allclose(_np(got["y"]), _np(x[name] @ w.to_dense()), **Y_TOL)
+
+
+def _block(t, spec, coords, sizes):
+    for dim, ax in enumerate(tuple(spec)[:2]):
+        if ax is not None:
+            size = t.shape[dim] // sizes[ax]
+            t = t.narrow(dim, coords[ax] * size, size)
+    return t
+
+
+def test_mesh_loss_and_grads_match_unsharded_reference(runs):
+    """The mesh step on each rank's resident blocks equals the reference's
+    unsharded step: the loss, and each block's gradient is its slice of the
+    reference's; padding slots' gradients are exactly 0."""
+    from repro_torch.runtime import sharding
+
+    specs = sharding.param_specs(runs["tparams"], _model_configs()[1], MESH)
+    n = 0
+    for r, rank in enumerate(runs["ranks"]):
+        model, coords = rank["model"], runs["summary"][r]["coords"]
+        np.testing.assert_allclose(float(model["placed_loss"]), runs["jloss"],
+                                   **STEP_LOSS_TOL)
+        assert float(model["placed_loss"]) == float(runs["ranks"][0]["model"]["placed_loss"])
+        grads = model["placed_grads"]
+        for name in ("embed", "final_norm"):
+            np.testing.assert_allclose(_np(grads[name]), np.asarray(runs["jgrads"][name]),
+                                       err_msg=name, **STEP_GRAD_TOL)
+        for i, layer in enumerate(grads["layers"]):
+            for path, g in leaves_with_path(layer):
+                want = torch.from_numpy(_reference_leaf(runs["jgrads"], i, path)
+                                        .astype(np.float32))
+                node, field = path.rsplit(".", 1) if "." in path else (path, None)
+                spec = specs["layers"][i]
+                for part in node.replace("]", "").replace("[", " ").split():
+                    spec = spec[part.strip("'")]
+                if field is not None:
+                    want = _block(want, getattr(spec, field), coords, MESH.shape)
+                np.testing.assert_allclose(_np(g), want.numpy(),
+                                           err_msg=f"rank {r} layer {i} {path}",
+                                           **STEP_GRAD_TOL)
+                n += 1
+        wq = model["placed"]["layers"][0]["attn"]["wq"]
+        assert torch.all(grads["layers"][0]["attn"]["wq"].vals[wq.rows < 0] == 0)
+    assert n > 0
+
+
+def test_resident_blocks_are_the_specs_blocks(runs):
+    """Each rank holds only the tile-grid block of each packed leaf that its
+    spec names (``shard`` records where); reduced llama's ``w_gate`` and
+    ``w_up`` are Nt-resident and ``w_down`` Kt-resident, which the auto plan
+    (rows only: its Nt is 1) reads whole, so the rank reshards it."""
+    from repro_torch.runtime import sharding
+
+    specs = sharding.param_specs(runs["tparams"], _model_configs()[1], MESH)
+    sharded = set()
+    for r, rank in enumerate(runs["ranks"]):
+        model, coords = rank["model"], runs["summary"][r]["coords"]
+        for i, (layer, spec) in enumerate(zip(model["placed"]["layers"], specs["layers"])):
+            for group in ("attn", "mlp"):
+                for name, w in layer[group].items():
+                    if not isinstance(w, TiledCSC):
+                        continue
+                    s = spec[group][name]
+                    whole = runs["tparams"]["layers"][i][group][name]
+                    if any(tuple(s.vals)[:2]):
+                        sharded.add((name, tuple(s.vals)[:2]))
+                        assert w.shard.shape == whole.shape and w.shard.grid == whole.grid
+                    else:
+                        assert w.shard is None
+                    assert torch.equal(w.vals, _block(whole.vals, s.vals, coords, MESH.shape))
+        assert model["placed_counts"]["reshard_bytes"] > 0
+    assert ("w_down", ("model", None)) in sharded and ("w_up", (None, "model")) in sharded
+
+
+def test_mesh_step_under_remat(runs):
+    """Checkpointed blocks (``cfg.remat``) replay the mesh products in the
+    backward: the same loss and gradients as without."""
+    for rank in runs["ranks"]:
+        model = rank["model"]
+        assert float(model["remat_loss"]) == float(model["placed_loss"])
+        for (path, g), (_, g_r) in zip(leaves_with_path(model["placed_grads"]),
+                                       leaves_with_path(model["remat_grads"])):
+            np.testing.assert_allclose(_np(g_r), _np(g), atol=1e-6, rtol=1e-5,
+                                       err_msg=path)
+
+
+def test_mesh_train_step(runs):
+    for r in runs["ranks"]:
+        model = r["model"]
+        assert np.isfinite(float(model["train_loss"]))
+        packed = [(impl, key) for impl, key in model["dispatch"] if impl != "dense_ref"]
+        assert packed and all(impl == "torch_oracle" and key.startswith("data=4,model=2|")
+                              for impl, key in packed)
+
+
+def test_sod_fsdp_matmul(runs):
+    """The compressed all-gather product equals x @ W, and each rank
+    receives exactly the compressed payload less its own Nt slice."""
+    x, w = runs["x_fsdp"], runs["w_fsdp"]
+    whole = _pack(w, "tiled_csc", "none")
+    payload = whole.vals.numel() * whole.vals.element_size() + whole.rows.numel()
+    for r in runs["ranks"]:
+        f = r["fsdp"]
+        np.testing.assert_allclose(_np(f["y"]), x @ w, **Y_TOL)
+        assert f["counts"]["gather_bytes"] == payload - payload // 4
+        assert f["resident_vals"].shape[1] == whole.vals.shape[1] // 4
+
+
+def test_compressed_grad_allreduce_matches_reference(runs):
+    ref = runs["ref_mesh"]
+    for r, rank in enumerate(runs["ranks"]):
+        d = runs["summary"][r]["coords"]["data"]
+        np.testing.assert_allclose(_np(rank["grad"]["mean"]), ref["grad_mean"][2 * d:2 * d + 2],
+                                   atol=1e-6, rtol=1e-6)
+        np.testing.assert_allclose(_np(rank["grad"]["resid"]), ref["grad_resid"][2 * d:2 * d + 2],
+                                   atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("qmode", ["none", "int8", "fp8", "codebook"])
+def test_collective_savings_match_reference(qmode):
+    assert sod_fsdp.collective_savings(0.25, ratio=0.05, qmode=qmode) == \
+        jfsdp.collective_savings(0.25, ratio=0.05, qmode=qmode)
+
+
+# ---------------------------------------------------------------------------
+# in-process: plans, keys, tuning and the opt-outs need no ranks
+# ---------------------------------------------------------------------------
+def _tiled(shape, seed, density=0.3):
+    return _pack(_dense(shape, density, "tiled_csc", seed), "tiled_csc", "none")
+
+
+def test_auto_plan_shards_batch_and_columns():
+    plan = spmd.auto_plan(MESH, _tiled((256, 512), 0))      # Nt = 4
+    assert plan.batch_axes == ("data",) and plan.col_axis == "model"
+    assert spmd.auto_plan(MESH, _tiled((256, 128), 1)).col_axis is None
+
+
+def test_mesh_key_in_tuning_cache_key():
+    p = _tiled((256, 512), 2)
+    plan = spmd.auto_plan(MESH, p)
+    sig = f"{spmd.mesh_key(MESH)}|{plan.signature()}"
+    local = spmd._local_packed(p, MESH, plan)
+    s = autotune.key_str(registry.problem_key(local, m=16, backend="cpu", mesh=sig))
+    assert "mesh=data=4,model=2|dp=data;col=model" in s
+    assert autotune.key_str(registry.problem_key(local, m=16, backend="cpu")) != s
+
+
+def test_warmup_params_spmd_counts_local_layouts(tmp_path):
+    p1, p2, p3 = _tiled((256, 512), 3), _tiled((256, 512), 4), _tiled((128, 256), 5)
+    cache = autotune.TuningCache(tmp_path / "warm.json")
+    stats = spmd.warmup_params_spmd({"a": p1, "b": p2, "c": p3, "dense": torch.zeros(4)},
+                                    (48,), MESH, backend="cpu", cache=cache)
+    assert stats["tuned"] == 2
+    assert spmd.warmup_params_spmd({"a": p1, "c": p3}, (48,), MESH, backend="cpu",
+                                   cache=cache) == {"tuned": 0, "cached": 2, "skipped": 0}
+
+
+def test_opt_outs_respected(monkeypatch):
+    """``spmd=None`` and ``REPRO_SPMD=0`` keep a product whole under a mesh
+    (nothing routes, so no rank is needed)."""
+    p = _tiled((256, 512), 6)
+    x = torch.randn(16, 256, generator=torch.Generator().manual_seed(0))
+    with spmd.use_mesh(MESH), registry.record_dispatches() as log:
+        ops.sod_matmul(x, p, spmd=None)
+    assert log and all(not rec["key"].mesh for rec in log)
+    monkeypatch.setenv("REPRO_SPMD", "0")
+    with spmd.use_mesh(MESH), registry.record_dispatches() as log2:
+        ops.sod_matmul(x, p)
+    assert log2 and all(not rec["key"].mesh for rec in log2)
+
+
+def test_registry_mesh_roles():
+    assert registry.get_impl("cuda_fused").requires_shard_map
+    assert registry.get_impl("cuda_block").mesh_axes == ("data", "model")
+    assert not registry.get_impl("torch_oracle").requires_shard_map
+
+
+def test_resident_block_refuses_to_run_whole():
+    from repro_torch.core.formats import Shard
+
+    p = dataclasses.replace(_tiled((256, 512), 7), shard=Shard((256, 512), (2, 4), None, "model"))
+    with pytest.raises(ValueError, match="resident block"):
+        ops.sod_matmul(torch.zeros(4, 256), p, spmd=None)
+
+
+def test_active_mesh_is_seen_by_other_threads():
+    """A CUDA backward runs on autograd's device threads, which replay a
+    checkpointed block's forward there: the active mesh is process-wide."""
+    import threading
+
+    seen = []
+    with spmd.use_mesh(MESH):
+        t = threading.Thread(target=lambda: seen.append(spmd.active_mesh()))
+        t.start()
+        t.join(timeout=10)
+    assert not t.is_alive() and seen == [MESH]
+    assert spmd.active_mesh() is None
