@@ -170,8 +170,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    zamba2 decode step profiled by class (SoD kernels, scan and conv, the
    dense GEMMs, attention, the head alone); engine runs in the slot
    regime on zamba2's and xlstm's weights over phase 6's trace, every
-   request equal to ``static_generate`` bit for bit; ``train_xlstm`` (full
-   depth) and ``train_zamba2`` (12 layers) at full width (batch 8 × seq
+   request equal to ``static_generate`` bit for bit; ``train_xlstm`` (8
+   layers) and ``train_zamba2`` (12 layers) at full width (batch 8 × seq
    128, 4 steps,
    remat: finite losses and gradient norms, (2 · (per step - 1) + 1)
    ``sod_matmul`` and per-step ``decompress`` launches a step, only
@@ -194,7 +194,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    the full forward within LOGIT_TOL (static serving decodes at the text's
    length, the reference's fault R5); one decode step of pixtral and of
    musicgen profiled by class (SoD kernels, attention, the head alone, the
-   rest); ``train_musicgen`` (full depth, batch 8 × seq 128) and
+   rest); ``train_musicgen`` (24 layers, batch 8 × seq 128) and
    ``train_pixtral`` (2 layers, batch 1 × seq 1536, the loss on the text),
    4 steps each: the frontend leaf's gradient finite and not 0, finite
    losses and gradient norms, (2 · layers · 7 + 1) ``sod_matmul`` and
@@ -227,14 +227,31 @@ Phases, each of which raises on failure (so the script exits non-zero):
    against the single-process kernel (KERNEL_TOL; only the cell's CUDA impl
    dispatched, under mesh keys; a gather plan receiving exactly the
    compressed payload less its own block, beside the napkin of
-   ``collective_savings``), then prefill and 16 decode steps through the
-   step builders with ``mesh=`` on its resident blocks, fed the
-   single-process run's tokens: decode logits within LOGIT_TOL of one
-   process's, the greedy agreement printed, (16 · 7) × 17 = 1904 launches
-   a rank.  Last, ``loss_and_grads`` at full width and 4 layers, batch 4 ×
+   ``collective_savings``), then at MESH_SERVE_LAYERS (8) layers prefill
+   and 8 decode steps through the step builders with ``mesh=`` on its
+   resident blocks, fed the single-process run's tokens: decode logits
+   within LOGIT_TOL of one process's, the greedy agreement printed,
+   (8 · 7) × 9 = 504 launches a rank.  Last, ``loss_and_grads`` at full width and 4 layers, batch 4 ×
    128, against one process (loss and each resident block's gradient) with
    each rank's peak memory.  The phase prints its seconds by part (start,
-   pack, ops, serve, grads).
+   pack, ops, serve, grads);
+15. the rest of the distributed runtime, in phase 14's ranks after its
+   parts: the engine on the mesh (``Engine(mesh=)``, llama3.2-1b tiled_csc
+   at 4 layers, four requests of 8 tokens, every one bit-equal to the mesh
+   static decode); qwen2-moe-a2.7b at full width and 4 layers under a plan
+   without routed entries, its routed experts through the all-to-all over
+   ``model`` (prefill 4 × 32 and 8 decode steps against one process's
+   capacity dispatch in 4 blocks, the tokens routed as the one process
+   chose: logits within LOGIT_TOL, the all-to-all count above 0 on every
+   rank, (4 · 7 + 1) × 9 launches); the elastic re-mesh (two train steps
+   on (2, 2) at 4 layers, the whole state saved, ranks 2 and 3 lost, the
+   survivors on (1, 2) restore and take a step whose loss is within
+   ELASTIC_LOSS_TOL of one process's on the same checkpoint, and whose
+   whole state after it is within ELASTIC_STATE_TOL leaf by leaf).  Beside the
+   ranks the host runs one dry-run cell (DRY_CELL, on meta tensors:
+   status ok, nothing launched, the card's kernel dispatched) and prints
+   its flops, peak bytes a rank, collective bytes by kind and dispatches.
+   The phase prints its seconds by part (engine, moe, elastic, dryrun).
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
@@ -288,10 +305,12 @@ from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.models import moe, transformer  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.optim import AdamW, AdamWConfig  # noqa: E402
+from repro_torch.optim.adamw import state_dist  # noqa: E402
 from repro_torch.runtime import planner  # noqa: E402
 from repro_torch.serving import (Engine, bucket_len, poisson_trace,  # noqa: E402
                                  repeated_prompt_trace, shared_prefix_trace,
-                                 static_generate, stress_spec_trace)
+                                 mesh_static_generate, static_generate,
+                                 stress_spec_trace)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit),
 # from the port's one chip spec; ChipSpec has no float32 field, so that rate
@@ -702,16 +721,22 @@ def phase_slice(cell: str) -> dict:
 
 
 @contextlib.contextmanager
-def _routing(record: list | None = None, replay: list | None = None):
+def _routing(record: list | None = None, replay: list | None = None,
+             differ: list | None = None):
     """While open, every MoE block's top-k appends its expert ids to
     ``record``, or (``replay``) takes the next ids recorded instead of
     choosing, with the gate values at them, so a second forward routes
-    every token as the first did."""
+    every token as the first did; ``differ`` then gets, per block, the
+    number of tokens whose own expert set differs and the tokens."""
     top_k = moe._top_k
 
     def pinned(probs, k):
         if replay is not None:
             ids = replay.pop(0)
+            if differ is not None:
+                own = top_k(probs, k)[1].sort(-1).values
+                differ.append((int((own != ids.sort(-1).values).any(-1).sum()),
+                               int(ids.shape[0])))
             return torch.gather(probs, -1, ids), ids
         vals, ids = top_k(probs, k)
         record.append(ids)
@@ -1037,8 +1062,8 @@ def _engine_probe(target_params):
     serve_engine = serve.Engine
 
     def counted(build):
-        def make(model, plan=None):
-            step = build(model, plan=plan)
+        def make(model, mesh=None, plan=None):
+            step = build(model, mesh=mesh, plan=plan)
 
             def run(params, *a, **kw):
                 n0 = _matmul_launches()
@@ -2666,7 +2691,9 @@ RECURRENT_ENGINE_RUNS = {"zamba2_tiled_csc": "zamba2_tiled_csc",
                          "xlstm_tiled_csc": "xlstm_tiled_csc"}
 # run -> (arch, layers (None: full depth)); both at full width, zamba2 at two
 # of its nine groups, as its cells
-RECURRENT_TRAIN_RUNS = {"train_xlstm": ("xlstm-125m", None),
+# xlstm at 8 of its 12 layers (two mLSTM-sLSTM groups), for the script's
+# time (59 s at 12 on an H100; phase 13 trains it at full depth)
+RECURRENT_TRAIN_RUNS = {"train_xlstm": ("xlstm-125m", 8),
                         "train_zamba2": ("zamba2-2.7b", 12)}
 RECURRENT_TRAIN_STEPS = 4
 # a recurrent cell replays its 32-token prompt through the decode step, then
@@ -2948,7 +2975,8 @@ def phase_recurrent_profile(sl: dict) -> None:
 
 
 def phase_recurrent_train(run: str) -> dict:
-    """``train_xlstm`` / ``train_zamba2``: full width (zamba2 at 12 layers),
+    """``train_xlstm`` / ``train_zamba2``: full width (xlstm at 8 layers,
+    zamba2 at 12),
     tiled_csc 0.3, batch 8 × seq 128, remat on (every layer group checkpointed),
     RECURRENT_TRAIN_STEPS steps, gated on finite losses and gradient norms,
     integer leaves bit-equal to the initial pack, only ``cuda_fused``
@@ -3093,8 +3121,10 @@ FRONTEND_CELLS = {
                            _block_sod(), "block_matmul"),
 }
 # run -> (arch, layers (None: full depth), batch, seq); pixtral at 2 layers:
-# AdamW's float32 state of ≈ 12 B parameters does not fit beside them
-FRONTEND_TRAIN_RUNS = {"train_musicgen": ("musicgen-medium", None, TRAIN_BATCH, TRAIN_SEQ),
+# AdamW's float32 state of ≈ 12 B parameters does not fit beside them;
+# musicgen at 24 of its 48 layers, for the script's time (67 s at 48 on
+# an H100)
+FRONTEND_TRAIN_RUNS = {"train_musicgen": ("musicgen-medium", 24, TRAIN_BATCH, TRAIN_SEQ),
                        "train_pixtral": ("pixtral-12b", 2, 1, 1536)}
 FRONTEND_TRAIN_STEPS = 4
 
@@ -3249,7 +3279,7 @@ def phase_frontend_profile(cell: str, sl: dict) -> dict:
 
 
 def phase_frontend_train(run: str) -> dict:
-    """``train_musicgen`` (full width and depth, batch 8 × seq 128) and
+    """``train_musicgen`` (full width, 24 layers, batch 8 × seq 128) and
     ``train_pixtral`` (full width, 2 layers, batch 1 × seq 1536: 1024
     patches and 512 text tokens, the loss on the text), tiled_csc 0.3,
     remat on, FRONTEND_TRAIN_STEPS steps.  First one gradient of the loss:
@@ -3575,13 +3605,22 @@ MESH_PLANS = {"dp": {"batch_axes": ("data",)},
               "row": {"batch_axes": ("data",), "row_axis": "model"},
               "gather_model": {"batch_axes": ("data",), "gather_axis": "model"},
               "gather_data": {"gather_axis": "data"}}
-MESH_GEN = 16
+MESH_GEN = 8
+# phase 14's serving cells at 8 of llama's 16 layers, for the script's time
+# (35 s at 16 on an H100, in a 1,201 s run)
+MESH_SERVE_LAYERS = 8
 MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 4, 128
 # the mesh step's packed gradients against one process's, as a fraction of
 # the one-process gradient's largest magnitude: bf16 products whose partial
 # sums are added in another order (the column plan's activation gradient
 # sums two ranks' halves), through 4 layers; and the loss, relative
 MESH_GRAD_TOL, MESH_LOSS_TOL = 0.05, 1e-2
+# the elastic step on (1, 2) against one process's on the same checkpoint:
+# its loss, relative, and each leaf of the whole state after it, ‖Δ‖ / ‖x‖
+# (an H100 read 2.5e-5, and 3.4e-3 parameters, 8.2e-3 m, 9.0e-3 v: bf16
+# gradients summed in another order; a step moves the loss 1.2e-3 and a
+# restore from another step puts m and v apart by their own size)
+ELASTIC_LOSS_TOL, ELASTIC_STATE_TOL = 1e-4, 2e-2
 MESH_TIMEOUT_S = 420                 # the rank group's hard limit
 
 
@@ -3649,23 +3688,36 @@ def _mesh_ops(layer: dict, kernel: str, mesh) -> dict:
             "gather": gathered, "napkin_fraction": napkin}
 
 
-def _mesh_serve(model, params, placed, tokens, kernel: str, mesh) -> dict:
-    """Prefill and 16 greedy decode steps through the step builders, one
-    process (the whole weights) and the mesh (the resident blocks, fed the
-    one-process run's tokens): logits, greedy agreement, launches."""
+def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
+                per_forward: int = MESH_SERVE_LAYERS * 7, gen: int = MESH_GEN, plan=None,
+                mesh_model=None, pin_routing: bool = False) -> dict:
+    """Prefill and ``gen`` greedy decode steps through the step builders,
+    one process (the whole weights) and the mesh (the resident blocks, fed
+    the one-process run's tokens; ``mesh_model``, if given, runs there):
+    logits, greedy agreement, launches (``per_forward`` a forward) and the
+    mesh run's collectives.  With ``pin_routing`` (an MoE model) the mesh
+    run routes every token as the one-process run chose (:func:`_routing`:
+    a rounding apart can send a token to another expert, which the gate
+    would charge to the mesh), and counts the choices its own router would
+    have made otherwise (``routing_differs``)."""
+    from repro_torch.runtime import spmd
+
     b, s = tokens.shape
-    out = {}
+    out, ids, differ = {}, [], []
     with torch.inference_mode():
         logits = {}
-        for run, p, m in (("one", params, None), ("mesh", placed, mesh)):
-            prefill = steps_mod.make_prefill_step(model, mesh=m)
-            decode = steps_mod.make_decode_step(model, mesh=m)
+        for run, p, m, mdl in (("one", params, None, model),
+                               ("mesh", placed, mesh, mesh_model or model)):
+            prefill = steps_mod.make_prefill_step(mdl, mesh=m, plan=plan)
+            decode = steps_mod.make_decode_step(mdl, mesh=m, plan=plan)
             reset_counts()
-            with registry.count_dispatches() as counts:
+            pin = (contextlib.nullcontext() if not pin_routing else
+                   _routing(record=ids) if run == "one" else _routing(replay=ids, differ=differ))
+            with registry.count_dispatches() as counts, spmd.count_collectives() as moved, pin:
                 nxt, cache = prefill(p, tokens)
-                cache = model.grow_cache(cache, s + MESH_GEN + 1)
+                cache = mdl.grow_cache(cache, s + gen + 1)
                 toks, logs = [nxt.reshape(b, 1)], []
-                for t in range(MESH_GEN):
+                for t in range(gen):
                     feed = toks[-1] if run == "one" else logits["one_tokens"][t]
                     nxt, lg, cache = decode(p, cache, feed, s + t)
                     toks.append(nxt.reshape(b, 1))
@@ -3674,18 +3726,20 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh) -> dict:
             logits[run] = torch.stack(logs)
             logits[f"{run}_tokens"] = toks
             out[run] = {"launches": {k: mod.launches for k, mod in COUNTERS.items()},
-                        "dispatch": counts}
+                        "dispatch": counts, "collectives": dict(moved)}
     ref_logits, mesh_logits = logits["one"], logits["mesh"]
     err = (mesh_logits - ref_logits).abs().max().item()
     scale = ref_logits.abs().max().item()
     agree = torch.stack([(a == b_) for a, b_ in zip(logits["mesh_tokens"][1:],
                                                    logits["one_tokens"][1:])]).float()
+    if pin_routing:
+        out["routing_differs"] = [sum(d for d, _ in differ), sum(n for _, n in differ)]
     out.update({"max_abs_err": err, "max_abs_logit": scale, "tol": LOGIT_TOL * scale,
                 "greedy_agreement": agree.mean().item(),
                 "prefill_tokens_equal": bool(torch.equal(logits["mesh_tokens"][0],
                                                          logits["one_tokens"][0]))})
     want = {"sod_matmul": 0, "block_matmul": 0, "decompress": 0}
-    want[kernel] = LAYERS * 7 * (1 + MESH_GEN)
+    want[kernel] = per_forward * (1 + gen)
     if out["mesh"]["launches"] != want:
         raise AssertionError(f"mesh serve launches {out['mesh']['launches']}, want {want}")
     if not (torch.isfinite(mesh_logits).all() and err <= LOGIT_TOL * scale):
@@ -3736,11 +3790,211 @@ def _mesh_grads(mesh) -> dict:
     return row
 
 
+# phase 15: the rest of the distributed runtime, in phase 14's rank group
+# the engine at 4 layers: its static reference decodes every request at
+# batch 1, which at 16 layers took 45 s of the script on an H100
+MESH_ENGINE_LAYERS, MESH_ENGINE_GEN = 4, 8
+MOE_MESH_ARCH, MOE_MESH_LAYERS, MOE_MESH_GEN = "qwen2-moe-a2.7b", 4, 8
+ELASTIC_FAILED = (2, 3)             # the ranks the elastic part loses
+DRY_CELL = ("llama3.2-1b", "train_4k", "tiled_csc")
+
+
+def _mesh_engine(mesh) -> dict:
+    """``Engine(mesh=)`` on llama3.2-1b's resident blocks (tiled_csc, full
+    width, MESH_ENGINE_LAYERS layers): phase 4's four prompts as requests
+    of MESH_ENGINE_GEN tokens, every request's tokens bit-equal to the mesh
+    static decode; ``sod_matmul`` launched, no other kernel, only
+    ``cuda_fused`` dispatched, under mesh keys."""
+    from repro_torch.runtime import sharding, spmd
+    from repro_torch.serving import Request
+
+    args = serve.parse_args(TILED_ARGV)
+    cfg = configs.get_config(args.arch).with_(n_layers=MESH_ENGINE_LAYERS)
+    model, params, tokens, *_ = serve.prepare(args, None, cfg)
+    placed = sharding.place(params, sharding.param_specs(params, model.cfg, mesh), mesh)
+    kernel = "sod_matmul"
+
+    reqs = [Request(rid=i, tokens=tokens[i].tolist(), max_new=MESH_ENGINE_GEN, arrival=0)
+            for i in range(tokens.shape[0])]
+    impl = "cuda_fused"
+    with torch.inference_mode():
+        reset_counts()
+        with registry.record_dispatches() as log:
+            t0 = time.perf_counter()
+            got = Engine(model, placed, max_slots=4, page_size=16, max_len=64,
+                         mesh=mesh).run(reqs)["tokens"]
+            torch.cuda.synchronize()
+            engine_s = time.perf_counter() - t0
+        launches = {k: mod.launches for k, mod in COUNTERS.items()}
+        static = {r.rid: mesh_static_generate(model, placed, r, mesh) for r in reqs}
+    got = {int(k): list(v) for k, v in got.items()}
+    if got != static:
+        raise AssertionError(f"rank {mesh.rank}: engine on the mesh {got} != static {static}")
+    others = {k: v for k, v in launches.items() if k != kernel}
+    if not launches[kernel] or any(others.values()) or {r["impl"] for r in log} != {impl} \
+            or not all(r["key"].mesh.startswith(spmd.mesh_key(mesh) + "|") for r in log):
+        raise AssertionError(f"rank {mesh.rank}: engine launches {launches}, dispatched "
+                             f"{sorted({(r['impl'], r['key'].mesh) for r in log})}")
+    return {"requests": len(reqs), "tokens_equal": True, "launches": launches,
+            "engine_s": engine_s}
+
+
+def _mesh_moe(mesh, workdir: str) -> dict:
+    """qwen2-moe-a2.7b at full width and MOE_MESH_LAYERS layers: the plan on
+    its seeded raw weights with the routed entries dropped (attention and
+    the shared expert packed, fault R4), then prefill of 4 × 32 tokens and
+    MOE_MESH_GEN greedy decode steps on the mesh with the routed experts'
+    all-to-all over ``model``, against one process's capacity dispatch in
+    as many blocks as token shards (4), every token routed as the one
+    process chose: logits within LOGIT_TOL, greedy agreement, the routing
+    choices the mesh's own router would have made otherwise, each rank's
+    all-to-all count above 0, the launches derived from the plan."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import sharding
+
+    base = ["--arch", MOE_MESH_ARCH, *FAMILY_BASE, *FAMILY_TILED]
+    args = serve.parse_args(base)
+    n_shards = math.prod(MESH_SHAPE)
+    cfg = configs.get_config(MOE_MESH_ARCH).with_(n_layers=MOE_MESH_LAYERS,
+                                                    moe_dispatch_blocks=n_shards)
+    # two ranks plan and pack at a time: a packing's peak (≈ 20 GB) on all
+    # four at once does not fit the card
+    for wave in range(2):
+        if mesh.rank % 2 == wave:
+            plan_path, plan_row = _moe_plan(
+                f"mesh_moe_rank{mesh.rank}", cfg,
+                SoDConfig(mode=args.sod, density=args.density, min_dim=64), args.seed,
+                serve.m_values(args, cfg), workdir)
+            model, params, tokens, plan = serve.prepare(
+                serve.parse_args(base + ["--plan", plan_path]), None, cfg)[:4]
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    if not all(isinstance(layer["moe"][n], torch.Tensor)
+               for layer in params["layers"] for n in moe.ROUTED):
+        raise AssertionError(f"rank {mesh.rank}: a routed expert was packed")
+    placed = sharding.place(params, sharding.param_specs(params, model.cfg, mesh), mesh)
+    per_forward = (sum(len(_packed_paths(layer)) for layer in params["layers"])
+                   + isinstance(params.get("head"), (TiledCSC, BlockCSR)))
+    row = _mesh_serve(model, params, placed, tokens, "sod_matmul", mesh,
+                      per_forward=per_forward, gen=MOE_MESH_GEN, plan=plan,
+                      mesh_model=LM(model.cfg.with_(moe_a2a_axis="model")),
+                      pin_routing=True)
+    moved = row["mesh"]["collectives"]
+    if not moved.get("counts", {}).get("all-to-all"):
+        raise AssertionError(f"rank {mesh.rank}: the all-to-all dispatch did not run: {moved}")
+    return {**row, "plan": plan_row, "per_forward": per_forward,
+            "all_to_all_calls": moved["counts"]["all-to-all"],
+            "all_to_all_bytes": moved["all-to-all"]}
+
+
+def _mesh_elastic(mesh, workdir: str) -> dict:
+    """Two mesh train steps at full width and MESH_TRAIN_LAYERS layers, the
+    whole state saved (``sharding.unplace``); then ranks ELASTIC_FAILED
+    leave, the survivors re-mesh (``fault.surviving_mesh``: (1, 2)),
+    restore onto it (``restore(shardings=)``) and take one step.  Its loss
+    within ELASTIC_LOSS_TOL of one process's on the same checkpoint (the
+    new rank 0 takes that step too), the whole state after it
+    (``sharding.unplace``: parameters, moments, masters) within
+    ELASTIC_STATE_TOL leaf by leaf and its step counter equal; its
+    launches derived from the config."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.runtime import fault, sharding, spmd
+
+    args = serve.parse_args(TILED_ARGV)
+    cfg = configs.get_config(args.arch).with_(n_layers=MESH_TRAIN_LAYERS)
+    model, params, *_ = serve.prepare(args, None, cfg)
+    opt = AdamW(AdamWConfig(lr=1e-4))
+    specs = sharding.param_specs(params, model.cfg, mesh)
+    placed = sharding.place(params, specs, mesh)
+    state = opt.init(placed)
+    data = SyntheticLMData(model.cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, seed=0)
+    step = steps_mod.make_train_step(model, opt, mesh=mesh)
+    losses = []
+    for i in range(2):
+        placed, state, metrics = step(placed, state, to_device(data.batch(i), "cuda"))
+        losses.append(float(metrics["loss"]))
+    t0 = time.perf_counter()
+    whole = sharding.unplace({"params": placed, "opt": state},
+                             sharding.train_state_specs(specs), mesh)
+    ck = Checkpointer(pathlib.Path(workdir) / "elastic")
+    if mesh.rank == 0:
+        ck.save(2, whole)
+    del whole
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    if mesh.rank in ELASTIC_FAILED:
+        dist.destroy_process_group()
+        return {"failed": True, "losses": losses, "save_s": save_s}
+    t0 = time.perf_counter()
+    new = fault.surviving_mesh(range(mesh.size), set(ELASTIC_FAILED), mesh.shape["model"],
+                               device="cuda")
+    new_specs = sharding.train_state_specs(sharding.param_specs(params, model.cfg, new))
+    restored = ck.restore(2, {"params": placed, "opt": state}, shardings=(new_specs, new))
+    del placed, state
+    remesh_s = time.perf_counter() - t0
+    batch = to_device(data.batch(2), "cuda")
+    reset_counts()
+    with registry.count_dispatches() as counts, spmd.count_collectives() as moved:
+        p, s, metrics = steps_mod.make_train_step(model, opt, mesh=new)(
+            restored["params"], restored["opt"], batch)
+    loss = float(metrics["loss"])
+    launches = {k: mod.launches for k, mod in COUNTERS.items()}
+    del restored
+    after = sharding.unplace({"params": p, "opt": s}, new_specs, new)
+    del p, s
+    # each packed product: its kernel forward and one decompress in the
+    # backward; under remat the replay of a block stops early, before its
+    # last product, whose local graph the mesh keeps: 6 of 7 again
+    packed = MESH_TRAIN_LAYERS * 7
+    want = {"sod_matmul": packed + (MESH_TRAIN_LAYERS * 6 if model.cfg.remat else 0),
+            "block_matmul": 0, "decompress": packed}
+    row = {"failed": False, "new_rank": new.rank, "new_shape": list(new.axis_sizes),
+           "losses": losses, "loss": loss, "launches": launches, "want_launches": want,
+           "dispatch": counts, "collective_bytes": {k: moved.get(k, 0) for k in
+                                                    ("all-gather", "all-reduce")},
+           "save_s": save_s, "remesh_restore_s": remesh_s}
+    if new.rank == 0:       # one process on the same checkpoint, the same step
+        one = ck.restore(2, {"params": params, "opt": opt.init(params)})
+        p1, s1, m1 = steps_mod.make_train_step(model, opt)(one["params"], one["opt"], batch)
+        del one
+        row["loss_one_process"] = float(m1["loss"])
+        row["rel_loss_err"] = abs(loss - row["loss_one_process"]) / abs(row["loss_one_process"])
+        row["state_err"] = state_dist(after, {"params": p1, "opt": s1})
+        worst = max(v for k, v in row["state_err"].items() if k != "step_equal")
+        if not (row["rel_loss_err"] <= ELASTIC_LOSS_TOL and worst <= ELASTIC_STATE_TOL
+                and row["state_err"]["step_equal"]):
+            raise AssertionError(f"elastic step: loss {loss} vs one process "
+                                 f"{row['loss_one_process']}, state {row['state_err']}")
+    if launches != want or {k.split("[")[0] for k in counts} != {"cuda_fused"}:
+        raise AssertionError(f"elastic step: launches {launches} (want {want}), "
+                             f"dispatched {counts}")
+    return row
+
+
+def _dry_cell() -> dict:
+    """One dry-run cell (DRY_CELL) on rank 0 of the 16 × 16 counting mesh,
+    in this process on meta tensors: nothing launches."""
+    from repro_torch.launch import dryrun
+
+    arch, shape, sod = DRY_CELL
+    before = {k: mod.launches for k, mod in COUNTERS.items()}
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, False, sod, DENSITY)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = {k: mod.launches - before[k] for k, mod in COUNTERS.items()}
+    return rec
+
+
 def mesh_rank(workdir: str, t_launch: str) -> dict:
-    """One rank of phase 14 (started by :func:`phase_mesh` through
-    ``launch.mesh.run_ranks``): the cells' ops, serving and the training
-    step's gradients on a (2, 2) mesh over ``gloo``, the kernels the build
-    phase built."""
+    """One rank of phases 14 and 15 (started by :func:`phase_mesh` through
+    ``launch.mesh.run_ranks``): the cells' ops, serving, the engine and the
+    training step's gradients on a (2, 2) mesh over ``gloo``, then MoE's
+    all-to-all and the elastic re-mesh, the kernels the build phase
+    built."""
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.runtime import sharding
 
@@ -3754,7 +4008,8 @@ def mesh_rank(workdir: str, t_launch: str) -> dict:
     for cell, (argv, sod, kernel) in MESH_CELLS.items():
         t0 = time.perf_counter()
         args = serve.parse_args(argv)
-        model, params, tokens, *_ = serve.prepare(args, sod)
+        model, params, tokens, *_ = serve.prepare(
+            args, sod, configs.get_config(args.arch).with_(n_layers=MESH_SERVE_LAYERS))
         placed = sharding.place(params, sharding.param_specs(params, model.cfg, mesh), mesh)
         torch.cuda.synchronize()
         packed = [w for ws in _projections(params).values() for w in ws]
@@ -3776,6 +4031,17 @@ def mesh_rank(workdir: str, t_launch: str) -> dict:
     t0 = time.perf_counter()
     out["grads"] = _mesh_grads(mesh)
     seconds["grads"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["engine"] = _mesh_engine(mesh)
+    seconds["engine"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["moe"] = _mesh_moe(mesh, workdir)
+    seconds["moe"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["elastic"] = _mesh_elastic(mesh, workdir)     # last: it ends the group
+    seconds["elastic"] = time.perf_counter() - t0
     out["seconds"] = seconds
     return out
 
@@ -3788,13 +4054,18 @@ def phase_mesh() -> dict:
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     t0 = time.perf_counter()
-    try:
-        ranks = mesh_mod.run_ranks(
-            math.prod(MESH_SHAPE), f"{pathlib.Path(__file__).resolve()}:mesh_rank", work,
-            args=(work, repr(time.time())), timeout=MESH_TIMEOUT_S)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    wall = time.perf_counter() - t0
+    # phase 15's dry-run cell runs on the host beside the rank group
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        dry = pool.submit(_dry_cell)
+        try:
+            ranks = mesh_mod.run_ranks(
+                math.prod(MESH_SHAPE), f"{pathlib.Path(__file__).resolve()}:mesh_rank", work,
+                args=(work, repr(time.time())), timeout=MESH_TIMEOUT_S)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        wall = time.perf_counter() - t0
+        dry = dry.result()
+    dry_s = time.perf_counter() - t0
     for r in ranks:
         for cell, row in r["cells"].items():
             disp = row["serve"]["mesh"]["dispatch"]
@@ -3818,7 +4089,55 @@ def phase_mesh() -> dict:
         if len({r["cells"][cell]["serve"]["max_abs_err"] for r in ranks}) != 1:
             raise AssertionError(f"{cell}: the ranks' logits differ")
     log({"phase": "mesh", "wall_s": wall, "ranks": len(ranks)})
-    return {cell: first[cell]["serve"]["mesh"]["launches"] for cell in first}
+    out = {cell: first[cell]["serve"]["mesh"]["launches"] for cell in first}
+    out.update(_phase15(ranks, dry, dry_s))
+    return out
+
+
+def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
+    """Phase 15's gates across the ranks and its lines: MoE's all-to-all,
+    the engine on the mesh, the elastic re-mesh, the dry-run cell."""
+    for r in ranks:
+        m = r["moe"]
+        log({"phase": "mesh_moe", "rank": r["rank"], "arch": MOE_MESH_ARCH,
+             "layers": MOE_MESH_LAYERS, "all_to_all_calls": m["all_to_all_calls"],
+             "all_to_all_bytes": m["all_to_all_bytes"],
+             "max_abs_err": m["max_abs_err"], "tol": m["tol"],
+             "greedy_agreement": m["greedy_agreement"],
+             "prefill_tokens_equal": m["prefill_tokens_equal"],
+             "routing_differs": m["routing_differs"],
+             "launches": m["mesh"]["launches"], "dispatch": m["mesh"]["dispatch"],
+             "plan": m["plan"]})
+        log({"phase": "mesh_engine", "rank": r["rank"], **r["engine"]})
+        log({"phase": "mesh_elastic", "rank": r["rank"], **r["elastic"]})
+    if len({r["moe"]["max_abs_err"] for r in ranks}) != 1:
+        raise AssertionError("mesh_moe: the ranks' logits differ")
+    survivors = [r["elastic"] for r in ranks if not r["elastic"]["failed"]]
+    if [r["rank"] for r in ranks if r["elastic"]["failed"]] != list(ELASTIC_FAILED) or \
+            sorted(e["new_rank"] for e in survivors) != [0, 1] or \
+            any(e["new_shape"] != [1, 2] for e in survivors) or \
+            len({e["loss"] for e in survivors}) != 1 or \
+            not any("state_err" in e for e in survivors):
+        raise AssertionError(f"elastic re-mesh: {survivors}")
+    if dry.get("status") != "ok" or any(dry["launches"].values()) or \
+            {k.split("[")[0] for k in dry["dispatch_counts"]} != {"cuda_fused"}:
+        raise AssertionError(f"dry-run cell: {dry.get('status')} "
+                             f"{dry.get('traceback', '')[-2000:]} launches {dry.get('launches')}")
+    log({"phase": "dryrun", "cell": "__".join(DRY_CELL), "device": dry["device"],
+         "flops": dry["cost"]["flops"], "peak_bytes_a_rank": dry["memory"]["peak_bytes"],
+         "argument_bytes": dry["memory"]["argument_bytes"],
+         "collective_bytes": {k: dry["collectives"][k] for k in
+                              ("all-gather", "all-reduce", "all-to-all", "total")},
+         "collective_counts": dry["collectives"]["counts"],
+         "dispatch_counts": dry["dispatch_counts"], "run_s": dry["run_s"],
+         "wall_s": dry["wall_s"], "with_group_s": dry_s})
+    log({"phase": "mesh15_seconds",
+         "by_rank": {r["rank"]: {k: r["seconds"].get(k) for k in ("engine", "moe", "elastic")}
+                     for r in ranks}, "dryrun_s": dry["wall_s"]})
+    elastic = next(e for e in survivors if e["new_rank"] == 0)
+    return {"mesh_moe_a2a": ranks[0]["moe"]["mesh"]["launches"],
+            "mesh_engine": ranks[0]["engine"]["launches"],
+            "mesh_elastic_step": elastic["launches"]}
 
 
 def main() -> None:

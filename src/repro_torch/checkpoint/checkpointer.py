@@ -20,11 +20,17 @@ on disk.  Both are named by their dtype in the manifest.  ``restore`` reads
 a float8 leaf by value from float16, and through its bits from ``uint8``
 (the port's older checkpoints) or from the ``|V1`` array numpy loads for
 the reference's float8 leaf; it then casts every leaf to its template's
-dtype and moves it to the template's device.
+dtype and moves it to the template's device.  A packed container's fields
+are named ``<path>.vals`` here and ``<path>[<flat index i>]`` by the
+reference (its i-th array child, None fields skipped); ``restore`` reads
+either.
 ``history`` records every save: its step, the seconds of the host copy and
 of the writes, and the bytes written.
-Restoring onto other shardings (the reference's ``shardings``) waits for
-the distributed runtime.
+``restore(shardings=(specs, mesh))`` places each leaf it reads as
+:func:`repro_torch.runtime.sharding.place` places it on that mesh (the
+reference's ``NamedSharding`` tree): the mesh may differ from the one that
+saved, as in an elastic re-shard.  A mesh run saves the whole state, its
+packed leaves gathered back (:func:`repro_torch.runtime.sharding.unplace`).
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ import msgpack
 import numpy as np
 import torch
 
-from repro_torch.core.tree import leaves_with_path, tree_map_with_path
+from repro_torch.core.tree import PACKED_FIELDS, leaves_with_path, tree_map, tree_map_with_path
 
 Params = Any
 _COMMITTED = "COMMITTED"
@@ -70,6 +76,22 @@ def _from_numpy(arr: np.ndarray, name: str) -> torch.Tensor:
     if t.element_size() == dtype.itemsize and not t.is_floating_point():
         return t.view(dtype)
     return t.to(dtype)
+
+
+_FIELD_NAMES = {f for fields in PACKED_FIELDS.values() for f in fields}
+
+
+def _reference_names(template: Params) -> dict[str, str]:
+    """Each packed field's name in a checkpoint the reference wrote: the
+    index of the field among its container's array children, in the order
+    both packages walk them (None fields are no children)."""
+    out, seen = {}, {}
+    for name, _ in leaves_with_path(template):
+        head, dot, field = name.rpartition(".")
+        if dot and field in _FIELD_NAMES:
+            i = seen[head] = seen.get(head, -1) + 1
+            out[name] = f"{head}[<flat index {i}>]"
+    return out
 
 
 class Checkpointer:
@@ -142,21 +164,36 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, template: Params) -> Params:
+    def restore(self, step: int, template: Params, shardings=None) -> Params:
         """Step ``step`` in ``template``'s structure, every leaf cast to its
         template leaf's dtype on its device.  Raises FileNotFoundError for an
-        uncommitted step and KeyError for a leaf the checkpoint lacks."""
+        uncommitted step and KeyError for a leaf the checkpoint lacks.
+
+        ``shardings``, a ``(specs, mesh)`` pair, places the whole leaves read
+        from disk on ``mesh`` (:func:`repro_torch.runtime.sharding.place`):
+        each rank keeps its resident blocks, each on its template leaf's
+        device (an optimizer's step counter stays on the CPU).  ``template``
+        may then be whole or placed on any mesh; only its structure, dtypes
+        and devices are read."""
         path = self.dir / f"step_{step:08d}"
         if not (path / _COMMITTED).exists():
             raise FileNotFoundError(f"no committed checkpoint at {path}")
         manifest = msgpack.unpackb((path / "MANIFEST.msgpack").read_bytes())
         by_name = {m["name"]: m for m in manifest["leaves"]}
+        theirs = _reference_names(template)
 
         def load(name: str, tmpl: torch.Tensor) -> torch.Tensor:
-            if name not in by_name:
+            meta = by_name.get(name) or by_name.get(theirs.get(name))
+            if meta is None:
                 raise KeyError(f"checkpoint missing leaf {name}")
-            meta = by_name[name]
             t = _from_numpy(np.load(path / f"{meta['index']}.npy"), meta["dtype"])
             return t.to(device=tmpl.device, dtype=tmpl.dtype)
 
-        return tree_map_with_path(load, template)
+        out = tree_map_with_path(load, template)
+        if shardings is None:
+            return out
+        from repro_torch.runtime import sharding  # deferred: checkpoint under runtime
+
+        specs, mesh = shardings
+        return tree_map(lambda t, tmpl: t.to(tmpl.device),
+                        sharding.place(sharding.whole(out), specs, mesh), template)

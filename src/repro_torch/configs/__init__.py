@@ -8,9 +8,16 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (
+    SHAPES,
+    SUBQUADRATIC_FAMILIES,
+    ModelConfig,
+    ShapeConfig,
+    shape_applicable,
+)
 
-__all__ = ["ARCH_NAMES", "ModelConfig", "get_config", "reduced"]
+__all__ = ["ARCH_NAMES", "ModelConfig", "ShapeConfig", "SHAPES", "SUBQUADRATIC_FAMILIES",
+           "shape_applicable", "get_config", "reduced"]
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",

@@ -128,3 +128,34 @@ class ModelConfig:
         if self.n_shared_experts:
             per += 3 * d * (self.d_shared_ff or f * self.n_shared_experts)
         return self.vocab * d * 2 + l * (qkvo + per)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry-run: a step kind at a sequence length and
+    global batch."""
+
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
+
+# families whose sequence mixing is sub-quadratic; a full-attention arch
+# skips long_500k
+SUBQUADRATIC_FAMILIES = ("hybrid", "ssm")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> bool:
+    """Whether ``cfg`` runs at ``shape``: long_500k needs a sub-quadratic
+    family, every other shape fits every arch."""
+    if shape.name == "long_500k":
+        return cfg.family in SUBQUADRATIC_FAMILIES
+    return True

@@ -15,6 +15,7 @@ Paths are strings in the form of ``jax.tree_util.keystr``:
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Iterator
 
 import torch
@@ -22,7 +23,7 @@ import torch
 from repro_torch.core.formats import BlockCSR, TiledCSC
 
 __all__ = ["PACKED_FIELDS", "tree_map", "tree_map_with_path", "tree_leaves",
-           "leaves_with_path", "leaves_along"]
+           "leaves_with_path", "leaves_along", "max_rel_dist"]
 
 # the tensor fields of each packed container, in the order they are walked
 PACKED_FIELDS = {
@@ -96,6 +97,20 @@ def leaves_with_path(tree, path: str = "") -> Iterator[tuple[str, torch.Tensor]]
 def tree_leaves(tree) -> list[torch.Tensor]:
     """Every tensor leaf, in walk order."""
     return [leaf for _, leaf in leaves_with_path(tree)]
+
+
+def max_rel_dist(got, want) -> float:
+    """The largest relative distance ``‖got − want‖ / ‖want‖`` over the
+    float leaves of two trees of one structure (0.0 for none); an integer
+    leaf that differs counts as inf."""
+    worst = 0.0
+    for x, y in zip(tree_leaves(got), tree_leaves(want)):
+        if not x.is_floating_point():
+            worst = max(worst, 0.0 if torch.equal(x, y) else math.inf)
+        elif x.numel():
+            worst = max(worst, torch.linalg.vector_norm(x.float() - y.float()).item()
+                        / max(torch.linalg.vector_norm(y.float()).item(), 1e-30))
+    return worst
 
 
 def leaves_along(tree, other) -> list:

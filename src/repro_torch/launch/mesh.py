@@ -13,6 +13,12 @@ among exactly the ranks that share the other coordinates.
 * :class:`Mesh` — an abstract mesh plus this rank's coordinates, its device
   and its groups, over a default group the caller has initialised with its
   backend (:func:`make_test_mesh`, :func:`make_fake_mesh`).
+* :class:`DryMesh` — the counting mesh of the dry-run
+  (:mod:`repro_torch.launch.dryrun`): one rank's coordinates of a
+  production mesh (:func:`make_dry_mesh`) and no process group.  On it the
+  port's collectives count what they would move and return ``meta``
+  tensors of the right shape, and each packed product resolves its kernel
+  as the card would and computes only its shape: nothing launches.
 * :func:`mesh_context` — the mesh that packed matmuls route through
   (:mod:`repro_torch.runtime.spmd`) while the block runs.
 * :func:`run_ranks` — starts N ranks as subprocesses over a ``FileStore``
@@ -43,8 +49,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["AbstractMesh", "Mesh", "make_production_mesh", "make_test_mesh",
-           "make_fake_mesh", "mesh_context", "dp_axes", "tp_axis", "run_ranks",
+__all__ = ["AbstractMesh", "Mesh", "DryMesh", "make_production_mesh", "make_dry_mesh",
+           "make_test_mesh", "make_fake_mesh", "mesh_context", "dp_axes", "tp_axis", "run_ranks",
            "GROUP_TIMEOUT", "FAKE_MESH_SHAPE"]
 
 # every group's collective timeout: a rank that dies fails its peers' next
@@ -60,6 +66,7 @@ class AbstractMesh:
 
     axis_sizes: tuple[int, ...]
     axis_names: tuple[str, ...]
+    dry = False        # True on a counting mesh (:class:`DryMesh`)
 
     def __post_init__(self):
         if len(self.axis_sizes) != len(self.axis_names):
@@ -76,7 +83,31 @@ class AbstractMesh:
         return int(np.prod(self.axis_sizes))
 
 
-class Mesh(AbstractMesh):
+class _RankMesh(AbstractMesh):
+    """An abstract mesh seen from one rank: ``rank`` and ``coords``."""
+
+    def _set_rank(self, rank: int, device) -> None:
+        object.__setattr__(self, "rank", int(rank))
+        object.__setattr__(self, "device", torch.device(device))
+        object.__setattr__(self, "coords", dict(zip(
+            self.axis_names, (int(c) for c in np.unravel_index(self.rank, self.axis_sizes)))))
+
+    def _axes(self, axes) -> tuple[str, ...]:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        unknown = set(axes) - set(self.axis_names)
+        if unknown:
+            raise ValueError(f"axes {sorted(unknown)} not in mesh {self.axis_names}")
+        return tuple(a for a in self.axis_names if a in axes)
+
+    def index(self, axes) -> int:
+        """This rank's row-major position over ``axes`` (0 for no axes)."""
+        idx = 0
+        for a in self._axes(axes) if axes else ():
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
+
+
+class Mesh(_RankMesh):
     """An :class:`AbstractMesh` over an initialised default process group:
     this rank's ``coords``, its ``device``, and a group per line of every
     set of axes (:meth:`group`), each created with :data:`GROUP_TIMEOUT`."""
@@ -89,10 +120,7 @@ class Mesh(AbstractMesh):
         if dist.get_world_size() != self.size:
             raise ValueError(f"mesh {self.shape} needs {self.size} ranks, the "
                              f"group has {dist.get_world_size()}")
-        object.__setattr__(self, "rank", dist.get_rank())
-        object.__setattr__(self, "device", torch.device(device))
-        object.__setattr__(self, "coords", dict(zip(
-            self.axis_names, (int(c) for c in np.unravel_index(self.rank, self.axis_sizes)))))
+        self._set_rank(dist.get_rank(), device)
         # every rank creates every group, in one order (new_group is collective)
         groups = {}
         grid = np.arange(self.size).reshape(self.axis_sizes)
@@ -107,25 +135,43 @@ class Mesh(AbstractMesh):
                 groups[tuple(self.axis_names[d] for d in axes)] = mine
         object.__setattr__(self, "_groups", groups)
 
-    def _axes(self, axes) -> tuple[str, ...]:
-        axes = (axes,) if isinstance(axes, str) else tuple(axes)
-        unknown = set(axes) - set(self.axis_names)
-        if unknown:
-            raise ValueError(f"axes {sorted(unknown)} not in mesh {self.axis_names}")
-        return tuple(a for a in self.axis_names if a in axes)
-
     def group(self, axes):
         """The process group of this rank's line over ``axes`` (one name or
         several, taken in mesh order); its ranks are ordered as
         :meth:`index` counts them."""
         return self._groups[self._axes(axes)]
 
-    def index(self, axes) -> int:
-        """This rank's row-major position over ``axes`` (0 for no axes)."""
-        idx = 0
-        for a in self._axes(axes) if axes else ():
-            idx = idx * self.shape[a] + self.coords[a]
-        return idx
+
+class DryMesh(_RankMesh):
+    """One rank of a mesh with no process group: the dry-run's counting mesh.
+
+    :mod:`repro_torch.runtime.spmd`'s collectives on it move nothing: they
+    count the bytes they would move into :func:`~repro_torch.runtime.spmd.
+    count_collectives` and return ``meta`` tensors of the shape a real group
+    gives.  A packed product resolves its kernel for ``backend``, the
+    card's, with the mesh-qualified key, notes that choice in the dispatch
+    log, and computes its shape through the plain version on ``meta``:
+    nothing launches, and every tensor of a run on it is on
+    ``device="meta"``."""
+
+    dry = True
+    backend = "cuda"
+
+    def __init__(self, axis_sizes, axis_names, rank: int = 0):
+        super().__init__(tuple(int(s) for s in axis_sizes), tuple(axis_names))
+        if not 0 <= int(rank) < self.size:
+            raise ValueError(f"rank {rank} outside mesh {self.shape}")
+        self._set_rank(rank, "meta")
+
+    def group(self, axes):
+        raise RuntimeError("a DryMesh has no process group: its collectives only count")
+
+
+def make_dry_mesh(*, multi_pod: bool = False) -> DryMesh:
+    """Rank 0 of the production mesh (:func:`make_production_mesh`) as a
+    counting mesh."""
+    m = make_production_mesh(multi_pod=multi_pod)
+    return DryMesh(m.axis_sizes, m.axis_names)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
@@ -259,9 +305,11 @@ def _rank_main(argv=None) -> None:
                             timeout=GROUP_TIMEOUT)
     try:
         result = _resolve(args.target)(*rest)
-        dist.barrier()
+        if dist.is_initialized():      # a rank that left a re-mesh has no group
+            dist.barrier()
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
     pathlib.Path(args.out).write_text(json.dumps(result))
 
 

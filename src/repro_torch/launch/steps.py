@@ -53,17 +53,18 @@ def make_train_step(model: LM, optimizer: AdamW, mesh=None, plan=None):
 
     def train_step(params, opt_state, batch):
         _, metrics, grads = loss_and_grads(params, batch)
-        params, opt_state, opt_metrics = optimizer.update(params, grads, opt_state)
+        params, opt_state, opt_metrics = optimizer.update(params, grads, opt_state, mesh=mesh)
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step
 
 
 def make_prefill_step(model: LM, mesh=None, plan=None):
-    """``(params, tokens) -> (greedy next tokens (B,), cache)``."""
-    def prefill_step(params, tokens):
+    """``(params, tokens, *, patch_embeds=None) -> (greedy next tokens (B,),
+    cache)``; a VLM's patches go in as ``patch_embeds``."""
+    def prefill_step(params, tokens, *, patch_embeds=None):
         with mesh_context(mesh), use_plan(plan):
-            last_logits, cache = model.prefill(params, tokens)
+            last_logits, cache = model.prefill(params, tokens, patch_embeds=patch_embeds)
         return last_logits.argmax(dim=-1), cache
 
     return prefill_step

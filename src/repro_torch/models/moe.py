@@ -1,7 +1,6 @@
 """Mixture-of-Experts MLP with top-k routing and a shared expert.
 
-Twin of :mod:`repro.models.moe` for its meshless path, which covers the two
-MoE configs: granite-moe-1b-a400m (32 routed experts, top-8) and
+Twin of :mod:`repro.models.moe`, which covers the two MoE configs: granite-moe-1b-a400m (32 routed experts, top-8) and
 qwen2-moe-a2.7b (60 routed experts padded to 64, top-4, and a shared
 expert behind a sigmoid gate).  Dispatch is the reference's capacity
 buffer: each token's k assignments are ranked first-come within their
@@ -15,11 +14,17 @@ outside any Sparse-on-Dense kernel, as in the reference; they keep its
 float32 sums (:func:`repro_torch.kernels.ops.dense_matmul`).  The shared expert's MLP runs
 through ``sod.apply`` like any MLP.
 
-The reference's ``a2a_axis`` exchange (``_a2a_dispatch``) and its sharding
-constraints act only under a device mesh.  The port has a mesh
-(:mod:`repro_torch.launch.mesh`), but its all-to-all path waits
-(``ROADMAP.md`` §A), so ``a2a_axis`` is ignored, under a mesh too: every
-rank runs the whole MoE block.  Packed routed experts are refused
+Under an active mesh (:mod:`repro_torch.launch.mesh`) that has the
+``a2a_axis`` (expert parallelism, EP), the routed experts run as the
+reference's ``_a2a_dispatch``: the tokens split over (data axes × EP), each
+rank ranks its own block into a capacity buffer, an all-to-all over the EP
+line hands every rank the tokens of its ``E / ep`` experts, and the reverse
+all-to-all brings the results back (:func:`_a2a_dispatch`).  The result
+equals the capacity dispatch with ``dispatch_blocks`` = the number of
+token shards.  Where the reference falls back (no mesh, the EP axis among
+the data axes, experts or tokens that do not divide) the port takes the
+capacity dispatch too.  The reference's sharding constraints only guide
+GSPMD and have no counterpart.  Packed routed experts are refused
 (:func:`moe_mlp`): the reference's batched einsum cannot take a packed
 operand either.
 """
@@ -57,7 +62,7 @@ class MoESpec:
     router_aux_weight: float = 0.01
     act: str = "silu"
     dispatch_blocks: int = 1    # rank and dispatch within this many token blocks
-    a2a_axis: str | None = None  # the reference's all-to-all axis; ignored (not ported)
+    a2a_axis: str | None = None  # mesh axis of the all-to-all exchange (EP); None: capacity dispatch
 
     def capacity(self, n_tokens: int) -> int:
         """Slots an expert has for ``n_tokens`` tokens: ``n · k / E ·
@@ -159,12 +164,81 @@ def _check_dense_experts(params: Params) -> None:
             "which keeps them dense")
 
 
+def _a2a_dispatch(params: Params, xt: torch.Tensor, gate_vals: torch.Tensor,
+                  expert_ids: torch.Tensor, spec: MoESpec):
+    """The routed experts' output (T, D) through the all-to-all token
+    exchange over ``spec.a2a_axis``, or None where the reference's
+    ``_a2a_dispatch`` returns None: no active mesh or no such axis in it,
+    inside an SPMD body, the EP axis among the data axes, or experts or
+    tokens that do not divide.
+
+    ``xt`` is global on every rank (the port's layout).  The rank takes its
+    token block by its (data…, EP) position, ranks the block's assignments
+    first-come into an (E, cap, D) buffer, and exchanges it over the EP
+    line (:func:`repro_torch.runtime.spmd.exchange`): it receives, for each
+    of its ``E / ep`` experts, every EP peer's buffer.  Its experts run as
+    the capacity dispatch runs them (float32 sums), the reverse exchange
+    returns the results, and the combined block is gathered, so every rank
+    holds the global output.  The expert leaves are whole on every rank and
+    the rank slices its own; under autograd their gradients are summed over
+    the data axes (float32) and gathered over EP, and the exchange's
+    backward is the reverse exchange."""
+    from repro_torch.runtime import spmd  # deferred: models layer under runtime
+
+    mesh = spmd.active_mesh()
+    ep_ax = spec.a2a_axis
+    if mesh is None or ep_ax not in mesh.axis_names or spmd.in_spmd_body():
+        return None
+    t, d = xt.shape
+    e, k = spec.n_experts_padded, spec.top_k
+    ep = mesh.shape[ep_ax]
+    dp = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    if ep_ax in dp:
+        return None                      # EP must be distinct from the data axes
+    n_tok_shards = ep
+    for a in dp:
+        n_tok_shards *= mesh.shape[a]
+    if e % ep or t % n_tok_shards:
+        return None                      # shapes do not divide: capacity dispatch
+    t_l, e_per = t // n_tok_shards, e // ep
+    cap = spec.capacity(t_l)
+    tok_axes = dp + (ep_ax,)
+
+    xt_l = spmd.shard_rows(xt, mesh, tok_axes)
+    gate_l = spmd.shard_rows(gate_vals, mesh, tok_axes)
+    assign = spmd.shard_rows(expert_ids, mesh, tok_axes).reshape(-1)    # (t_l·K,)
+    w = {n: spmd.shard_rows(params[n], mesh, ep_ax, sum_axes=dp) for n in ROUTED}
+    slot = _rank_in_expert(assign, e)
+    keep = slot < cap
+    src = xt_l[:, None, :].expand(t_l, k, d).reshape(-1, d)
+    # kept (expert, slot) pairs are unique: a store equals the reference's add
+    buf = torch.index_put(xt_l.new_zeros((e, cap + 1, d)),
+                          (assign, torch.where(keep, slot, cap)), src)[:, :cap]
+    # block j of the E dim (peer j's experts) goes to peer j; what comes back
+    # is, for this rank's experts, every peer's buffer in peer order
+    recv = spmd.exchange(buf, mesh, ep_ax).reshape(ep, e_per, cap, d)
+    recv = recv.transpose(0, 1).reshape(e_per, ep * cap, d)
+    h_gate = ops.dense_matmul(recv, w["w_gate"], xt.dtype)
+    h_up = ops.dense_matmul(recv, w["w_up"], xt.dtype)
+    h = layers.activate(h_gate, spec.act) * h_up
+    out_e = ops.dense_matmul(h, w["w_down"], xt.dtype)                 # (E/ep, ep·C, D)
+    out_e = out_e.reshape(e_per, ep, cap, d).transpose(0, 1).reshape(e, cap, d)
+    back = spmd.exchange(out_e, mesh, ep_ax)                           # (E, C, D)
+    gathered = back[assign, slot.clamp(0, cap - 1)]
+    gathered = torch.where(keep[:, None], gathered, 0)
+    weights = (gate_l.reshape(-1) * keep).to(xt.dtype)
+    y_l = (gathered * weights[:, None]).reshape(t_l, k, d).sum(1)
+    return spmd.gather_rows(y_l, mesh, tok_axes)
+
+
 def moe_mlp(params: Params, x: torch.Tensor, spec: MoESpec, plans=None):
     """x (B, S, D) → (y (B, S, D), router aux loss (float32 scalar)).
 
     ``plans`` maps the shared expert's projection names to their
     :class:`repro_torch.core.plan.PackPlan`.  The routed experts must be
-    dense: a packed one raises ``ValueError`` (fault R4).
+    dense: a packed one raises ``ValueError`` (fault R4).  With
+    ``spec.a2a_axis`` under a mesh that has it, they run through
+    :func:`_a2a_dispatch`; else through the capacity dispatch.
     """
     _check_dense_experts(params)
     b, s, d = x.shape
@@ -176,14 +250,40 @@ def moe_mlp(params: Params, x: torch.Tensor, spec: MoESpec, plans=None):
     gate_vals, expert_ids = _top_k(probs, k)                  # (T, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
 
-    # capacity dispatch, ranked within each of nb contiguous token blocks
+    combined = None
+    if spec.a2a_axis is not None:
+        combined = _a2a_dispatch(params, xt, gate_vals, expert_ids, spec)
+    if combined is None:
+        combined = _capacity_dispatch(params, xt, gate_vals, expert_ids, spec)
+
+    if "shared" in params:
+        combined = combined + shared_gate(params, xt) * layers.mlp(
+            params["shared"], xt, spec.act, plans=plans)
+
+    # Switch-style load-balance loss; the reference's unused ``ce`` is skipped.
+    # The counts are a scatter-add (bincount's, shape-static on meta tensors)
+    me = probs.mean(0)
+    ids = expert_ids.reshape(-1)
+    frac = torch.zeros(e, dtype=ids.dtype, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids)).float() / (t * k)
+    aux = spec.router_aux_weight * (frac * me).sum() * e
+    return combined.reshape(b, s, d), aux
+
+
+def _capacity_dispatch(params: Params, xt: torch.Tensor, gate_vals: torch.Tensor,
+                       expert_ids: torch.Tensor, spec: MoESpec) -> torch.Tensor:
+    """The routed experts' output (T, D) through the reference's capacity
+    buffer, ranked within ``spec.dispatch_blocks`` contiguous token blocks
+    (one block when they do not divide T)."""
+    t, d = xt.shape
+    e, k = spec.n_experts_padded, spec.top_k
     nb = spec.dispatch_blocks if t % spec.dispatch_blocks == 0 else 1
     tb = t // nb
     cap = spec.capacity(tb)
     slot = _rank_in_expert(expert_ids.reshape(nb, tb * k), e).reshape(t, k)
     keep = slot < cap
     flat_e = expert_ids.reshape(-1)
-    flat_b = torch.arange(nb, device=x.device).repeat_interleave(tb * k)
+    flat_b = torch.arange(nb, device=xt.device).repeat_interleave(tb * k)
     flat_slot = torch.where(keep, slot, cap).reshape(-1)      # cap: the drop bin
     src = xt[:, None, :].expand(t, k, d).reshape(-1, d)
     # every kept (e, b, slot) is unique, so a store equals the reference's add
@@ -200,14 +300,4 @@ def moe_mlp(params: Params, x: torch.Tensor, spec: MoESpec, plans=None):
     gathered = out_e[flat_e, flat_b, flat_slot.clamp(0, cap - 1)]
     gathered = torch.where(keep.reshape(-1, 1), gathered, 0)
     weights = (gate_vals * keep).reshape(-1, 1).to(xt.dtype)
-    combined = (gathered * weights).reshape(t, k, d).sum(1)
-
-    if "shared" in params:
-        combined = combined + shared_gate(params, xt) * layers.mlp(
-            params["shared"], xt, spec.act, plans=plans)
-
-    # Switch-style load-balance loss; the reference's unused ``ce`` is skipped
-    me = probs.mean(0)
-    frac = torch.bincount(expert_ids.reshape(-1), minlength=e).float() / (t * k)
-    aux = spec.router_aux_weight * (frac * me).sum() * e
-    return combined.reshape(b, s, d), aux
+    return (gathered * weights).reshape(t, k, d).sum(1)

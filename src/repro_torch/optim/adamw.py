@@ -21,13 +21,37 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.core.tree import leaves_along, tree_leaves, tree_map
+from repro_torch.core.tree import leaves_along, max_rel_dist, tree_leaves, tree_map
 
 Params = Any
 
 
 def _is_float(leaf) -> bool:
     return isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
+
+
+def _sq_norm(params: Params, live: list[int], gs: list[torch.Tensor], mesh) -> torch.Tensor:
+    """The squared global norm of ``gs`` (the float gradients at the leaves
+    ``live``), summed over the mesh where a leaf is split."""
+    norms = torch._foreach_norm(gs)
+    if mesh is None:
+        return sum(n * n for n in norms)
+    from repro_torch.runtime import sharding, spmd
+
+    axes = sharding.split_axes(params)
+    by_axes: dict[tuple[str, ...], torch.Tensor] = {}
+    for i, n in zip(live, norms):
+        by_axes[axes[i]] = by_axes.get(axes[i], 0) + n * n
+    return sum(spmd.all_reduce(sq, mesh, a) if a else sq for a, sq in sorted(by_axes.items()))
+
+
+def state_dist(got: Params, want: Params) -> dict:
+    """How far two whole train states ``{"params", "opt"}`` lie apart, leaf
+    by leaf (:func:`repro_torch.core.tree.max_rel_dist`): the parameters,
+    the moments and the masters, and whether the step counters agree."""
+    return {"params": max_rel_dist(got["params"], want["params"]),
+            **{k: max_rel_dist(got["opt"][k], want["opt"][k]) for k in ("m", "v", "master")},
+            "step_equal": int(got["opt"]["step"]) == int(want["opt"]["step"])}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +90,14 @@ class AdamW:
                 "m": tree_map(moments, params), "v": tree_map(moments, params),
                 "master": tree_map(master, params)}
 
-    def update(self, params: Params, grads: Params, state: Params):
+    def update(self, params: Params, grads: Params, state: Params, mesh=None):
         """One step: the global-norm clip over all float gradients, then
-        bias-corrected AdamW with decoupled weight decay on the masters."""
+        bias-corrected AdamW with decoupled weight decay on the masters.
+
+        With ``mesh`` (the placed parameters of one rank,
+        :func:`repro_torch.runtime.sharding.place`) the norm is the whole
+        tree's: a packed leaf's resident block holds only its share, so the
+        squares of each set of split axes are summed over them."""
         cfg = self.cfg
         step = state["step"] + 1
         lr = float(self.schedule(step) if self.schedule else cfg.lr)
@@ -82,9 +111,11 @@ class AdamW:
         ms, vs, ws = ([flat[i] for i in live] for flat in (flat_m, flat_v, flat_w))
 
         # global-norm clip over the float gradients
-        sq = sum(n * n for n in torch._foreach_norm(gs)) if gs else torch.zeros(())
+        sq = _sq_norm(params, live, gs, mesh) if gs else torch.zeros(())
         gnorm = torch.sqrt(sq + 1e-20)
-        clip = min(1.0, cfg.grad_clip / float(gnorm))
+        # min(1, clip / gnorm) in float64 on the device: a host float's
+        # numbers without reading the norm back (meta tensors have none)
+        clip = torch.clamp(cfg.grad_clip / gnorm.double(), max=1.0)
         bc1 = 1 - cfg.b1 ** float(step)
         bc2 = 1 - cfg.b2 ** float(step)
         if gs:

@@ -37,8 +37,8 @@ from repro_torch.core.formats import BlockCSR, Shard, TiledCSC
 from repro_torch.core.tree import PACKED_FIELDS
 from repro_torch.launch.mesh import dp_axes
 
-__all__ = ["param_specs", "opt_state_specs", "batch_specs", "cache_specs",
-           "packed_matmul_plans", "place"]
+__all__ = ["param_specs", "opt_state_specs", "train_state_specs", "batch_specs",
+           "cache_specs", "packed_matmul_plans", "place", "unplace", "whole", "split_axes"]
 
 Params = Any
 
@@ -184,6 +184,14 @@ def param_specs(params: Params, cfg, mesh) -> Params:
         params, _period(cfg))
 
 
+def train_state_specs(specs: Params) -> Params:
+    """Specs of a train state ``{"params", "opt"}`` whose AdamW moments and
+    masters lie as the parameters do (:func:`place` of the state): what
+    :func:`unplace` of the state and ``Checkpointer.restore(shardings=)``
+    take beside the mesh."""
+    return {"params": specs, "opt": {"step": (), "m": specs, "v": specs, "master": specs}}
+
+
 # ---------------------------------------------------------------------------
 # ZeRO-1 optimizer-state specs
 # ---------------------------------------------------------------------------
@@ -310,6 +318,12 @@ def packed_matmul_plans(params: Params, cfg, mesh) -> dict:
 # ---------------------------------------------------------------------------
 # placement
 # ---------------------------------------------------------------------------
+def _unsplit(field: str, t: torch.Tensor) -> bool:
+    """Fields that stay whole in a block: the codebook (a whole-matrix
+    table) and an optimizer state's 0-d placeholder of an integer field."""
+    return field == "codebook" or t.ndim < 2
+
+
 def _resident(leaf, spec, mesh):
     """This rank's block of a whole packed leaf under its spec container."""
     from repro_torch.runtime.spmd import _block
@@ -324,7 +338,7 @@ def _resident(leaf, spec, mesh):
     bk, bn = leaf.tile
     k, n = leaf.shape
     local = {f: None if t is None else (
-        t if f == "codebook" else _block(t, mesh, kt_ax, nt_ax)).contiguous().to(mesh.device)
+        t if _unsplit(f, t) else _block(t, mesh, kt_ax, nt_ax)).contiguous().to(mesh.device)
         for f, t in fields.items()}
     shape = ((kt // mesh.shape[kt_ax]) * bk if kt_ax else k,
              (nt // mesh.shape[nt_ax]) * bn if nt_ax else n)
@@ -347,3 +361,64 @@ def place(params: Params, specs: Params, mesh) -> Params:
         return params.to(mesh.device)
     return params
 
+
+
+def _unblocked(leaf, spec, mesh):
+    """The whole packed leaf from every rank's resident block (bytes)."""
+    from repro_torch.runtime.spmd import _unblock
+
+    if leaf.shard is None:
+        return leaf
+    field = "vals" if isinstance(leaf, TiledCSC) else "block_vals"
+    kt_ax, nt_ax = tuple(getattr(spec, field))[:2]
+    if (kt_ax, nt_ax) != (leaf.shard.kt_axis, leaf.shard.nt_axis):
+        raise ValueError(f"spec axes {(kt_ax, nt_ax)} are not the block's "
+                         f"{(leaf.shard.kt_axis, leaf.shard.nt_axis)}")
+    fields = {f: t if t is None or _unsplit(f, t) else
+              _unblock(t, mesh, kt_ax, nt_ax, "reshard_bytes")
+              for f, t in ((f, getattr(leaf, f)) for f in PACKED_FIELDS[type(leaf)])}
+    return dataclasses.replace(leaf, **fields, shape=leaf.shard.shape, shard=None)
+
+
+def unplace(params: Params, specs: Params, mesh) -> Params:
+    """The inverse of :func:`place` (the twin of ``device_get`` on sharded
+    arrays): each packed leaf's resident blocks gathered back, as bytes over
+    the mesh, into the whole leaf; every other leaf is whole already.  A
+    collective: every rank of the mesh calls it and gets the whole tree."""
+    if _is_packed(params):
+        return _unblocked(params, specs, mesh)
+    if isinstance(params, dict):
+        return {k: unplace(v, specs[k], mesh) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(unplace(v, s, mesh) for v, s in zip(params, specs))
+    return params
+
+
+def split_axes(tree: Params) -> list[tuple[str, ...]]:
+    """The mesh axes each tensor leaf of a placed tree is split over, in the
+    walk order of :func:`repro_torch.core.tree.tree_leaves`: a packed
+    leaf's blocked fields its resident block's Kt and Nt axes, every other
+    leaf (whole on every rank) none."""
+    if _is_packed(tree):
+        shard = tree.shard
+        axes = tuple(a for a in (shard.kt_axis, shard.nt_axis) if a) if shard else ()
+        return [() if _unsplit(f, t) else axes
+                for f in PACKED_FIELDS[type(tree)] if (t := getattr(tree, f)) is not None]
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in split_axes(v)]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in split_axes(v)]
+    return [()] if isinstance(tree, torch.Tensor) else []
+
+
+def whole(tree: Params) -> Params:
+    """``tree`` with every packed leaf's metadata the whole operand's (its
+    ``shape`` the global one, no ``shard``): for fields that hold the whole
+    grid again, such as a checkpoint read into a placed template."""
+    if _is_packed(tree):
+        return dataclasses.replace(tree, shape=tuple(tree.global_shape), shard=None)
+    if isinstance(tree, dict):
+        return {k: whole(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(whole(v) for v in tree)
+    return tree

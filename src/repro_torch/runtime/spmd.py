@@ -35,9 +35,18 @@ output cotangent, runs the local kernel's own backward, sums weight
 gradients over the batch axes and activation gradients over the column
 axis, and gathers what it must; padding slots keep exactly-zero gradients.
 
-Collectives are ``all_gather`` and ``all_reduce`` only.  Every tensor
-crosses as bytes in ``all_gather`` (fp8 codes included); sums go through
-float32.
+Collectives are ``all_gather``, ``all_reduce`` and ``all_to_all`` (MoE's
+token exchange, :mod:`repro_torch.models.moe`).  Every tensor crosses as
+bytes in ``all_gather`` and ``all_to_all`` (fp8 codes included); sums go
+through float32.  :func:`shard_rows` and :func:`gather_rows` take a rank's
+block of a replicated tensor and put the blocks back together, each the
+other's transpose under autograd.
+
+On a counting mesh (:class:`repro_torch.launch.mesh.DryMesh`, the
+dry-run's) nothing launches and nothing crosses: each collective counts the
+bytes it would move and returns a ``meta`` tensor of the shape a group
+gives, and a packed product resolves the kernel of the mesh's backend (the
+card's) and computes only its shape (:func:`_shape_product`).
 """
 from __future__ import annotations
 
@@ -68,6 +77,10 @@ __all__ = [
     "count_collectives",
     "all_gather",
     "all_reduce",
+    "all_to_all",
+    "exchange",
+    "shard_rows",
+    "gather_rows",
 ]
 
 _IN_BODY = contextvars.ContextVar("repro_torch_spmd_in_body", default=False)
@@ -115,8 +128,16 @@ def count_collectives(counts: dict | None = None):
     received), ``reshard_bytes`` (compressed resident blocks gathered where
     a plan reads another block), ``output_bytes`` (the gathers of ``y`` and
     of the activation gradient, received), ``reduce_bytes`` (buffers summed
-    by ``all_reduce``), ``grad_bytes`` (the weight gradients' gathers,
-    received), and ``calls``."""
+    by ``all_reduce``), ``grad_bytes`` (the weight gradients' gathers and
+    sums), ``a2a_bytes`` (MoE's exchanged capacity buffers, received from
+    the other ranks), and ``calls``.
+
+    Beside them, per collective in the reference dry-run's kinds
+    (``repro.launch.dryrun.collective_bytes``): ``all-gather`` (the
+    gathered result's bytes), ``all-reduce`` (twice the summed buffer's:
+    a ring's reduce-scatter and all-gather) and ``all-to-all`` (the
+    exchanged buffer's), and under ``counts`` the number of calls of each,
+    keyed by the same kinds."""
     counts = {} if counts is None else counts
     _COUNTS.append(counts)
     try:
@@ -128,10 +149,13 @@ def count_collectives(counts: dict | None = None):
                 break
 
 
-def _note(kind: str, nbytes: int) -> None:
+def _note(kind: str, nbytes: int, op: str, op_bytes: int) -> None:
     for counts in _COUNTS:
         counts[kind] = counts.get(kind, 0) + int(nbytes)
         counts["calls"] = counts.get("calls", 0) + 1
+        counts[op] = counts.get(op, 0) + int(op_bytes)
+        calls = counts.setdefault("counts", {})
+        calls[op] = calls.get(op, 0) + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -303,10 +327,15 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int, kind: str) -> torch.Tensor
     if n == 1:
         return t
     t = t.contiguous()
+    nbytes = t.numel() * t.element_size()
+    _note(kind, nbytes * (n - 1), "all-gather", nbytes * n)
+    if mesh.dry:
+        shape = list(t.shape)
+        shape[dim] *= n
+        return t.new_empty(shape)
     raw = t.reshape(-1).view(torch.uint8)
     parts = [torch.empty_like(raw) for _ in range(n)]
     dist.all_gather(parts, raw, group=mesh.group(axes))
-    _note(kind, raw.numel() * (n - 1))
     return torch.cat([p.view(t.dtype).reshape(t.shape) for p in parts], dim=dim)
 
 
@@ -318,9 +347,115 @@ def all_reduce(t: torch.Tensor, mesh, axes, kind: str = "reduce_bytes") -> torch
     if _axes_size(mesh, axes) == 1:
         return t
     buf = t.to(torch.float32, copy=True) if t.is_floating_point() else t.clone()
-    dist.all_reduce(buf, group=mesh.group(axes))
-    _note(kind, buf.numel() * buf.element_size())
+    nbytes = buf.numel() * buf.element_size()
+    _note(kind, nbytes, "all-reduce", 2 * nbytes)
+    if not mesh.dry:
+        dist.all_reduce(buf, group=mesh.group(axes))
     return buf.to(t.dtype)
+
+
+def all_to_all(t: torch.Tensor, mesh, axes, kind: str = "a2a_bytes") -> torch.Tensor:
+    """The exchange of ``t``'s n equal blocks along dim 0 over the line of
+    ``axes`` (n ranks): block i goes to the rank at position i, and block i
+    of the result is what that rank sent here.  The tensor crosses as
+    bytes (``gloo`` takes CPU and CUDA tensors for ``all_to_all_single``);
+    the bytes received from the other ranks count under ``kind``."""
+    axes = _axes_of(axes)
+    n = _axes_size(mesh, axes)
+    if n == 1:
+        return t
+    if t.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(t.shape)} does not split over {n} ranks")
+    t = t.contiguous()
+    nbytes = t.numel() * t.element_size()
+    _note(kind, nbytes - nbytes // n, "all-to-all", nbytes)
+    if mesh.dry:
+        return torch.empty_like(t)
+    raw = t.reshape(-1).view(torch.uint8)
+    out = torch.empty_like(raw)
+    dist.all_to_all_single(out, raw, group=mesh.group(axes))
+    return out.view(t.dtype).reshape(t.shape)
+
+
+class _Exchange(torch.autograd.Function):
+    """:func:`all_to_all` under autograd: the cotangent of block i came from
+    the rank at position i, so the backward is the same exchange run the
+    other way."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return all_to_all(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.mesh, ctx.axes), None, None
+
+
+def exchange(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Differentiable :func:`all_to_all` (its backward the reverse
+    exchange)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Exchange.apply(t, mesh, axes)
+    return all_to_all(t, mesh, axes)
+
+
+def _own_block(t: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    n = _axes_size(mesh, _axes_of(axes))
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.index(axes) * size, size)
+
+
+class _ShardRows(torch.autograd.Function):
+    """This rank's block of a replicated tensor; the backward sums the
+    block's cotangent over ``sum_axes`` (float32) and gathers the blocks,
+    so every rank holds the whole gradient."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim, sum_axes):
+        ctx.args = (mesh, axes, dim, sum_axes)
+        return _own_block(t, mesh, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, sum_axes = ctx.args
+        if sum_axes:
+            g = all_reduce(g, mesh, sum_axes, "grad_bytes")
+        return all_gather(g, mesh, axes, dim, "grad_bytes"), None, None, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's block, put together along ``dim``; the cotangent is
+    replicated, so the backward takes this rank's block of it."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return all_gather(t, mesh, axes, dim, "output_bytes")
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim = ctx.args
+        return _own_block(g, mesh, axes, dim).contiguous(), None, None, None
+
+
+def shard_rows(t: torch.Tensor, mesh, axes, dim: int = 0, sum_axes=()) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``t``, the same on every rank of
+    ``axes`` (blocks in :meth:`~repro_torch.launch.mesh.Mesh.index` order).
+    Under autograd its gradient is every rank's block gathered, after a
+    sum over ``sum_axes`` (the ranks that used the same block)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _ShardRows.apply(t, mesh, axes, dim, _axes_of(sum_axes))
+    return _own_block(t, mesh, axes, dim).contiguous()
+
+
+def gather_rows(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` put together along ``dim`` over ``axes`` (the
+    inverse of :func:`shard_rows`); under autograd the replicated
+    cotangent's own block flows back."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GatherRows.apply(t, mesh, axes, dim)
+    return all_gather(t, mesh, axes, dim, "output_bytes")
 
 
 def _block(t: torch.Tensor, mesh, kt_ax, nt_ax) -> torch.Tensor:
@@ -452,7 +587,10 @@ class _Call:
             # on this graph would trigger a second time
             with (torch.enable_grad() if grad else contextlib.nullcontext()), \
                     torch.autograd.graph.saved_tensors_hooks(_keep, _keep):
-                y_l = chosen.run(x_l, w_l, out_dtype=self.out_dtype, **run_params)
+                if x_l.device.type == "meta":
+                    y_l = _shape_product(x_l, w_l, self.out_dtype)
+                else:
+                    y_l = chosen.run(x_l, w_l, out_dtype=self.out_dtype, **run_params)
         finally:
             _IN_BODY.reset(token)
         self.y_l = y_l
@@ -493,6 +631,18 @@ class _Call:
                 g = self._resident_grad(name, all_reduce(g, mesh, axes))
             out.append(g)
         return gx, out
+
+
+def _shape_product(x: torch.Tensor, w, out_dtype: torch.dtype) -> torch.Tensor:
+    """The local product on ``meta`` tensors (a counting mesh): the plain
+    version's ops on the operand densified to its whole tiles (Kp, Np), so
+    a flop counter sees what the dense unit computes, 2·M·Kp·Np (and under
+    autograd its two transposes); nothing is computed."""
+    from repro_torch.kernels import ref  # deferred: runtime layers over kernels
+
+    (kt, nt), (bk, bn), (k, n) = w.grid, w.tile, w.shape
+    dense = F.pad(w.to_dense(), (0, nt * bn - n, 0, kt * bk - k))
+    return ref.dense_matmul_ref(F.pad(x, (0, kt * bk - k)), dense, out_dtype)[:, :n]
 
 
 class _SpmdMatmul(torch.autograd.Function):
@@ -545,8 +695,8 @@ def sod_matmul_spmd(
     if x.shape[-1] != k:
         raise ValueError(f"x inner dim {x.shape[-1]} != W K {k}")
     call = _Call(x, w, mesh, plan, impl, bm, out_dtype or x.dtype,
-                 backend or registry.current_backend(x.device), params,
-                 fallback_params)
+                 backend or getattr(mesh, "backend", None)
+                 or registry.current_backend(x.device), params, fallback_params)
     tensors = [getattr(w, f) for f in call.fields]
     if torch.is_grad_enabled() and (x.requires_grad or any(
             t is not None and t.requires_grad for t in tensors)):

@@ -4,7 +4,7 @@ sharing, speculative decoding and a persistent multi-tier prefix cache) over
 Sparse-on-Dense packed weights.
 
 Twin of :mod:`repro.serving`."""
-from repro_torch.serving.engine import Engine, bucket_len, static_generate
+from repro_torch.serving.engine import Engine, bucket_len, mesh_static_generate, static_generate
 from repro_torch.serving.pool import PagePool, PoolExhausted, PrefixTrie
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import Request, Scheduler, SeqState
@@ -14,6 +14,6 @@ from repro_torch.serving.trace import (poisson_trace, repeated_prompt_trace,
 __all__ = [
     "Engine", "PagePool", "PoolExhausted", "PrefixCache", "PrefixTrie",
     "Request", "Scheduler", "SeqState", "bucket_len", "poisson_trace",
-    "repeated_prompt_trace", "shared_prefix_trace", "static_generate",
+    "repeated_prompt_trace", "shared_prefix_trace", "static_generate", "mesh_static_generate",
     "stress_spec_trace",
 ]

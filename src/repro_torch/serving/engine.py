@@ -180,11 +180,18 @@ def _param_device(params: Params) -> torch.device:
 
 class Engine:
     """Continuous-batching engine: paged KV pool + request scheduler +
-    ragged batched decode over one shared (optionally SoD-packed) model."""
+    ragged batched decode over one shared (optionally SoD-packed) model.
+
+    With ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`) every step runs
+    under it, so each packed product runs as this rank's local problem
+    (:mod:`repro_torch.runtime.spmd`); every rank of the mesh runs the
+    engine on the same requests, with ``params`` whole or placed
+    (:func:`repro_torch.runtime.sharding.place`), and gets the same
+    tokens."""
 
     def __init__(self, model: LM, params: Params, *, max_slots: int = 4,
                  page_size: int = 16, max_len: int = 256,
-                 n_pages: int | None = None, plan=None,
+                 n_pages: int | None = None, plan=None, mesh=None,
                  prefill_chunk: int | None = None,
                  preemption: bool = False, prefix_sharing: bool = False,
                  spec_k: int = 0, draft_params: Params | None = None,
@@ -224,6 +231,7 @@ class Engine:
         self.model = model
         self.params = params
         self.plan = plan
+        self.mesh = mesh
         self.draft_params = draft_params
         self.draft_plan = draft_plan
         self.device = _param_device(params)
@@ -268,7 +276,7 @@ class Engine:
             # state into its slot
             self.cache = model.init_cache(self.max_slots, self.max_len, self.device)
             self._cache_spec = model.cache_spec()
-            self._decode = steps_mod.make_decode_step(model, plan=plan)
+            self._decode = steps_mod.make_decode_step(model, mesh=mesh, plan=plan)
             return
 
         self._chunk = model.cfg.attn_chunk
@@ -292,22 +300,24 @@ class Engine:
         self.block_tables = np.full((self.max_slots, self.max_pages),
                                     PagePool.TRASH_PAGE, np.int64)
         # each tier's steps dispatch under its own pack plan
-        self._decode = steps_mod.make_paged_decode_step(model, plan=plan)
-        self._prefill = steps_mod.make_prefill_full(model, plan=plan)
+        self._decode = steps_mod.make_paged_decode_step(model, mesh=mesh, plan=plan)
+        self._prefill = steps_mod.make_prefill_full(model, mesh=mesh, plan=plan)
         if self.prefill_chunk:
-            self._chunk_prefill = steps_mod.make_chunked_prefill_step(model, plan=plan)
+            self._chunk_prefill = steps_mod.make_chunked_prefill_step(model, mesh=mesh,
+                                                                      plan=plan)
         if self.spec_k:
             # the draft tier runs the same steps on its own weights; its KV
             # lives in a parallel pool addressed by the same page ids
             self.draft_pool = model.init_paged_pool(n_pages, self.page_size,
                                                     self.device)
-            self._verify = steps_mod.make_verify_step(model, plan=plan)
-            self._draft_decode = steps_mod.make_paged_decode_step(model,
+            self._verify = steps_mod.make_verify_step(model, mesh=mesh, plan=plan)
+            self._draft_decode = steps_mod.make_paged_decode_step(model, mesh=mesh,
                                                                   plan=draft_plan)
-            self._draft_prefill = steps_mod.make_prefill_full(model, plan=draft_plan)
+            self._draft_prefill = steps_mod.make_prefill_full(model, mesh=mesh,
+                                                              plan=draft_plan)
             if self.prefill_chunk:
                 self._draft_chunk_prefill = steps_mod.make_chunked_prefill_step(
-                    model, plan=draft_plan)
+                    model, mesh=mesh, plan=draft_plan)
 
     def _up(self, a) -> torch.Tensor:
         """A host int array as an int64 tensor on the engine's device."""
@@ -1157,16 +1167,29 @@ def static_generate(model: LM, params: Params, req: Request,
     positions, or for a recurrent family the prompt replayed through the
     decode step from a zeroed cache; then scalar-position decode steps),
     dispatched under ``plan``."""
+    return _static_generate(model, params, req, plan=plan)
+
+
+def mesh_static_generate(model: LM, params: Params, req: Request, mesh) -> list[int]:
+    """:func:`static_generate` through the steps of ``mesh`` (the rank's
+    placed ``params``): the reference ``Engine(mesh=)`` must match token
+    for token.  :func:`static_generate` keeps the reference's signature,
+    which has no mesh."""
+    return _static_generate(model, params, req, mesh=mesh)
+
+
+def _static_generate(model: LM, params: Params, req: Request, plan=None,
+                     mesh=None) -> list[int]:
     device = _param_device(params)
     prompt = torch.as_tensor(np.asarray(req.tokens, np.int64), device=device)[None]
     plen = prompt.shape[1]
-    decode = steps_mod.make_decode_step(model, plan=plan)
+    decode = steps_mod.make_decode_step(model, mesh=mesh, plan=plan)
     if model.cfg.family in RECURRENT:
         cache = model.init_cache(1, plen + req.max_new, device)
         for t in range(plen):
             nxt, _, cache = decode(params, cache, prompt[:, t:t + 1], t)
     else:
-        nxt, cache = steps_mod.make_prefill_step(model, plan=plan)(params, prompt)
+        nxt, cache = steps_mod.make_prefill_step(model, mesh=mesh, plan=plan)(params, prompt)
         cache = model.grow_cache(cache, plen + req.max_new)
     out = [int(nxt.reshape(-1)[0])]
     tok = nxt.reshape(1, 1)

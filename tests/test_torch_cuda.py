@@ -1806,3 +1806,55 @@ def test_mesh_plans_on_four_ranks(mesh_plans, plan):
         assert row["vs_kernel"] <= TOL[torch.bfloat16], name
         assert row["vs_plain"] <= TOL[torch.bfloat16], name
         assert all(r[name]["checksum"] == row["checksum"] for r in mesh_plans), name
+
+
+@pytest.fixture(scope="module")
+def mesh_phase15(tmp_path_factory):
+    """The rest of the distributed runtime on a (2, 2) mesh of four ranks on
+    the one card (``tests/torch_mesh_cases.py:card_phase15``), run once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import pathlib
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    work = tmp_path_factory.mktemp("mesh15")
+    cases = pathlib.Path(__file__).resolve().parent / "torch_mesh_cases.py"
+    return mesh_mod.run_ranks(4, f"{cases}:card_phase15", work, args=(work,), timeout=300)
+
+
+@pytest.mark.cuda
+def test_mesh_moe_a2a_on_card(mesh_phase15):
+    """The all-to-all ran on every rank, its y within the bf16 tolerance of
+    the capacity dispatch in as many blocks, the same on every rank."""
+    for r in mesh_phase15:
+        m = r["moe"]
+        assert m["all_to_all"] > 0
+        assert m["rel_err"] <= TOL[torch.bfloat16] and m["aux_err"] <= 1e-6
+        assert m["checksum"] == mesh_phase15[0]["moe"]["checksum"]
+
+
+@pytest.mark.cuda
+def test_mesh_engine_on_card(mesh_phase15):
+    assert all(r["engine"]["equal"] for r in mesh_phase15)
+
+
+@pytest.mark.cuda
+def test_mesh_restore_and_unplace_on_card(mesh_phase15):
+    for r in mesh_phase15:
+        assert r["restore"]["restored"] and r["restore"]["unplaced"]
+
+
+@pytest.mark.cuda
+def test_mesh_elastic_on_card(mesh_phase15):
+    """Ranks 2 and 3 lost; the survivors' (1, 2) step's loss within 1e-4 of
+    one process's on the same checkpoint, and the whole state after it
+    within 2e-2 leaf by leaf (each leaf's ‖Δ‖ / ‖x‖: bf16 gradients summed
+    in another order; chip_smoke.py's ELASTIC_STATE_TOL), its step counter
+    equal (bf16)."""
+    survivors = [r["elastic"] for r in mesh_phase15 if not r["elastic"]["failed"]]
+    assert len(survivors) == 2 and all(e["shape"] == [1, 2] for e in survivors)
+    for e in survivors:
+        assert abs(e["loss"] - e["loss_one_process"]) <= 1e-4 * abs(e["loss_one_process"])
+        err = dict(e["state_err"])
+        assert err.pop("step_equal") and max(err.values()) <= 2e-2, err

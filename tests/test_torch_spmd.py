@@ -4,16 +4,20 @@ held against the JAX package.
 One group runs every case (``tests/torch_mesh_cases.py``: the five
 partition plans of ``tests/test_spmd.py`` at their ragged shapes, BlockCSR
 gradients, the int8 and codebook qmodes under the column and gather plans,
-a tuned local-shard entry, SoD-FSDP, the compressed gradient reduce, and
-reduced llama3.2-1b's mesh ``loss_and_grads`` and ``train_step``), each
-rank saving what it found.  The reference's unsharded results are computed
+a tuned local-shard entry, SoD-FSDP, the compressed gradient reduce,
+reduced llama3.2-1b's mesh ``loss_and_grads`` and ``train_step``, MoE's
+all-to-all dispatch (``tests/test_spmd.py::test_moe_a2a_matches_block_dispatch``'s
+setup and its t = 17 fallback), the engine on the mesh against a mesh
+static decode, and a checkpoint the reference wrote restored onto the
+mesh), each rank saving what it found.  The reference's unsharded results are computed
 here from the same numpy inputs (its jnp oracle), and the reference's own
 mesh (``sod_matmul_spmd`` and ``compressed_grad_allreduce`` on 8 forced
 host devices) runs in a subprocess beside the group.
 
 Tolerances: ``y`` atol 5e-4 / rtol 1e-4, gradients atol 2e-2 / rtol 1e-3
 (``tests/test_spmd.py``'s); the model's loss 1e-4, its gradients 5e-2 /
-5e-3 (``tests/test_spmd.py::test_sharded_grad_matches_unsharded_step``).
+5e-3 (``tests/test_spmd.py::test_sharded_grad_matches_unsharded_step``);
+MoE's y 1e-5, aux 1e-6, gradients 1e-3 (``test_moe_a2a_matches_block_dispatch``'s).
 Padding slots' value gradients are exactly 0; every rank holds the same
 ``y``.  The group has 300 s and the reference subprocess 300 s; either
 running over fails the tests.
@@ -32,11 +36,13 @@ import pytest
 import torch
 
 from repro import configs as jconfigs
+from repro.checkpoint import Checkpointer as JCheckpointer
 from repro.core import formats as jformats
 from repro.core import sod as jsod
 from repro.data.pipeline import SyntheticLMData as JData
 from repro.kernels import ops as jops
 from repro.launch import steps as jsteps
+from repro.models import moe as jmoe
 from repro.models.model import LM as JLM
 from repro.runtime import sod_fsdp as jfsdp
 from repro_torch import configs
@@ -45,6 +51,7 @@ from repro_torch.core.formats import BlockCSR, TiledCSC
 from repro_torch.core.tree import PACKED_FIELDS, leaves_with_path
 from repro_torch.interop import params_from_numpy, to_torch
 from repro_torch.kernels import autotune, ops, registry
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.runtime import planner, sod_fsdp, spmd
 
@@ -55,6 +62,16 @@ G_TOL = dict(atol=2e-2, rtol=1e-3)
 STEP_LOSS_TOL = dict(atol=1e-4, rtol=1e-4)
 STEP_GRAD_TOL = dict(atol=5e-2, rtol=5e-3)
 MESH = mesh_mod.AbstractMesh((4, 2), ("data", "model"))
+MOE_Y_TOL, MOE_AUX_TOL = dict(atol=1e-5, rtol=0), dict(atol=1e-6, rtol=0)
+MOE_G_TOL = dict(atol=1e-3, rtol=1e-3)
+ROUTED_GRADS = ("w_gate", "w_up", "w_down", "router")
+# test_moe_a2a_matches_block_dispatch's spec, and the t = 17 one that falls back
+MOE_SPECS = {
+    "a2a": dict(n_experts=8, n_experts_padded=8, top_k=2, d_model=64, d_ff=128,
+                capacity_factor=8.0, dispatch_blocks=8, a2a_axis="model"),
+    "t17": dict(n_experts=6, n_experts_padded=6, top_k=2, d_model=64, d_ff=128,
+                a2a_axis="model"),
+}
 
 # name -> (shape, density, fmt, qmode, plan, seed), the reference test's
 PRODUCTS = {
@@ -150,6 +167,46 @@ def _to_reference(tparams, np_params):
             "blocks": blocks}
 
 
+# the dry-run's counts against a real rank: (sod mode, step kind)
+DRY_CELLS = {f"{mode}_{kind}": (mode, kind) for mode in ("dense", "tiled_csc")
+             for kind in ("train", "decode")}
+
+
+def _dry_cell(mode, kind):
+    """Reduced llama (fp32) at 8 × 32: its plan (built for rank 0 of the
+    (4, 2) counting mesh), and whole concrete parameters and inputs for the
+    real ranks."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import LM
+
+    cfg = configs.reduced(configs.get_config("llama3.2-1b")).with_(dtype="float32")
+    if mode != "dense":
+        cfg = cfg.with_(sod=sod.SoDConfig(mode=mode, density=0.3))
+    shape = ShapeConfig(kind, kind, 32, 8)
+    dry_mesh = mesh_mod.DryMesh((4, 2), ("data", "model"), rank=0)
+    plan = dryrun._plan_for_cell(cfg, shape, dry_mesh, None)
+    gen = torch.Generator().manual_seed(7)
+    params = LM(cfg).init(gen, "cpu")
+    if plan is not None:
+        params = sod.sodify_params(params, cfg.sod, plan=plan)
+    toks = torch.randint(0, cfg.vocab, (8, 32 if kind == "train" else 1), generator=gen)
+    inputs = ({"batch": {"tokens": toks, "targets": toks.roll(1, 1)}} if kind == "train"
+              else {"cache": LM(cfg).init_cache(8, 32, "cpu"), "tokens": toks})
+    return cfg, shape, plan, params, inputs
+
+
+def _port_tree_in_jax(tree):
+    """The port's tree with its leaves as the reference's arrays and packed
+    containers (the layout a reference checkpoint of it has)."""
+    if isinstance(tree, (TiledCSC, BlockCSR)):
+        return _to_jax(tree)
+    if isinstance(tree, dict):
+        return {k: _port_tree_in_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_port_tree_in_jax(v) for v in tree)
+    return jnp.asarray(tree.numpy())
+
+
 def _reference_leaf(jgrads, layer: int, path: str):
     node = jgrads["blocks"]
     for part in [p.strip("'") for p in path.replace("]", "").replace("[", ".").split(".")
@@ -181,6 +238,19 @@ for name, plan in %s.items():
 with mesh:
     mean, resid = sod_fsdp.compressed_grad_allreduce(jnp.asarray(d["grad"]), mesh, 0.1)
 out["grad_mean"] = np.asarray(mean); out["grad_resid"] = np.asarray(resid)
+from repro.models import moe
+for name, spec in %s.items():
+    spec = moe.MoESpec(**spec)
+    mp = {k: jnp.asarray(d[f"moe_{name}_{k}"]) for k in ("router", "w_gate", "w_up", "w_down")}
+    x = jnp.asarray(d[f"moe_{name}_x"])
+    def mloss(p, x=x, spec=spec):
+        with mesh:
+            y, aux = moe.moe_mlp(p, x, spec)
+        return (y ** 2).sum() + aux, (y, aux)
+    (_, (y, aux)), g = jax.jit(jax.value_and_grad(mloss, has_aux=True))(mp)
+    out[f"moe_{name}_y"] = np.asarray(y); out[f"moe_{name}_aux"] = np.asarray(aux)
+    for k, v in g.items():
+        out[f"moe_{name}_g_{k}"] = np.asarray(v)
 np.savez(sys.argv[2], **out)
 """
 
@@ -218,7 +288,21 @@ def runs(tmp_path_factory):
     x_planned = {n: torch.from_numpy(rng.standard_normal((48, k)).astype(np.float32))
                  for n, k in (("w_up", 256), ("w_down", 512))}
     planned = (x_planned, sod.sodify_params(raw, sodc, plan=plan), plan)
-    torch.save({"products": products, "planned": planned,
+    key = jax.random.PRNGKey(11)
+    moe_cases = {}
+    for name, spec in MOE_SPECS.items():
+        jparams = jmoe.init_moe(key, jmoe.MoESpec(**spec), jnp.float32)
+        x = (jax.random.normal(jax.random.fold_in(key, 5), (4, 32, 64)) if name == "a2a"
+             else jax.random.normal(key, (1, 17, 64)))
+        moe_cases[name] = ({k: torch.from_numpy(np.array(v)) for k, v in jparams.items()},
+                           torch.from_numpy(np.array(x)), spec)
+        ref_inputs.update({f"moe_{name}_{k}": np.asarray(v) for k, v in jparams.items()})
+        ref_inputs[f"moe_{name}_x"] = np.asarray(x)
+    prompts = [rng.integers(0, tcfg.vocab, size=n) for n in (5, 11, 8)]
+    dry = {name: _dry_cell(*args) for name, args in DRY_CELLS.items()}
+    JCheckpointer(work / "ref_ckpt").save(0, _port_tree_in_jax(tparams))
+    torch.save({"products": products, "planned": planned, "moe": moe_cases,
+                "prompts": prompts, "dry": dry,
                 "tuned": _pack(_dense((256, 512), 0.3, "tiled_csc", 9), "tiled_csc", "none"),
                 "fsdp": (torch.from_numpy(x_fsdp), _pack(w_fsdp, "tiled_csc", "none")),
                 "grad": (torch.from_numpy(grad), 0.1),
@@ -228,7 +312,7 @@ def runs(tmp_path_factory):
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
     ref = subprocess.Popen(
         [sys.executable, "-c", _REFERENCE_MESH % ("{%s}" % ", ".join(
-            f"{p!r}: {d}" for p, d in REF_PLANS.items())),
+            f"{p!r}: {d}" for p, d in REF_PLANS.items()), repr(MOE_SPECS)),
          str(work / "ref_in.npz"), str(work / "ref_out.npz")],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
@@ -240,6 +324,9 @@ def runs(tmp_path_factory):
                     for name, (x, w, _) in products.items()}
             jloss, _, jgrads = jax.jit(jsteps.make_loss_and_grads(JLM(jcfg)))(
                 _to_reference(tparams, np_params), jbatch)
+            dry_mesh = mesh_mod.DryMesh((4, 2), ("data", "model"), rank=0)
+            dry_found = {n: dryrun.measure(cfg, shape, dry_mesh, plan)
+                         for n, (cfg, shape, plan, _, _) in dry.items()}
             summary = group.result()
             _, err = ref.communicate(timeout=GROUP_TIMEOUT_S)
         finally:
@@ -251,7 +338,7 @@ def runs(tmp_path_factory):
     return {"ranks": ranks, "summary": summary, "want": want, "products": products,
             "ref_mesh": dict(np.load(work / "ref_out.npz")), "w_fsdp": w_fsdp,
             "x_fsdp": x_fsdp, "grad": grad, "tparams": tparams, "planned": planned,
-            "jloss": float(jloss), "jgrads": jgrads}
+            "jloss": float(jloss), "jgrads": jgrads, "dry": dry_found}
 
 
 def _np(t):
@@ -538,3 +625,82 @@ def test_active_mesh_is_seen_by_other_threads():
         t.join(timeout=10)
     assert not t.is_alive() and seen == [MESH]
     assert spmd.active_mesh() is None
+
+
+# ---------------------------------------------------------------------------
+# MoE's all-to-all dispatch, the engine on the mesh, restore onto the mesh
+# ---------------------------------------------------------------------------
+def test_moe_a2a_matches_reference_a2a(runs):
+    """The port's exchange against the reference's ``shard_map`` all-to-all
+    on its own 8-device mesh: y, aux and the routed experts' and router's
+    gradients; every rank holds the same y and the same whole gradients."""
+    ref = runs["ref_mesh"]
+    for rank in runs["ranks"]:
+        got = rank["moe"]["a2a"]
+        np.testing.assert_allclose(_np(got["y"]), ref["moe_a2a_y"], **MOE_Y_TOL)
+        np.testing.assert_allclose(float(got["aux"]), float(ref["moe_a2a_aux"]), **MOE_AUX_TOL)
+        for k in ROUTED_GRADS:
+            np.testing.assert_allclose(_np(got["grads"][k]), ref[f"moe_a2a_g_{k}"],
+                                       err_msg=k, **MOE_G_TOL)
+            assert torch.equal(got["grads"][k], runs["ranks"][0]["moe"]["a2a"]["grads"][k])
+        assert torch.equal(got["y"], runs["ranks"][0]["moe"]["a2a"]["y"])
+
+
+def test_moe_a2a_equals_block_dispatch(runs):
+    """The exchange equals the capacity dispatch in as many blocks as token
+    shards (8): y bit for bit, and the exchange really ran (each rank's
+    all-to-all count: two exchanges forward, and in the backward the
+    return exchange's transpose; x takes no gradient here, so the first
+    exchange needs none)."""
+    for rank in runs["ranks"]:
+        got, block = rank["moe"]["a2a"], rank["moe"]["a2a_block"]
+        assert torch.equal(got["y"], block["y"])
+        assert got["counts"]["counts"]["all-to-all"] == 3 and got["counts"]["all-to-all"] > 0
+        assert "all-to-all" not in block["counts"].get("counts", {})
+
+
+def test_moe_a2a_falls_back_when_tokens_do_not_divide(runs):
+    """17 tokens over 8 shards: both packages take the block path."""
+    ref = runs["ref_mesh"]
+    for rank in runs["ranks"]:
+        got = rank["moe"]["t17"]
+        assert "all-to-all" not in got["counts"].get("counts", {})
+        np.testing.assert_allclose(_np(got["y"]), ref["moe_t17_y"], **MOE_Y_TOL)
+        for k in ROUTED_GRADS:
+            np.testing.assert_allclose(_np(got["grads"][k]), ref[f"moe_t17_g_{k}"],
+                                       err_msg=k, **MOE_G_TOL)
+
+
+def test_engine_on_mesh_equals_mesh_static_decode(runs):
+    """``Engine(mesh=)`` on the placed weights: every request's tokens equal
+    the mesh's static greedy decode bit for bit, on every rank, and the
+    packed products ran under the mesh's keys."""
+    first = runs["ranks"][0]["engine"]
+    for rank in runs["ranks"]:
+        got = rank["engine"]
+        assert got["engine"] == got["static"] == first["engine"]
+        assert got["keys"] and all(k.startswith("data=4,model=2|") for k in got["keys"])
+
+
+def test_restore_onto_mesh_and_unplace(runs):
+    """A checkpoint the reference wrote, restored with ``shardings=``, gives
+    each rank ``place`` of the whole leaves bit for bit (resident blocks
+    and their metadata); ``unplace(place(p))`` is ``p``."""
+    for rank in runs["ranks"]:
+        r = rank["restore"]
+        assert r["restored_equal"] and r["restored_meta"]
+        assert r["unplaced_equal"] and r["unplaced_meta"]
+        assert r["n_sharded"] > 0
+
+
+@pytest.mark.parametrize("cell", list(DRY_CELLS))
+def test_dry_mesh_counts_equal_a_real_rank(runs, cell):
+    """The counting mesh at rank 0 of (4, 2), on meta tensors, against rank
+    0 of the real group running the same step on CPU tensors: the flops,
+    every collective kind's bytes and calls, and the argument bytes."""
+    dry, real = runs["dry"][cell], runs["ranks"][0]["dry"][cell]
+    assert dry["cost"]["flops"] == real["cost"]["flops"] > 0
+    assert dry["collectives"] == real["collectives"]
+    assert dry["memory"]["argument_bytes"] == real["memory"]["argument_bytes"]
+    if cell.startswith("tiled"):
+        assert dry["collectives"]["total"] > 0

@@ -5,23 +5,29 @@ this file).
 CPU, every case that ``tests/test_torch_spmd.py`` wrote to its directory
 (``cases.pt``: the operands as the port's containers, the activations, the
 reduced model's packed parameters and batch), and saves what it found to
-``rank<r>.pt`` for the test to hold against the JAX package.
+``rank<r>.pt`` for the test to hold against the JAX package: besides the
+products and the model's mesh step, MoE's all-to-all dispatch, the engine
+on the mesh against a mesh static decode, and a restore of the
+reference's checkpoint onto the mesh.
 """
 from __future__ import annotations
 
 import dataclasses
 import pathlib
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import sod
-from repro_torch.core.tree import PACKED_FIELDS
+from repro_torch.core.tree import PACKED_FIELDS, leaves_with_path
 from repro_torch.kernels import autotune, registry
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps
+from repro_torch.models import moe
 from repro_torch.models.model import LM
-from repro_torch.optim.adamw import AdamW, AdamWConfig
+from repro_torch.optim.adamw import AdamW, AdamWConfig, state_dist
 from repro_torch.runtime import sharding, sod_fsdp, spmd
 
 PLANS = {
@@ -92,6 +98,93 @@ def _model_runs(cfg, params, batch, mesh) -> dict:
             "dispatch": [(r["impl"], r["key"].mesh) for r in log + t_log]}
 
 
+def _moe_run(params, x, spec) -> dict:
+    """y, aux and the gradients of ``sum(y ** 2) + aux`` w.r.t. the
+    routed experts and the router, with the collectives counted."""
+    live = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    with spmd.count_collectives() as counts:
+        y, aux = moe.moe_mlp(live, x, moe.MoESpec(**spec))
+        ((y ** 2).sum() + aux).backward()
+    return {"y": y.detach(), "aux": aux.detach(), "counts": counts,
+            "grads": {k: live[k].grad for k in ("w_gate", "w_up", "w_down", "router")}}
+
+
+def _moe_cases(cases: dict) -> dict:
+    """Under the active mesh: the a2a spec, the same spec without its axis
+    (the capacity dispatch in 8 blocks), and the t = 17 spec whose tokens
+    do not divide (the block path)."""
+    out = {}
+    for name, (params, x, spec) in cases.items():
+        out[name] = _moe_run(params, x, spec)
+        if spec.get("a2a_axis"):
+            out[name + "_block"] = _moe_run(params, x, dict(spec, a2a_axis=None))
+    return out
+
+
+def _engine_case(cfg, params, prompts, mesh) -> dict:
+    """The engine on the mesh (placed weights) against the mesh static
+    decode, request by request."""
+    from repro_torch.serving.engine import Engine, mesh_static_generate
+    from repro_torch.serving.scheduler import Request
+
+    model = LM(cfg)
+    placed = sharding.place(params, sharding.param_specs(params, cfg, mesh), mesh)
+    reqs = [Request(rid=i, tokens=np.asarray(p, np.int32), max_new=6, arrival=i)
+            for i, p in enumerate(prompts)]
+    with registry.record_dispatches() as log:
+        got = Engine(model, placed, max_slots=2, page_size=8, max_len=48,
+                     mesh=mesh).run(reqs)["tokens"]
+    return {"engine": {int(k): list(v) for k, v in got.items()},
+            "static": {r.rid: mesh_static_generate(model, placed, r, mesh) for r in reqs},
+            "keys": sorted({r["key"].mesh for r in log})}
+
+
+def _restore_case(ckdir, cfg, params, mesh) -> dict:
+    """A checkpoint the reference wrote, restored onto the mesh, against
+    ``place`` of the whole leaves; and ``unplace(place(p))`` against p."""
+    specs = sharding.param_specs(params, cfg, mesh)
+    want = sharding.place(params, specs, mesh)
+    got = Checkpointer(ckdir).restore(0, want, shardings=(specs, mesh))
+    back = sharding.unplace(want, specs, mesh)
+
+    def same(a, b):
+        pairs = list(zip(leaves_with_path(a), leaves_with_path(b)))
+        return len(pairs) == len(list(leaves_with_path(b))) and all(
+            na == nb and ta.dtype == tb.dtype and torch.equal(ta, tb)
+            for (na, ta), (nb, tb) in pairs)
+
+    def meta(tree):
+        return [(w.shape, w.shard) for _, w in _packed_items(tree)]
+
+    return {"restored_equal": same(got, want), "restored_meta": meta(got) == meta(want),
+            "unplaced_equal": same(back, params), "unplaced_meta": meta(back) == meta(params),
+            "n_sharded": sum(w.shard is not None for _, w in _packed_items(want))}
+
+
+def _packed_items(tree, path=""):
+    if isinstance(tree, tuple(PACKED_FIELDS)):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _packed_items(v, f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _packed_items(v, f"{path}[{i}]")
+
+
+def _dry_cases(cases: dict, mesh) -> dict:
+    """Each cell's step on this rank's real tensors, counted as the dry-run
+    counts it (:func:`repro_torch.launch.dryrun.measure`)."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for name, (cfg, shape, plan, params, inputs) in cases.items():
+        found = dryrun.measure(cfg, shape, mesh, plan, params=params, inputs=inputs)
+        found.pop("dispatch_log")
+        out[name] = found
+    return out
+
+
 def spmd_cases(workdir: str) -> dict:
     """Every case of ``cases.pt``; returns a summary, saves the tensors."""
     workdir = pathlib.Path(workdir)
@@ -121,7 +214,11 @@ def spmd_cases(workdir: str) -> dict:
         mean, resid = sod_fsdp.compressed_grad_allreduce(
             g[mesh.coords["data"] * rows:(mesh.coords["data"] + 1) * rows], mesh, ratio)
         out["grad"] = {"mean": mean, "resid": resid}
+        out["moe"] = _moe_cases(cases["moe"])
     out["model"] = _model_runs(cases["cfg"], cases["params"], cases["batch"], mesh)
+    out["dry"] = _dry_cases(cases["dry"], mesh)
+    out["engine"] = _engine_case(cases["cfg"], cases["params"], cases["prompts"], mesh)
+    out["restore"] = _restore_case(workdir / "ref_ckpt", cases["cfg"], cases["params"], mesh)
     torch.save(out, workdir / f"rank{rank}.pt")
     return {"rank": rank, "coords": mesh.coords}
 
@@ -170,4 +267,148 @@ def card_plans(workdir: str) -> dict:
                         "vs_plain": (y.float() - yp.float()).abs().max().item() / scale,
                         "launches": kernel.launches - before,
                         "checksum": float(y.float().sum().item())}
+    return out
+
+
+def elastic_case(workdir: str) -> dict:
+    """Six ranks as a (3, 2) mesh take two train steps and save the whole
+    state; ranks 2 and 3 then fail, the other four re-mesh to (2, 2)
+    (``fault.surviving_mesh``), restore the checkpoint onto it and take one
+    more step.  Returns the step's loss on the survivors, and on the new
+    rank 0 the whole state after the step (``sharding.unplace``) against
+    one process's step on the same checkpoint (``adamw.state_dist``)."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import fault
+
+    workdir = pathlib.Path(workdir)
+    cases = torch.load(workdir / "elastic.pt", weights_only=False)
+    cfg, params, batches = cases["cfg"], cases["params"], cases["batches"]
+    mesh = mesh_mod.make_test_mesh((3, 2), device="cpu")
+    model, opt = LM(cfg), AdamW(AdamWConfig(lr=1e-3))
+    specs = sharding.param_specs(params, cfg, mesh)
+    placed = sharding.place(params, specs, mesh)
+    state = opt.init(placed)
+    step = steps.make_train_step(model, opt, mesh=mesh)
+    for batch in batches[:2]:
+        placed, state, _ = step(placed, state, batch)
+    whole = sharding.unplace({"params": placed, "opt": state},
+                             sharding.train_state_specs(specs), mesh)
+    if mesh.rank == 0:
+        Checkpointer(workdir / "elastic_ckpt").save(2, whole)
+    dist.barrier()
+    failed = set(cases["failed"])
+    if mesh.rank in failed:        # these ranks are lost: they leave the group
+        dist.destroy_process_group()
+        return {"rank": mesh.rank, "failed": True}
+    new = fault.surviving_mesh(range(mesh.size), failed, mesh.shape["model"], device="cpu")
+    if new is None:
+        return {"rank": mesh.rank, "failed": False, "left": True}
+    new_specs = sharding.train_state_specs(sharding.param_specs(params, cfg, new))
+    ck = Checkpointer(workdir / "elastic_ckpt")
+    restored = ck.restore(2, {"params": placed, "opt": state}, shardings=(new_specs, new))
+    with registry.record_dispatches() as log:
+        p, s, metrics = steps.make_train_step(model, opt, mesh=new)(
+            restored["params"], restored["opt"], batches[2])
+    after = sharding.unplace({"params": p, "opt": s}, new_specs, new)
+    out = {"rank": mesh.rank, "failed": False, "new_rank": new.rank,
+           "shape": list(new.axis_sizes), "loss": float(metrics["loss"]),
+           "keys": sorted({r["key"].mesh for r in log})}
+    if new.rank == 0:       # one process on the same checkpoint, the same step
+        one = ck.restore(2, {"params": params, "opt": opt.init(params)})
+        p1, s1, _ = steps.make_train_step(model, opt)(one["params"], one["opt"], batches[2])
+        out["state_err"] = state_dist(after, {"params": p1, "opt": s1})
+    return out
+
+
+def card_phase15(workdir: str) -> dict:
+    """On the card, a (2, 2) mesh of four ranks at reduced size (bf16):
+    MoE's all-to-all against the capacity dispatch in 4 blocks (the
+    largest error as a fraction of the block dispatch's largest magnitude,
+    the exchange's calls); ``Engine(mesh=)`` against the mesh
+    static decode (reduced llama, tiled_csc); a whole checkpoint restored
+    onto the mesh against ``place`` and ``unplace(place(p))`` against p;
+    last, the elastic re-mesh (ranks 2 and 3 lost, (1, 2), one step's loss
+    and whole state after it against one process's on the same
+    checkpoint)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLMData, to_device
+    from repro_torch.runtime import fault
+    from repro_torch.serving.engine import Engine, mesh_static_generate
+    from repro_torch.serving.scheduler import Request
+
+    workdir = pathlib.Path(workdir)
+    mesh = mesh_mod.make_test_mesh((2, 2), device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": mesh.rank}
+
+    spec = dict(n_experts=8, n_experts_padded=8, top_k=2, d_model=256, d_ff=512,
+                capacity_factor=8.0, dispatch_blocks=4, a2a_axis="model")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mp = moe.init_moe(gen, moe.MoESpec(**spec), torch.bfloat16, torch.device("cuda"))
+    x = torch.randn(4, 32, 256, generator=gen, device="cuda").to(torch.bfloat16)
+    with mesh_mod.mesh_context(mesh), spmd.count_collectives() as counts:
+        y, aux = moe.moe_mlp(mp, x, moe.MoESpec(**spec))
+        yb, auxb = moe.moe_mlp(mp, x, moe.MoESpec(**dict(spec, a2a_axis=None)))
+    torch.cuda.synchronize()
+    scale = yb.float().abs().max().item()
+    out["moe"] = {"rel_err": (y.float() - yb.float()).abs().max().item() / scale,
+                  "aux_err": abs(float(aux) - float(auxb)),
+                  "all_to_all": counts.get("counts", {}).get("all-to-all", 0),
+                  "checksum": float(y.float().sum())}
+
+    cfg = configs.reduced(configs.get_config("llama3.2-1b")).with_(
+        sod=sod.SoDConfig(mode="tiled_csc", density=0.3, min_dim=64))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = sod.sodify_params(LM(cfg).init(gen, "cuda"), cfg.sod)
+    specs = sharding.param_specs(params, cfg, mesh)
+    placed = sharding.place(params, specs, mesh)
+    model = LM(cfg)
+    reqs = [Request(rid=i, tokens=list(range(3 + i, 3 + i + n)), max_new=6, arrival=i)
+            for i, n in enumerate((5, 11, 8))]
+    with torch.inference_mode():
+        eng = Engine(model, placed, max_slots=2, page_size=8, max_len=48, mesh=mesh).run(reqs)
+        static = {r.rid: mesh_static_generate(model, placed, r, mesh) for r in reqs}
+    out["engine"] = {"equal": {int(k): list(v) for k, v in eng["tokens"].items()} == static}
+
+    Checkpointer(workdir / f"whole{mesh.rank}").save(0, params)
+    got = Checkpointer(workdir / f"whole{mesh.rank}").restore(0, placed,
+                                                               shardings=(specs, mesh))
+    back = sharding.unplace(placed, specs, mesh)
+    out["restore"] = {
+        "restored": all(torch.equal(a, b) for (_, a), (_, b) in
+                        zip(leaves_with_path(got), leaves_with_path(placed))),
+        "unplaced": all(torch.equal(a, b) for (_, a), (_, b) in
+                        zip(leaves_with_path(back), leaves_with_path(params)))}
+
+    opt = AdamW(AdamWConfig(lr=1e-3))
+    state = opt.init(placed)
+    data = SyntheticLMData(cfg, 4, 32, seed=0)
+    step = steps.make_train_step(model, opt, mesh=mesh)
+    for i in range(2):
+        placed, state, _ = step(placed, state, to_device(data.batch(i), "cuda"))
+    whole = sharding.unplace({"params": placed, "opt": state},
+                             sharding.train_state_specs(specs), mesh)
+    ck = Checkpointer(workdir / "elastic")
+    if mesh.rank == 0:
+        ck.save(2, whole)
+    dist.barrier()
+    if mesh.rank in (2, 3):
+        dist.destroy_process_group()
+        out["elastic"] = {"failed": True}
+        return out
+    new = fault.surviving_mesh(range(4), {2, 3}, 2, device="cuda")
+    new_specs = sharding.train_state_specs(sharding.param_specs(params, cfg, new))
+    restored = ck.restore(2, {"params": placed, "opt": state}, shardings=(new_specs, new))
+    batch = to_device(data.batch(2), "cuda")
+    p, s, m = steps.make_train_step(model, opt, mesh=new)(restored["params"],
+                                                         restored["opt"], batch)
+    after = sharding.unplace({"params": p, "opt": s}, new_specs, new)
+    one = ck.restore(2, {"params": params, "opt": opt.init(params)})
+    p1, s1, m1 = steps.make_train_step(model, opt)(one["params"], one["opt"], batch)
+    out["elastic"] = {"failed": False, "shape": list(new.axis_sizes), "loss": float(m["loss"]),
+                      "loss_one_process": float(m1["loss"]),
+                      "state_err": state_dist(after, {"params": p1, "opt": s1})}
     return out
