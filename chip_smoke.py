@@ -26,7 +26,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    flush drains inside the timed call; a spin kernel then keeps the card
    busy while the host enqueues the call, so no host time is timed;
 4. slice  — ``repro_torch.launch.serve`` at the full width of llama3.2-1b
-   (bf16, batch 4, prompt 32, 16 greedy tokens) in five cells: ``tiled_csc``
+   and LAYERS (8) of its 16 layers, as phases 5-7 and 14 serve it (bf16,
+   batch 4, prompt 32, 16 greedy tokens) in five cells: ``tiled_csc``
    and ``tiled_csc_int8`` (magnitude-pruned to density 0.3; the second is
    this slice's main path, ``--quantize int8``), ``block_csr`` and
    ``block_csr_fp8`` (block-pruned to density 0.3), and
@@ -85,8 +86,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``--draft-sparsity``: the planner's draft density and its diagnostics,
    every request bit-equal to ``static_generate``).  Every run fails if its
    dispatch log shows the plain version (``torch_oracle``) on the card;
-8. train — training at full width, bf16, batch 8 × seq 128 (M = 1024 rows
-   a matmul), after the serving weights are freed.  First each matmul
+8. train — training at full width and TRAIN_LAYERS (4) of llama's 16
+   layers, bf16, batch 8 × seq 128 (M = 1024 rows a matmul), after the
+   serving weights are freed.  First each matmul
    kernel's ``autograd.Function`` (``kernels/vjp.py``) in each qmode at
    every K×N of the model: output, dx and the packed float leaves'
    gradients against autograd over ``kernels/ref.py`` on the card, within
@@ -96,8 +98,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``train_tiled_csc`` (12 steps), ``train_block_csr`` (6) and
    ``train_tiled_csc_int8`` (4), gated on finite losses and gradient
    norms, a falling loss, integer leaves bit-equal to the initial pack,
-   padding exactly 0, only the format's CUDA impl dispatched, 2 × 112
-   matmul launches a step (the remat recompute) and 112 ``decompress``
+   padding exactly 0, only the format's CUDA impl dispatched, 2 × 28
+   matmul launches a step (the remat recompute) and 28 ``decompress``
    launches a step for a TiledCSC (the backward's re-densify), and the
    scales moved under int8; one steady ``train_tiled_csc`` step is
    profiled (device time by kernel and operator class, idle share, tok/s,
@@ -112,8 +114,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    int8, at M = 4 and 128: against its plain version, two calls bit-equal,
    its launch plan, and timed beside its plain version, ``torch.matmul``
    and its bound.  Then four static cells through ``serve.main``
-   (FAMILY_CELLS): ``internlm2_tiled_csc`` (full depth, its head packed;
-   (24 · 7 + 1) × 17 launches; one decode step and the head alone
+   (FAMILY_CELLS): ``internlm2_tiled_csc`` (4 of 24 layers, its head packed;
+   (4 · 7 + 1) × 17 launches; one decode step and the head alone
    profiled), ``internlm2_tiled_csc_int8`` (the same raw weights, int8),
    ``gemma2_tiled_csc`` (4 of 46 layers; every logit within the final
    soft-cap of 30) and ``yi_block_csr`` (4 of 60 layers, block-pruned; the
@@ -121,23 +123,24 @@ Phases, each of which raises on failure (so the script exits non-zero):
    head included); engine runs on their weights (FAMILY_ENGINE_RUNS: fused
    and ``--spec-decode 2`` for internlm2 and gemma2, fused for yi), every
    request equal to ``static_generate`` bit for bit and an untied head run
-   at 1, 4 and 4 × 3 rows; and ``train_internlm2`` (full depth, 4 steps,
+   at 1, 4 and 4 × 3 rows; and ``train_internlm2`` (4 layers, 4 steps,
    the head's gradient at M = 1024 against the plain version first, one
    step profiled);
-10. moe_family — the MoE family at full width and depth, served through
+10. moe_family — the MoE family at full width and MOE_LAYERS (4) of its
+   24 layers, served through
    the SoD kernels under a pack plan without routed-expert entries (the
    routed experts stay dense: packing them is the reference's fault R4).
    First each kernel at the shapes the family adds (MOE_SHAPES: granite's
    1024 × 1024 and 1024 × 512 attention, qwen's shared expert and its
    2048 × 151,936 head at f32 out), at M = 4 and 128, as phase 9 runs them.
    Then three static cells (MOE_CELLS): ``granite_moe_tiled_csc``
-   (granite-moe-1b-a400m: 24 layers, 32 experts top-8, tied head; 24 · 4
-   · 17 = 1632 launches), ``granite_moe_block_csr`` (block-pruned, 1632
-   ``block_matmul``) and ``qwen2_moe_tiled_csc`` (qwen2-moe-a2.7b: 24
-   layers, 60 experts padded to 64, top-4, the shared expert and untied
-   head packed; (24 · 7 + 1) · 17 = 2873 launches).  Each builds its plan
+   (granite-moe-1b-a400m: 32 experts top-8, tied head; 4 · 4 · 17 = 272
+   launches), ``granite_moe_block_csr`` (block-pruned, 272
+   ``block_matmul``) and ``qwen2_moe_tiled_csc`` (qwen2-moe-a2.7b: 60
+   experts padded to 64, top-4, the shared expert and untied head packed;
+   (4 · 7 + 1) · 17 = 493 launches).  Each builds its plan
    with ``runtime/planner.build_plan`` on the seeded raw weights (the
-   routed experts' entries planned with lead (24, 1, E)), drops the routed
+   routed experts' entries planned with lead (4, 1, E)), drops the routed
    entries (``moe.without_routed``), saves it and serves with ``--plan
    P``, gated on its kernel's launches only, no ``torch_oracle`` dispatch,
    finite logits and prefill logits within LOGIT_TOL of the densified
@@ -146,9 +149,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    against ``static_generate`` bit for bit, with a clean pool; one qwen
    decode step is profiled (device ms by kernel and by class: the SoD
    kernels, the routed experts' products, the dispatch, attention; the
-   idle share); ``train_granite`` trains full depth under its own plan,
+   idle share); ``train_granite`` trains 4 layers under its own plan,
    batch 8 × seq 128, 4 steps (finite losses, gradient norms and aux
-   losses, every aux above 0, 2 × 96 ``sod_matmul`` and 96
+   losses, every aux above 0, 2 × 16 ``sod_matmul`` and 16
    ``decompress`` launches a step, only ``cuda_fused`` dispatched);
 11. recurrent_family — the recurrent families at full width, through the
    SoD kernels (every Mamba2, mLSTM, shared-block and head projection
@@ -157,12 +160,12 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (RECURRENT_SHAPES: zamba2's 2560 × 5120, 5120 × 2560 and shared MLP,
    both heads at f32 out, xlstm's 1536 × 1536 and 768 × 3072), at M = 4
    and 128, as phase 9 runs them.  Then three static cells (batch 4,
-   prompt 32, 16 tokens, density 0.3): ``zamba2_tiled_csc`` (12 of 54
-   layers: 12 Mamba2 blocks, the shared block applied twice, untied head),
-   ``zamba2_block_csr`` (block-pruned, 12 layers) and ``xlstm_tiled_csc``
-   (full depth), each prompt replayed through the decode step, so a cell
-   launches its kernel _recurrent_per_step × 48 times ((12 · 3 + 2 · 7 +
-   1) × 48 = 2,448 for zamba2, (9 · 5 + 1) × 48 = 2,208 for xlstm) and
+   prompt 32, 16 tokens, density 0.3): ``zamba2_tiled_csc`` (6 of 54
+   layers: 6 Mamba2 blocks, the shared block applied once, untied head),
+   ``zamba2_block_csr`` (block-pruned, 6 layers) and ``xlstm_tiled_csc``
+   (4 of 12 layers), each prompt replayed through the decode step, so a cell
+   launches its kernel _recurrent_per_step × 48 times ((6 · 3 + 7 + 1) ×
+   48 = 1,248 for zamba2, (3 · 5 + 1) × 48 = 768 for xlstm) and
    no other, with no ``torch_oracle`` dispatch, finite logits and the
    last prompt position's logits within LOGIT_TOL of the densified
    weights' (both stepped); zamba2's chunked SSD forward (``LM.apply``)
@@ -170,8 +173,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    zamba2 decode step profiled by class (SoD kernels, scan and conv, the
    dense GEMMs, attention, the head alone); engine runs in the slot
    regime on zamba2's and xlstm's weights over phase 6's trace, every
-   request equal to ``static_generate`` bit for bit; ``train_xlstm`` (8
-   layers) and ``train_zamba2`` (12 layers) at full width (batch 8 × seq
+   request equal to ``static_generate`` bit for bit; ``train_xlstm`` (4
+   layers) and ``train_zamba2`` (6 layers) at full width (batch 8 × seq
    128, 4 steps,
    remat: finite losses and gradient norms, (2 · (per step - 1) + 1)
    ``sod_matmul`` and per-step ``decompress`` launches a step, only
@@ -182,19 +185,19 @@ Phases, each of which raises on failure (so the script exits non-zero):
    kernel at the shapes they add (FRONTEND_SHAPES: pixtral's w_gate and
    w_down, both heads at f32 out, musicgen's 1536 × 8192 over its 4
    codebooks), at M = 4 and 128, as phase 9 runs them.  Then three static
-   cells at full depth (FRONTEND_CELLS, density 0.3, 16 tokens):
-   ``pixtral_tiled_csc`` (batch 2, 1024 patches + 512 text tokens),
-   ``musicgen_tiled_csc`` and ``musicgen_block_csr`` (block-pruned; batch
-   4, prompt 32), each launching its kernel (layers · 7 + 1) × 17 times
-   ((40 · 7 + 1) × 17 = 4,777 for pixtral, (48 · 7 + 1) × 17 = 5,729 for
-   musicgen) and no other, with no ``torch_oracle`` dispatch, finite logits,
+   cells at a depth cut (FRONTEND_CELLS, density 0.3, 16 tokens):
+   ``pixtral_tiled_csc`` (8 of 40 layers, batch 2, 1024 patches + 512 text
+   tokens), ``musicgen_tiled_csc`` and ``musicgen_block_csr`` (12 of 48
+   layers, block-pruned; batch 4, prompt 32), each launching its kernel
+   (layers · 7 + 1) × 17 times ((8 · 7 + 1) × 17 = 969 for pixtral, (12 ·
+   7 + 1) × 17 = 1,445 for musicgen) and no other, with no ``torch_oracle`` dispatch, finite logits,
    musicgen's ids (B, 16, 4) below 2048, and the last prompt position's
    logits within LOGIT_TOL of the densified weights' (each prefill timed);
    pixtral's decode at its true position (n_patches + text) held against
    the full forward within LOGIT_TOL (static serving decodes at the text's
    length, the reference's fault R5); one decode step of pixtral and of
    musicgen profiled by class (SoD kernels, attention, the head alone, the
-   rest); ``train_musicgen`` (24 layers, batch 8 × seq 128) and
+   rest); ``train_musicgen`` (8 layers, batch 8 × seq 128) and
    ``train_pixtral`` (2 layers, batch 1 × seq 1536, the loss on the text),
    4 steps each: the frontend leaf's gradient finite and not 0, finite
    losses and gradient norms, (2 · layers · 7 + 1) ``sod_matmul`` and
@@ -211,7 +214,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    auto``), each run's launches derived from its config (0, 2 · 7 × 17, 0,
    and the engine's packed operands × its step calls), finite logits, every
    engine request equal to ``static_generate`` under the plan bit for bit.
-   ``torch_train_sparse_lm --full --steps 4``: xlstm-125m at full width,
+   ``torch_train_sparse_lm --full --steps 2``: xlstm-125m at full width,
    batch 8 × seq 512, phase 11's launches a step, finite losses, only
    ``cuda_fused``; the seconds a step and the peak memory printed.  Last,
    ``H100_SXM`` beside the card's properties, and this script, the probe
@@ -229,11 +232,15 @@ Phases, each of which raises on failure (so the script exits non-zero):
    compressed payload less its own block, beside the napkin of
    ``collective_savings``), then at MESH_SERVE_LAYERS (8) layers prefill
    and 8 decode steps through the step builders with ``mesh=`` on its
-   resident blocks, fed the single-process run's tokens: decode logits
-   within LOGIT_TOL of one process's, the greedy agreement printed,
-   (8 · 7) × 9 = 504 launches a rank.  Last, ``loss_and_grads`` at full width and 4 layers, batch 4 ×
-   128, against one process (loss and each resident block's gradient) with
-   each rank's peak memory.  The phase prints its seconds by part (start,
+   resident blocks, the partitioned program (each rank its rows, its
+   heads, MLP columns and vocabulary, the KV cache its rows and KV
+   heads), fed the single-process run's tokens: decode logits within
+   LOGIT_TOL of one process's, the greedy agreement printed, (8 · 7) × 9 =
+   504 launches a rank, the mesh run's seconds and a rank's peak memory
+   beside the whole-rows program's (WHOLE_ROWS).  Last, ``loss_and_grads`` at full width and 4 layers,
+   batch 4 × 128, against one process (the loss, and every gradient after
+   ``runtime.sharding.unplace``) with each rank's peak memory and step
+   seconds beside the whole-rows program's.  The phase prints its seconds by part (start,
    pack, ops, serve, grads);
 15. the rest of the distributed runtime, in phase 14's ranks after its
    parts: the engine on the mesh (``Engine(mesh=)``, llama3.2-1b tiled_csc
@@ -250,7 +257,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    whole state after it is within ELASTIC_STATE_TOL leaf by leaf).  Beside the
    ranks the host runs one dry-run cell (DRY_CELL, on meta tensors:
    status ok, nothing launched, the card's kernel dispatched) and prints
-   its flops, peak bytes a rank, collective bytes by kind and dispatches.
+   its flops, argument and peak bytes a rank, collective bytes by kind and
+   dispatches beside the reference's record (DRY_REFERENCE), gated on the
+   peak below DRY_PEAK_LIMIT and the flops within DRY_FLOPS_BAND of the
+   reference's.
    The phase prints its seconds by part (engine, moe, elastic, dryrun).
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
@@ -329,7 +339,10 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-7}
 LOGIT_TOL = 0.05
 
 DENSITY = 0.3
-LAYERS = 16
+# phases 4-7 at 8 of llama's 16 layers (phase 14 serves the same depth), for
+# the script's time: the same phases took 1.3-1.7x as long on one H100 as
+# on another, and a run of the script went over its 1,200 s
+LAYERS = 8
 # The codebook cell's depth: its shared-value tables are fitted on the host
 # with numpy (Lloyd k-means, as the reference), about 25 s a full-width layer
 # on one CPU core, so the cell runs at full width but 1 layer (2 until the
@@ -682,8 +695,7 @@ def phase_slice(cell: str) -> dict:
     against the same weights densified."""
     argv, sod, kernel, qmode, layers = CELLS[cell]
     args = serve.parse_args(argv)
-    cfg = (None if layers == LAYERS
-           else configs.get_config(args.arch).with_(n_layers=layers))
+    cfg = configs.get_config(args.arch).with_(n_layers=layers)
     t0 = time.perf_counter()
     model, params, tokens, *_ = serve.prepare(args, sod, cfg)
     torch.cuda.synchronize()
@@ -1379,7 +1391,9 @@ def _plan_run(run: str, argv: list[str], impl: str, sod: SoDConfig | None = None
     every launch count read around the serve.  Returns (summary, prepared,
     prepare seconds)."""
     t0 = time.perf_counter()
-    prep = prepared or serve.prepare(serve.parse_args(argv), sod)
+    args = serve.parse_args(argv)
+    prep = prepared or serve.prepare(args, sod, configs.get_config(args.arch).with_(
+        n_layers=LAYERS))
     torch.cuda.synchronize()
     prepare_s = time.perf_counter() - t0
     reset_counts()
@@ -1507,6 +1521,10 @@ def phase_plan(cells: dict) -> dict:
 # ---------------------------------------------------------------------------
 TRAIN_BATCH, TRAIN_SEQ = 8, 128
 TRAIN_M = TRAIN_BATCH * TRAIN_SEQ      # the rows of every training matmul
+# phase 8's runs at 4 of llama's 16 layers, for the script's time: each run
+# writes two checkpoints of the whole state (11.5 GB at 16 layers) and the
+# three took 80 s of a 948 s run on an H100
+TRAIN_LAYERS = 4
 # the learning rate of the reference's own training tests (tests/test_system.py)
 TRAIN_ARGV = ["--arch", "llama3.2-1b", "--batch", str(TRAIN_BATCH), "--seq",
               str(TRAIN_SEQ), "--warmup", "2", "--lr", "3e-3", "--seed", "0",
@@ -1632,14 +1650,14 @@ def _packed(params) -> list:
 
 
 def train_run(run: str) -> dict:
-    """One full-width ``train.main`` run of TRAIN_RUNS with its checkpoints
+    """One full-width ``train.main`` run of TRAIN_RUNS at TRAIN_LAYERS with its checkpoints
     in a temporary directory, gated: finite loss and gradient norm at every
     step, the mean of the last 5 losses below the first (runs of 6 steps
     or more), integer leaves
     bit-equal to the initial pack, padding exactly 0, only the format's
-    CUDA impl dispatched, its kernel launched 2 × 112 times a step (under
+    CUDA impl dispatched, its kernel launched 2 × 28 times a step (under
     ``cfg.remat`` the forward runs each block twice), the other not, ``decompress``
-    112 times a step for a TiledCSC (the backward's re-densify) and never
+    28 times a step for a TiledCSC (the backward's re-densify) and never
     for a BlockCSR; int8: the scales moved.  Returns the summary with the
     run's launches and its seconds."""
     flags, kernel, impl, n_steps = TRAIN_RUNS[run]
@@ -1647,7 +1665,9 @@ def train_run(run: str) -> dict:
     argv = TRAIN_ARGV + flags + ["--steps", str(n_steps), "--ckpt-dir", tmp]
     try:
         t0 = time.perf_counter()
-        prep = train.prepare(train.parse_args(argv))
+        args = train.parse_args(argv)
+        prep = train.prepare(args, configs.get_config(args.arch).with_(
+            n_layers=TRAIN_LAYERS))
         torch.cuda.synchronize()
         prepare_s = time.perf_counter() - t0
         ints = {k: v.clone() for k, v in leaves_with_path(prep[1])
@@ -1687,7 +1707,8 @@ def train_run(run: str) -> dict:
         gates["scales_moved"] = any(not torch.equal(v, scales[k])
                                     for k, v in leaves_with_path(params)
                                     if k.endswith(".scale"))
-    row = {"phase": "train", "run": run, "steps": n_steps, "batch": TRAIN_BATCH,
+    row = {"phase": "train", "run": run, "layers": train_cfg.n_layers, "steps": n_steps,
+           "batch": TRAIN_BATCH,
            "seq": TRAIN_SEQ, "prepare_s": prepare_s, "packed_weights": packed,
            "losses": losses, "grad_norms": gnorms, "launches": launches,
            "launches_want": want, "kernel_dispatch": summary["kernel_dispatch"],
@@ -1700,9 +1721,10 @@ def train_run(run: str) -> dict:
 
 
 def phase_train_profile(summary: dict, run: str = "train_tiled_csc",
-                        argv: list[str] | None = None) -> None:
-    """One steady step of ``run`` (trained from ``argv``, by default
-    ``train_tiled_csc``'s) under ``torch.profiler``, on its final state:
+                        argv: list[str] | None = None,
+                        layers: int | None = TRAIN_LAYERS) -> None:
+    """One steady step of ``run`` (trained from ``argv`` at ``layers``, by
+    default ``train_tiled_csc``'s) under ``torch.profiler``, on its final state:
     device time by kernel and by operator class (the matmul kernel's
     forward and remat launches, ``decompress``, the LM head's GEMMs — the
     tied head's, or an untied packed head's backward on its densified
@@ -1717,6 +1739,8 @@ def phase_train_profile(summary: dict, run: str = "train_tiled_csc",
     args = train.parse_args(argv or TRAIN_ARGV + TRAIN_RUNS["train_tiled_csc"][0])
     cfg = configs.get_config(args.arch).with_(sod=SoDConfig(mode="tiled_csc",
                                                            density=DENSITY, min_dim=64))
+    if layers:
+        cfg = cfg.with_(n_layers=layers)
     model = LM(cfg)
     step = steps_mod.make_train_step(model, AdamW(AdamWConfig(lr=args.lr)))
     state = summary["state"]
@@ -1771,7 +1795,7 @@ def phase_train_profile(summary: dict, run: str = "train_tiled_csc",
     rows = sorted(((us, k, n) for k, (us, n) in per_kernel.items()), reverse=True)
     log({"phase": "train_profile", "run": run, "arch": cfg.name,
          "what": f"one steady training step, batch {args.batch} × seq {args.seq}, "
-                 "full width, bf16",
+                 f"full width, {cfg.n_layers} layers, bf16",
          "step_s_median_of_3": wall, "tok_s": TRAIN_M / wall, "peak_mem_gb": peak,
          "device_ms": total_us / 1e3 if total_us else "not measured",
          "device_idle_share": (1 - total_us / 1e6 / wall) if total_us else "not measured",
@@ -1845,12 +1869,16 @@ FAMILY_QMODES = {"sod_matmul": ("none", "int8"), "block_matmul": ("none",),
 FAMILY_BASE = ["--batch", "4", "--prompt-len", "32", "--gen", "16", "--seed", "0",
                "--device", "cuda"]
 FAMILY_TILED = ["--sod", "tiled_csc", "--density", str(DENSITY)]
+# internlm2 at 4 of its 24 layers, serving and training, for the script's
+# time (a 948 s run on an H100 spent 100 s in this phase at 24, another 79 s
+# at 8)
+INTERNLM2_LAYERS = 4
 # cell -> (arch, layers (None: full depth), flags, caller's SoDConfig, kernel,
 # qmode)
 FAMILY_CELLS = {
-    "internlm2_tiled_csc": ("internlm2-1.8b", None, FAMILY_TILED, None, "sod_matmul",
-                            "none"),
-    "internlm2_tiled_csc_int8": ("internlm2-1.8b", None,
+    "internlm2_tiled_csc": ("internlm2-1.8b", INTERNLM2_LAYERS, FAMILY_TILED, None,
+                            "sod_matmul", "none"),
+    "internlm2_tiled_csc_int8": ("internlm2-1.8b", INTERNLM2_LAYERS,
                                  FAMILY_TILED + ["--quantize", "int8"], None,
                                  "sod_matmul", "int8"),
     "gemma2_tiled_csc": ("gemma2-27b", 4, FAMILY_TILED, None, "sod_matmul", "none"),
@@ -2102,21 +2130,22 @@ def phase_family_engine(run: str, cells: dict) -> dict:
 
 
 def phase_family_train() -> dict:
-    """``train_internlm2``: full-width internlm2-1.8b, tiled_csc 0.3, batch
-    8 × seq 128, remat on, FAMILY_TRAIN_STEPS steps.  First the packed
+    """``train_internlm2``: full-width internlm2-1.8b at INTERNLM2_LAYERS,
+    tiled_csc 0.3, batch 8 × seq 128, remat on, FAMILY_TRAIN_STEPS steps.  First the packed
     head's gradient at M = 1024 with float32 out, through the kernel's
     autograd.Function against autograd over the plain version (GRAD_TOL,
     exact 0 at padding).  Then ``train.main``, gated on finite losses and
     gradient norms, integer leaves bit-equal to the initial pack, padding
     exactly 0 (the head's too), only ``cuda_fused`` dispatched, and the
-    launches: 2 × 168 projections (remat) + the head a step of
-    ``sod_matmul``, 169 a step of ``decompress``.  Then one steady step is
+    launches: 2 × 28 projections (remat) + the head a step of
+    ``sod_matmul``, 29 a step of ``decompress``.  Then one steady step is
     profiled."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_internlm2_")
     argv = FAMILY_TRAIN_ARGV + ["--steps", str(FAMILY_TRAIN_STEPS), "--ckpt-dir", tmp]
     try:
         t0 = time.perf_counter()
-        prep = train.prepare(train.parse_args(argv))
+        prep = train.prepare(train.parse_args(argv), configs.get_config(
+            "internlm2-1.8b").with_(n_layers=INTERNLM2_LAYERS))
         torch.cuda.synchronize()
         prepare_s = time.perf_counter() - t0
         head = prep[1]["head"]
@@ -2168,7 +2197,8 @@ def phase_family_train() -> dict:
         "launches": launches == want_launches
         and summary["kernel_launches"] == want_launches,
     }
-    row = {"phase": "family_train", "run": "train_internlm2", "steps": FAMILY_TRAIN_STEPS,
+    row = {"phase": "family_train", "run": "train_internlm2", "layers": cfg.n_layers,
+           "steps": FAMILY_TRAIN_STEPS,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "prepare_s": prepare_s,
            "losses": losses, "grad_norms": gnorms, "launches": launches,
            "launches_want": want_launches, "kernel_dispatch": summary["kernel_dispatch"],
@@ -2177,7 +2207,7 @@ def phase_family_train() -> dict:
     log(row)
     if not all(gates.values()):
         raise AssertionError(f"train_internlm2: a gate failed: {gates}")
-    phase_train_profile(summary, "train_internlm2", argv)
+    phase_train_profile(summary, "train_internlm2", argv, INTERNLM2_LAYERS)
     return {"launches": launches, "head_grad_err": max(errs.values())}
 
 
@@ -2227,6 +2257,10 @@ MOE_SHAPES = {
 }
 MOE_QMODES = {"sod_matmul": ("none",), "block_matmul": ("none",), "decompress": ("none",)}
 # cell -> (arch, flags, caller's SoDConfig, kernel, packed projections a layer)
+# both models at 4 of their 24 layers (as phase 15's mesh cell), serving
+# and training, for the script's time (a 948 s run on an H100 spent 119 s
+# in this phase at 24, another 61 s at 8)
+MOE_LAYERS = 4
 MOE_CELLS = {
     "granite_moe_tiled_csc": ("granite-moe-1b-a400m", FAMILY_TILED, None, "sod_matmul", 4),
     "granite_moe_block_csr": ("granite-moe-1b-a400m", ["--sod", "block_csr"], _block_sod(),
@@ -2278,7 +2312,7 @@ def _moe_plan(label: str, cfg, sod: SoDConfig, seed: int, m_values, tmp: str) ->
 
 
 def phase_moe_serve(cell: str, tmp: str) -> dict:
-    """One MOE_CELLS cell at full width and depth: its plan built on the
+    """One MOE_CELLS cell at full width and MOE_LAYERS: its plan built on the
     seeded raw weights with the routed entries dropped, the weights
     prepared under ``--plan P`` (routed experts dense, the rest packed),
     served through ``serve.main`` with every launch count read around the
@@ -2288,13 +2322,13 @@ def phase_moe_serve(cell: str, tmp: str) -> dict:
     arch, flags, sod, kernel, per_layer = MOE_CELLS[cell]
     base = ["--arch", arch, *FAMILY_BASE, *flags]
     args = serve.parse_args(base)
-    cfg = configs.get_config(arch)
+    cfg = configs.get_config(arch).with_(n_layers=MOE_LAYERS)
     plan_path, plan_row = _moe_plan(
         cell, cfg, sod or SoDConfig(mode=args.sod, density=args.density, min_dim=64),
         args.seed, serve.m_values(args, cfg), tmp)
     argv = base + ["--plan", plan_path]
     t0 = time.perf_counter()
-    prep = serve.prepare(serve.parse_args(argv), sod)
+    prep = serve.prepare(serve.parse_args(argv), sod, cfg)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     model, params, tokens, plan = prep[:4]
@@ -2447,7 +2481,8 @@ def phase_moe_profile(sl: dict) -> None:
     expert_bytes = 3 * spec.n_experts_padded * spec.d_model * spec.d_ff * 2 * cfg.n_layers
     measured = bool(rows)
     log({"phase": "moe_profile", "cell": "qwen2_moe_tiled_csc", "arch": cfg.name,
-         "what": "one static decode step, batch 4, full width and depth, bf16",
+         "what": f"one static decode step, batch 4, full width, {cfg.n_layers} layers, "
+                 "bf16",
          "step_ms_median_of_7": step,
          "device_ms": total_ms if measured else "not measured",
          "device_idle_share": (1 - total_ms / step) if measured else "not measured",
@@ -2461,17 +2496,17 @@ def phase_moe_profile(sl: dict) -> None:
 
 
 def phase_moe_train(tmp: str) -> dict:
-    """``train_granite``: full-width, full-depth granite-moe-1b-a400m under a
+    """``train_granite``: full-width granite-moe-1b-a400m at MOE_LAYERS under a
     plan without routed entries (built on the seed's raw weights), batch 8
     × seq 128, remat on, MOE_TRAIN_STEPS steps, gated on finite losses,
     gradient norms and router aux losses, every aux loss above 0, integer
     leaves bit-equal to the initial pack, the routed experts still dense,
-    only ``cuda_fused`` dispatched, and the launches: 2 × 96 packed
-    attention projections (remat) of ``sod_matmul`` and 96 of
+    only ``cuda_fused`` dispatched, and the launches: 2 × 16 packed
+    attention projections (remat) of ``sod_matmul`` and 16 of
     ``decompress`` a step; then one steady step is profiled."""
     ck = tempfile.mkdtemp(prefix="chip_smoke_train_granite_")
     args = train.parse_args(MOE_TRAIN_ARGV)
-    cfg = configs.get_config(args.arch)
+    cfg = configs.get_config(args.arch).with_(n_layers=MOE_LAYERS)
     plan_path, plan_row = _moe_plan(
         "train_granite", cfg, SoDConfig(mode=args.sod, density=args.density, min_dim=64),
         args.seed, (TRAIN_M,), tmp)
@@ -2479,7 +2514,7 @@ def phase_moe_train(tmp: str) -> dict:
                              "--ckpt-dir", ck]
     try:
         t0 = time.perf_counter()
-        prep = train.prepare(train.parse_args(argv))
+        prep = train.prepare(train.parse_args(argv), cfg)
         torch.cuda.synchronize()
         prepare_s = time.perf_counter() - t0
         ints = {k: v.clone() for k, v in leaves_with_path(prep[1])
@@ -2509,7 +2544,8 @@ def phase_moe_train(tmp: str) -> dict:
             k.startswith("cuda_fused[") for k in summary["kernel_dispatch"]),
         "launches": launches == want and summary["kernel_launches"] == want,
     }
-    row = {"phase": "moe_train", "run": "train_granite", "steps": MOE_TRAIN_STEPS,
+    row = {"phase": "moe_train", "run": "train_granite", "layers": train_cfg.n_layers,
+           "steps": MOE_TRAIN_STEPS,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "plan": plan_row,
            "prepare_s": prepare_s, "losses": losses, "aux_losses": auxes,
            "grad_norms": gnorms, "launches": launches, "launches_want": want,
@@ -2519,7 +2555,7 @@ def phase_moe_train(tmp: str) -> dict:
     log(row)
     if not all(gates.values()):
         raise AssertionError(f"train_granite: a gate failed: {gates}")
-    phase_train_profile(summary, "train_granite", MOE_TRAIN_ARGV)
+    phase_train_profile(summary, "train_granite", MOE_TRAIN_ARGV, MOE_LAYERS)
     return {"launches": launches}
 
 
@@ -2679,22 +2715,24 @@ RECURRENT_SHAPES = {
 RECURRENT_QMODES = {"sod_matmul": ("none", "int8"), "block_matmul": ("none",),
                     "decompress": ("none",)}
 # cell -> (arch, layers (None: full depth), flags, caller's SoDConfig, kernel)
-# zamba2 at two of its nine groups, full width: every shape of the model
-# runs, and the phase's time (the engine replays every prompt through the
-# decode step) leaves the script room for phase 12 within its limit
+# zamba2 at one of its nine groups, xlstm at one of its
+# three, full width: every shape of the model runs, and the phase's time
+# (the engine replays every prompt through the decode step) keeps the
+# script near half its limit
 RECURRENT_CELLS = {
-    "zamba2_tiled_csc": ("zamba2-2.7b", 12, FAMILY_TILED, None, "sod_matmul"),
-    "zamba2_block_csr": ("zamba2-2.7b", 12, [], _block_sod(), "block_matmul"),
-    "xlstm_tiled_csc": ("xlstm-125m", None, FAMILY_TILED, None, "sod_matmul"),
+    "zamba2_tiled_csc": ("zamba2-2.7b", 6, FAMILY_TILED, None, "sod_matmul"),
+    "zamba2_block_csr": ("zamba2-2.7b", 6, [], _block_sod(), "block_matmul"),
+    "xlstm_tiled_csc": ("xlstm-125m", 4, FAMILY_TILED, None, "sod_matmul"),
 }
 RECURRENT_ENGINE_RUNS = {"zamba2_tiled_csc": "zamba2_tiled_csc",
                          "xlstm_tiled_csc": "xlstm_tiled_csc"}
-# run -> (arch, layers (None: full depth)); both at full width, zamba2 at two
-# of its nine groups, as its cells
-# xlstm at 8 of its 12 layers (two mLSTM-sLSTM groups), for the script's
-# time (59 s at 12 on an H100; phase 13 trains it at full depth)
-RECURRENT_TRAIN_RUNS = {"train_xlstm": ("xlstm-125m", 8),
-                        "train_zamba2": ("zamba2-2.7b", 12)}
+# run -> (arch, layers (None: full depth)); both at full width and one
+# group, for the script's time: xlstm at 4 of its 12 layers (one
+# mLSTM-sLSTM group; 59 s at 12 and 32 s at 8 on an H100; phase 13 trains
+# it at full depth), zamba2 at 6 of its 54 (one Mamba2 group and one
+# application of the shared block, as its cells)
+RECURRENT_TRAIN_RUNS = {"train_xlstm": ("xlstm-125m", 4),
+                        "train_zamba2": ("zamba2-2.7b", 6)}
 RECURRENT_TRAIN_STEPS = 4
 # a recurrent cell replays its 32-token prompt through the decode step, then
 # decodes 16 tokens: 48 decode steps, each running every packed projection
@@ -2975,8 +3013,8 @@ def phase_recurrent_profile(sl: dict) -> None:
 
 
 def phase_recurrent_train(run: str) -> dict:
-    """``train_xlstm`` / ``train_zamba2``: full width (xlstm at 8 layers,
-    zamba2 at 12),
+    """``train_xlstm`` / ``train_zamba2``: full width (xlstm at 4 layers,
+    zamba2 at 6),
     tiled_csc 0.3, batch 8 × seq 128, remat on (every layer group checkpointed),
     RECURRENT_TRAIN_STEPS steps, gated on finite losses and gradient norms,
     integer leaves bit-equal to the initial pack, only ``cuda_fused``
@@ -3031,7 +3069,7 @@ def phase_recurrent_train(run: str) -> dict:
     log(row)
     if not all(gates.values()):
         raise AssertionError(f"{run}: a gate failed: {gates}")
-    phase_train_profile(summary, run, argv)
+    phase_train_profile(summary, run, argv, layers)
     return {"launches": launches}
 
 
@@ -3109,28 +3147,30 @@ FRONTEND_SHAPES = {
 FRONTEND_QMODES = {"sod_matmul": ("none", "int8"), "block_matmul": ("none",),
                    "decompress": ("none",)}
 FRONTEND_GEN = 16
-# cell -> (arch, flags, caller's SoDConfig, kernel); full width and depth.
-# pixtral: batch 2 of 1024 patches + 512 text tokens (a VLM prompt is
-# n_patches + 512·k at attn_chunk 512), 3072 prefill rows
+# cell -> (arch, layers, flags, caller's SoDConfig, kernel); full width,
+# pixtral at 8 of its 40 layers and musicgen at 12 of its 48, for the
+# script's time (a 948 s run on an H100 spent 130 s in this phase at full
+# depth).  pixtral: batch 2 of 1024 patches + 512 text tokens (a VLM prompt
+# is n_patches + 512·k at attn_chunk 512), 3072 prefill rows
 FRONTEND_CELLS = {
-    "pixtral_tiled_csc": ("pixtral-12b", ["--batch", "2", "--prompt-len", "1536"],
+    "pixtral_tiled_csc": ("pixtral-12b", 8, ["--batch", "2", "--prompt-len", "1536"],
                           None, "sod_matmul"),
-    "musicgen_tiled_csc": ("musicgen-medium", ["--batch", "4", "--prompt-len", "32"],
+    "musicgen_tiled_csc": ("musicgen-medium", 12, ["--batch", "4", "--prompt-len", "32"],
                            None, "sod_matmul"),
-    "musicgen_block_csr": ("musicgen-medium", ["--batch", "4", "--prompt-len", "32"],
+    "musicgen_block_csr": ("musicgen-medium", 12, ["--batch", "4", "--prompt-len", "32"],
                            _block_sod(), "block_matmul"),
 }
 # run -> (arch, layers (None: full depth), batch, seq); pixtral at 2 layers:
 # AdamW's float32 state of ≈ 12 B parameters does not fit beside them;
-# musicgen at 24 of its 48 layers, for the script's time (67 s at 48 on
-# an H100)
-FRONTEND_TRAIN_RUNS = {"train_musicgen": ("musicgen-medium", 24, TRAIN_BATCH, TRAIN_SEQ),
+# musicgen at 8 of its 48 layers, for the script's time (67 s at 48 and
+# 29 s at 24 on an H100)
+FRONTEND_TRAIN_RUNS = {"train_musicgen": ("musicgen-medium", 8, TRAIN_BATCH, TRAIN_SEQ),
                        "train_pixtral": ("pixtral-12b", 2, 1, 1536)}
 FRONTEND_TRAIN_STEPS = 4
 
 
 def phase_frontend_serve(cell: str) -> dict:
-    """One FRONTEND_CELLS cell at full width and depth: its weights prepared
+    """One FRONTEND_CELLS cell at full width and its depth cut: its weights prepared
     (``patch_proj`` and the embeddings dense, the head packed), served
     through ``serve.main`` with every launch count read around the run ((layers
     · 7 + the head) × 17 of its kernel, none of the others, no
@@ -3138,13 +3178,13 @@ def phase_frontend_serve(cell: str) -> dict:
     below its vocabulary), then the last prompt position's logits held
     against the densified weights' (the head included), both prefills
     timed."""
-    arch, flags, sod, kernel = FRONTEND_CELLS[cell]
+    arch, layers, flags, sod, kernel = FRONTEND_CELLS[cell]
     argv = ["--arch", arch, *flags, "--gen", str(FRONTEND_GEN), "--seed", "0",
             "--device", "cuda"] + ([] if sod else FAMILY_TILED)
     args = serve.parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    prep = serve.prepare(args, sod)
+    prep = serve.prepare(args, sod, configs.get_config(arch).with_(n_layers=layers))
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     model, params, tokens, patches = prep.model, prep.params, prep.tokens, prep.patch_embeds
@@ -3236,7 +3276,7 @@ def phase_frontend_decode(sl: dict) -> dict:
 
 
 def phase_frontend_profile(cell: str, sl: dict) -> dict:
-    """One steady static decode step of the cell (full width and depth, its
+    """One steady static decode step of the cell (full width at its depth, its
     batch, the cache at the prompt's length; the step's cost does not depend
     on the cache's values, so it starts from a zeroed one) under
     ``torch.profiler``: device ms by class — the SoD kernels (the head's
@@ -3264,8 +3304,8 @@ def phase_frontend_profile(cell: str, sl: dict) -> dict:
     attention_ms = sum(by_range.get("attention_core", {}).values()) / 1e3
     measured = bool(rows)
     row = {"phase": "frontend_profile", "cell": cell, "arch": cfg.name,
-           "what": f"one static decode step, batch {b}, full width and depth, bf16, "
-                   f"at position {pos}",
+           "what": f"one static decode step, batch {b}, full width, {cfg.n_layers} "
+                   f"layers, bf16, at position {pos}",
            "step_ms_median_of_7": step,
            "device_ms": total_ms if measured else "not measured",
            "device_idle_share": (1 - total_ms / step) if measured else "not measured",
@@ -3279,7 +3319,7 @@ def phase_frontend_profile(cell: str, sl: dict) -> dict:
 
 
 def phase_frontend_train(run: str) -> dict:
-    """``train_musicgen`` (full width, 24 layers, batch 8 × seq 128) and
+    """``train_musicgen`` (full width, 8 layers, batch 8 × seq 128) and
     ``train_pixtral`` (full width, 2 layers, batch 1 × seq 1536: 1024
     patches and 512 text tokens, the loss on the text), tiled_csc 0.3,
     remat on, FRONTEND_TRAIN_STEPS steps.  First one gradient of the loss:
@@ -3347,7 +3387,7 @@ def phase_frontend_train(run: str) -> dict:
     log(row)
     if not all(gates.values()):
         raise AssertionError(f"{run}: a gate failed: {gates}")
-    phase_train_profile(summary, run, argv)
+    phase_train_profile(summary, run, argv, layers)
     return {"launches": launches, "step_s": summary["step_s"],
             "peak_mem_gb": summary["peak_mem_gb"]}
 
@@ -3404,7 +3444,9 @@ def _frontend_entry(name: str, qmode: str, fe: dict) -> dict:
 # ---------------------------------------------------------------------------
 # phase 13: the paper-claims layer's examples, run in-process on the card
 # ---------------------------------------------------------------------------
-PAPER_TRAIN_STEPS = 4
+# the example's --full run (xlstm-125m at full depth, batch 8 × seq 512) at
+# 2 steps, for the script's time (6.2 s a step on an H100)
+PAPER_TRAIN_STEPS = 2
 
 
 def _script(path: pathlib.Path):
@@ -3520,7 +3562,7 @@ def phase_paper_serve() -> dict:
 
 
 def phase_paper_train() -> dict:
-    """``torch_train_sparse_lm --full --steps 4``: xlstm-125m at full width,
+    """``torch_train_sparse_lm --full --steps 2``: xlstm-125m at full width,
     batch 8 × seq 512, tiled_csc 0.4: finite losses and gradient norms, only
     ``cuda_fused`` dispatched, and the launches a step phase 11 derives (the
     packed projections twice under remat and the head once of
@@ -3622,6 +3664,11 @@ MESH_GRAD_TOL, MESH_LOSS_TOL = 0.05, 1e-2
 # restore from another step puts m and v apart by their own size)
 ELASTIC_LOSS_TOL, ELASTIC_STATE_TOL = 1e-4, 2e-2
 MESH_TIMEOUT_S = 420                 # the rank group's hard limit
+# the whole-rows program's numbers, before the steps ran the partitioned
+# program (an NVIDIA H100 80GB HBM3 at 700.00 W): mesh_grads' step and a
+# rank's peak, and both serving cells' seconds together (the one-process
+# runs included); no peak was read for the serving cells
+WHOLE_ROWS = {"grads_step_s": 2.144, "grads_peak_mem_gb": 3.616, "serve_s_both_cells": 16.27}
 
 
 def _backend_flags() -> None:
@@ -3710,6 +3757,9 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
                                ("mesh", placed, mesh, mesh_model or model)):
             prefill = steps_mod.make_prefill_step(mdl, mesh=m, plan=plan)
             decode = steps_mod.make_decode_step(mdl, mesh=m, plan=plan)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
             reset_counts()
             pin = (contextlib.nullcontext() if not pin_routing else
                    _routing(record=ids) if run == "one" else _routing(replay=ids, differ=differ))
@@ -3726,7 +3776,9 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
             logits[run] = torch.stack(logs)
             logits[f"{run}_tokens"] = toks
             out[run] = {"launches": {k: mod.launches for k, mod in COUNTERS.items()},
-                        "dispatch": counts, "collectives": dict(moved)}
+                        "dispatch": counts, "collectives": dict(moved),
+                        "seconds": time.perf_counter() - t0,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
     ref_logits, mesh_logits = logits["one"], logits["mesh"]
     err = (mesh_logits - ref_logits).abs().max().item()
     scale = ref_logits.abs().max().item()
@@ -3752,10 +3804,13 @@ def _mesh_grads(mesh) -> dict:
     process on the whole weights, the mesh on the resident blocks."""
     from repro_torch.runtime import sharding, spmd
 
+    from repro_torch.core.tree import leaves_with_path
+
     args = serve.parse_args(TILED_ARGV)
     cfg = configs.get_config(args.arch).with_(n_layers=MESH_TRAIN_LAYERS)
     model, params, *_ = serve.prepare(args, None, cfg)
-    placed = sharding.place(params, sharding.param_specs(params, model.cfg, mesh), mesh)
+    specs = sharding.param_specs(params, model.cfg, mesh)
+    placed = sharding.place(params, specs, mesh)
     batch = to_device(SyntheticLMData(model.cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ,
                                       seed=0).batch(0), "cuda")
     loss1, _, g1 = steps_mod.make_loss_and_grads(model)(params, batch)
@@ -3767,22 +3822,24 @@ def _mesh_grads(mesh) -> dict:
         loss, _, g = steps_mod.make_loss_and_grads(model, mesh=mesh)(placed, batch)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
-    worst = 0.0
-    for i, (layer, spec) in enumerate(zip(g["layers"], placed["layers"])):
-        for path in _packed_paths(spec):
-            w = _at(spec, path)
-            g_res, g_whole = _at(layer, path).vals.float(), _at(g1["layers"][i], path).vals.float()
-            for dim, ax in ((0, w.shard.kt_axis if w.shard else None),
-                            (1, w.shard.nt_axis if w.shard else None)):
-                if ax is not None:
-                    size = g_whole.shape[dim] // mesh.shape[ax]
-                    g_whole = g_whole.narrow(dim, mesh.coords[ax] * size, size)
-            scale = g_whole.abs().max().item()
-            worst = max(worst, (g_res - g_whole).abs().max().item() / max(scale, 1e-30))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    whole = sharding.unplace(g, specs, mesh)
+    worst, n = 0.0, 0
+    for (path, got), (path1, want) in zip(leaves_with_path(whole), leaves_with_path(g1)):
+        if path != path1 or got.shape != want.shape:
+            raise AssertionError(f"mesh grads: {path} {tuple(got.shape)} against "
+                                 f"{path1} {tuple(want.shape)}")
+        if got.is_floating_point():
+            scale = want.float().abs().max().item()
+            worst = max(worst, (got.float() - want.float()).abs().max().item()
+                        / max(scale, 1e-30))
+            n += 1
     rel_loss = abs(loss.item() - loss1.item()) / abs(loss1.item())
     row = {"loss": loss.item(), "loss_one_process": loss1.item(), "rel_loss_err": rel_loss,
-           "grad_rel_err": worst, "m": MESH_TRAIN_BATCH * MESH_TRAIN_SEQ,
-           "step_s": step_s, "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "grad_rel_err": worst, "grads_compared": n, "m": MESH_TRAIN_BATCH * MESH_TRAIN_SEQ,
+           "step_s": step_s, "peak_mem_gb": peak,
+           "whole_rows_step_s": WHOLE_ROWS["grads_step_s"],
+           "whole_rows_peak_mem_gb": WHOLE_ROWS["grads_peak_mem_gb"],
            "launches": {k: mod.launches for k, mod in COUNTERS.items()},
            "dispatch": counts, "collective_bytes": moved}
     if rel_loss > MESH_LOSS_TOL or worst > MESH_GRAD_TOL:
@@ -3797,6 +3854,18 @@ MESH_ENGINE_LAYERS, MESH_ENGINE_GEN = 4, 8
 MOE_MESH_ARCH, MOE_MESH_LAYERS, MOE_MESH_GEN = "qwen2-moe-a2.7b", 4, 8
 ELASTIC_FAILED = (2, 3)             # the ranks the elastic part loses
 DRY_CELL = ("llama3.2-1b", "train_4k", "tiled_csc")
+# the reference's record of DRY_CELL on a rank of its 16 x 16 mesh (XLA's
+# memory and cost analyses and its partitioned HLO's collectives;
+# benchmarks/results/dryrun/llama3.2-1b__train_4k__16x16__tiled_csc.json)
+DRY_REFERENCE = {"flops": 5.32e13, "argument_bytes": 2.19e8, "peak_bytes": 1.48e10,
+                 "all-gather": 1.26e11, "total": 3.01e11}
+# the whole-rows program's counts of the same cell (on the card, equal to
+# a CPU's): every plain op on the global batch, plain leaves whole
+DRY_WHOLE_ROWS = {"flops": 3.950545278599168e15, "argument_bytes": 4387276100,
+            "peak_bytes": 3362457199952, "all-gather": 2290157092864,
+            "total": 2427965145096}
+DRY_PEAK_LIMIT = 40e9                # half the card's 80 GB
+DRY_FLOPS_BAND = (0.67, 1.5)         # a rank's flops over the reference's
 
 
 def _mesh_engine(mesh) -> dict:
@@ -3947,10 +4016,12 @@ def _mesh_elastic(mesh, workdir: str) -> dict:
     after = sharding.unplace({"params": p, "opt": s}, new_specs, new)
     del p, s
     # each packed product: its kernel forward and one decompress in the
-    # backward; under remat the replay of a block stops early, before its
-    # last product, whose local graph the mesh keeps: 6 of 7 again
+    # backward; under remat the replay of a block runs all 7 again (the
+    # partitioned step's kernels save their inputs through the checkpoint,
+    # the last product's too; the whole-rows program kept that one's graph:
+    # 6 of 7)
     packed = MESH_TRAIN_LAYERS * 7
-    want = {"sod_matmul": packed + (MESH_TRAIN_LAYERS * 6 if model.cfg.remat else 0),
+    want = {"sod_matmul": packed + (MESH_TRAIN_LAYERS * 7 if model.cfg.remat else 0),
             "block_matmul": 0, "decompress": packed}
     row = {"failed": False, "new_rank": new.rank, "new_shape": list(new.axis_sizes),
            "losses": losses, "loss": loss, "launches": launches, "want_launches": want,
@@ -4077,6 +4148,10 @@ def phase_mesh() -> dict:
                                      f"{row['resident_bytes']} not below {row['whole_bytes']}")
             log({"phase": "mesh", "rank": r["rank"], "coords": r["coords"], "cell": cell,
                  "dispatch": disp, "launches": row["serve"]["mesh"]["launches"],
+                 "mesh_serve_s": row["serve"]["mesh"]["seconds"],
+                 "peak_mem_gb_a_rank": row["serve"]["mesh"]["peak_mem_gb"],
+                 "whole_rows_serve_s_both_cells": WHOLE_ROWS["serve_s_both_cells"],
+                 "whole_rows_peak_mem_gb_a_rank": "not measured",
                  "max_abs_err": row["serve"]["max_abs_err"], "tol": row["serve"]["tol"],
                  "greedy_agreement": row["serve"]["greedy_agreement"],
                  "prefill_tokens_equal": row["serve"]["prefill_tokens_equal"],
@@ -4123,6 +4198,11 @@ def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
             {k.split("[")[0] for k in dry["dispatch_counts"]} != {"cuda_fused"}:
         raise AssertionError(f"dry-run cell: {dry.get('status')} "
                              f"{dry.get('traceback', '')[-2000:]} launches {dry.get('launches')}")
+    port = {"flops": dry["cost"]["flops"],
+            "argument_bytes": dry["memory"]["argument_bytes"],
+            "peak_bytes": dry["memory"]["peak_bytes"],
+            "all-gather": dry["collectives"]["all-gather"],
+            "total": dry["collectives"]["total"]}
     log({"phase": "dryrun", "cell": "__".join(DRY_CELL), "device": dry["device"],
          "flops": dry["cost"]["flops"], "peak_bytes_a_rank": dry["memory"]["peak_bytes"],
          "argument_bytes": dry["memory"]["argument_bytes"],
@@ -4131,6 +4211,15 @@ def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
          "collective_counts": dry["collectives"]["counts"],
          "dispatch_counts": dry["dispatch_counts"], "run_s": dry["run_s"],
          "wall_s": dry["wall_s"], "with_group_s": dry_s})
+    log({"phase": "dryrun_table", "cell": "__".join(DRY_CELL), "per_rank": {
+        k: {"reference": DRY_REFERENCE[k], "port": port[k], "whole_rows": DRY_WHOLE_ROWS[k],
+            "port_over_reference": port[k] / DRY_REFERENCE[k]} for k in port}})
+    lo, hi = DRY_FLOPS_BAND
+    if not (port["peak_bytes"] < DRY_PEAK_LIMIT
+            and lo * DRY_REFERENCE["flops"] <= port["flops"] <= hi * DRY_REFERENCE["flops"]):
+        raise AssertionError(f"dry-run cell: peak {port['peak_bytes']} B (limit "
+                             f"{DRY_PEAK_LIMIT}), flops {port['flops']} (reference "
+                             f"{DRY_REFERENCE['flops']} x {DRY_FLOPS_BAND})")
     log({"phase": "mesh15_seconds",
          "by_rank": {r["rank"]: {k: r["seconds"].get(k) for k in ("engine", "moe", "elastic")}
                      for r in ranks}, "dryrun_s": dry["wall_s"]})

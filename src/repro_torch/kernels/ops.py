@@ -175,7 +175,9 @@ def sod_matmul(x: torch.Tensor, w, *, impl: str = "auto", bm: int | None = None,
     another dtype than x is computed in the promoted dtype (``_promote``).
 
     ``spmd``: ``"auto"`` routes a packed product through the SPMD layer
-    when a mesh is active; an explicit
+    when a mesh is active (inside a partitioned step,
+    :func:`repro_torch.runtime.spmd.use_partition`, its local contract
+    under the plan of the weight's resident block); an explicit
     :class:`repro_torch.runtime.spmd.SpmdPlan` forces a partitioning; None
     runs the product whole on this process.
     """
@@ -183,9 +185,18 @@ def sod_matmul(x: torch.Tensor, w, *, impl: str = "auto", bm: int | None = None,
     if not isinstance(w, (TiledCSC, BlockCSR)):
         return dense_matmul(x, w, out_dtype)
     k, n = w.global_shape
+    x, w = _promote(x, w)
+    if spmd is not None and os.environ.get("REPRO_SPMD", "1") != "0":
+        from repro_torch.runtime import spmd as spmd_mod  # deferred: runtime over kernels
+
+        part = spmd_mod.active_partition()
+        if part is not None and not spmd_mod.in_spmd_body():
+            # the partitioned program: the local contract, the weight as it lies
+            return spmd_mod.sod_matmul_local(
+                x, w, part, impl=impl, bm=bm, out_dtype=out_dtype, backend=backend,
+                params=params, fallback_params=fallback_params)
     if x.shape[-1] != k:
         raise ValueError(f"x inner dim {x.shape[-1]} != W K {k}")
-    x, w = _promote(x, w)
     if spmd is not None and os.environ.get("REPRO_SPMD", "1") != "0":
         from repro_torch.runtime import spmd as spmd_mod  # deferred: runtime over kernels
 

@@ -12,9 +12,10 @@ launched.  Per cell it:
 1. builds the mesh (16×16, or 2×16×16 with ``--multi-pod``) at rank 0,
 2. builds meta parameters (optionally Sparse-on-Dense packed under the
    planner's per-layer plan, :func:`_plan_for_cell`), places them as that
-   rank holds them (:func:`repro_torch.runtime.sharding.place`: packed
-   leaves reduced to their resident tile-grid block, every other leaf
-   whole), the AdamW state and the inputs (:mod:`repro_torch.launch.specs`),
+   rank holds them (:func:`repro_torch.runtime.sharding.place`: every leaf
+   reduced to the block its spec names), the AdamW state (its ZeRO-1
+   blocks) and the inputs (:mod:`repro_torch.launch.specs`; the rank's
+   rows and cache block for the dense family),
 3. runs the step (train, prefill or decode) on the counting mesh, where
    each packed product resolves its kernel as the card would (backend
    ``cuda``, the mesh-qualified key, tuned or prior: ``kernel_dispatch``)
@@ -33,10 +34,12 @@ launched.  Per cell it:
    buffer; ``counts`` their calls).
 
 These are counts of the port's own eager program, not compile results.
-The port runs plain ops (attention, norms, the head) on the global batch on
-every rank and keeps plain leaves whole, so its per-rank memory and flops
-sit far above a real shard's (``ROADMAP.md`` §A, the known difference).
-Eager code runs every layer, so nothing is counted once per loop body: the
+The dense family's steps run the partitioned program (the rank's rows,
+its share of heads, MLP columns and vocabulary, its ZeRO-1 optimizer
+blocks; :mod:`repro_torch.launch.steps`), so rank 0 counts a shard's work
+as the reference's partitioned HLO does; the other families still run
+plain ops on the global batch on every rank (``ROADMAP.md``).  Eager code
+runs every layer, so nothing is counted once per loop body: the
 reference's ``cost_scan_hlo``, ``collectives_scan_hlo`` and depth probes
 have no counterpart; :func:`_extrapolate` (and :func:`measure` at a cut
 depth) keep its depth law for checking.  A cell whose step fails records
@@ -161,28 +164,52 @@ def _step_and_args(cfg, shape, mesh, plan=None, params=None, inputs=None):
     """The cell's step and its arguments as rank ``mesh.rank`` holds them:
     meta tensors, or the whole ``params`` and ``inputs`` given (as
     :func:`~repro_torch.launch.specs.input_specs` lays them out) placed on
-    a real mesh."""
+    a real mesh.  The rank holds its placed parameters, its ZeRO-1 blocks
+    of the optimizer state and, where the step runs the partitioned
+    program (the dense family), its rows of the batch and its block of the
+    decode cache (:func:`repro_torch.runtime.sharding.kv_cache_specs`)."""
     model = LM(cfg)
     if params is None:
         params = specs_mod.abstract_params(model, cfg.sod if cfg.sod.enabled else None,
                                            plan=plan)
-    placed = shard_mod.place(params, shard_mod.param_specs(params, cfg, mesh), mesh)
+    p_specs = shard_mod.param_specs(params, cfg, mesh)
+    placed = shard_mod.place(params, p_specs, mesh)
     inputs = specs_mod.input_specs(cfg, shape) if inputs is None else inputs
+    split = cfg.family in steps_mod.PARTITIONED
+
+    def rows_of(batch):
+        """The batch as the rank holds it and the axes its rows lie on."""
+        if not split:
+            return batch, None
+        b_specs = shard_mod.batch_specs(batch, mesh)
+        rows = next(iter(b_specs.values()))[0]
+        return (shard_mod.place(batch, b_specs, mesh),
+                () if rows is None else ((rows,) if isinstance(rows, str) else tuple(rows)))
+
     if shape.kind == "train":
         opt = AdamW(AdamWConfig())
-        step = steps_mod.make_train_step(model, opt, mesh=mesh, plan=plan)
-        return step, (placed, opt.init(placed), inputs["batch"])
+        state = opt.init(params)
+        state = shard_mod.place(state, shard_mod.opt_state_specs(state, p_specs, mesh, cfg=cfg),
+                                mesh)
+        batch, rows = rows_of(inputs["batch"])
+        step = steps_mod.make_train_step(model, opt, mesh=mesh, plan=plan, rows=rows)
+        return step, (placed, state, batch)
     if shape.kind == "prefill":
-        prefill = steps_mod.make_prefill_step(model, mesh=mesh, plan=plan)
-        batch = inputs["batch"]
+        batch, rows = rows_of(inputs["batch"])
+        prefill = steps_mod.make_prefill_step(model, mesh=mesh, plan=plan, rows=rows)
 
         def step(params, batch):
             return prefill(params, batch["tokens"], patch_embeds=batch.get("patch_embeds"))
 
         return step, (placed, batch)
-    step = steps_mod.make_decode_step(model, mesh=mesh, plan=plan)
+    cache, tokens = inputs["cache"], inputs["tokens"]
+    toks, rows = rows_of({"tokens": tokens})
+    if split:
+        cache = shard_mod.place(cache, shard_mod.kv_cache_specs(
+            cache, cfg, mesh, tokens.shape[0]), mesh)
+    step = steps_mod.make_decode_step(model, mesh=mesh, plan=plan, rows=rows)
     # the position the 0-d ``pos`` spec stands for: the cache's last
-    return step, (placed, inputs["cache"], inputs["tokens"], shape.seq_len - 1)
+    return step, (placed, cache, toks["tokens"], shape.seq_len - 1)
 
 
 def measure(cfg, shape, mesh, plan=None, params=None, inputs=None) -> dict:

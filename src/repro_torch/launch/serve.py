@@ -40,6 +40,14 @@ layout at the run's M values into the tuning cache (``--tuning-cache
 PATH``, else ``$REPRO_TORCH_TUNING_CACHE``, else
 ``~/.cache/repro_torch/tuning_cache.json``), which dispatch then reads.
 
+``--trace PATH`` writes a Chrome trace-event JSON timeline (the static
+path's ``prefill`` and ``decode_step`` spans on track ``serve``, the
+engine's phases and request lifecycle, every kernel dispatch as an
+instant on track ``kernels``) and names it in the summary's ``trace``;
+``--metrics-json PATH`` writes a metrics snapshot (the static path's
+``generated_tokens``, ``prefill_s``, ``warmup_s``, ``steady_s`` and
+``decode_step_s``; the engine's registry), as the reference's flags do.
+
 ``--sod block_csr`` keeps the reference CLI's magnitude pruning; a caller
 that wants block pruning (as the reference's serving bench uses for this
 format) passes its own ``SoDConfig`` to :func:`main`.
@@ -59,12 +67,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import time
 from typing import NamedTuple
 
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, obs
 from repro_torch.configs import ModelConfig
 from repro_torch.core.plan import ModelPlan, use_plan
 from repro_torch.core.sod import SoDConfig, sodify_params, tree_weight_bytes
@@ -157,6 +166,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "default: global-config packing")
     ap.add_argument("--plan-json", default=None,
                     help="write the pack plan used to this path")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome trace-event JSON timeline (prefill and "
+                         "decode steps, engine phases, request lifecycle, kernel "
+                         "dispatch) to PATH; open it in Perfetto or chrome://tracing")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write a counters/gauges/histograms metrics snapshot to PATH")
     args = ap.parse_args(argv)
     if args.prefix_sharing and not args.prefill_chunk:
         ap.error("--prefix-sharing requires --prefill-chunk (prefill must "
@@ -374,6 +389,9 @@ def engine_main(args: argparse.Namespace, model: LM, params, draft=None,
                           vocab=cfg.vocab, seed=args.seed)
     launches0 = _launches()
     res = eng.run(trace)
+    if args.metrics_json:
+        pathlib.Path(args.metrics_json).write_text(
+            json.dumps(eng.metrics.snapshot(), indent=2))
     summary = {
         "engine": True, "arch": cfg.name, "requests": args.requests,
         "max_slots": args.max_slots, "page_size": page if eng.paged else None,
@@ -419,22 +437,45 @@ def main(argv=None, sod: SoDConfig | None = None, prepared=None) -> dict:
     same flags, which the run then serves instead of building its own (a
     caller that keeps the weights packs them once); its plan is the one the
     run dispatches under.  With ``--spec-decode`` and no draft in
-    ``prepared``, the draft tier is drawn and packed here.
+    ``prepared``, the draft tier is drawn and packed here.  The engine's
+    summary keeps its requests under ``trace``, or with ``--trace`` under
+    ``request_trace`` (``trace`` then names the trace file).
     """
     args = parse_args(argv)
-    with torch.inference_mode():
-        prep = Prepared(*prepared) if prepared is not None else prepare(args, sod)
-        if args.spec_decode and prep.draft is None:
-            prep = prep._replace(**dict(zip(("draft", "draft_plan"),
-                                            prepare_draft(args, prep.model))))
-    with kreg.count_dispatches() as dispatch_counts:
-        summary = (_serve_engine(args, prep) if args.engine
-                   else _serve_static(args, prep))
-    summary["kernel_dispatch"] = dispatch_counts
-    summary.update(_plan_summary(args, prep))
+    # installed before the registry dispatches or the engine is built:
+    # both capture the process's tracer
+    tracer = obs.install_tracer(obs.Tracer()) if args.trace else None
+    try:
+        with torch.inference_mode():
+            prep = Prepared(*prepared) if prepared is not None else prepare(args, sod)
+            if args.spec_decode and prep.draft is None:
+                prep = prep._replace(**dict(zip(("draft", "draft_plan"),
+                                                prepare_draft(args, prep.model))))
+        with kreg.count_dispatches() as dispatch_counts:
+            summary = (_serve_engine(args, prep) if args.engine
+                       else _serve_static(args, prep))
+        summary["kernel_dispatch"] = dispatch_counts
+        summary.update(_plan_summary(args, prep))
+        _finish_trace(tracer, args, summary)
+    finally:
+        if tracer is not None:
+            obs.install_tracer(None)
     print(json.dumps({k: v for k, v in summary.items()
-                      if k not in ("tokens", "trace")}))
+                      if k not in ("tokens", "request_trace")
+                      and not (k == "trace" and not isinstance(v, str))}))
     return summary
+
+
+def _finish_trace(tracer, args: argparse.Namespace, summary: dict) -> None:
+    """Export the run's trace (with ``--trace``) into the summary's
+    ``trace`` and uninstall the tracer, so a later run in the process
+    starts with none."""
+    if tracer is None:
+        return
+    if "trace" in summary:
+        summary["request_trace"] = summary.pop("trace")
+    summary["trace"] = str(tracer.export(args.trace))
+    obs.install_tracer(None)
 
 
 def _serve_engine(args: argparse.Namespace, prep: Prepared) -> dict:
@@ -449,6 +490,8 @@ def _serve_engine(args: argparse.Namespace, prep: Prepared) -> dict:
 
 def _serve_static(args: argparse.Namespace, prep: Prepared) -> dict:
     model, params, tokens, plan = prep.model, prep.params, prep.tokens, prep.plan
+    tr = obs.get_tracer()
+    mets = obs.Metrics() if args.metrics_json else None
     with torch.inference_mode():
         device = tokens.device
         max_len = args.prompt_len + args.gen
@@ -456,10 +499,12 @@ def _serve_static(args: argparse.Namespace, prep: Prepared) -> dict:
 
         _sync(device)
         t0 = time.perf_counter()
-        last_logits, cache, pos0 = prefill_cache(model, params, tokens, max_len,
-                                                 plan=plan,
-                                                 patch_embeds=prep.patch_embeds)
-        _sync(device)
+        with tr.span("prefill", track="serve", batch=args.batch,
+                     prompt_len=args.prompt_len):
+            last_logits, cache, pos0 = prefill_cache(model, params, tokens, max_len,
+                                                     plan=plan,
+                                                     patch_embeds=prep.patch_embeds)
+            _sync(device)
         prefill_s = time.perf_counter() - t0
 
         decode = steps_mod.make_decode_step(model, plan=plan)
@@ -469,9 +514,13 @@ def _serve_static(args: argparse.Namespace, prep: Prepared) -> dict:
         warmup_s = steady_s = 0.0
         t0 = time.perf_counter()
         for t in range(args.gen):
-            nxt, logits, cache = decode(params, cache, tok, pos0 + t)
+            ts = time.perf_counter()
+            with tr.span("decode_step", track="serve", t=t):
+                nxt, logits, cache = decode(params, cache, tok, pos0 + t)
             tok = step_tokens(nxt, args.batch, model.cfg)
             outs.append(nxt)
+            if mets is not None:   # the host's time to enqueue the step
+                mets.observe("decode_step_s", time.perf_counter() - ts)
             if t == 0:   # the first step pays one-time costs: reported apart
                 _sync(device)
                 warmup_s = time.perf_counter() - t0
@@ -480,6 +529,12 @@ def _serve_static(args: argparse.Namespace, prep: Prepared) -> dict:
         if args.gen > 1:
             steady_s = time.perf_counter() - t0
         launches = {k: v - launches0[k] for k, v in _launches().items()}
+    if mets is not None:
+        mets.counter("generated_tokens", args.batch * args.gen)
+        mets.gauge("prefill_s", prefill_s)
+        mets.gauge("warmup_s", warmup_s)
+        mets.gauge("steady_s", steady_s)
+        pathlib.Path(args.metrics_json).write_text(json.dumps(mets.snapshot(), indent=2))
 
     return {
         "arch": model.cfg.name,

@@ -7,11 +7,26 @@ as a fresh leaf that requires grad (a detached view, no copy), and
 ``torch.autograd.grad`` returns their gradients; integer leaves get
 ``None``.
 Every ``make_*`` function takes an optional ``mesh`` (a
-:class:`repro_torch.launch.mesh.Mesh`): the step body runs inside
-:func:`repro_torch.launch.mesh.mesh_context`, so each packed matmul runs
-as this rank's local problem of its SPMD plan
-(:mod:`repro_torch.runtime.spmd`).  A mesh step takes the global batch on
-every rank and returns what the unsharded step returns, on every rank.
+:class:`repro_torch.launch.mesh.Mesh`, its parameters placed on it by
+:func:`repro_torch.runtime.sharding.place`).  A mesh step takes the
+global batch on every rank and returns what the unsharded step returns,
+on every rank.  Inside, the dense family's train, prefill and decode
+steps run the partitioned program (:class:`repro_torch.runtime.spmd.
+Partition`), as GSPMD partitions the reference's jitted step: at entry
+each rank takes its rows (:func:`repro_torch.runtime.sharding.
+batch_specs`: over the data axes where they divide, else every row), its
+ops run on its share of heads, MLP columns and vocabulary, the loss's
+mean is the global batch's, every gradient is summed over the data axes
+(a whole one's in one coalesced all-reduce), and at exit the tokens and
+logits are gathered.  The KV cache between prefill and decode stays the
+rank's: its rows, and its KV heads where they divide ``model``.  The
+engine's steps (``make_prefill_full``, ``make_chunked_prefill_step``,
+``make_paged_decode_step``, ``make_verify_step``), the other families'
+steps and ``partition=False`` run every op on the global batch on every
+rank, each packed product a rank's local problem
+(:mod:`repro_torch.runtime.spmd`), the plain leaves taken whole again
+(:func:`repro_torch.runtime.sharding.gather_plain`; once a parameter
+tree outside autograd).
 Every ``make_*`` function also takes an optional ``plan`` (a
 :class:`repro_torch.core.plan.ModelPlan`): the step body runs inside
 :func:`repro_torch.core.plan.use_plan`, so each packed matmul dispatches
@@ -19,63 +34,217 @@ with its layer's :class:`~repro_torch.core.plan.PackPlan`.
 """
 from __future__ import annotations
 
+import contextlib
+import weakref
+
 import torch
 
+from repro_torch.core.formats import BlockCSR, TiledCSC
 from repro_torch.core.plan import use_plan
 from repro_torch.core.tree import tree_leaves, tree_map
-from repro_torch.launch.mesh import mesh_context
+from repro_torch.launch.mesh import dp_axes, mesh_context
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamW
+from repro_torch.runtime import sharding, spmd
+
+# the families whose mesh steps run the partitioned program
+PARTITIONED = ("dense",)
 
 
-def make_loss_and_grads(model: LM, mesh=None, plan=None):
+def partition_for(model: LM, mesh, n_rows: int, rows=None) -> spmd.Partition | None:
+    """The partition of a step of ``model`` on ``mesh`` over a batch of
+    ``n_rows`` rows, or None (no mesh, or a family that runs whole rows):
+    rows over the data axes where they divide (``rows``, when given: the
+    axes the batch's rows are already split over)."""
+    if mesh is None or model.cfg.family not in PARTITIONED:
+        return None
+    if rows is None:
+        dp = dp_axes(mesh)
+        rows = dp if dp and n_rows % spmd._axes_size(mesh, dp) == 0 else ()
+    return spmd.Partition(mesh, tuple(rows))
+
+
+def _take_rows(t, part: spmd.Partition, given: bool):
+    """This rank's rows of a global batch tensor (as they are when the
+    batch already holds them)."""
+    if given or not part.rows or not isinstance(t, torch.Tensor):
+        return t
+    return spmd.shard_rows(t, part.mesh, part.rows)
+
+
+def _whole_out(t: torch.Tensor, part: spmd.Partition, vocab: int) -> torch.Tensor:
+    """The global logits (or tokens) from the rank's rows and, for logits,
+    vocabulary block."""
+    if t.shape[-1] != vocab and part.tp > 1 and t.is_floating_point():
+        t = spmd.all_gather(t, part.mesh, "model", t.ndim - 1, "output_bytes")
+    return spmd.all_gather(t, part.mesh, part.rows, 0, "output_bytes")
+
+
+def _local_cache(cache, part: spmd.Partition, model: LM, rows: int):
+    """The decode cache as the rank keeps it (``rows`` of them): views of
+    its rows (and KV heads, where they divide ``model``) of a whole cache,
+    the cache itself when it holds them already."""
+    cfg = model.cfg
+    heads = cfg.n_kv_heads // part.tp if cfg.n_kv_heads % part.tp == 0 else cfg.n_kv_heads
+
+    def local(t):
+        if t.shape[1] != rows:
+            t = spmd._own_block(t, part.mesh, part.rows, 1)
+        if t.shape[3] != heads:
+            t = spmd._own_block(t, part.mesh, "model", 3)
+        return t
+
+    return {k: local(v) for k, v in cache.items()}
+
+
+def _plain_grads(grads, part: spmd.Partition):
+    """Every plain leaf's gradient summed over the batch axes, in one
+    float32 all-reduce (packed leaves' gradients are summed by their
+    products' backward)."""
+    if not part.rows:
+        return grads
+    found: list = []
+
+    def walk(t):
+        if isinstance(t, (TiledCSC, BlockCSR)):
+            return
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            found.append(t)
+
+    walk(grads)
+    if not found:
+        return grads
+    flat = spmd.all_reduce(torch.cat([g.float().reshape(-1) for g in found]), part.mesh,
+                           part.rows, "grad_bytes")
+    summed = {id(g): s.reshape(g.shape).to(g.dtype)
+              for g, s in zip(found, torch.split(flat, [g.numel() for g in found]))}
+    return _replace(grads, summed)
+
+
+def _replace(tree, by_id: dict):
+    if isinstance(tree, dict):
+        return {k: _replace(v, by_id) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_replace(v, by_id) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return by_id.get(id(tree), tree)
+    return tree
+
+
+# the last parameter tree taken whole outside autograd: (a weak reference
+# to one of its split leaves, the tree's id, the whole tree)
+_WHOLE: list = []
+
+
+def whole_params(params, model: LM, mesh):
+    """``params`` with its split plain leaves whole again for a step that
+    runs whole rows (:func:`repro_torch.runtime.sharding.gather_plain`):
+    differentiably while autograd records, else once for a tree (kept
+    until that tree's split leaves are freed)."""
+    if mesh is None:
+        return params
+    specs = sharding.layout_specs(params, model.cfg, mesh)
+    split = sharding.split_plain(params, specs)
+    if not split:
+        return params
+    if torch.is_grad_enabled():
+        return sharding.gather_plain(params, specs, mesh)
+    if _WHOLE and _WHOLE[0][0]() is split[0] and _WHOLE[0][1] == id(params):
+        return _WHOLE[0][2]
+    out = sharding.gather_plain(params, specs, mesh)
+    _WHOLE[:] = [(weakref.ref(split[0], lambda _: _WHOLE.clear()), id(params), out)]
+    return out
+
+
+def make_loss_and_grads(model: LM, mesh=None, plan=None, rows=None):
     """``(params, batch) -> (loss, metrics, grads)``: the loss of
     :meth:`LM.loss`, its metrics (detached), and a gradient tree shaped like
     ``params`` (float leaves' gradients in their own dtype, zeros for an
-    unused one; ``None`` at integer leaves)."""
+    unused one; ``None`` at integer leaves).  On a mesh each gradient is
+    the whole batch's, of the leaf's block the rank holds.  ``rows``: the
+    axes the batch's rows are already split over (the dry-run's placed
+    batch); None, the global batch."""
     def loss_and_grads(params, batch):
-        with mesh_context(mesh), use_plan(plan):
+        part = partition_for(model, mesh, batch["tokens"].shape[0], rows)
+        with mesh_context(mesh), use_plan(plan), (
+                spmd.use_partition(part) if part else contextlib.nullcontext()):
             live = tree_map(lambda p: p.detach().requires_grad_(True)
                             if p.is_floating_point() else p, params)
             leaves = [p for p in tree_leaves(live) if p.requires_grad]
-            loss, metrics = model.loss(live, batch)
+            if part is None:
+                loss, metrics = model.loss(whole_params(live, model, mesh), batch)
+            else:
+                loss, metrics = model.loss(live, {k: _take_rows(v, part, rows is not None)
+                                                  for k, v in batch.items()})
             gs = iter(torch.autograd.grad(loss, leaves, materialize_grads=True))
         grads = tree_map(lambda p: next(gs) if p.requires_grad else None, live)
+        if part is not None:
+            grads = _plain_grads(grads, part)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
     return loss_and_grads
 
 
-def make_train_step(model: LM, optimizer: AdamW, mesh=None, plan=None):
+def make_train_step(model: LM, optimizer: AdamW, mesh=None, plan=None, rows=None):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``: one
-    optimizer step, the loss's and the optimizer's metrics merged."""
-    loss_and_grads = make_loss_and_grads(model, mesh=mesh, plan=plan)
+    optimizer step, the loss's and the optimizer's metrics merged.  On a
+    mesh the optimizer state may be placed under ZeRO-1
+    (:func:`repro_torch.runtime.sharding.opt_state_specs`) or lie as the
+    parameters do."""
+    loss_and_grads = make_loss_and_grads(model, mesh=mesh, plan=plan, rows=rows)
 
     def train_step(params, opt_state, batch):
         _, metrics, grads = loss_and_grads(params, batch)
-        params, opt_state, opt_metrics = optimizer.update(params, grads, opt_state, mesh=mesh)
+        specs = sharding.layout_specs(params, model.cfg, mesh) if mesh is not None else None
+        params, opt_state, opt_metrics = optimizer.update(params, grads, opt_state,
+                                                          mesh=mesh, specs=specs)
         return params, opt_state, {**metrics, **opt_metrics}
 
     return train_step
 
 
-def make_prefill_step(model: LM, mesh=None, plan=None):
+def make_prefill_step(model: LM, mesh=None, plan=None, partition: bool = True, rows=None):
     """``(params, tokens, *, patch_embeds=None) -> (greedy next tokens (B,),
-    cache)``; a VLM's patches go in as ``patch_embeds``."""
+    cache)``; a VLM's patches go in as ``patch_embeds``.  ``partition=False``
+    runs whole rows on a mesh (the engine's reference decode)."""
     def prefill_step(params, tokens, *, patch_embeds=None):
-        with mesh_context(mesh), use_plan(plan):
-            last_logits, cache = model.prefill(params, tokens, patch_embeds=patch_embeds)
-        return last_logits.argmax(dim=-1), cache
+        part = (partition_for(model, mesh, tokens.shape[0], rows)
+                if partition and patch_embeds is None else None)
+        if part is None:
+            with mesh_context(mesh), use_plan(plan):
+                last_logits, cache = model.prefill(whole_params(params, model, mesh), tokens,
+                                                   patch_embeds=patch_embeds)
+            return last_logits.argmax(dim=-1), cache
+        with mesh_context(mesh), use_plan(plan), spmd.use_partition(part):
+            last_logits, cache = model.prefill(params, _take_rows(tokens, part,
+                                                                   rows is not None))
+        last = _whole_out(last_logits, part, model.cfg.padded_vocab)
+        return last.argmax(dim=-1), cache
 
     return prefill_step
 
 
-def make_decode_step(model: LM, mesh=None, plan=None):
+def make_decode_step(model: LM, mesh=None, plan=None, partition: bool = True, rows=None):
     """``(params, cache, tokens, pos) -> (greedy tokens (B, 1), logits,
-    cache)``."""
+    cache)``.  ``partition=False`` runs whole rows on a mesh."""
     def decode_step(params, cache, tokens, pos):
-        with mesh_context(mesh), use_plan(plan):
-            logits, cache = model.decode_step(params, cache, tokens, pos)
+        part = partition_for(model, mesh, tokens.shape[0], rows) if partition else None
+        if part is None:
+            with mesh_context(mesh), use_plan(plan):
+                logits, cache = model.decode_step(whole_params(params, model, mesh), cache,
+                                                  tokens, pos)
+            return logits.argmax(dim=-1), logits, cache
+        tokens = _take_rows(tokens, part, rows is not None)
+        with mesh_context(mesh), use_plan(plan), spmd.use_partition(part):
+            logits, cache = model.decode_step(
+                params, _local_cache(cache, part, model, tokens.shape[0]), tokens, pos)
+        logits = _whole_out(logits, part, model.cfg.padded_vocab)
         return logits.argmax(dim=-1), logits, cache
 
     return decode_step
@@ -88,7 +257,7 @@ def make_prefill_full(model: LM, mesh=None, plan=None):
     ``-1``; it takes that row itself."""
     def prefill_full(params, tokens):
         with mesh_context(mesh), use_plan(plan):
-            return model.apply(params, tokens, want_cache=True)
+            return model.apply(whole_params(params, model, mesh), tokens, want_cache=True)
 
     return prefill_full
 
@@ -100,8 +269,8 @@ def make_chunked_prefill_step(model: LM, mesh=None, plan=None):
     come back so the engine can take the last real prompt token's row."""
     def chunked_prefill_step(params, pool, block_tables, tokens, start, valid_len):
         with mesh_context(mesh), use_plan(plan):
-            return model.prefill_chunk(params, pool, block_tables, tokens, start,
-                                       valid_len)
+            return model.prefill_chunk(whole_params(params, model, mesh), pool, block_tables,
+                                       tokens, start, valid_len)
 
     return chunked_prefill_step
 
@@ -113,8 +282,9 @@ def make_paged_decode_step(model: LM, mesh=None, plan=None):
     their ``valid_len`` write to the trash page."""
     def paged_decode_step(params, pool, block_tables, tokens, pos, valid_len=None):
         with mesh_context(mesh), use_plan(plan):
-            logits, pool = model.paged_decode_step(params, pool, block_tables,
-                                                   tokens, pos, valid_len=valid_len)
+            logits, pool = model.paged_decode_step(whole_params(params, model, mesh), pool,
+                                                   block_tables, tokens, pos,
+                                                   valid_len=valid_len)
         return logits.argmax(dim=-1), logits, pool
 
     return paged_decode_step
@@ -128,8 +298,8 @@ def make_verify_step(model: LM, mesh=None, plan=None):
     position."""
     def verify_step(params, pool, block_tables, tokens, start, valid_len):
         with mesh_context(mesh), use_plan(plan):
-            logits, pool = model.verify_chunk(params, pool, block_tables, tokens,
-                                              start, valid_len)
+            logits, pool = model.verify_chunk(whole_params(params, model, mesh), pool,
+                                              block_tables, tokens, start, valid_len)
         return logits.argmax(dim=-1), logits, pool
 
     return verify_step

@@ -22,6 +22,14 @@ against batch 1), so the core then computes each query head twice
 and keeps the first copy.  The speculative verify path
 (:func:`paged_verify_attention`) calls the decode core once a window
 position, so its rows equal C sequential decode steps by construction.
+
+In a partitioned step (:func:`repro_torch.runtime.spmd.use_partition`)
+attention runs on the rank's query heads and the KV heads they read
+(:func:`local_heads`): the KV heads' own block where they divide
+``model``, else the whole K and V, computed on every rank and narrowed to
+the group the rank's heads share; where the query heads do not divide
+``model`` (or straddle groups) every rank attends with every head.  The
+cache keeps what the projections give (split KV heads, or whole).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch
 
 from repro_torch.core import sod
 from repro_torch.models import layers
+from repro_torch.runtime import spmd
 
 Params = dict[str, Any]
 
@@ -72,13 +81,68 @@ def init_attention(gen: torch.Generator, d_model: int, spec: AttnSpec,
 
 def _project_qkv(params: Params, x: torch.Tensor, spec: AttnSpec,
                  positions: torch.Tensor):
-    b, s, _ = x.shape
-    q = sod.apply(x, params["wq"]).reshape(b, s, spec.n_heads, spec.head_dim)
-    k = sod.apply(x, params["wk"]).reshape(b, s, spec.n_kv_heads, spec.head_dim)
-    v = sod.apply(x, params["wv"]).reshape(b, s, spec.n_kv_heads, spec.head_dim)
+    """q, k, v after RoPE, (B, S, heads, hd).  In the partitioned program:
+    the rank's query heads, and K and V as the cache keeps them
+    (:func:`local_heads`; :func:`attending` narrows them to the heads the
+    rank reads)."""
+    b, s, d = x.shape
+    part = spmd.active_partition()
+    if part is None:
+        q = sod.apply(x, params["wq"]).reshape(b, s, spec.n_heads, spec.head_dim)
+        k = sod.apply(x, params["wk"]).reshape(b, s, spec.n_kv_heads, spec.head_dim)
+        v = sod.apply(x, params["wv"]).reshape(b, s, spec.n_kv_heads, spec.head_dim)
+    else:
+        hd, heads = spec.head_dim, local_heads(spec)
+        q = layers.linear(x, params["wq"], d, spec.n_heads * hd)
+        k = layers.linear(x, params["wk"], d, spec.n_kv_heads * hd)
+        v = layers.linear(x, params["wv"], d, spec.n_kv_heads * hd)
+        kv_block = heads is not None and spec.n_kv_heads % part.tp == 0
+        q = layers.to_layout(q, spec.n_heads * hd, heads is not None)
+        k, v = (layers.to_layout(t, spec.n_kv_heads * hd, kv_block) for t in (k, v))
+        q, k, v = (t.reshape(b, s, -1, hd) for t in (q, k, v))
     q = layers.apply_rope(q, positions, spec.rope_theta)
     k = layers.apply_rope(k, positions, spec.rope_theta)
     return q, k, v
+
+
+def local_heads(spec: AttnSpec):
+    """In the partitioned program: ``(n_heads, first KV head, n_kv_heads)``
+    of the rank's share — ``H / tp`` query heads (block ``part``) and the
+    KV heads they read — or None where the query heads do not split (``H``
+    does not divide ``model``, or a rank's heads would straddle KV groups);
+    outside it, None."""
+    part = spmd.active_partition()
+    if part is None or part.tp == 1 or spec.n_heads % part.tp:
+        return None
+    h_l, g = spec.n_heads // part.tp, spec.n_heads // spec.n_kv_heads
+    if spec.n_kv_heads % part.tp == 0:
+        kv_l = spec.n_kv_heads // part.tp
+        return h_l, part.part * kv_l, kv_l
+    if g % h_l == 0:             # the rank's heads share one KV head
+        return h_l, part.part * h_l // g, 1
+    return None
+
+
+def local_spec(spec: AttnSpec) -> AttnSpec:
+    """``spec`` with the rank's head counts (itself outside a partitioned
+    step or where the heads do not split)."""
+    heads = local_heads(spec)
+    if heads is None:
+        return spec
+    return dataclasses.replace(spec, n_heads=heads[0], n_kv_heads=heads[2])
+
+
+def attending(k: torch.Tensor, v: torch.Tensor, spec: AttnSpec, dim: int = 2):
+    """K and V (heads on ``dim``) narrowed to the KV heads the rank's query
+    heads read, where they hold more (the whole KV heads, replicated): the
+    narrowing's backward sums the ranks' cotangents
+    (:func:`repro_torch.runtime.spmd.take_block`)."""
+    heads = local_heads(spec)
+    if heads is None or k.shape[dim] == heads[2]:
+        return k, v
+    part = spmd.active_partition()
+    return tuple(spmd.take_block(t, part.mesh, "model", dim, heads[1], heads[2])
+                 for t in (k, v))
 
 
 def _groups(q: torch.Tensor) -> torch.Tensor:
@@ -172,9 +236,9 @@ def full_attention(params: Params, x: torch.Tensor, spec: AttnSpec,
     """Training / prefill self-attention over a full sequence: x (B, S, D)
     → (B, S, D), through ``wo``."""
     q, k, v = _project_qkv(params, x, spec, positions)
-    out = chunked_attention(q, k, v, spec, window=window)
-    b, s = x.shape[:2]
-    return sod.apply(out.reshape(b, s, -1), params["wo"])
+    out = chunked_attention(q, *attending(k, v, spec), spec, window=window)
+    b, s, d = x.shape
+    return layers.linear(out.reshape(b, s, -1), params["wo"], spec.n_heads * spec.head_dim, d)
 
 
 # ---------------------------------------------------------------------------
@@ -230,13 +294,14 @@ def decode_attention(params: Params, x: torch.Tensor, cache: Params, pos,
                      spec: AttnSpec, window: int | None = None):
     """One decode step: write the new K/V into ``cache`` (this layer's
     ``{"k", "v"}`` of shape (B, L, KV, hd), updated in place — the reference
-    returns a new cache) and attend to the prefix.  x (B, 1, D).
+    returns a new cache; in the partitioned program the rank's rows and its
+    KV heads where they split) and attend to the prefix.  x (B, 1, D).
 
     ``pos`` is an int (every row at the same position — the static serve
     path) or a (B,) int64 tensor (ragged continuous batching: each row
     writes its new KV at its own position and gets its own causal / window
     mask).  Returns (output (B, 1, D), cache)."""
-    b = x.shape[0]
+    b, _, d = x.shape
     q, k_new, v_new = _project_qkv(params, x, spec,
                                    _decode_positions(pos, b, x.device))
     if isinstance(pos, torch.Tensor):
@@ -246,8 +311,10 @@ def decode_attention(params: Params, x: torch.Tensor, cache: Params, pos,
     else:
         cache["k"][:, pos] = k_new[:, 0]
         cache["v"][:, pos] = v_new[:, 0]
-    out = _attend_cached(q, cache["k"], cache["v"], pos, spec, window)
-    return sod.apply(out.to(x.dtype), params["wo"]), cache
+    k, v = attending(cache["k"], cache["v"], spec)
+    out = _attend_cached(q, k, v, pos, local_spec(spec), window)
+    return layers.linear(out.to(x.dtype), params["wo"], spec.n_heads * spec.head_dim,
+                         d), cache
 
 
 # ---------------------------------------------------------------------------

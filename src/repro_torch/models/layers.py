@@ -3,6 +3,17 @@
 Twin of :mod:`repro.models.layers`, its loss included.  Every weight
 matmul goes through :func:`repro_torch.core.sod.apply`, so a packed leaf
 runs the Sparse-on-Dense kernel and a dense leaf bypasses decompression.
+
+Inside a partitioned step (:func:`repro_torch.runtime.spmd.use_partition`)
+the same functions run on the rank's rows and its share of the feature
+dims, as GSPMD partitions the reference's jitted step: :func:`linear`
+takes a weight as it lies (a column block, a K block, or whole) and its
+input in the layout that weight reads; :func:`embed` looks up the rank's
+vocabulary block and sums over ``model``; :func:`lm_head` leaves the
+logits vocab-split; :func:`cross_entropy` reduces max and sum-exp over
+``model`` and the mean over the data axes.  A feature dim is split in
+blocks of ``dim / tp``, rank ``part`` holding block ``part``; a tensor's
+layout is read from its width against the global dim the caller names.
 """
 from __future__ import annotations
 
@@ -12,7 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import sod
+from repro_torch.core.formats import BlockCSR, TiledCSC
 from repro_torch.kernels import ops
+from repro_torch.runtime import spmd
 
 Params = dict[str, Any]
 
@@ -130,26 +143,108 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp(params: Params, x: torch.Tensor, act: str = "silu",
-        plans: dict | None = None) -> torch.Tensor:
+        plans: dict | None = None, d_ff: int | None = None) -> torch.Tensor:
     """SwiGLU MLP through three SoD matmuls.  ``plans`` maps ``w_gate`` /
     ``w_up`` / ``w_down`` to their :class:`repro_torch.core.plan.PackPlan`
-    (absent entries fall back to the active plan's layout lookup)."""
+    (absent entries fall back to the active plan's layout lookup).  In the
+    partitioned program ``d_ff`` (the global width) places gate and up in
+    the layout ``w_down`` reads: its K block when its rows are split."""
     pl = (plans or {}).get
-    gate = sod.apply(x, params["w_gate"], plan=pl("w_gate"))
-    up = sod.apply(x, params["w_up"], plan=pl("w_up"))
-    return sod.apply(activate(gate, act) * up, params["w_down"], plan=pl("w_down"))
+    if spmd.active_partition() is None:
+        gate = sod.apply(x, params["w_gate"], plan=pl("w_gate"))
+        up = sod.apply(x, params["w_up"], plan=pl("w_up"))
+        return sod.apply(activate(gate, act) * up, params["w_down"], plan=pl("w_down"))
+    d = x.shape[-1]
+    d_ff = d_ff or int(params["w_gate"].global_shape[1])
+    gate = linear(x, params["w_gate"], d, d_ff, plan=pl("w_gate"))
+    up = linear(x, params["w_up"], d, d_ff, plan=pl("w_up"))
+    k_block = weight_blocks(params["w_down"], d_ff, d)[0]
+    gate, up = (to_layout(t, d_ff, k_block) for t in (gate, up))
+    return linear(activate(gate, act) * up, params["w_down"], d_ff, d, plan=pl("w_down"))
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False) -> torch.Tensor:
-    """Row lookup; gemma-style sqrt(d) scale when ``scale``."""
-    x = table[tokens]
+# ---------------------------------------------------------------------------
+# the partitioned program's layouts
+# ---------------------------------------------------------------------------
+def _packed(w) -> bool:
+    return isinstance(w, (TiledCSC, BlockCSR))
+
+
+def weight_blocks(w, k: int, n: int) -> tuple[bool, bool]:
+    """Whether the partitioned program reads ``w`` (global (k, n)) as its
+    ``model`` block along K and along N: a packed leaf's resident block
+    where it splits exactly (:func:`repro_torch.runtime.spmd.local_split`),
+    a dense leaf's where its shape is less than the global one."""
+    part = spmd.active_partition()
+    if part is None or part.tp == 1:
+        return False, False
+    if _packed(w):
+        return spmd.local_split(w)
+    return w.shape[0] != k, w.shape[1] != n
+
+
+def to_layout(t: torch.Tensor, n: int, block: bool, dim: int = -1) -> torch.Tensor:
+    """``t`` (dim ``dim`` of global width ``n``, whole or the rank's
+    ``model`` block) as the rank's block (``block``) or whole: a block of
+    a replicated whole by :func:`repro_torch.runtime.spmd.take_block`, the
+    whole from the blocks by :func:`~repro_torch.runtime.spmd.gather_rows`
+    (each the other's transpose)."""
+    part = spmd.active_partition()
+    if part is None or part.tp == 1 or (t.shape[dim] != n) == block:
+        return t
+    if block:
+        size = n // part.tp
+        return spmd.take_block(t, part.mesh, "model", dim % t.ndim, part.part * size, size)
+    return spmd.gather_rows(t, part.mesh, "model", dim % t.ndim)
+
+
+def linear(x: torch.Tensor, w, k: int, n: int, *, plan=None,
+           out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``x @ w`` for a weight of global shape (k, n) through
+    :func:`repro_torch.core.sod.apply`.  In the partitioned program ``x``
+    goes in the layout ``w`` reads (:func:`weight_blocks`) and ``y`` comes
+    out as ``w`` gives it: a column block for a column-split ``w``, whole
+    otherwise.  A packed ``w`` takes the local contract; a dense one is a
+    column-parallel product (``x`` through
+    :func:`~repro_torch.runtime.spmd.grad_sum`), a row-parallel one (the
+    float32 partials summed by :func:`~repro_torch.runtime.spmd.psum`),
+    or whole."""
+    part = spmd.active_partition()
+    if part is None:
+        return sod.apply(x, w, plan=plan, out_dtype=out_dtype)
+    k_block, n_block = weight_blocks(w, k, n)
+    x = to_layout(x, k, k_block)
+    if _packed(w) or not (k_block or n_block):
+        return sod.apply(x, w, plan=plan, out_dtype=out_dtype)
+    out_dtype = out_dtype or x.dtype
+    if n_block:
+        return ops.dense_matmul(spmd.grad_sum(x, part.mesh, "model"), w, out_dtype)
+    y = ops.dense_matmul(x, w, torch.float32)
+    return spmd.psum(y, part.mesh, "model").to(out_dtype)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False,
+          vocab: int | None = None) -> torch.Tensor:
+    """Row lookup; gemma-style sqrt(d) scale when ``scale``.  In the
+    partitioned program a table of fewer rows than ``vocab`` (the padded
+    vocabulary) is the rank's vocabulary block: ids outside it look up
+    zeros, and the rows are summed over ``model``."""
+    part = spmd.active_partition()
+    if part is not None and vocab is not None and table.shape[0] != vocab:
+        rows = table.shape[0]
+        local = tokens - part.part * rows
+        inside = (local >= 0) & (local < rows)
+        x = table[local.clamp(0, rows - 1)] * inside[..., None].to(table.dtype)
+        x = spmd.psum(x, part.mesh, "model")
+    else:
+        x = table[tokens]
     if scale:
         x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype, device=x.device)
     return x
 
 
 def lm_head(x: torch.Tensor, table_or_w, tied: bool, cap: float | None = None,
-            plan=None) -> torch.Tensor:
+            plan=None, vocab: int | None = None) -> torch.Tensor:
     """Vocabulary logits in float32, soft-capped by ``cap``.
 
     Tied: ``x`` against the (vocab, d) embedding table transposed, operands
@@ -158,22 +253,60 @@ def lm_head(x: torch.Tensor, table_or_w, tied: bool, cap: float | None = None,
     vocab) head weight by :func:`repro_torch.core.sod.apply` with float32
     out, so a packed head runs the Sparse-on-Dense kernel; ``plan`` is its
     :class:`repro_torch.core.plan.PackPlan` (None: the active plan's layout
-    lookup)."""
-    if tied:
-        logits = ops.dense_matmul(x, table_or_w.to(x.dtype).T, torch.float32)
+    lookup).  In the partitioned program (``vocab`` the padded vocabulary)
+    the logits are the rank's vocabulary block where the table or head is
+    split, whole otherwise."""
+    part = spmd.active_partition()
+    if not tied:
+        logits = linear(x, table_or_w, x.shape[-1], vocab, plan=plan, out_dtype=torch.float32)
     else:
-        logits = sod.apply(x, table_or_w, out_dtype=torch.float32, plan=plan)
+        if part is not None and vocab is not None and table_or_w.shape[0] != vocab:
+            x = spmd.grad_sum(x, part.mesh, "model")    # each rank takes its block
+        logits = ops.dense_matmul(x, table_or_w.to(x.dtype).T, torch.float32)
     return softcap(logits.float(), cap)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None, vocab: int | None = None) -> torch.Tensor:
     """Mean token cross-entropy: logits (..., V) float32, targets (...) int;
-    with ``mask``, the mean over the masked-in tokens (at least one)."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    with ``mask``, the mean over the masked-in tokens (at least one).
+
+    In the partitioned program: logits narrower than ``vocab`` are the
+    rank's vocabulary block, so the max and the sum of exponentials are
+    reduced over ``model`` and the target's logit comes from the rank
+    that holds it (float32 throughout); the mean over a batch whose rows
+    are split is the sum over the data axes divided by the global count
+    of (masked-in) tokens."""
+    part = spmd.active_partition()
+    if part is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+        nll = logz - gold
+        if mask is None:
+            return nll.mean()
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    logits = logits.float()
+    if vocab is not None and logits.shape[-1] != vocab:
+        mesh, cols = part.mesh, logits.shape[-1]
+        top = spmd.pmax(logits.amax(dim=-1), mesh, "model")
+        sumexp = spmd.psum(torch.exp(logits - top[..., None]).sum(dim=-1), mesh, "model")
+        logz = top + torch.log(sumexp)
+        local = targets.long() - part.part * cols
+        inside = (local >= 0) & (local < cols)
+        gold = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])[..., 0]
+        gold = spmd.psum(gold * inside, mesh, "model")
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = logz - gold
     if mask is None:
-        return nll.mean()
-    mask = mask.float()
-    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        total = nll.sum()
+        count = torch.tensor(float(nll.numel()), device=nll.device)
+    else:
+        mask = mask.float()
+        total, count = (nll * mask).sum(), mask.sum()
+    if part.rows:
+        total = spmd.psum(total, part.mesh, part.rows)
+        count = spmd.psum(count, part.mesh, part.rows)
+    return total / count.clamp(min=1.0)

@@ -75,13 +75,17 @@ class LM:
         cross-entropy of the float32 logits (a VLM's over its text only,
         an audio model's over every codebook) plus ``aux``, the MoE blocks'
         router aux losses summed over the layers (0 for the dense
-        family)."""
+        family).  In a partitioned step (the batch the rank's rows) the
+        mean is the global batch's: the sums over the data axes divided by
+        the global count of (masked-in) tokens, so the metrics equal one
+        process's."""
         logits, aux, _ = self._fns[1](params, batch["tokens"], self.cfg,
                                       patch_embeds=batch.get("patch_embeds"))
         targets = batch["targets"]
         if self.cfg.family == "vlm":       # the patches' positions carry no loss
             logits = logits[:, logits.shape[1] - targets.shape[1]:]
-        ce = layers.cross_entropy(logits, targets, batch.get("loss_mask"))
+        ce = layers.cross_entropy(logits, targets, batch.get("loss_mask"),
+                                  vocab=self.cfg.padded_vocab)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}

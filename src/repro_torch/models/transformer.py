@@ -38,6 +38,15 @@ recurrent state (the serve path and the engine build it by stepping the
 prompt through the decode step, as the reference does).  Under
 ``cfg.remat`` a forward that records gradients checkpoints every layer
 group of these two (every block of the attention family).
+
+The attention family's full forward and static decode also run as the
+partitioned program of a mesh step (:func:`repro_torch.runtime.spmd.use_partition`,
+the dense family's train, prefill and decode steps): the residual stream
+is the rank's rows, whole along d_model; attention, the MLP and the head
+run on the rank's share of heads, columns and vocabulary
+(:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.attention`),
+and the KV cache holds the rank's rows and, where they split, its KV
+heads.
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ from repro_torch.core import sod
 from repro_torch.models import attention as attn
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import layers, moe, ssm, xlstm
+from repro_torch.runtime import spmd
 
 Params = dict[str, Any]
 
@@ -186,20 +196,22 @@ def _apply_mlp(bp: Params, h: torch.Tensor, cfg: ModelConfig):
         return moe.moe_mlp(bp["moe"], h, moe_spec(cfg),
                            plans=plan_mod.active_subplans("shared"))
     return layers.mlp(bp["mlp"], h, cfg.act,
-                      plans=plan_mod.active_subplans("mlp")), 0.0
+                      plans=plan_mod.active_subplans("mlp"), d_ff=cfg.d_ff), 0.0
 
 
 def attn_block_full(bp: Params, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, window: int | None):
-    """Full-sequence block.  Returns (x, (k, v), aux)."""
+    """Full-sequence block.  Returns (x, (k, v), aux); in the partitioned
+    program k and v as the rank's cache keeps them."""
     spec = attn_spec(cfg)
     h = layers.rms_norm(x, bp["norm1"], cfg.norm_eps)
     q, k, v = attn._project_qkv(bp["attn"], h, spec, positions)
     s = x.shape[1]
     eff_window = None if (window is None or window >= s) else window
-    ao = attn.chunked_attention(q, k, v, spec, window=eff_window)
-    ao = sod.apply(ao.reshape(*x.shape[:2], -1), bp["attn"]["wo"],
-                   plan=plan_mod.active_entry("attn.wo"))
+    ao = attn.chunked_attention(q, *attn.attending(k, v, spec), spec, window=eff_window)
+    ao = layers.linear(ao.reshape(*x.shape[:2], -1), bp["attn"]["wo"],
+                       cfg.n_heads * cfg.head_dim, cfg.d_model,
+                       plan=plan_mod.active_entry("attn.wo"))
     x = x + _post_norm(bp, "norm1_post", ao, cfg)
     h2 = layers.rms_norm(x, bp["norm2"], cfg.norm_eps)
     mo, aux = _apply_mlp(bp, h2, cfg)
@@ -298,7 +310,8 @@ def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
         x = sum(layers.embed(params["embed"][c], tokens[..., c])
                 for c in range(cfg.n_codebooks))
     else:
-        x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale)
+        x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale,
+                         vocab=cfg.padded_vocab)
     if cfg.family == "vlm" and patch_embeds is not None:
         prefix = sod.apply(patch_embeds.to(x.dtype), params["patch_proj"])
         x = torch.cat([prefix, x], dim=1)
@@ -324,15 +337,22 @@ def _head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     active plan's ``head`` entry, so a packed head runs the SoD kernel.
     Audio: the untied head, its (..., n_codebooks · padded vocab) logits
     read as (..., n_codebooks, padded vocab), the codebook the slower index.
+    In the partitioned program the logits may be the rank's vocabulary
+    block (:func:`repro_torch.models.layers.lm_head`); the padded ids are
+    masked at their global positions.
     """
     tied = cfg.tie_embeddings and cfg.family != "audio"
-    logits = layers.lm_head(h, params["embed"] if tied else params["head"], tied,
-                            cfg.final_softcap, plan=plan_mod.active_entry("head"))
     v = cfg.padded_vocab
+    logits = layers.lm_head(h, params["embed"] if tied else params["head"], tied,
+                            cfg.final_softcap, plan=plan_mod.active_entry("head"),
+                            vocab=v if cfg.family != "audio" else None)
     if cfg.family == "audio":     # the soft-cap is elementwise: before or after
         logits = logits.reshape(*h.shape[:-1], cfg.n_codebooks, v)
     if v != cfg.vocab:
-        pad = torch.arange(v, device=logits.device) >= cfg.vocab
+        cols = logits.shape[-1]
+        part = spmd.active_partition()
+        first = part.part * cols if part is not None and cols != v else 0
+        pad = torch.arange(first, first + cols, device=logits.device) >= cfg.vocab
         logits = torch.where(pad, -1e30, logits)
     return logits
 

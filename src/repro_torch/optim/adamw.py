@@ -10,7 +10,13 @@ gradient pass through untouched; their moments and master are 0-d
 placeholders.  float8 codes are float leaves, as in the reference.
 
 The step counter is a 0-d int32 tensor on the CPU, so a schedule's value
-never waits on the card.  ``update`` applies the reference's formula with
+never waits on the card.  On a mesh a state placed under ZeRO-1
+(:func:`repro_torch.runtime.sharding.opt_state_specs`) holds, for a leaf
+whose moments are smaller than the parameter, the rank's block over the
+data axes: the rank updates that block of m, v and master from its block
+of the (whole over the data axes, already summed) gradient, and the new
+parameters are all-gathered over the data axes, every leaf's block in one
+collective.  ``update`` applies the reference's formula with
 ``torch._foreach_*`` over all float leaves at once, in place on the
 state's moments and master weights, and returns fresh parameter tensors.
 """
@@ -30,15 +36,18 @@ def _is_float(leaf) -> bool:
     return isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
 
 
-def _sq_norm(params: Params, live: list[int], gs: list[torch.Tensor], mesh) -> torch.Tensor:
+def _sq_norm(params: Params, live: list[int], gs: list[torch.Tensor], mesh,
+             specs=None) -> torch.Tensor:
     """The squared global norm of ``gs`` (the float gradients at the leaves
-    ``live``), summed over the mesh where a leaf is split."""
+    ``live``), summed over the mesh where a leaf is split (``specs``: the
+    parameters' layout, :func:`repro_torch.runtime.sharding.layout_specs`;
+    without, only packed leaves' resident blocks count as split)."""
     norms = torch._foreach_norm(gs)
     if mesh is None:
         return sum(n * n for n in norms)
     from repro_torch.runtime import sharding, spmd
 
-    axes = sharding.split_axes(params)
+    axes = sharding.split_axes(params, specs)
     by_axes: dict[tuple[str, ...], torch.Tensor] = {}
     for i, n in zip(live, norms):
         by_axes[axes[i]] = by_axes.get(axes[i], 0) + n * n
@@ -52,6 +61,39 @@ def state_dist(got: Params, want: Params) -> dict:
     return {"params": max_rel_dist(got["params"], want["params"]),
             **{k: max_rel_dist(got["opt"][k], want["opt"][k]) for k in ("m", "v", "master")},
             "step_equal": int(got["opt"]["step"]) == int(want["opt"]["step"])}
+
+
+def _zero_blocks(mesh, ps: list, ms: list) -> dict:
+    """``{j: (dim, start, size)}`` for each leaf whose moment is the rank's
+    ZeRO-1 block of its parameter: the first dim they differ on, split
+    over the data axes."""
+    if mesh is None:
+        return {}
+    from repro_torch.launch.mesh import dp_axes
+
+    dp = dp_axes(mesh)
+    out = {}
+    for j, (p, m) in enumerate(zip(ps, ms)):
+        if tuple(m.shape) != tuple(p.shape):
+            dim = next(d for d, (a, b) in enumerate(zip(p.shape, m.shape)) if a != b)
+            out[j] = (dim, mesh.index(dp) * m.shape[dim], m.shape[dim])
+    return out
+
+
+def _gather_blocks(mesh, blocks: list, where: list) -> list:
+    """Every rank's block of each leaf over the data axes, put together on
+    its ZeRO-1 dim: one all-gather of all the blocks' bytes."""
+    from repro_torch.launch.mesh import dp_axes
+    from repro_torch.runtime import spmd
+
+    flat = [b.contiguous().reshape(-1).view(torch.uint8) for b in blocks]
+    sizes = [f.numel() for f in flat]
+    parts = spmd.all_gather(torch.cat(flat), mesh, dp_axes(mesh), 0, "zero_bytes")
+    n = parts.numel() // sum(sizes)
+    per_rank = [list(torch.split(r, sizes)) for r in parts.reshape(n, -1)]
+    return [torch.cat([per_rank[r][i].clone().view(b.dtype).reshape(b.shape)
+                       for r in range(n)], dim)
+            for i, (b, (dim, _, _)) in enumerate(zip(blocks, where))]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,14 +132,19 @@ class AdamW:
                 "m": tree_map(moments, params), "v": tree_map(moments, params),
                 "master": tree_map(master, params)}
 
-    def update(self, params: Params, grads: Params, state: Params, mesh=None):
+    def update(self, params: Params, grads: Params, state: Params, mesh=None,
+               specs: Params | None = None):
         """One step: the global-norm clip over all float gradients, then
         bias-corrected AdamW with decoupled weight decay on the masters.
 
         With ``mesh`` (the placed parameters of one rank,
-        :func:`repro_torch.runtime.sharding.place`) the norm is the whole
-        tree's: a packed leaf's resident block holds only its share, so the
-        squares of each set of split axes are summed over them."""
+        :func:`repro_torch.runtime.sharding.place`, and their whole
+        gradients' blocks) the norm is the whole tree's: a split leaf holds
+        only its share, so the squares of each set of split axes
+        (``specs``, the parameters' layout) are summed over them, and every
+        split leaf counts once.  A leaf whose moments are the rank's
+        ZeRO-1 block (smaller than the parameter) is updated on that block
+        and its new parameter gathered over the data axes."""
         cfg = self.cfg
         step = state["step"] + 1
         lr = float(self.schedule(step) if self.schedule else cfg.lr)
@@ -111,7 +158,10 @@ class AdamW:
         ms, vs, ws = ([flat[i] for i in live] for flat in (flat_m, flat_v, flat_w))
 
         # global-norm clip over the float gradients
-        sq = _sq_norm(params, live, gs, mesh) if gs else torch.zeros(())
+        sq = _sq_norm(params, live, gs, mesh, specs) if gs else torch.zeros(())
+        zero = _zero_blocks(mesh, [flat_p[i] for i in live], ms)
+        for j, (dim, start, size) in zero.items():
+            gs[j] = gs[j].narrow(dim, start, size)
         gnorm = torch.sqrt(sq + 1e-20)
         # min(1, clip / gnorm) in float64 on the device: a host float's
         # numbers without reading the norm back (meta tensors have none)
@@ -137,6 +187,10 @@ class AdamW:
         new = list(flat_p)
         for i in live:
             new[i] = flat_w[i].to(flat_p[i].dtype, copy=True)
+        if zero:
+            whole = _gather_blocks(mesh, [new[live[j]] for j in zero], list(zero.values()))
+            for j, t in zip(zero, whole):
+                new[live[j]] = t
         it = iter(new)
         new_params = tree_map(lambda p: next(it), params)
         new_state = {"step": step, "m": state["m"], "v": state["v"],

@@ -15,10 +15,22 @@ reference's path and stacked shape, and a port leaf's spec is that stacked
 spec without its lead dims (so a ZeRO shard the reference puts on a layer
 dim leaves the port's per-layer leaf whole).
 
-The port runs every plain op on every rank: :func:`place` leaves each rank
-only the tile-grid block of each packed leaf that its spec names, and
-keeps every other leaf whole (GSPMD's partitioning of plain ops has no
-eager counterpart).  :func:`packed_matmul_plans` gives the planner the
+ZeRO-1 cannot use the reference's layer-stack dim, since the port's
+leaves are per layer: :func:`opt_state_specs` applies the reference's
+``_zero_spec`` rule (the first dim the parameter's spec leaves whole and
+the data axes divide) to the port's own leaf shape.
+
+:func:`place` leaves each rank the block of every leaf that its spec
+names: a packed leaf its tile-grid block (``w.shard`` records where it
+sits), a plain leaf its block of each split dim (the embedding's
+vocabulary, an untied head's or a projection's columns, ``wo``'s and
+``w_down``'s rows over ``model``; ZeRO-1's moments and masters over the
+data axes), every leaf the spec leaves whole, whole.  The dense family's
+steps then run the partitioned program on those blocks
+(:mod:`repro_torch.launch.steps`); the other steps, which run every plain
+op on the global batch, take the plain leaves whole again
+(:func:`gather_plain` over :func:`layout_specs`, which reads a placed
+tree's layout from the config's whole shapes).  :func:`packed_matmul_plans` gives the planner the
 :class:`~repro_torch.runtime.spmd.SpmdPlan` each lead-less packed leaf's
 resident spec implies; like the reference it gives none to a stacked
 leaf, so the port attaches none to the per-layer leaves of a group (at run
@@ -27,6 +39,7 @@ time the auto plan applies to each layer, as inside the reference's scan).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from typing import Any
 
@@ -36,9 +49,12 @@ from repro_torch.core import sod
 from repro_torch.core.formats import BlockCSR, Shard, TiledCSC
 from repro_torch.core.tree import PACKED_FIELDS
 from repro_torch.launch.mesh import dp_axes
+from repro_torch.runtime import spmd
+from repro_torch.runtime.spmd import _axes_of, all_gather
 
 __all__ = ["param_specs", "opt_state_specs", "train_state_specs", "batch_specs",
-           "cache_specs", "packed_matmul_plans", "place", "unplace", "whole", "split_axes"]
+           "cache_specs", "kv_cache_specs", "packed_matmul_plans", "place", "unplace",
+           "whole", "split_axes", "layout_specs", "split_plain", "gather_plain", "is_split"]
 
 Params = Any
 
@@ -184,12 +200,15 @@ def param_specs(params: Params, cfg, mesh) -> Params:
         params, _period(cfg))
 
 
-def train_state_specs(specs: Params) -> Params:
-    """Specs of a train state ``{"params", "opt"}`` whose AdamW moments and
-    masters lie as the parameters do (:func:`place` of the state): what
-    :func:`unplace` of the state and ``Checkpointer.restore(shardings=)``
-    take beside the mesh."""
-    return {"params": specs, "opt": {"step": (), "m": specs, "v": specs, "master": specs}}
+def train_state_specs(specs: Params, opt_specs: Params | None = None) -> Params:
+    """Specs of a train state ``{"params", "opt"}``: with ``opt_specs``
+    (:func:`opt_state_specs`, ZeRO-1) the optimizer state as they lay it,
+    else its AdamW moments and masters as the parameters lie; what
+    :func:`place` and :func:`unplace` of the state and
+    ``Checkpointer.restore(shardings=)`` take beside the mesh."""
+    opt = opt_specs if opt_specs is not None else {"step": (), "m": specs, "v": specs,
+                                                   "master": specs}
+    return {"params": specs, "opt": opt}
 
 
 # ---------------------------------------------------------------------------
@@ -211,16 +230,17 @@ def _zero_spec(spec: tuple, shape: tuple[int, ...], mesh, dp: tuple[str, ...]) -
 def opt_state_specs(opt_state: Params, p_specs: Params, mesh, zero1: bool = True,
                     cfg=None) -> Params:
     """Moments and masters mirror the parameter spec, plus ZeRO-1 data-axis
-    sharding; 0-d placeholders (integer leaves) get ``()``.  ``cfg`` gives
-    the layer pattern's period (the reference's stack shape; 1 without)."""
+    sharding on the port's own leaf shape (the reference's rule; module
+    docstring); 0-d placeholders (integer leaves) get ``()``.  ``cfg``
+    gives the layer pattern's period (the tree walk's; 1 without)."""
     dp = dp_axes(mesh)
 
     def one(name, shape, n_lead, leaf, ps):
         if leaf.ndim == 0:
             return ()
-        stacked = (None,) * n_lead + tuple(ps)
-        spec = stacked if len(stacked) <= len(shape) else ()
-        return (_zero_spec(spec, shape, mesh, dp) if zero1 else spec)[n_lead:]
+        own = tuple(leaf.shape)
+        spec = tuple(ps) if len(tuple(ps)) <= len(own) else ()
+        return _zero_spec(spec, own, mesh, dp) if zero1 else spec
 
     return {"step": (),
             **{k: _map_stacked(one, opt_state[k], _period(cfg), p_specs)
@@ -294,6 +314,27 @@ def cache_specs(cache: Params, cfg, mesh, batch_size: int,
     return _map_leaves(one, cache)
 
 
+def kv_cache_specs(cache: Params, cfg, mesh, batch_size: int) -> Params:
+    """The attention family's decode cache as a partitioned step keeps it:
+    :func:`cache_specs`' batch dim (rows over the data axes where they
+    divide) and the KV heads over ``model`` where they divide it; the
+    sequence dim whole (the reference's sequence split over ``model`` is
+    not ported)."""
+    specs = cache_specs(cache, cfg, mesh, batch_size, seq_shard=False)
+    tp = mesh.shape.get("model", 1)
+    if tp == 1 or cfg.n_kv_heads % tp:
+        return specs
+
+    def heads(c, spec):
+        if isinstance(c, dict):
+            return {k: heads(c[k], spec[k]) for k in c}
+        if isinstance(c, (list, tuple)):
+            return type(c)(heads(a, b) for a, b in zip(c, spec))
+        return spec[:3] + ("model",) + spec[4:] if len(spec) == 5 else spec
+
+    return heads(cache, specs)
+
+
 # ---------------------------------------------------------------------------
 # SPMD matmul plans for packed leaves
 # ---------------------------------------------------------------------------
@@ -302,8 +343,6 @@ def packed_matmul_plans(params: Params, cfg, mesh) -> dict:
     its resident spec (:func:`repro_torch.runtime.spmd.plan_from_spec`) — a
     sharded Kt grid dim becomes row parallelism, a sharded Nt dim column
     parallelism — so its product reads the block the rank holds."""
-    from repro_torch.runtime import spmd
-
     plans = {}
     for path, ws, lead in sod.plan_leaves(params, _period(cfg)):
         leaf = ws[0]
@@ -318,39 +357,78 @@ def packed_matmul_plans(params: Params, cfg, mesh) -> dict:
 # ---------------------------------------------------------------------------
 # placement
 # ---------------------------------------------------------------------------
+def _full(spec, ndim: int) -> tuple:
+    spec = tuple(spec)
+    return spec + (None,) * (ndim - len(spec))
+
+
+def is_split(spec) -> bool:
+    """Whether a leaf's spec tuple splits any dim."""
+    return any(ax is not None for ax in tuple(spec))
+
+
+def _block_nd(t: torch.Tensor, mesh, spec) -> torch.Tensor:
+    """This rank's block of ``t`` under its spec tuple (a dim over several
+    axes split row-major over them, as the reference's)."""
+    for dim, ax in enumerate(_full(spec, t.ndim)):
+        if ax is not None:
+            n = _axis_size(mesh, ax)
+            size = t.shape[dim] // n
+            t = t.narrow(dim, mesh.index(_axes_of(ax)) * size, size)
+    return t.contiguous()
+
+
+def _unblock_nd(t: torch.Tensor, mesh, spec, kind: str) -> torch.Tensor:
+    """Inverse of :func:`_block_nd`: the whole tensor from every rank's
+    block (bytes over the mesh)."""
+    for dim, ax in reversed(list(enumerate(_full(spec, t.ndim)))):
+        if ax is not None:
+            t = all_gather(t, mesh, _axes_of(ax), dim, kind)
+    return t
+
+
 def _unsplit(field: str, t: torch.Tensor) -> bool:
     """Fields that stay whole in a block: the codebook (a whole-matrix
     table) and an optimizer state's 0-d placeholder of an integer field."""
     return field == "codebook" or t.ndim < 2
 
 
-def _resident(leaf, spec, mesh):
-    """This rank's block of a whole packed leaf under its spec container."""
-    from repro_torch.runtime.spmd import _block
-
+def _grid_axes(leaf, spec):
     field = "vals" if isinstance(leaf, TiledCSC) else "block_vals"
-    kt_ax, nt_ax = tuple(getattr(spec, field))[:2]
+    return _full(getattr(spec, field), 2)[:2]
+
+
+def _resident(leaf, spec, mesh):
+    """This rank's block of a whole packed leaf under its spec container:
+    every field's block of its own spec (the tile-grid dims as the dense
+    matrix's; an optimizer state's ZeRO-1 dim too)."""
+    kt_ax, nt_ax = _grid_axes(leaf, spec)
     fields = {f: getattr(leaf, f) for f in PACKED_FIELDS[type(leaf)]}
-    if kt_ax is None and nt_ax is None:
+    split = {f for f, t in fields.items()
+             if t is not None and not _unsplit(f, t) and is_split(getattr(spec, f))}
+    if not split:
         return dataclasses.replace(leaf, **{
             f: None if t is None else t.to(mesh.device) for f, t in fields.items()})
     kt, nt = leaf.grid
     bk, bn = leaf.tile
     k, n = leaf.shape
     local = {f: None if t is None else (
-        t if _unsplit(f, t) else _block(t, mesh, kt_ax, nt_ax)).contiguous().to(mesh.device)
+        _block_nd(t, mesh, getattr(spec, f)) if f in split else t).contiguous().to(mesh.device)
         for f, t in fields.items()}
-    shape = ((kt // mesh.shape[kt_ax]) * bk if kt_ax else k,
-             (nt // mesh.shape[nt_ax]) * bn if nt_ax else n)
+    shape = ((kt // _axis_size(mesh, kt_ax)) * bk if kt_ax else k,
+             (nt // _axis_size(mesh, nt_ax)) * bn if nt_ax else n)
     return dataclasses.replace(leaf, **local, shape=shape,
                                shard=Shard((k, n), (kt, nt), kt_ax, nt_ax))
 
 
 def place(params: Params, specs: Params, mesh) -> Params:
     """The parameters as a rank holds them (the twin of ``to_shardings`` and
-    ``device_put``): each packed leaf reduced to the tile-grid block its
-    spec names (``w.shard`` records where it sits), every other leaf whole;
-    all on ``mesh.device``."""
+    ``device_put``): every leaf reduced to the block its spec names (a
+    packed leaf's ``w.shard`` records where its block sits), each whole
+    leaf whole; all on ``mesh.device`` but a 0-d tensor (an optimizer's
+    step counter), which stays where it is.  Optimizer states and batches
+    place the same way under :func:`opt_state_specs` and
+    :func:`batch_specs`."""
     if _is_packed(params):
         return _resident(params, specs, mesh)
     if isinstance(params, dict):
@@ -358,57 +436,71 @@ def place(params: Params, specs: Params, mesh) -> Params:
     if isinstance(params, (list, tuple)):
         return type(params)(place(v, s, mesh) for v, s in zip(params, specs))
     if isinstance(params, torch.Tensor):
+        if not params.ndim:         # a step counter stays where it is
+            return params
+        if is_split(specs):
+            params = _block_nd(params, mesh, specs)
         return params.to(mesh.device)
     return params
 
 
-
 def _unblocked(leaf, spec, mesh):
     """The whole packed leaf from every rank's resident block (bytes)."""
-    from repro_torch.runtime.spmd import _unblock
-
     if leaf.shard is None:
         return leaf
-    field = "vals" if isinstance(leaf, TiledCSC) else "block_vals"
-    kt_ax, nt_ax = tuple(getattr(spec, field))[:2]
+    kt_ax, nt_ax = _grid_axes(leaf, spec)
     if (kt_ax, nt_ax) != (leaf.shard.kt_axis, leaf.shard.nt_axis):
         raise ValueError(f"spec axes {(kt_ax, nt_ax)} are not the block's "
                          f"{(leaf.shard.kt_axis, leaf.shard.nt_axis)}")
     fields = {f: t if t is None or _unsplit(f, t) else
-              _unblock(t, mesh, kt_ax, nt_ax, "reshard_bytes")
+              _unblock_nd(t, mesh, getattr(spec, f), "reshard_bytes")
               for f, t in ((f, getattr(leaf, f)) for f in PACKED_FIELDS[type(leaf)])}
     return dataclasses.replace(leaf, **fields, shape=leaf.shard.shape, shard=None)
 
 
 def unplace(params: Params, specs: Params, mesh) -> Params:
     """The inverse of :func:`place` (the twin of ``device_get`` on sharded
-    arrays): each packed leaf's resident blocks gathered back, as bytes over
-    the mesh, into the whole leaf; every other leaf is whole already.  A
-    collective: every rank of the mesh calls it and gets the whole tree."""
+    arrays): every leaf's blocks gathered back, as bytes over the mesh,
+    into the whole leaf.  A collective: every rank of the mesh calls it
+    and gets the whole tree."""
     if _is_packed(params):
         return _unblocked(params, specs, mesh)
     if isinstance(params, dict):
         return {k: unplace(v, specs[k], mesh) for k, v in params.items()}
     if isinstance(params, (list, tuple)):
         return type(params)(unplace(v, s, mesh) for v, s in zip(params, specs))
+    if isinstance(params, torch.Tensor) and params.ndim and is_split(specs):
+        return _unblock_nd(params, mesh, specs, "reshard_bytes")
     return params
 
 
-def split_axes(tree: Params) -> list[tuple[str, ...]]:
+def _spec_axes(spec) -> tuple[str, ...]:
+    return tuple(a for ax in tuple(spec) for a in _axes_of(ax))
+
+
+def split_axes(tree: Params, specs: Params | None = None) -> list[tuple[str, ...]]:
     """The mesh axes each tensor leaf of a placed tree is split over, in the
-    walk order of :func:`repro_torch.core.tree.tree_leaves`: a packed
-    leaf's blocked fields its resident block's Kt and Nt axes, every other
-    leaf (whole on every rank) none."""
+    walk order of :func:`repro_torch.core.tree.tree_leaves`: with ``specs``
+    (:func:`place`'s, or :func:`layout_specs` of the tree) each leaf's
+    spec's axes; without, a packed leaf's blocked fields its resident
+    block's Kt and Nt axes and every other leaf none."""
     if _is_packed(tree):
+        if specs is not None:
+            return [() if _unsplit(f, t) else _spec_axes(getattr(specs, f))
+                    for f in PACKED_FIELDS[type(tree)] if (t := getattr(tree, f)) is not None]
         shard = tree.shard
         axes = tuple(a for a in (shard.kt_axis, shard.nt_axis) if a) if shard else ()
         return [() if _unsplit(f, t) else axes
                 for f in PACKED_FIELDS[type(tree)] if (t := getattr(tree, f)) is not None]
     if isinstance(tree, dict):
-        return [a for v in tree.values() for a in split_axes(v)]
+        return [a for k, v in tree.items()
+                for a in split_axes(v, None if specs is None else specs[k])]
     if isinstance(tree, (list, tuple)):
-        return [a for v in tree for a in split_axes(v)]
-    return [()] if isinstance(tree, torch.Tensor) else []
+        return [a for i, v in enumerate(tree)
+                for a in split_axes(v, None if specs is None else specs[i])]
+    if isinstance(tree, torch.Tensor):
+        return [_spec_axes(specs) if specs is not None and tree.ndim else ()]
+    return []
 
 
 def whole(tree: Params) -> Params:
@@ -421,4 +513,78 @@ def whole(tree: Params) -> Params:
         return {k: whole(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(whole(v) for v in tree)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# a placed tree's layout, and its plain leaves whole again
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=8)
+def _whole_specs(cfg, axis_sizes: tuple, axis_names: tuple):
+    """The config's whole parameter shapes (meta) and their specs."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import LM  # deferred: runtime rules over models
+
+    raw = LM(cfg).init(torch.Generator(), "meta")
+    return raw, param_specs(raw, cfg, AbstractMesh(axis_sizes, axis_names))
+
+
+def _effective(tree, raw, spec):
+    if _is_packed(tree):
+        kt_ax, nt_ax = (tree.shard.kt_axis, tree.shard.nt_axis) if tree.shard else (None, None)
+        return spmd.packed_specs(tree, kt_ax, nt_ax)
+    if isinstance(tree, dict):
+        return {k: _effective(v, raw.get(k) if isinstance(raw, dict) else None,
+                              spec.get(k) if isinstance(spec, dict) else None)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        same = isinstance(raw, (list, tuple)) and len(raw) == len(tree)
+        return type(tree)(_effective(v, raw[i] if same else None, spec[i] if same else None)
+                          for i, v in enumerate(tree))
+    if isinstance(tree, torch.Tensor):
+        if (isinstance(raw, torch.Tensor) and tuple(tree.shape) != tuple(raw.shape)
+                and isinstance(spec, tuple)):
+            return spec
+        return ()
+    return None
+
+
+def layout_specs(tree: Params, cfg, mesh) -> Params:
+    """The specs of ``tree`` as it lies on ``mesh``: a packed leaf's its
+    resident block's (``w.shard``), a plain leaf's its spec where it is
+    smaller than the config's whole leaf (placed), ``()`` where it is
+    whole.  What the optimizer's clip (:func:`split_axes`) and
+    :func:`gather_plain` read; placed or whole trees alike."""
+    raw, specs = _whole_specs(cfg, tuple(mesh.axis_sizes), tuple(mesh.axis_names))
+    return _effective(tree, raw, specs)
+
+
+def split_plain(tree: Params, specs: Params) -> list[torch.Tensor]:
+    """The plain tensor leaves of ``tree`` that ``specs`` splits."""
+    if _is_packed(tree):
+        return []
+    if isinstance(tree, dict):
+        return [t for k, v in tree.items() for t in split_plain(v, specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v, s in zip(tree, specs) for t in split_plain(v, s)]
+    if isinstance(tree, torch.Tensor) and tree.ndim and is_split(specs):
+        return [tree]
+    return []
+
+
+def gather_plain(tree: Params, specs: Params, mesh) -> Params:
+    """``tree`` with every split plain leaf whole again (packed leaves as
+    they lie): all-gathered over its spec's axes, differentiably while
+    autograd records (each rank's gradient its own block,
+    :func:`repro_torch.runtime.spmd.gather_rows`)."""
+    if _is_packed(tree):
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_plain(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_plain(v, s, mesh) for v, s in zip(tree, specs))
+    if isinstance(tree, torch.Tensor) and tree.ndim and is_split(specs):
+        for dim, ax in reversed(list(enumerate(_full(specs, tree.ndim)))):
+            if ax is not None:
+                tree = spmd.gather_rows(tree, mesh, _axes_of(ax), dim)
     return tree

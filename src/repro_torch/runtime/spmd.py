@@ -18,7 +18,13 @@ position, each launching the registry's kernel on its own local problem:
 
 Contract of :func:`sod_matmul_spmd`: the *global* ``x`` on every rank in,
 the *global* ``y`` on every rank out (rows and columns all-gathered), as
-the reference's function returns a global array.  The operand is either
+the reference's function returns a global array.  Its *local* contract
+(``local=True``, what a ``shard_map`` inside a sharded program takes and
+returns) keeps what is split split: the rank's rows in and out, the
+column block of a column plan out, the K block of ``x`` into a row plan
+(the partial products all-reduced over its axis), nothing gathered; a
+grid dim split with a padded tail is read whole, as the global contract
+reads it.  The operand is either
 whole on every rank or a rank's resident block (``w.shard``, from
 :func:`repro_torch.runtime.sharding.place`); where the plan reads another
 block than the resident one, the rank all-gathers the compressed resident
@@ -41,6 +47,18 @@ bytes in ``all_gather`` and ``all_to_all`` (fp8 codes included); sums go
 through float32.  :func:`shard_rows` and :func:`gather_rows` take a rank's
 block of a replicated tensor and put the blocks back together, each the
 other's transpose under autograd.
+
+The partitioned program (:class:`Partition`, :func:`use_partition`): a
+step of the dense family runs every op on the rank's rows and on its
+share of heads, MLP columns and vocabulary, as GSPMD partitions the
+reference's jitted step.  Packed products then take the local contract
+under the plan of their resident block (:func:`sod_matmul_local`), and
+plain ops move between whole and split layouts with four differentiable
+collectives, each the other's transpose in pairs: :func:`psum` (a sum of
+partials; the cotangent flows back whole) and :func:`grad_sum` (the
+identity; the cotangent's partials summed), :func:`take_block` (a block
+of a replicated tensor; the scattered cotangents summed) and
+:func:`gather_rows` (the blocks put together; the cotangent's own block).
 
 On a counting mesh (:class:`repro_torch.launch.mesh.DryMesh`, the
 dry-run's) nothing launches and nothing crosses: each collective counts the
@@ -73,6 +91,16 @@ __all__ = [
     "plan_from_spec",
     "packed_specs",
     "sod_matmul_spmd",
+    "sod_matmul_local",
+    "local_plan",
+    "local_split",
+    "Partition",
+    "use_partition",
+    "active_partition",
+    "psum",
+    "pmax",
+    "grad_sum",
+    "take_block",
     "warmup_params_spmd",
     "count_collectives",
     "all_gather",
@@ -88,6 +116,7 @@ _IN_BODY = contextvars.ContextVar("repro_torch_spmd_in_body", default=False)
 # autograd's device threads, which replay checkpointed blocks in a CUDA
 # backward, route through the mesh too
 _MESHES: list = []
+_PARTITIONS: list = []
 _COUNTS: list[dict] = []
 
 
@@ -458,6 +487,124 @@ def gather_rows(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     return all_gather(t, mesh, axes, dim, "output_bytes")
 
 
+# ---------------------------------------------------------------------------
+# the partitioned program
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Partition:
+    """How a step lays its program over ``mesh``, as GSPMD partitions the
+    reference's sharded step: the batch rows split over ``rows`` (the data
+    axes where they divide the batch; none, every rank holding every row,
+    where they do not), and heads, MLP columns and vocabulary over
+    ``model``."""
+
+    mesh: object
+    rows: tuple[str, ...] = ()
+
+    @property
+    def tp(self) -> int:
+        """The ``model`` axis' size (1 without one)."""
+        return self.mesh.shape.get("model", 1)
+
+    @property
+    def part(self) -> int:
+        """This rank's position on ``model``: its block of every split
+        feature dim."""
+        return self.mesh.index("model") if self.tp > 1 else 0
+
+
+def active_partition() -> Partition | None:
+    """The partition of the innermost open :func:`use_partition` block."""
+    return _PARTITIONS[-1] if _PARTITIONS else None
+
+
+@contextlib.contextmanager
+def use_partition(part: Partition):
+    """Run the block as the partitioned program of ``part`` (process-wide,
+    as :func:`use_mesh`, for autograd's device threads)."""
+    _PARTITIONS.append(part)
+    try:
+        yield part
+    finally:
+        for i in range(len(_PARTITIONS) - 1, -1, -1):
+            if _PARTITIONS[i] is part:
+                del _PARTITIONS[i]
+                break
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return all_reduce(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def psum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum over ``axes`` of every rank's partial ``t``, whole on every
+    rank; its cotangent is whole on every rank too, so it flows back to
+    each partial as it is (the transpose of :func:`grad_sum`)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Psum.apply(t, mesh, axes)
+    return all_reduce(t, mesh, axes)
+
+
+def pmax(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The largest of every rank's ``t`` over ``axes`` (no gradient): every
+    rank's gathered, then the largest taken (exact in any order)."""
+    n = _axes_size(mesh, _axes_of(axes))
+    if n == 1:
+        return t.detach()
+    return all_gather(t.detach()[None], mesh, axes, 0, "reduce_bytes").amax(dim=0)
+
+
+class _GradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.args = (mesh, axes)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, *ctx.args, "grad_bytes"), None, None
+
+
+def grad_sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t``, replicated over ``axes``, into work that each rank of them
+    does a share of: the identity, whose backward sums the ranks' partial
+    cotangents (the transpose of :func:`psum`)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _GradSum.apply(t, mesh, axes)
+    return t
+
+
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim, start, size):
+        ctx.args = (mesh, axes, dim, start, size, t.shape[dim])
+        return t.narrow(dim, start, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes, dim, start, size, whole = ctx.args
+        pad = [0, 0] * (g.ndim - 1 - dim % g.ndim) + [start, whole - start - size]
+        return (all_reduce(F.pad(g, pad), mesh, axes, "grad_bytes"),
+                None, None, None, None, None)
+
+
+def take_block(t: torch.Tensor, mesh, axes, dim: int, start: int, size: int) -> torch.Tensor:
+    """``t.narrow(dim, start, size)`` of a ``t`` replicated over ``axes``
+    whose ranks each take a block (blocks may overlap): the backward puts
+    each rank's cotangent at its block and sums them over ``axes``, so the
+    replicated ``t`` gets its whole cotangent on every rank (the transpose
+    of :func:`gather_rows`)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _TakeBlock.apply(t, mesh, _axes_of(axes), dim, start, size)
+    return t.narrow(dim, start, size).contiguous()
+
+
 def _block(t: torch.Tensor, mesh, kt_ax, nt_ax) -> torch.Tensor:
     """This rank's block of a grid-leading tensor ``(Kt, Nt, ...)``."""
     for dim, ax in ((0, kt_ax), (1, nt_ax)):
@@ -490,8 +637,8 @@ class _Call:
     problem, and (with gradients) the local graph the backward reads."""
 
     def __init__(self, x: torch.Tensor, w, mesh, plan: SpmdPlan, impl: str,
-                 bm, out_dtype, backend: str, params, fallback_params):
-        self.mesh, self.plan, self.w = mesh, plan, w
+                 bm, out_dtype, backend: str, params, fallback_params, local: bool = False):
+        self.mesh, self.plan, self.w, self.local = mesh, plan, w, local
         self.run_kw = dict(impl=impl, bm=bm, params=params,
                            fallback_params=fallback_params)
         self.out_dtype, self.backend = out_dtype, backend
@@ -501,14 +648,22 @@ class _Call:
         bk, bn = (int(t) for t in w.tile)
         self.lead = tuple(x.shape[:-1])
         self.m = int(torch.Size(self.lead).numel())
-        dp = _axes_size(mesh, plan.batch_axes)
-        self.m_local = -(-self.m // dp)
+        # the rows this product splits itself (none under the local
+        # contract: they come split)
+        self.dp = 1 if local else _axes_size(mesh, plan.batch_axes)
+        self.m_local = -(-self.m // self.dp)
         self.row = mesh.shape[plan.row_axis] if plan.row_axis else 1
         self.col = mesh.shape[plan.col_axis] if plan.col_axis else 1
         # the local problem's logical shape: whole tile slabs on a split grid
         # dim (the padding tail is sliced off the gathered output)
         self.k_local = (kt // self.row) * bk if self.row > 1 else self.k
         self.n_local = (nt // self.col) * bn if self.col > 1 else self.n
+        # under the local contract an exact split stays split: x comes as
+        # its K block, y leaves as its column block
+        self.row_in = local and self.row > 1 and kt * bk == self.k
+        self.col_out = local and self.col > 1 and nt * bn == self.n
+        self.k_in = self.k_local if self.row_in else self.k
+        self.n_out = self.n_local if self.col_out else self.n
         self.resident = _layout(w)
         self.entry = (plan.row_axis, plan.col_axis or plan.gather_axis)
         self.mesh_sig = f"{mesh_key(mesh)}|{plan.signature()}"
@@ -549,16 +704,16 @@ class _Call:
     def forward(self, x: torch.Tensor, fields: dict, grad: bool) -> torch.Tensor:
         from repro_torch.kernels import ops  # deferred: runtime layers over kernels
 
-        mesh, plan = self.mesh, self.plan
-        x2 = x.reshape(-1, self.k)
-        dp = _axes_size(mesh, plan.batch_axes)
-        k_pad = self.k_local * self.row - self.k if self.row > 1 else 0
+        mesh, plan, dp = self.mesh, self.plan, self.dp
+        x2 = x.reshape(-1, self.k_in)
+        k_pad = self.k_local * self.row - self.k if self.row > 1 and not self.row_in else 0
         m_pad = self.m_local * dp - self.m
         if m_pad or k_pad:
             x2 = F.pad(x2, (0, k_pad, 0, m_pad))
-        b = mesh.index(plan.batch_axes)
-        x_l = x2.narrow(0, b * self.m_local, self.m_local)
-        if self.row > 1:
+        x_l = x2
+        if dp > 1:
+            x_l = x2.narrow(0, mesh.index(plan.batch_axes) * self.m_local, self.m_local)
+        if self.row > 1 and not self.row_in:
             x_l = x_l.narrow(1, mesh.index(plan.row_axis) * self.k_local, self.k_local)
         x_l = x_l.contiguous()
         local = self._local_fields(fields)
@@ -597,18 +752,21 @@ class _Call:
         y = y_l.detach()
         if plan.row_axis:
             y = all_reduce(y, mesh, plan.row_axis)
-        y = all_gather(y, mesh, plan.col_axis, 1, "output_bytes")
-        y = all_gather(y, mesh, plan.batch_axes, 0, "output_bytes")
-        return y[:self.m, :self.n].reshape(*self.lead, self.n)
+        if not self.col_out:
+            y = all_gather(y, mesh, plan.col_axis, 1, "output_bytes")
+        if dp > 1:
+            y = all_gather(y, mesh, plan.batch_axes, 0, "output_bytes")
+        return y[:self.m, :self.n_out].reshape(*self.lead, self.n_out)
 
     def backward(self, gy: torch.Tensor):
-        mesh, plan = self.mesh, self.plan
-        dp = _axes_size(mesh, plan.batch_axes)
-        gy2 = gy.reshape(-1, self.n)
-        gy2 = F.pad(gy2, (0, self.n_local * self.col - self.n,
-                          0, self.m_local * dp - self.m))
-        gy_l = gy2.narrow(0, mesh.index(plan.batch_axes) * self.m_local, self.m_local)
-        if self.col > 1:
+        mesh, plan, dp = self.mesh, self.plan, self.dp
+        gy2 = gy.reshape(-1, self.n_out)
+        n_pad = 0 if self.col_out else self.n_local * self.col - self.n
+        gy2 = F.pad(gy2, (0, n_pad, 0, self.m_local * dp - self.m))
+        gy_l = gy2
+        if dp > 1:
+            gy_l = gy2.narrow(0, mesh.index(plan.batch_axes) * self.m_local, self.m_local)
+        if self.col > 1 and not self.col_out:
             gy_l = gy_l.narrow(1, mesh.index(plan.col_axis) * self.n_local, self.n_local)
         names = [f for f, _ in self.inputs]
         grads = dict(zip(names, torch.autograd.grad(
@@ -617,10 +775,13 @@ class _Call:
         self.y_l = self.inputs = None
         gx = grads.pop(None, None)
         if gx is not None:
+            # x is whole over the column axis: its cotangent is the sum
             gx = all_reduce(gx, mesh, plan.col_axis)
-            gx = all_gather(gx, mesh, plan.row_axis, 1, "output_bytes")
-            gx = all_gather(gx, mesh, plan.batch_axes, 0, "output_bytes")
-            gx = gx[:self.m, :self.k].reshape(*self.lead, self.k)
+            if not self.row_in:
+                gx = all_gather(gx, mesh, plan.row_axis, 1, "output_bytes")
+            if dp > 1:
+                gx = all_gather(gx, mesh, plan.batch_axes, 0, "output_bytes")
+            gx = gx[:self.m, :self.k_in].reshape(*self.lead, self.k_in)
         out = []
         for name in self.fields:
             g = grads.get(name)
@@ -634,15 +795,16 @@ class _Call:
 
 
 def _shape_product(x: torch.Tensor, w, out_dtype: torch.dtype) -> torch.Tensor:
-    """The local product on ``meta`` tensors (a counting mesh): the plain
-    version's ops on the operand densified to its whole tiles (Kp, Np), so
-    a flop counter sees what the dense unit computes, 2·M·Kp·Np (and under
-    autograd its two transposes); nothing is computed."""
-    from repro_torch.kernels import ref  # deferred: runtime layers over kernels
-
+    """The local product on ``meta`` tensors (a counting mesh): ``x`` times
+    the operand densified to its whole tiles (Kp, Np) in x's dtype, so a
+    flop counter sees what the dense unit computes, 2·M·Kp·Np (and under
+    autograd its two transposes), and autograd keeps what the kernel's
+    backward keeps: ``x`` (no copy where K fills its tiles) beside the
+    operand; nothing is computed."""
     (kt, nt), (bk, bn), (k, n) = w.grid, w.tile, w.shape
-    dense = F.pad(w.to_dense(), (0, nt * bn - n, 0, kt * bk - k))
-    return ref.dense_matmul_ref(F.pad(x, (0, kt * bk - k)), dense, out_dtype)[:, :n]
+    dense = F.pad(w.to_dense().to(x.dtype), (0, nt * bn - n, 0, kt * bk - k))
+    xp = x if kt * bk == k else F.pad(x, (0, kt * bk - k))
+    return torch.matmul(xp, dense)[:, :n].to(out_dtype)
 
 
 class _SpmdMatmul(torch.autograd.Function):
@@ -673,6 +835,7 @@ def sod_matmul_spmd(
     backend: str | None = None,
     params: dict | None = None,
     fallback_params: dict | None = None,
+    local: bool = False,
 ) -> torch.Tensor:
     """``x @ W`` with the registry's kernel run by each rank on its local
     problem of ``plan`` (default: :func:`auto_plan`).
@@ -681,6 +844,13 @@ def sod_matmul_spmd(
     every rank.  Rows (and K under row parallelism) are zero-padded to
     divide the mesh and sliced off after.  ``w`` is whole or a resident
     block (``w.shard``).
+
+    ``local=True``: the local contract (module docstring): ``x`` holds the
+    rank's rows (split over ``plan.batch_axes`` already, or every row
+    where the plan names none) and, under a row plan whose K splits
+    exactly, its K block; ``y`` holds the same rows and, under a column
+    plan whose N splits exactly, the rank's column block.  The weight's
+    gradient is summed over the batch axes as under the global contract.
     """
     mesh = mesh or active_mesh()
     if mesh is None:
@@ -691,17 +861,92 @@ def sod_matmul_spmd(
             raise ValueError(f"no auto plan for {type(w).__name__} on "
                              f"{mesh_key(mesh)}")
     _validate(plan, mesh, w)
-    k = int(w.global_shape[0])
-    if x.shape[-1] != k:
-        raise ValueError(f"x inner dim {x.shape[-1]} != W K {k}")
     call = _Call(x, w, mesh, plan, impl, bm, out_dtype or x.dtype,
                  backend or getattr(mesh, "backend", None)
-                 or registry.current_backend(x.device), params, fallback_params)
+                 or registry.current_backend(x.device), params, fallback_params,
+                 local=local)
+    if x.shape[-1] != call.k_in:
+        raise ValueError(f"x inner dim {x.shape[-1]} != W K {call.k_in}"
+                         + (" (its row block)" if call.row_in else ""))
     tensors = [getattr(w, f) for f in call.fields]
     if torch.is_grad_enabled() and (x.requires_grad or any(
             t is not None and t.requires_grad for t in tensors)):
         return _SpmdMatmul.apply(call, x, *tensors)
     return call.forward(x, dict(zip(call.fields, tensors)), grad=False)
+
+
+def local_plan(w, part: Partition) -> SpmdPlan:
+    """The plan a packed product takes in the partitioned program: rows
+    over ``part.rows`` and the weight as it lies (its resident block's Kt
+    axis a row plan, its Nt axis a column plan), so no weight is
+    resharded."""
+    kt_ax, nt_ax = _layout(w)
+    return SpmdPlan(batch_axes=part.rows, col_axis=nt_ax, row_axis=kt_ax)
+
+
+def local_split(w) -> tuple[bool, bool]:
+    """Whether the local contract takes ``x`` as its K block and gives ``y``
+    as its column block for the resident ``w`` (a grid dim split over
+    ``model`` with no padding tail)."""
+    kt_ax, nt_ax = _layout(w)
+    (kt, nt), (bk, bn), (k, n) = _grid(w), w.tile, w.global_shape
+    return (kt_ax == "model" and kt * bk == k, nt_ax == "model" and nt * bn == n)
+
+
+def sod_matmul_local(x: torch.Tensor, w, part: Partition, *, impl: str = "auto",
+                     bm: int | None = None, out_dtype: torch.dtype | None = None,
+                     backend: str | None = None, params: dict | None = None,
+                     fallback_params: dict | None = None) -> torch.Tensor:
+    """:func:`sod_matmul_spmd`'s local contract under :func:`local_plan`
+    (what :func:`repro_torch.kernels.ops.sod_matmul` routes a packed
+    product to inside the partitioned program).
+
+    Where the weight's split dims split exactly, the rank's kernel runs on
+    its block as an ordinary op of the
+    step's graph (its saved tensors go through ``cfg.remat``'s
+    checkpoint like any other op's): the weight's float fields pass
+    through :func:`grad_sum` over the batch axes (the codebook also over
+    the weight's axes), ``x`` through :func:`grad_sum` over a column
+    plan's axis, and a row plan's partial products through :func:`psum`.
+    Elsewhere it takes :func:`sod_matmul_spmd` with ``local=True``."""
+    mesh, plan = part.mesh, local_plan(w, part)
+    out_dtype = out_dtype or x.dtype
+    backend = backend or getattr(mesh, "backend", None) or registry.current_backend(x.device)
+    row_in, col_out = local_split(w)
+    if (plan.row_axis and not row_in) or (plan.col_axis and not col_out):
+        return sod_matmul_spmd(x, w, mesh=mesh, plan=plan, impl=impl, bm=bm,
+                               out_dtype=out_dtype, backend=backend, params=params,
+                               fallback_params=fallback_params, local=True)
+    from repro_torch.kernels import ops  # deferred: runtime layers over kernels
+
+    if x.shape[-1] != w.shape[0]:
+        raise ValueError(f"x inner dim {x.shape[-1]} != the block's K {w.shape[0]}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    fields = {f: getattr(w, f) for f in PACKED_FIELDS[type(w)]}
+    if torch.is_grad_enabled():
+        if plan.col_axis:           # x is whole over the column axis
+            x2 = grad_sum(x2, mesh, plan.col_axis)
+        weight_axes = _axes_of(plan.row_axis) + _axes_of(plan.col_axis)
+        fields = {f: grad_sum(t, mesh, plan.batch_axes + (weight_axes if f == "codebook"
+                                                          else ()))
+                  if t is not None and t.requires_grad else t for f, t in fields.items()}
+    w_l = dataclasses.replace(w, **fields, shard=None)
+    key = registry.problem_key(w_l, m=x2.shape[0], backend=backend,
+                               mesh=f"{mesh_key(mesh)}|{plan.signature()}")
+    chosen, run_params = ops.resolve(key, impl, params=params, bm=bm,
+                                     fallback_params=fallback_params)
+    token = _IN_BODY.set(True)
+    try:
+        if x2.device.type == "meta":
+            y = _shape_product(x2, w_l, out_dtype)
+        else:
+            y = chosen.run(x2, w_l, out_dtype=out_dtype, **run_params)
+    finally:
+        _IN_BODY.reset(token)
+    if plan.row_axis:
+        y = psum(y, mesh, plan.row_axis)
+    return y.reshape(*lead, y.shape[-1])
 
 
 # ---------------------------------------------------------------------------

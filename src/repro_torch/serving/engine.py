@@ -276,7 +276,8 @@ class Engine:
             # state into its slot
             self.cache = model.init_cache(self.max_slots, self.max_len, self.device)
             self._cache_spec = model.cache_spec()
-            self._decode = steps_mod.make_decode_step(model, mesh=mesh, plan=plan)
+            self._decode = steps_mod.make_decode_step(model, mesh=mesh, plan=plan,
+                                                      partition=False)
             return
 
         self._chunk = model.cfg.attn_chunk
@@ -1173,8 +1174,9 @@ def static_generate(model: LM, params: Params, req: Request,
 def mesh_static_generate(model: LM, params: Params, req: Request, mesh) -> list[int]:
     """:func:`static_generate` through the steps of ``mesh`` (the rank's
     placed ``params``): the reference ``Engine(mesh=)`` must match token
-    for token.  :func:`static_generate` keeps the reference's signature,
-    which has no mesh."""
+    for token, so the steps run whole rows as the engine's do
+    (``partition=False``).  :func:`static_generate` keeps the reference's
+    signature, which has no mesh."""
     return _static_generate(model, params, req, mesh=mesh)
 
 
@@ -1183,13 +1185,14 @@ def _static_generate(model: LM, params: Params, req: Request, plan=None,
     device = _param_device(params)
     prompt = torch.as_tensor(np.asarray(req.tokens, np.int64), device=device)[None]
     plen = prompt.shape[1]
-    decode = steps_mod.make_decode_step(model, mesh=mesh, plan=plan)
+    decode = steps_mod.make_decode_step(model, mesh=mesh, plan=plan, partition=False)
     if model.cfg.family in RECURRENT:
         cache = model.init_cache(1, plen + req.max_new, device)
         for t in range(plen):
             nxt, _, cache = decode(params, cache, prompt[:, t:t + 1], t)
     else:
-        nxt, cache = steps_mod.make_prefill_step(model, mesh=mesh, plan=plan)(params, prompt)
+        nxt, cache = steps_mod.make_prefill_step(model, mesh=mesh, plan=plan,
+                                                 partition=False)(params, prompt)
         cache = model.grow_cache(cache, plen + req.max_new)
     out = [int(nxt.reshape(-1)[0])]
     tok = nxt.reshape(1, 1)

@@ -281,12 +281,14 @@ def test_counting_mesh_runs_without_a_group_and_launches_nothing():
 
 
 def test_split_axes_follow_the_placed_blocks():
-    """``sharding.split_axes`` of a placed train state, leaf by leaf in walk
-    order: a leaf is split over axes whose sizes multiply to its whole
-    size over its resident size (a packed leaf's blocked fields over its
-    block's axes, every other leaf over none); the state's specs
-    (``train_state_specs``) place the whole state as the placed
-    parameters' state lies."""
+    """``sharding.split_axes`` of a placed train state under its specs
+    (``train_state_specs``), leaf by leaf in walk order: a leaf is split
+    over axes whose sizes multiply to its whole size over its resident
+    size (a packed leaf's blocked fields over its block's axes, a plain
+    leaf over its spec's: the embedding's vocabulary, the projections'
+    split dims); the state's specs place the whole state as the placed
+    parameters' state lies, and ``layout_specs`` reads the same layout
+    back from the placed parameters and the config."""
     import math
 
     from repro_torch.core.tree import tree_leaves
@@ -303,13 +305,42 @@ def test_split_axes_follow_the_placed_blocks():
     state = {"params": placed, "opt": opt.init(placed)}
     whole = {"params": params, "opt": opt.init(params)}
     laid = sharding.place(whole, sharding.train_state_specs(pspecs), mesh)
-    axes = sharding.split_axes(state)
+    axes = sharding.split_axes(state, sharding.train_state_specs(pspecs))
+    assert sharding.split_axes(placed, sharding.layout_specs(placed, cfg, mesh)) == \
+        sharding.split_axes(placed, pspecs)
     leaves, whole_leaves = tree_leaves(state), tree_leaves(whole)
     assert len(axes) == len(leaves) == len(whole_leaves)
     assert [t.shape for t in tree_leaves(laid)] == [t.shape for t in leaves]
     assert any(axes)
     for a, t, w in zip(axes, leaves, whole_leaves):
         assert math.prod(mesh.shape[x] for x in a) * t.numel() == w.numel()
+
+
+# rank 0's all-gather bytes on DryMesh((4, 2)) in the tiled_csc cell below
+# before the dense family's steps ran the partitioned program (every plain
+# op on the global batch, every packed product's output gathered)
+UNPARTITIONED_ALL_GATHER = 1_933_312
+
+
+@pytest.mark.parametrize("mode", ["tiled_csc", "dense"])
+def test_partitioned_train_cell_divides_the_work(mode):
+    """Reduced llama's train step at 8 × 32 on rank 0 of DryMesh((4, 2))
+    against the same step on one rank (DryMesh((1, 1))): the flops at most
+    1.5 / (data · model) of the one rank's, the argument bytes at most 0.35
+    of them (the parameters split over ``model`` only; ZeRO-1 splits the
+    optimizer state over ``data``), and (packed) the all-gather bytes
+    below the unpartitioned program's."""
+    cfg = configs.reduced(configs.get_config("llama3.2-1b"))
+    if mode != "dense":
+        cfg = cfg.with_(sod=sod.SoDConfig(mode=mode, density=0.3))
+    shape = base.ShapeConfig("t", "train", 32, 8)
+    one = dryrun.measure(cfg, shape, mesh_mod.DryMesh((1, 1), ("data", "model")))
+    got = dryrun.measure(cfg, shape, mesh_mod.DryMesh((4, 2), ("data", "model")))
+    assert 0 < got["cost"]["flops"] <= 1.5 / 8 * one["cost"]["flops"]
+    assert 0 < got["memory"]["argument_bytes"] <= 0.35 * one["memory"]["argument_bytes"]
+    assert got["memory"]["peak_bytes"] < one["memory"]["peak_bytes"]
+    if mode != "dense":
+        assert got["collectives"]["all-gather"] < UNPARTITIONED_ALL_GATHER
 
 
 RECORD_KEYS = {"arch", "shape", "mesh", "sod", "density", "kernel_dispatch",

@@ -151,18 +151,46 @@ def test_param_specs_match_reference(arch, mode, mesh):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("arch", ARCHS)
 def test_opt_state_specs_match_reference(arch, mode, mesh):
-    """ZeRO-1 moments and masters (a shard the reference puts on a layer dim
-    leaves the port's per-layer leaf whole: its spec has no lead)."""
-    _, _, tcfg, _ = _trees(arch, mode)
+    """ZeRO-1 moments and masters: the reference's rule (its own
+    ``_zero_spec``: the first dim the parameter's spec leaves whole and
+    the data axes divide) applied to the port's per-layer leaf shape and
+    the reference's parameter spec without its lead dims (the reference's
+    layer-stack dim is not a port dim); where the reference's ZeRO shard
+    lands on a dim the port has, its state spec itself."""
+    _, jp, tcfg, _ = _trees(arch, mode)
     jmesh, tmesh = _meshes(mesh)
     jstate, tstate = _opt_states(arch, mode)
     jp_specs, tp_specs = _param_specs(arch, mode, mesh)
     jspecs = jsharding.opt_state_specs(jstate, jp_specs, jmesh)
     tspecs = sharding.opt_state_specs(tstate, tp_specs, tmesh, cfg=tcfg)
     assert tspecs["step"] == () and tuple(jspecs["step"]) == ()
+    dp = mesh_mod.dp_axes(tmesh)
+    dp_ax = dp if len(dp) > 1 else dp[0]
+    ref_params = _reference_by_name(jp, jp_specs)
+    n = 0
     for k in ("m", "v", "master"):
-        ref = _reference_by_name(jstate[k], jspecs[k])
-        assert _assert_port_matches(tstate[k], tspecs[k], ref, tcfg.pattern_period) > 0
+        ref_state = _reference_by_name(jstate[k], jspecs[k])
+        for path, ws, _ in sod.plan_leaves(tstate[k], tcfg.pattern_period):
+            for leaf, spec in zip(ws, sharding._per_block(tspecs[k], path)):
+                items = ([(f"{path}.{f}", getattr(leaf, f), getattr(spec, f))
+                          for f in ("vals", "rows", "block_vals", "block_ids", "tile_nnz",
+                                    "scale", "codebook") if getattr(leaf, f, None) is not None]
+                         if isinstance(leaf, (sod.TiledCSC, sod.BlockCSR))
+                         else [(path, leaf, spec)])
+                for name, t, got in items:
+                    if t.ndim == 0:
+                        assert tuple(got) == (), name
+                        continue
+                    r_shape, r_pspec = ref_params[name]
+                    n_lead = len(r_shape) - t.ndim
+                    pspec = _pad(r_pspec, len(r_shape))[n_lead:]
+                    want = jsharding._zero_spec(P(*pspec), tuple(t.shape), jmesh, dp)
+                    assert _pad(got, t.ndim) == _pad(want, t.ndim), (name, got, want)
+                    r_state = _pad(ref_state[name][1], len(r_shape))
+                    if dp_ax in r_state[n_lead:]:
+                        assert _pad(got, t.ndim) == r_state[n_lead:], (name, got, r_state)
+                    n += 1
+    assert n > 0
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

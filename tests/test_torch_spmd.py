@@ -26,6 +26,7 @@ import concurrent.futures
 import dataclasses
 import os
 import pathlib
+import pickle
 import subprocess
 import sys
 
@@ -53,6 +54,7 @@ from repro_torch.interop import params_from_numpy, to_torch
 from repro_torch.kernels import autotune, ops, registry
 from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.optim.adamw import state_dist
 from repro_torch.runtime import planner, sod_fsdp, spmd
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -167,6 +169,59 @@ def _to_reference(tparams, np_params):
             "blocks": blocks}
 
 
+def _mesh_cases_module():
+    """``tests/torch_mesh_cases.py`` (the ranks' bodies) as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_mesh_cases", ROOT / "tests" / "torch_mesh_cases.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _one_process(cfg, params, batch):
+    """One process's results of what ``_partition_runs`` runs on the mesh."""
+    from repro_torch.launch import steps
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import AdamW, AdamWConfig
+
+    model = LM(cfg)
+    out = {}
+    for name, b in (("batch", batch), ("rows3", {k: v[:3] for k, v in batch.items()})):
+        loss, metrics, grads = steps.make_loss_and_grads(model)(params, b)
+        out[name] = {"loss": loss, "metrics": metrics, "grads": grads}
+    opt = AdamW(AdamWConfig(lr=_mesh_cases_module().PARTITION_LR))
+    p, st, metrics = steps.make_train_step(model, opt)(params, opt.init(params), batch)
+    out["train"] = {"state": {"params": p, "opt": st}, "metrics": metrics}
+    out["serve"] = _mesh_cases_module()._serve(model, params, batch["tokens"][:, :16], None)
+    return out
+
+
+def _vocab_inputs(rng):
+    """A tied table of 64 ids, 8 rows of 5 positions: final hidden states,
+    targets, a loss mask with every third token out, ids to embed, and
+    gemma-2's final soft-cap."""
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    mask = torch.ones(8, 5)
+    mask.view(-1)[::3] = 0
+    return {"table": f(64, 16), "h": f(8, 5, 16) * 4,
+            "targets": torch.from_numpy(rng.integers(0, 64, (8, 5))), "mask": mask,
+            "tokens": torch.from_numpy(rng.integers(0, 64, (8, 5))),
+            "cap": configs.get_config("gemma2-27b").final_softcap}
+
+
+def _one_process_vocab(case):
+    from repro_torch.models import layers
+
+    table = case["table"].clone().requires_grad_(True)
+    logits = layers.lm_head(case["h"], table, True, case["cap"])
+    loss = layers.cross_entropy(logits, case["targets"], case["mask"])
+    loss.backward()
+    return {"loss": loss.detach(), "table_grad": table.grad,
+            "embed": layers.embed(case["table"], case["tokens"])}
+
+
 # the dry-run's counts against a real rank: (sod mode, step kind)
 DRY_CELLS = {f"{mode}_{kind}": (mode, kind) for mode in ("dense", "tiled_csc")
              for kind in ("train", "decode")}
@@ -251,6 +306,19 @@ for name, spec in %s.items():
     out[f"moe_{name}_y"] = np.asarray(y); out[f"moe_{name}_aux"] = np.asarray(aux)
     for k, v in g.items():
         out[f"moe_{name}_g_{k}"] = np.asarray(v)
+import pickle
+from repro.launch import steps as jsteps
+from repro.models.model import LM as JLM
+from repro.runtime import sharding as jsharding
+with open(sys.argv[3], "rb") as f:
+    jcfg, treedef, leaves, batch = pickle.load(f)
+tree = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(a) for a in leaves])
+batch = {k: jnp.asarray(v) for k, v in batch.items()}
+shard = lambda specs: jsharding.to_shardings(specs, mesh)
+loss = jax.jit(jsteps.make_loss_and_grads(JLM(jcfg), mesh=mesh), in_shardings=(
+    shard(jsharding.param_specs(tree, jcfg, mesh)), shard(jsharding.batch_specs(batch, mesh))))(
+    tree, batch)[0]
+out["sharded_loss"] = np.asarray(loss)
 np.savez(sys.argv[2], **out)
 """
 
@@ -299,6 +367,18 @@ def runs(tmp_path_factory):
         ref_inputs.update({f"moe_{name}_{k}": np.asarray(v) for k, v in jparams.items()})
         ref_inputs[f"moe_{name}_x"] = np.asarray(x)
     prompts = [rng.integers(0, tcfg.vocab, size=n) for n in (5, 11, 8)]
+    dcfg = tcfg.with_(sod=sod.SoDConfig())
+    partition = {"tiled_csc": (tcfg, tparams),
+                 "dense": (dcfg, params_from_numpy(np_params, dcfg, device="cpu"))}
+    vocab = _vocab_inputs(rng)
+    padded = {name: (torch.from_numpy(rng.standard_normal((8, shape[0])).astype(np.float32)),
+                     _pack(_dense(shape, 0.3, "tiled_csc", 30), "tiled_csc", "none"), spec)
+              for name, (shape, spec) in PADDED.items()}
+    jref = _to_reference(tparams, np_params)
+    leaves, treedef = jax.tree_util.tree_flatten(jref)
+    with open(work / "ref_tree.pkl", "wb") as f:
+        pickle.dump((jcfg, treedef, [np.asarray(a) for a in leaves],
+                     {k: np.asarray(v) for k, v in jbatch.items()}), f)
     dry = {name: _dry_cell(*args) for name, args in DRY_CELLS.items()}
     JCheckpointer(work / "ref_ckpt").save(0, _port_tree_in_jax(tparams))
     torch.save({"products": products, "planned": planned, "moe": moe_cases,
@@ -306,14 +386,15 @@ def runs(tmp_path_factory):
                 "tuned": _pack(_dense((256, 512), 0.3, "tiled_csc", 9), "tiled_csc", "none"),
                 "fsdp": (torch.from_numpy(x_fsdp), _pack(w_fsdp, "tiled_csc", "none")),
                 "grad": (torch.from_numpy(grad), 0.1),
-                "cfg": tcfg, "params": tparams, "batch": tbatch}, work / "cases.pt")
+                "cfg": tcfg, "params": tparams, "batch": tbatch,
+                "partition": partition, "vocab": vocab, "padded": padded}, work / "cases.pt")
     np.savez(work / "ref_in.npz", **ref_inputs)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
     ref = subprocess.Popen(
         [sys.executable, "-c", _REFERENCE_MESH % ("{%s}" % ", ".join(
             f"{p!r}: {d}" for p, d in REF_PLANS.items()), repr(MOE_SPECS)),
-         str(work / "ref_in.npz"), str(work / "ref_out.npz")],
+         str(work / "ref_in.npz"), str(work / "ref_out.npz"), str(work / "ref_tree.pkl")],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
         group = pool.submit(mesh_mod.run_ranks, N_RANKS,
@@ -327,6 +408,11 @@ def runs(tmp_path_factory):
             dry_mesh = mesh_mod.DryMesh((4, 2), ("data", "model"), rank=0)
             dry_found = {n: dryrun.measure(cfg, shape, dry_mesh, plan)
                          for n, (cfg, shape, plan, _, _) in dry.items()}
+            one = {mode: _one_process(cfg, params, tbatch)
+                   for mode, (cfg, params) in partition.items()}
+            one["vocab"] = _one_process_vocab(vocab)
+            one["padded"] = {name: _jax_product(jnp.asarray(x.numpy()), _to_jax(w))
+                             for name, (x, w, _) in padded.items()}
             summary = group.result()
             _, err = ref.communicate(timeout=GROUP_TIMEOUT_S)
         finally:
@@ -338,7 +424,8 @@ def runs(tmp_path_factory):
     return {"ranks": ranks, "summary": summary, "want": want, "products": products,
             "ref_mesh": dict(np.load(work / "ref_out.npz")), "w_fsdp": w_fsdp,
             "x_fsdp": x_fsdp, "grad": grad, "tparams": tparams, "planned": planned,
-            "jloss": float(jloss), "jgrads": jgrads, "dry": dry_found}
+            "jloss": float(jloss), "jgrads": jgrads, "dry": dry_found, "one": one,
+            "padded": padded}
 
 
 def _np(t):
@@ -441,7 +528,8 @@ def _block(t, spec, coords, sizes):
 def test_mesh_loss_and_grads_match_unsharded_reference(runs):
     """The mesh step on each rank's resident blocks equals the reference's
     unsharded step: the loss, and each block's gradient is its slice of the
-    reference's; padding slots' gradients are exactly 0."""
+    reference's (the embedding's its vocabulary block); padding slots'
+    gradients are exactly 0."""
     from repro_torch.runtime import sharding
 
     specs = sharding.param_specs(runs["tparams"], _model_configs()[1], MESH)
@@ -453,7 +541,9 @@ def test_mesh_loss_and_grads_match_unsharded_reference(runs):
         assert float(model["placed_loss"]) == float(runs["ranks"][0]["model"]["placed_loss"])
         grads = model["placed_grads"]
         for name in ("embed", "final_norm"):
-            np.testing.assert_allclose(_np(grads[name]), np.asarray(runs["jgrads"][name]),
+            want = _block(torch.from_numpy(np.array(runs["jgrads"][name])), specs[name],
+                          coords, MESH.shape)
+            np.testing.assert_allclose(_np(grads[name]), want.numpy(),
                                        err_msg=name, **STEP_GRAD_TOL)
         for i, layer in enumerate(grads["layers"]):
             for path, g in leaves_with_path(layer):
@@ -463,8 +553,8 @@ def test_mesh_loss_and_grads_match_unsharded_reference(runs):
                 spec = specs["layers"][i]
                 for part in node.replace("]", "").replace("[", " ").split():
                     spec = spec[part.strip("'")]
-                if field is not None:
-                    want = _block(want, getattr(spec, field), coords, MESH.shape)
+                want = _block(want, getattr(spec, field) if field is not None else spec,
+                              coords, MESH.shape)
                 np.testing.assert_allclose(_np(g), want.numpy(),
                                            err_msg=f"rank {r} layer {i} {path}",
                                            **STEP_GRAD_TOL)
@@ -477,8 +567,9 @@ def test_mesh_loss_and_grads_match_unsharded_reference(runs):
 def test_resident_blocks_are_the_specs_blocks(runs):
     """Each rank holds only the tile-grid block of each packed leaf that its
     spec names (``shard`` records where); reduced llama's ``w_gate`` and
-    ``w_up`` are Nt-resident and ``w_down`` Kt-resident, which the auto plan
-    (rows only: its Nt is 1) reads whole, so the rank reshards it."""
+    ``w_up`` are Nt-resident and ``w_down`` Kt-resident, and the
+    partitioned step reads every block where it lies (its products' plans
+    are the resident blocks'), so no rank reshards a weight."""
     from repro_torch.runtime import sharding
 
     specs = sharding.param_specs(runs["tparams"], _model_configs()[1], MESH)
@@ -498,7 +589,7 @@ def test_resident_blocks_are_the_specs_blocks(runs):
                     else:
                         assert w.shard is None
                     assert torch.equal(w.vals, _block(whole.vals, s.vals, coords, MESH.shape))
-        assert model["placed_counts"]["reshard_bytes"] > 0
+        assert model["placed_counts"].get("reshard_bytes", 0) == 0
     assert ("w_down", ("model", None)) in sharded and ("w_up", (None, "model")) in sharded
 
 
@@ -704,3 +795,142 @@ def test_dry_mesh_counts_equal_a_real_rank(runs, cell):
     assert dry["memory"]["argument_bytes"] == real["memory"]["argument_bytes"]
     if cell.startswith("tiled"):
         assert dry["collectives"]["total"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the dense family's partitioned steps on (4, 2) and (2, 4)
+# ---------------------------------------------------------------------------
+PARTITION_CASES = [(m, mode) for m in ("4x2", "2x4") for mode in ("tiled_csc", "dense")]
+# packed products whose split grid dim has a padded tail (500 of 4 tiles)
+PADDED = {"padded_col": ((256, 500), (None, "model")),
+          "padded_row": ((500, 256), ("model", None))}
+
+
+def _assert_trees_close(got, want, what, **tol):
+    pairs = list(zip(leaves_with_path(got), leaves_with_path(want)))
+    assert pairs and len(pairs) == len(list(leaves_with_path(want))), what
+    for (path, g), (path_w, w) in pairs:
+        assert path == path_w and g.shape == w.shape, (what, path, path_w)
+        np.testing.assert_allclose(_np(g), _np(w), err_msg=f"{what} {path}", **tol)
+
+
+@pytest.mark.parametrize("mesh,mode", PARTITION_CASES)
+def test_partitioned_loss_and_grads_match_one_process(runs, mesh, mode):
+    """``loss_and_grads`` of the partitioned program on each rank's blocks
+    equals one process's (fp32): the loss and its metrics on every rank,
+    and every gradient after ``unplace``; on the global batch (rows over
+    the data axes) and on 3 rows (which divide no data axis: every rank
+    takes every row)."""
+    one = runs["one"][mode]
+    for name in ("batch", "rows3"):
+        first = runs["ranks"][0]["partition"][mesh][mode][name]
+        for rank in runs["ranks"]:
+            got = rank["partition"][mesh][mode][name]
+            np.testing.assert_allclose(float(got["loss"]), float(one[name]["loss"]),
+                                       **STEP_LOSS_TOL)
+            assert float(got["loss"]) == float(first["loss"])
+            assert float(got["metrics"]["ce"]) == float(got["loss"])
+            _assert_trees_close(got["grads"], one[name]["grads"], f"{mesh} {mode} {name}",
+                                **STEP_GRAD_TOL)
+        if mode == "tiled_csc":
+            assert first["keys"] and all(k.startswith(f"data={mesh[0]},model={mesh[2]}|")
+                                         for k in first["keys"])
+
+
+@pytest.mark.parametrize("mesh,mode", PARTITION_CASES)
+def test_partitioned_train_step_matches_one_process(runs, mesh, mode):
+    """One ZeRO-1 train step (moments and masters placed by
+    ``opt_state_specs``): the whole state after it (``unplace``) within
+    1e-5 of one process's step, leaf by leaf, its step counter equal, and
+    the loss and gradient norm the same."""
+    one = runs["one"][mode]["train"]
+    for rank in runs["ranks"]:
+        got = rank["partition"][mesh][mode]["train"]
+        assert got["zero_split"] > 0
+        err = state_dist(got["state"], one["state"])
+        assert err.pop("step_equal") and max(err.values()) <= 1e-5, err
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(got["metrics"][k]), float(one["metrics"][k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("mesh,mode", PARTITION_CASES)
+def test_partitioned_prefill_and_decode_match_one_process(runs, mesh, mode):
+    """Prefill and four greedy decode steps through the partitioned steps
+    (the cache the rank's rows and KV heads between them): every step's
+    tokens equal one process's and its logits within the products'
+    tolerance, on every rank."""
+    one = runs["one"][mode]["serve"]
+    for rank in runs["ranks"]:
+        got = rank["partition"][mesh][mode]["serve"]
+        assert torch.equal(got["tokens"], one["tokens"])
+        np.testing.assert_allclose(_np(got["logits"]), _np(one["logits"]), **Y_TOL)
+
+
+@pytest.mark.parametrize("mesh", ["4x2", "2x4"])
+def test_vocab_parallel_head_loss_and_embedding(runs, mesh):
+    """The vocab-parallel tied head (gemma-2's soft-cap before the max),
+    cross-entropy over a masked target and embedding, each rank on its
+    vocabulary block and rows, against ``layers.lm_head`` /
+    ``cross_entropy`` / ``embed`` on one process: the loss, the table's
+    gradient and the embedded rows."""
+    one = runs["one"]["vocab"]
+    for rank in runs["ranks"]:
+        got = rank["partition"][mesh]["vocab"]
+        np.testing.assert_allclose(float(got["loss"]), float(one["loss"]), **STEP_LOSS_TOL)
+        np.testing.assert_allclose(_np(got["table_grad"]), _np(one["table_grad"]),
+                                   atol=1e-6, rtol=1e-5)
+        assert torch.equal(got["embed"], one["embed"])
+
+
+def test_partitioned_mesh_loss_matches_reference_sharded_loss(runs):
+    """The reference's own sharded program (its step jitted with
+    ``in_shardings`` from ``param_specs`` and ``batch_specs`` on its
+    8-device (4, 2) mesh) and the port's partitioned step on the same
+    reduced cell and weights give the same loss."""
+    want = float(runs["ref_mesh"]["sharded_loss"])
+    np.testing.assert_allclose(want, runs["jloss"], **STEP_LOSS_TOL)
+    for rank in runs["ranks"]:
+        np.testing.assert_allclose(float(rank["partition"]["4x2"]["tiled_csc"]["batch"]["loss"]),
+                                   want, **STEP_LOSS_TOL)
+
+
+@pytest.mark.parametrize("shape,want", [((4, 2), [(2, 0, 1), (2, 1, 1)]),
+                                        ((2, 4), [(1, 0, 1), (1, 0, 1), (1, 1, 1), (1, 1, 1)]),
+                                        ((2, 8), [None] * 8)])
+def test_local_heads_follow_the_kv_groups(shape, want):
+    """Reduced llama's 4 query heads in 2 KV groups on each ``model``
+    position: (heads, first KV head, KV heads).  At model = 2 the KV heads
+    divide it; at 4 they do not, and two ranks share a KV head (its K and V
+    whole, narrowed); at 8 the query heads do not divide it, so every rank
+    attends with every head."""
+    from repro_torch.models import attention, transformer
+
+    spec = transformer.attn_spec(configs.reduced(configs.get_config("llama3.2-1b")))
+    got = []
+    for r in range(shape[1]):
+        mesh = mesh_mod.DryMesh(shape, ("data", "model"), rank=r)
+        with spmd.use_partition(spmd.Partition(mesh, ("data",))):
+            got.append(attention.local_heads(spec))
+    assert got == want
+
+
+@pytest.mark.parametrize("mesh", ["4x2", "2x4"])
+@pytest.mark.parametrize("name", list(PADDED))
+def test_local_contract_with_a_padded_split(runs, mesh, name):
+    """In the partitioned program a product whose split grid dim has a
+    padded tail reads it whole (the rank's rows in, every column out): y
+    is the reference's rows, x's gradient its rows, and the weight's
+    gradient (``unplace``d, summed over the data axes) the reference's;
+    padding slots get exactly 0."""
+    want = runs["one"]["padded"][name]
+    d = int(mesh[0])
+    for r, rank in enumerate(runs["ranks"]):
+        got = rank["partition"][mesh]["padded"][name]
+        data = r // (N_RANKS // d)
+        rows = slice(data * 8 // d, (data + 1) * 8 // d)
+        np.testing.assert_allclose(_np(got["y"]), want["y"][rows], **Y_TOL)
+        np.testing.assert_allclose(_np(got["x"]), want["x"][rows], **G_TOL)
+        np.testing.assert_allclose(_np(got["vals"]), want["vals"], **G_TOL)
+        assert torch.all(got["vals"][runs["padded"][name][1].rows < 0] == 0)
+        assert got["counts"]["calls"] > 0

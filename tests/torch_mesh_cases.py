@@ -8,7 +8,11 @@ reduced model's packed parameters and batch), and saves what it found to
 ``rank<r>.pt`` for the test to hold against the JAX package: besides the
 products and the model's mesh step, MoE's all-to-all dispatch, the engine
 on the mesh against a mesh static decode, and a restore of the
-reference's checkpoint onto the mesh.
+reference's checkpoint onto the mesh.  :func:`_partition_runs` runs the
+dense family's partitioned steps on a (4, 2) and a (2, 4) mesh of the
+same group: loss and gradients, one ZeRO-1 train step, prefill and four
+decode steps, a batch whose rows do not divide the data axes, and the
+vocab-parallel head and loss.
 """
 from __future__ import annotations
 
@@ -22,10 +26,10 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import plan as plan_mod
 from repro_torch.core import sod
 from repro_torch.core.tree import PACKED_FIELDS, leaves_with_path
-from repro_torch.kernels import autotune, registry
+from repro_torch.kernels import autotune, ops, registry
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps
-from repro_torch.models import moe
+from repro_torch.models import layers, moe
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamW, AdamWConfig, state_dist
 from repro_torch.runtime import sharding, sod_fsdp, spmd
@@ -185,6 +189,125 @@ def _dry_cases(cases: dict, mesh) -> dict:
     return out
 
 
+PARTITION_MESHES = {"4x2": (4, 2), "2x4": (2, 4)}
+# AdamW's first step moves each parameter by about lr · sign(g): a gradient
+# within rounding of 0 may take the other sign on the mesh (one of 8192
+# elements did, at 1e-3), which at 1e-4 stays within 1e-5 of the leaf
+PARTITION_LR = 1e-4
+
+
+def _serve(model, params, tokens, mesh, n_steps: int = 4) -> dict:
+    """Prefill of ``tokens`` and ``n_steps`` greedy decode steps, each fed
+    the step before's tokens: every step's tokens and logits."""
+    with torch.no_grad():
+        nxt, cache = steps.make_prefill_step(model, mesh=mesh)(params, tokens)
+        cache = model.grow_cache(cache, tokens.shape[1] + n_steps + 1)
+        decode = steps.make_decode_step(model, mesh=mesh)
+        toks, logits, tok = [nxt], [], nxt[:, None]
+        for t in range(n_steps):
+            tok, lg, cache = decode(params, cache, tok, tokens.shape[1] + t)
+            toks.append(tok[:, 0])
+            logits.append(lg)
+    return {"tokens": torch.stack(toks), "logits": torch.stack(logits)}
+
+
+def _vocab_case(case: dict, mesh) -> dict:
+    """The vocab-parallel head (gemma-2's soft-cap), cross-entropy with a
+    loss mask, and embedding on the rank's vocabulary block of a tied
+    table: the loss, the whole table's gradient, and the embedded rows."""
+    part = spmd.Partition(mesh, mesh_mod.dp_axes(mesh))
+    table, h, targets, mask, tokens = (case[k] for k in ("table", "h", "targets", "mask",
+                                                          "tokens"))
+    vocab, tp = table.shape[0], mesh.shape["model"]
+    rows = h.shape[0] // mesh.shape["data"]
+    block = table.narrow(0, mesh.coords["model"] * (vocab // tp), vocab // tp)
+    live = block.clone().requires_grad_(True)
+    own = slice(mesh.coords["data"] * rows, (mesh.coords["data"] + 1) * rows)
+    with spmd.use_partition(part):
+        logits = layers.lm_head(h[own], live, True, case["cap"], vocab=vocab)
+        loss = layers.cross_entropy(logits, targets[own], mask[own], vocab=vocab)
+        loss.backward()
+        x = layers.embed(live.detach(), tokens[own], vocab=vocab)
+    grad = spmd.all_reduce(live.grad, mesh, "data")
+    return {"loss": loss.detach(), "table_grad": sharding.unplace(grad, ("model", None), mesh),
+            "embed": spmd.all_gather(x, mesh, "data", 0, "output_bytes")}
+
+
+def _padded_local(cases: dict, mesh) -> dict:
+    """A packed product inside the partitioned program whose split grid dim
+    has a padded tail (N = 500 over Nt = 4 column tiles; K = 500 over 4
+    row tiles): the rank's rows of x in, the whole N out; y and the
+    gradients of ``sum(y ** 2)`` (x's rows, and the whole ``vals`` after
+    ``unplace``)."""
+    out = {}
+    part = spmd.Partition(mesh, ("data",))
+    for name, (x, w, spec) in cases.items():
+        specs = spmd.packed_specs(w, *spec)
+        placed = sharding.place(w, specs, mesh)
+        rows = x.shape[0] // mesh.shape["data"]
+        x_l = x[mesh.coords["data"] * rows:(mesh.coords["data"] + 1) * rows].clone()
+        x_l.requires_grad_(True)
+        vals = placed.vals.clone().requires_grad_(True)
+        with spmd.use_partition(part), spmd.count_collectives() as counts:
+            y = ops.sod_matmul(x_l, dataclasses.replace(placed, vals=vals))
+            (y ** 2).sum().backward()
+        grad = dataclasses.replace(placed, vals=vals.grad)
+        out[name] = {"y": y.detach(), "x": x_l.grad,
+                     "vals": sharding.unplace(grad, specs, mesh).vals, "counts": counts}
+    return out
+
+
+def _partition_runs(cases: dict, mesh) -> dict:
+    """The dense family's partitioned steps on ``mesh``, reduced llama in
+    fp32 packed (``tiled_csc``) and dense: ``loss_and_grads`` on the
+    global batch and on its first 3 rows (which divide no data axis: the
+    whole-rows rule), every gradient ``unplace``d; one ZeRO-1
+    ``train_step`` (the optimizer state placed by ``opt_state_specs``),
+    the whole state after it; prefill and four decode steps; and the
+    vocab-parallel head, loss and embedding."""
+    out = {}
+    for mode in ("tiled_csc", "dense"):
+        cfg, params = cases["partition"][mode]
+        model = LM(cfg)
+        specs = sharding.param_specs(params, cfg, mesh)
+        placed = sharding.place(params, specs, mesh)
+        row = {}
+        for name, batch in (("batch", cases["batch"]),
+                            ("rows3", {k: v[:3] for k, v in cases["batch"].items()})):
+            with spmd.count_collectives() as counts, registry.record_dispatches() as log:
+                loss, metrics, grads = steps.make_loss_and_grads(model, mesh=mesh)(placed, batch)
+            row[name] = {"loss": loss, "metrics": metrics, "counts": counts,
+                         "grads": sharding.unplace(grads, specs, mesh),
+                         "keys": sorted({r["key"].mesh for r in log})}
+        opt = AdamW(AdamWConfig(lr=PARTITION_LR))
+        whole = opt.init(params)
+        o_specs = sharding.opt_state_specs(whole, specs, mesh, cfg=cfg)
+        state = sharding.place(whole, o_specs, mesh)
+        new_p, new_s, metrics = steps.make_train_step(model, opt, mesh=mesh)(
+            placed, state, cases["batch"])
+        row["train"] = {
+            "metrics": metrics,
+            "state": sharding.unplace({"params": new_p, "opt": new_s},
+                                      sharding.train_state_specs(specs, o_specs), mesh),
+            "zero_split": sum(sharding.is_split(a) for a in _spec_leaves(o_specs["m"]))}
+        row["serve"] = _serve(model, placed, cases["batch"]["tokens"][:, :16], mesh)
+        out[mode] = row
+    out["vocab"] = _vocab_case(cases["vocab"], mesh)
+    out["padded"] = _padded_local(cases["padded"], mesh)
+    return out
+
+
+def _spec_leaves(specs):
+    if isinstance(specs, dict):
+        return [s for v in specs.values() for s in _spec_leaves(v)]
+    if isinstance(specs, list):
+        return [s for v in specs for s in _spec_leaves(v)]
+    if isinstance(specs, tuple(PACKED_FIELDS)):
+        return [getattr(specs, f) for f in PACKED_FIELDS[type(specs)]
+                if getattr(specs, f) is not None]
+    return [specs]
+
+
 def spmd_cases(workdir: str) -> dict:
     """Every case of ``cases.pt``; returns a summary, saves the tensors."""
     workdir = pathlib.Path(workdir)
@@ -219,6 +342,9 @@ def spmd_cases(workdir: str) -> dict:
     out["dry"] = _dry_cases(cases["dry"], mesh)
     out["engine"] = _engine_case(cases["cfg"], cases["params"], cases["prompts"], mesh)
     out["restore"] = _restore_case(workdir / "ref_ckpt", cases["cfg"], cases["params"], mesh)
+    out["partition"] = {"4x2": _partition_runs(cases, mesh)}
+    out["partition"]["2x4"] = _partition_runs(
+        cases, mesh_mod.make_test_mesh(PARTITION_MESHES["2x4"], device="cpu"))
     torch.save(out, workdir / f"rank{rank}.pt")
     return {"rank": rank, "coords": mesh.coords}
 
