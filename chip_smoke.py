@@ -738,13 +738,19 @@ def _routing(record: list | None = None, replay: list | None = None,
     """While open, every MoE block's top-k appends its expert ids to
     ``record``, or (``replay``) takes the next ids recorded instead of
     choosing, with the gate values at them, so a second forward routes
-    every token as the first did; ``differ`` then gets, per block, the
-    number of tokens whose own expert set differs and the tokens."""
+    every token as the first did (in a partitioned step, the rank's rows
+    of them); ``differ`` then gets, per block, the number of tokens whose
+    own expert set differs and the tokens."""
+    from repro_torch.runtime import spmd
+
     top_k = moe._top_k
 
     def pinned(probs, k):
         if replay is not None:
             ids = replay.pop(0)
+            part, t = spmd.active_partition(), probs.shape[0]
+            if part is not None and part.rows and ids.shape[0] != t:
+                ids = ids[part.mesh.index(part.rows) * t:][:t]
             if differ is not None:
                 own = top_k(probs, k)[1].sort(-1).values
                 differ.append((int((own != ids.sort(-1).values).any(-1).sum()),
@@ -3737,8 +3743,9 @@ def _mesh_ops(layer: dict, kernel: str, mesh) -> dict:
 
 def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
                 per_forward: int = MESH_SERVE_LAYERS * 7, gen: int = MESH_GEN, plan=None,
-                mesh_model=None, pin_routing: bool = False) -> dict:
-    """Prefill and ``gen`` greedy decode steps through the step builders,
+                mesh_model=None, pin_routing: bool = False, patch_embeds=None) -> dict:
+    """Prefill (a VLM's with its ``patch_embeds``) and ``gen`` greedy
+    decode steps from the prompt's true end through the step builders,
     one process (the whole weights) and the mesh (the resident blocks, fed
     the one-process run's tokens; ``mesh_model``, if given, runs there):
     logits, greedy agreement, launches (``per_forward`` a forward) and the
@@ -3749,7 +3756,8 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
     have made otherwise (``routing_differs``)."""
     from repro_torch.runtime import spmd
 
-    b, s = tokens.shape
+    b, s = tokens.shape[:2]
+    start = s + (0 if patch_embeds is None else patch_embeds.shape[1])
     out, ids, differ = {}, [], []
     with torch.inference_mode():
         logits = {}
@@ -3764,13 +3772,13 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
             pin = (contextlib.nullcontext() if not pin_routing else
                    _routing(record=ids) if run == "one" else _routing(replay=ids, differ=differ))
             with registry.count_dispatches() as counts, spmd.count_collectives() as moved, pin:
-                nxt, cache = prefill(p, tokens)
-                cache = mdl.grow_cache(cache, s + gen + 1)
-                toks, logs = [nxt.reshape(b, 1)], []
+                nxt, cache = prefill(p, tokens, patch_embeds=patch_embeds)
+                cache = mdl.grow_cache(cache, start + gen + 1)
+                toks, logs = [nxt[:, None]], []
                 for t in range(gen):
                     feed = toks[-1] if run == "one" else logits["one_tokens"][t]
-                    nxt, lg, cache = decode(p, cache, feed, s + t)
-                    toks.append(nxt.reshape(b, 1))
+                    nxt, lg, cache = decode(p, cache, feed, start + t)
+                    toks.append(nxt.reshape(feed.shape))
                     logs.append(lg[..., :model.cfg.vocab].float())
             torch.cuda.synchronize()
             logits[run] = torch.stack(logs)
@@ -3799,16 +3807,21 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
     return out
 
 
-def _mesh_grads(mesh) -> dict:
-    """loss_and_grads at full width, 4 layers, batch 4 x 128 (M = 512): one
-    process on the whole weights, the mesh on the resident blocks."""
+def _mesh_grads(mesh, argv=TILED_ARGV, layers: int = MESH_TRAIN_LAYERS,
+                prepared=None) -> dict:
+    """loss_and_grads at full width, ``layers`` layers, batch 4 x 128 (M =
+    512): one process on the whole weights, the mesh on the resident
+    blocks (``prepared``: the model and whole weights, else prepared from
+    ``argv``)."""
     from repro_torch.runtime import sharding, spmd
 
     from repro_torch.core.tree import leaves_with_path
 
-    args = serve.parse_args(TILED_ARGV)
-    cfg = configs.get_config(args.arch).with_(n_layers=MESH_TRAIN_LAYERS)
-    model, params, *_ = serve.prepare(args, None, cfg)
+    if prepared is None:
+        args = serve.parse_args(argv)
+        cfg = configs.get_config(args.arch).with_(n_layers=layers)
+        prepared = serve.prepare(args, None, cfg)[:2]
+    model, params = prepared
     specs = sharding.param_specs(params, model.cfg, mesh)
     placed = sharding.place(params, specs, mesh)
     batch = to_device(SyntheticLMData(model.cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ,
@@ -3838,8 +3851,6 @@ def _mesh_grads(mesh) -> dict:
     row = {"loss": loss.item(), "loss_one_process": loss1.item(), "rel_loss_err": rel_loss,
            "grad_rel_err": worst, "grads_compared": n, "m": MESH_TRAIN_BATCH * MESH_TRAIN_SEQ,
            "step_s": step_s, "peak_mem_gb": peak,
-           "whole_rows_step_s": WHOLE_ROWS["grads_step_s"],
-           "whole_rows_peak_mem_gb": WHOLE_ROWS["grads_peak_mem_gb"],
            "launches": {k: mod.launches for k, mod in COUNTERS.items()},
            "dispatch": counts, "collective_bytes": moved}
     if rel_loss > MESH_LOSS_TOL or worst > MESH_GRAD_TOL:
@@ -3852,6 +3863,18 @@ def _mesh_grads(mesh) -> dict:
 # batch 1, which at 16 layers took 45 s of the script on an H100
 MESH_ENGINE_LAYERS, MESH_ENGINE_GEN = 4, 8
 MOE_MESH_ARCH, MOE_MESH_LAYERS, MOE_MESH_GEN = "qwen2-moe-a2.7b", 4, 8
+# run -> (one process's config fields, the mesh's): the all-to-all over
+# ``model`` (4 token shards) against the capacity dispatch in 4 blocks, and
+# the capacity dispatch in 2 blocks (the data size) on both
+MOE_MESH_RUNS = {"a2a": ({"moe_dispatch_blocks": 4},
+                         {"moe_dispatch_blocks": 4, "moe_a2a_axis": "model"}),
+                 "capacity": ({"moe_dispatch_blocks": 2}, {"moe_dispatch_blocks": 2})}
+# the rank's seconds in _mesh_moe when MoE's steps ran whole rows (PR 29's
+# final run; an NVIDIA H100 80GB HBM3 at 700.00 W): one a2a run
+MOE_WHOLE_ROWS_S = 16.9
+# arch -> (layers, serve flags): the audio and VLM families on the mesh
+FRONTEND_MESH_CELLS = {"musicgen-medium": (4, ["--batch", "4", "--prompt-len", "32"]),
+                       "pixtral-12b": (2, ["--batch", "2", "--prompt-len", "1536"])}
 ELASTIC_FAILED = (2, 3)             # the ranks the elastic part loses
 DRY_CELL = ("llama3.2-1b", "train_4k", "tiled_csc")
 # the reference's record of DRY_CELL on a rank of its 16 x 16 mesh (XLA's
@@ -3865,6 +3888,13 @@ DRY_WHOLE_ROWS = {"flops": 3.950545278599168e15, "argument_bytes": 4387276100,
             "peak_bytes": 3362457199952, "all-gather": 2290157092864,
             "total": 2427965145096}
 DRY_PEAK_LIMIT = 40e9                # half the card's 80 GB
+DRY_MOE_CELL = ("granite-moe-1b-a400m", "train_4k", None)
+# the parent tree's counts of DRY_MOE_CELL (MoE's steps on whole rows, the
+# routed experts gathered whole; this sandbox's CPU, equal to a card's)
+DRY_MOE_WHOLE_ROWS = {"flops": 5.81e15, "argument_bytes": 3.15e8, "peak_bytes": 1.30e12,
+                      "all-gather": 2.83e9}
+# a rank's share: 1.5 × the whole-rows flops over the 256 ranks
+DRY_MOE_FLOPS_LIMIT = 3.4e13
 DRY_FLOPS_BAND = (0.67, 1.5)         # a rank's flops over the reference's
 
 
@@ -3912,21 +3942,23 @@ def _mesh_moe(mesh, workdir: str) -> dict:
     """qwen2-moe-a2.7b at full width and MOE_MESH_LAYERS layers: the plan on
     its seeded raw weights with the routed entries dropped (attention and
     the shared expert packed, fault R4), then prefill of 4 × 32 tokens and
-    MOE_MESH_GEN greedy decode steps on the mesh with the routed experts'
-    all-to-all over ``model``, against one process's capacity dispatch in
-    as many blocks as token shards (4), every token routed as the one
-    process chose: logits within LOGIT_TOL, greedy agreement, the routing
-    choices the mesh's own router would have made otherwise, each rank's
-    all-to-all count above 0, the launches derived from the plan."""
+    MOE_MESH_GEN greedy decode steps through the partitioned steps (a
+    rank's rows, its ``E / tp`` routed experts), twice (MOE_MESH_RUNS):
+    the all-to-all over ``model`` against one process's capacity dispatch
+    in as many blocks as token shards (4), and the capacity dispatch in 2
+    blocks (the data size) against one process's in 2; every token routed
+    as the one process chose: logits within LOGIT_TOL, greedy agreement,
+    the routing choices the mesh's own router would have made otherwise,
+    each rank's all-to-all count above 0 in the first run and none in the
+    second, the launches derived from the plan, the mesh run's seconds and
+    a rank's peak memory."""
     import torch.distributed as dist
 
     from repro_torch.runtime import sharding
 
     base = ["--arch", MOE_MESH_ARCH, *FAMILY_BASE, *FAMILY_TILED]
     args = serve.parse_args(base)
-    n_shards = math.prod(MESH_SHAPE)
-    cfg = configs.get_config(MOE_MESH_ARCH).with_(n_layers=MOE_MESH_LAYERS,
-                                                    moe_dispatch_blocks=n_shards)
+    cfg = configs.get_config(MOE_MESH_ARCH).with_(n_layers=MOE_MESH_LAYERS)
     # two ranks plan and pack at a time: a packing's peak (≈ 20 GB) on all
     # four at once does not fit the card
     for wave in range(2):
@@ -3946,16 +3978,60 @@ def _mesh_moe(mesh, workdir: str) -> dict:
     placed = sharding.place(params, sharding.param_specs(params, model.cfg, mesh), mesh)
     per_forward = (sum(len(_packed_paths(layer)) for layer in params["layers"])
                    + isinstance(params.get("head"), (TiledCSC, BlockCSR)))
-    row = _mesh_serve(model, params, placed, tokens, "sod_matmul", mesh,
-                      per_forward=per_forward, gen=MOE_MESH_GEN, plan=plan,
-                      mesh_model=LM(model.cfg.with_(moe_a2a_axis="model")),
-                      pin_routing=True)
-    moved = row["mesh"]["collectives"]
-    if not moved.get("counts", {}).get("all-to-all"):
-        raise AssertionError(f"rank {mesh.rank}: the all-to-all dispatch did not run: {moved}")
-    return {**row, "plan": plan_row, "per_forward": per_forward,
-            "all_to_all_calls": moved["counts"]["all-to-all"],
-            "all_to_all_bytes": moved["all-to-all"]}
+    out = {"plan": plan_row, "per_forward": per_forward}
+    for run, (one, on_mesh) in MOE_MESH_RUNS.items():
+        row = _mesh_serve(LM(model.cfg.with_(**one)), params, placed, tokens, "sod_matmul",
+                          mesh, per_forward=per_forward, gen=MOE_MESH_GEN, plan=plan,
+                          mesh_model=LM(model.cfg.with_(**on_mesh)), pin_routing=True)
+        calls = row["mesh"]["collectives"].get("counts", {}).get("all-to-all", 0)
+        if bool(calls) != ("moe_a2a_axis" in on_mesh):
+            raise AssertionError(f"rank {mesh.rank} {run}: {calls} all-to-all calls")
+        out[run] = {**row, "all_to_all_calls": calls,
+                    "all_to_all_bytes": row["mesh"]["collectives"].get("all-to-all", 0)}
+    return out
+
+
+def mesh_frontends(mesh) -> dict:
+    """The audio and VLM families' partitioned steps at full width
+    (tiled_csc, phase 12's flags): musicgen-medium at FRONTEND_MESH_LAYERS
+    (4), prefill of 4 × 32 (4 codebook streams) and MESH_GEN decode steps
+    against one process (logits within LOGIT_TOL, greedy agreement), then
+    ``loss_and_grads`` at batch 4 × 128 against one process (the loss, and
+    every gradient after ``unplace``, within MESH_LOSS_TOL and
+    MESH_GRAD_TOL); pixtral-12b at 2 layers, a prefill of 2 × (1024
+    patches + 512 text) and MESH_GEN decode steps from the true end
+    (n_patches + the text; the serve driver keeps R5) against one
+    process.  Each: launches (layers · 7 + the head) × (1 + MESH_GEN), a
+    rank's peak memory and seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import sharding
+
+    out = {}
+    for arch, (layers, flags) in FRONTEND_MESH_CELLS.items():
+        argv = ["--arch", arch, *flags, "--seed", "0", "--device", "cuda", *FAMILY_TILED]
+        cfg = configs.get_config(arch).with_(n_layers=layers)
+        t0 = time.perf_counter()
+        for wave in range(mesh.size):  # one rank packs at a time (pixtral's head)
+            if mesh.rank == wave:
+                prep = serve.prepare(serve.parse_args(argv), None, cfg)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        model, params = prep.model, prep.params
+        placed = sharding.place(params, sharding.param_specs(params, model.cfg, mesh), mesh)
+        pack_s = time.perf_counter() - t0
+        row = _mesh_serve(model, params, placed, prep.tokens, "sod_matmul", mesh,
+                          per_forward=layers * 7 + 1, gen=MESH_GEN,
+                          patch_embeds=prep.patch_embeds)
+        out[arch] = {"serve": row, "pack_s": pack_s, "layers": layers}
+        del placed, prep
+        if model.cfg.family == "audio":
+            torch.cuda.empty_cache()
+            out[arch]["grads"] = _mesh_grads(mesh, prepared=(model, params))
+        del model, params
+        torch.cuda.empty_cache()
+    return out
 
 
 def _mesh_elastic(mesh, workdir: str) -> dict:
@@ -4046,18 +4122,21 @@ def _mesh_elastic(mesh, workdir: str) -> dict:
     return row
 
 
-def _dry_cell() -> dict:
-    """One dry-run cell (DRY_CELL) on rank 0 of the 16 × 16 counting mesh,
-    in this process on meta tensors: nothing launches."""
+def _dry_cells() -> dict:
+    """The dry-run cells (DRY_CELL, DRY_MOE_CELL) on rank 0 of the 16 × 16
+    counting mesh, one after the other in this process on meta tensors:
+    nothing launches."""
     from repro_torch.launch import dryrun
 
-    arch, shape, sod = DRY_CELL
-    before = {k: mod.launches for k, mod in COUNTERS.items()}
-    t0 = time.perf_counter()
-    rec = dryrun.run_cell(arch, shape, False, sod, DENSITY)
-    rec["wall_s"] = time.perf_counter() - t0
-    rec["launches"] = {k: mod.launches - before[k] for k, mod in COUNTERS.items()}
-    return rec
+    out = {}
+    for arch, shape, sod in (DRY_CELL, DRY_MOE_CELL):
+        before = {k: mod.launches for k, mod in COUNTERS.items()}
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, False, sod, DENSITY)
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = {k: mod.launches - before[k] for k, mod in COUNTERS.items()}
+        out[arch] = rec
+    return out
 
 
 def mesh_rank(workdir: str, t_launch: str) -> dict:
@@ -4100,7 +4179,8 @@ def mesh_rank(workdir: str, t_launch: str) -> dict:
         del model, params, placed, packed, resident
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    out["grads"] = _mesh_grads(mesh)
+    out["grads"] = {**_mesh_grads(mesh), "whole_rows_step_s": WHOLE_ROWS["grads_step_s"],
+                    "whole_rows_peak_mem_gb": WHOLE_ROWS["grads_peak_mem_gb"]}
     seconds["grads"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4109,6 +4189,10 @@ def mesh_rank(workdir: str, t_launch: str) -> dict:
     t0 = time.perf_counter()
     out["moe"] = _mesh_moe(mesh, workdir)
     seconds["moe"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["frontends"] = mesh_frontends(mesh)
+    seconds["frontends"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out["elastic"] = _mesh_elastic(mesh, workdir)     # last: it ends the group
@@ -4127,7 +4211,7 @@ def phase_mesh() -> dict:
     t0 = time.perf_counter()
     # phase 15's dry-run cell runs on the host beside the rank group
     with ThreadPoolExecutor(max_workers=1) as pool:
-        dry = pool.submit(_dry_cell)
+        dry = pool.submit(_dry_cells)
         try:
             ranks = mesh_mod.run_ranks(
                 math.prod(MESH_SHAPE), f"{pathlib.Path(__file__).resolve()}:mesh_rank", work,
@@ -4170,23 +4254,46 @@ def phase_mesh() -> dict:
 
 
 def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
-    """Phase 15's gates across the ranks and its lines: MoE's all-to-all,
-    the engine on the mesh, the elastic re-mesh, the dry-run cell."""
+    """Phase 15's gates across the ranks and its lines: MoE's partitioned
+    runs, the frontends on the mesh, the engine on the mesh, the elastic
+    re-mesh, the dry-run cells."""
     for r in ranks:
-        m = r["moe"]
-        log({"phase": "mesh_moe", "rank": r["rank"], "arch": MOE_MESH_ARCH,
-             "layers": MOE_MESH_LAYERS, "all_to_all_calls": m["all_to_all_calls"],
-             "all_to_all_bytes": m["all_to_all_bytes"],
-             "max_abs_err": m["max_abs_err"], "tol": m["tol"],
-             "greedy_agreement": m["greedy_agreement"],
-             "prefill_tokens_equal": m["prefill_tokens_equal"],
-             "routing_differs": m["routing_differs"],
-             "launches": m["mesh"]["launches"], "dispatch": m["mesh"]["dispatch"],
-             "plan": m["plan"]})
+        for run in MOE_MESH_RUNS:
+            m = r["moe"][run]
+            log({"phase": "mesh_moe", "rank": r["rank"], "run": run, "arch": MOE_MESH_ARCH,
+                 "layers": MOE_MESH_LAYERS, "all_to_all_calls": m["all_to_all_calls"],
+                 "all_to_all_bytes": m["all_to_all_bytes"],
+                 "max_abs_err": m["max_abs_err"], "tol": m["tol"],
+                 "greedy_agreement": m["greedy_agreement"],
+                 "prefill_tokens_equal": m["prefill_tokens_equal"],
+                 "routing_differs": m["routing_differs"],
+                 "mesh_serve_s": m["mesh"]["seconds"],
+                 "peak_mem_gb_a_rank": m["mesh"]["peak_mem_gb"],
+                 "moe_s_a_rank": r["seconds"]["moe"], "whole_rows_moe_s": MOE_WHOLE_ROWS_S,
+                 "launches": m["mesh"]["launches"], "dispatch": m["mesh"]["dispatch"],
+                 "plan": r["moe"]["plan"]})
+        for arch, f in r["frontends"].items():
+            sv = f["serve"]
+            log({"phase": "mesh_frontends", "rank": r["rank"], "arch": arch,
+                 "layers": f["layers"], "pack_s": f["pack_s"],
+                 "max_abs_err": sv["max_abs_err"], "tol": sv["tol"],
+                 "greedy_agreement": sv["greedy_agreement"],
+                 "prefill_tokens_equal": sv["prefill_tokens_equal"],
+                 "mesh_serve_s": sv["mesh"]["seconds"],
+                 "peak_mem_gb_a_rank": sv["mesh"]["peak_mem_gb"],
+                 "launches": sv["mesh"]["launches"], "dispatch": sv["mesh"]["dispatch"],
+                 "collective_bytes": sv["mesh"]["collectives"]})
+            if "grads" in f:
+                log({"phase": "mesh_frontends_grads", "rank": r["rank"], "arch": arch,
+                     **f["grads"]})
         log({"phase": "mesh_engine", "rank": r["rank"], **r["engine"]})
         log({"phase": "mesh_elastic", "rank": r["rank"], **r["elastic"]})
-    if len({r["moe"]["max_abs_err"] for r in ranks}) != 1:
-        raise AssertionError("mesh_moe: the ranks' logits differ")
+    for key in [("moe", run) for run in MOE_MESH_RUNS] + [("frontends", a)
+                                                          for a in FRONTEND_MESH_CELLS]:
+        errs = {(r[key[0]][key[1]].get("serve") or r[key[0]][key[1]])["max_abs_err"]
+                for r in ranks}
+        if len(errs) != 1:
+            raise AssertionError(f"mesh {key}: the ranks' logits differ")
     survivors = [r["elastic"] for r in ranks if not r["elastic"]["failed"]]
     if [r["rank"] for r in ranks if r["elastic"]["failed"]] != list(ELASTIC_FAILED) or \
             sorted(e["new_rank"] for e in survivors) != [0, 1] or \
@@ -4194,23 +4301,28 @@ def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
             len({e["loss"] for e in survivors}) != 1 or \
             not any("state_err" in e for e in survivors):
         raise AssertionError(f"elastic re-mesh: {survivors}")
-    if dry.get("status") != "ok" or any(dry["launches"].values()) or \
-            {k.split("[")[0] for k in dry["dispatch_counts"]} != {"cuda_fused"}:
-        raise AssertionError(f"dry-run cell: {dry.get('status')} "
-                             f"{dry.get('traceback', '')[-2000:]} launches {dry.get('launches')}")
-    port = {"flops": dry["cost"]["flops"],
-            "argument_bytes": dry["memory"]["argument_bytes"],
-            "peak_bytes": dry["memory"]["peak_bytes"],
-            "all-gather": dry["collectives"]["all-gather"],
-            "total": dry["collectives"]["total"]}
-    log({"phase": "dryrun", "cell": "__".join(DRY_CELL), "device": dry["device"],
-         "flops": dry["cost"]["flops"], "peak_bytes_a_rank": dry["memory"]["peak_bytes"],
-         "argument_bytes": dry["memory"]["argument_bytes"],
-         "collective_bytes": {k: dry["collectives"][k] for k in
-                              ("all-gather", "all-reduce", "all-to-all", "total")},
-         "collective_counts": dry["collectives"]["counts"],
-         "dispatch_counts": dry["dispatch_counts"], "run_s": dry["run_s"],
-         "wall_s": dry["wall_s"], "with_group_s": dry_s})
+    for (arch, shape, sod), rec in zip((DRY_CELL, DRY_MOE_CELL), dry.values()):
+        impls = {k.split("[")[0] for k in rec.get("dispatch_counts", {})}
+        if rec.get("status") != "ok" or any(rec["launches"].values()) or \
+                impls != ({"cuda_fused"} if sod else set()):
+            raise AssertionError(f"dry-run cell {arch}: {rec.get('status')} "
+                                 f"{rec.get('traceback', '')[-2000:]} launches "
+                                 f"{rec.get('launches')}, dispatched {impls}")
+        log({"phase": "dryrun", "cell": f"{arch}__{shape}__{sod or 'dense'}",
+             "device": rec["device"], "flops": rec["cost"]["flops"],
+             "peak_bytes_a_rank": rec["memory"]["peak_bytes"],
+             "argument_bytes": rec["memory"]["argument_bytes"],
+             "collective_bytes": {k: rec["collectives"][k] for k in
+                                  ("all-gather", "all-reduce", "all-to-all", "total")},
+             "collective_counts": rec["collectives"]["counts"],
+             "dispatch_counts": rec["dispatch_counts"], "run_s": rec["run_s"],
+             "wall_s": rec["wall_s"], "with_group_s": dry_s})
+    llama, granite = dry[DRY_CELL[0]], dry[DRY_MOE_CELL[0]]
+    port = {"flops": llama["cost"]["flops"],
+            "argument_bytes": llama["memory"]["argument_bytes"],
+            "peak_bytes": llama["memory"]["peak_bytes"],
+            "all-gather": llama["collectives"]["all-gather"],
+            "total": llama["collectives"]["total"]}
     log({"phase": "dryrun_table", "cell": "__".join(DRY_CELL), "per_rank": {
         k: {"reference": DRY_REFERENCE[k], "port": port[k], "whole_rows": DRY_WHOLE_ROWS[k],
             "port_over_reference": port[k] / DRY_REFERENCE[k]} for k in port}})
@@ -4220,12 +4332,29 @@ def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
         raise AssertionError(f"dry-run cell: peak {port['peak_bytes']} B (limit "
                              f"{DRY_PEAK_LIMIT}), flops {port['flops']} (reference "
                              f"{DRY_REFERENCE['flops']} x {DRY_FLOPS_BAND})")
+    moe_port = {"flops": granite["cost"]["flops"],
+                "argument_bytes": granite["memory"]["argument_bytes"],
+                "peak_bytes": granite["memory"]["peak_bytes"],
+                "all-gather": granite["collectives"]["all-gather"]}
+    log({"phase": "dryrun_table", "cell": "granite-moe-1b-a400m__train_4k__16x16__dense",
+         "per_rank": {k: {"port": moe_port[k], "whole_rows": DRY_MOE_WHOLE_ROWS[k],
+                          "port_over_whole_rows": moe_port[k] / DRY_MOE_WHOLE_ROWS[k]}
+                      for k in moe_port}})
+    if not (moe_port["flops"] <= DRY_MOE_FLOPS_LIMIT and moe_port["peak_bytes"] < DRY_PEAK_LIMIT):
+        raise AssertionError(f"dry-run MoE cell: flops {moe_port['flops']} (limit "
+                             f"{DRY_MOE_FLOPS_LIMIT}), peak {moe_port['peak_bytes']} B "
+                             f"(limit {DRY_PEAK_LIMIT})")
     log({"phase": "mesh15_seconds",
-         "by_rank": {r["rank"]: {k: r["seconds"].get(k) for k in ("engine", "moe", "elastic")}
-                     for r in ranks}, "dryrun_s": dry["wall_s"]})
+         "by_rank": {r["rank"]: {k: r["seconds"].get(k) for k in
+                                 ("engine", "moe", "frontends", "elastic")} for r in ranks},
+         "dryrun_s": {arch: rec["wall_s"] for arch, rec in dry.items()}})
     elastic = next(e for e in survivors if e["new_rank"] == 0)
-    return {"mesh_moe_a2a": ranks[0]["moe"]["mesh"]["launches"],
-            "mesh_engine": ranks[0]["engine"]["launches"],
+    first = ranks[0]
+    return {**{f"mesh_moe_{run}": first["moe"][run]["mesh"]["launches"]
+               for run in MOE_MESH_RUNS},
+            **{f"mesh_{arch}": first["frontends"][arch]["serve"]["mesh"]["launches"]
+               for arch in FRONTEND_MESH_CELLS},
+            "mesh_engine": first["engine"]["launches"],
             "mesh_elastic_step": elastic["launches"]}
 
 

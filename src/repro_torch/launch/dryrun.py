@@ -15,7 +15,7 @@ launched.  Per cell it:
    rank holds them (:func:`repro_torch.runtime.sharding.place`: every leaf
    reduced to the block its spec names), the AdamW state (its ZeRO-1
    blocks) and the inputs (:mod:`repro_torch.launch.specs`; the rank's
-   rows and cache block for the dense family),
+   rows and cache block where the step is partitioned),
 3. runs the step (train, prefill or decode) on the counting mesh, where
    each packed product resolves its kernel as the card would (backend
    ``cuda``, the mesh-qualified key, tuned or prior: ``kernel_dispatch``)
@@ -34,11 +34,12 @@ launched.  Per cell it:
    buffer; ``counts`` their calls).
 
 These are counts of the port's own eager program, not compile results.
-The dense family's steps run the partitioned program (the rank's rows,
-its share of heads, MLP columns and vocabulary, its ZeRO-1 optimizer
-blocks; :mod:`repro_torch.launch.steps`), so rank 0 counts a shard's work
-as the reference's partitioned HLO does; the other families still run
-plain ops on the global batch on every rank (``ROADMAP.md``).  Eager code
+The dense, MoE, VLM and audio families' steps run the partitioned
+program (the rank's rows, its share of heads, MLP columns, routed
+experts, vocabulary and codebook columns, its ZeRO-1 optimizer blocks;
+:mod:`repro_torch.launch.steps`), so rank 0 counts a shard's work as the
+reference's partitioned HLO does; the recurrent families still run plain
+ops on the global batch on every rank (``ROADMAP.md``).  Eager code
 runs every layer, so nothing is counted once per loop body: the
 reference's ``cost_scan_hlo``, ``collectives_scan_hlo`` and depth probes
 have no counterpart; :func:`_extrapolate` (and :func:`measure` at a cut
@@ -166,7 +167,8 @@ def _step_and_args(cfg, shape, mesh, plan=None, params=None, inputs=None):
     :func:`~repro_torch.launch.specs.input_specs` lays them out) placed on
     a real mesh.  The rank holds its placed parameters, its ZeRO-1 blocks
     of the optimizer state and, where the step runs the partitioned
-    program (the dense family), its rows of the batch and its block of the
+    program (``steps.PARTITIONED``), its rows of the batch (a VLM's patches
+    too) and its block of the
     decode cache (:func:`repro_torch.runtime.sharding.kv_cache_specs`)."""
     model = LM(cfg)
     if params is None:

@@ -10,20 +10,22 @@ Every ``make_*`` function takes an optional ``mesh`` (a
 :class:`repro_torch.launch.mesh.Mesh`, its parameters placed on it by
 :func:`repro_torch.runtime.sharding.place`).  A mesh step takes the
 global batch on every rank and returns what the unsharded step returns,
-on every rank.  Inside, the dense family's train, prefill and decode
-steps run the partitioned program (:class:`repro_torch.runtime.spmd.
+on every rank.  Inside, the train, prefill and decode steps of the
+dense, MoE, VLM and audio families (``PARTITIONED``) run the partitioned
+program (:class:`repro_torch.runtime.spmd.
 Partition`), as GSPMD partitions the reference's jitted step: at entry
 each rank takes its rows (:func:`repro_torch.runtime.sharding.
-batch_specs`: over the data axes where they divide, else every row), its
-ops run on its share of heads, MLP columns and vocabulary, the loss's
+batch_specs`: over the data axes where they divide, else every row; a
+VLM's patches too), its ops run on its share of heads, MLP columns,
+routed experts, vocabulary and codebook columns, the loss's
 mean is the global batch's, every gradient is summed over the data axes
 (a whole one's in one coalesced all-reduce), and at exit the tokens and
 logits are gathered.  The KV cache between prefill and decode stays the
-rank's: its rows, and its KV heads where they divide ``model``.  The
-engine's steps (``make_prefill_full``, ``make_chunked_prefill_step``,
-``make_paged_decode_step``, ``make_verify_step``), the other families'
-steps and ``partition=False`` run every op on the global batch on every
-rank, each packed product a rank's local problem
+rank's: its rows, and the KV heads its query heads read.  The engine's
+steps (``make_prefill_full``, ``make_chunked_prefill_step``,
+``make_paged_decode_step``, ``make_verify_step``), the recurrent
+families' steps and ``partition=False`` run every op on the global batch
+on every rank, each packed product a rank's local problem
 (:mod:`repro_torch.runtime.spmd`), the plain leaves taken whole again
 (:func:`repro_torch.runtime.sharding.gather_plain`; once a parameter
 tree outside autograd).
@@ -43,12 +45,13 @@ from repro_torch.core.formats import BlockCSR, TiledCSC
 from repro_torch.core.plan import use_plan
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch.mesh import dp_axes, mesh_context
+from repro_torch.models import attention, transformer
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime import sharding, spmd
 
 # the families whose mesh steps run the partitioned program
-PARTITIONED = ("dense",)
+PARTITIONED = ("dense", "moe", "vlm", "audio")
 
 
 def partition_for(model: LM, mesh, n_rows: int, rows=None) -> spmd.Partition | None:
@@ -72,26 +75,33 @@ def _take_rows(t, part: spmd.Partition, given: bool):
     return spmd.shard_rows(t, part.mesh, part.rows)
 
 
-def _whole_out(t: torch.Tensor, part: spmd.Partition, vocab: int) -> torch.Tensor:
-    """The global logits (or tokens) from the rank's rows and, for logits,
-    vocabulary block."""
-    if t.shape[-1] != vocab and part.tp > 1 and t.is_floating_point():
+def _whole_out(t: torch.Tensor, part: spmd.Partition, cfg) -> torch.Tensor:
+    """The global logits from the rank's rows and vocabulary block (an
+    audio model's (..., C_l, V_l) block of the flattened (codebook, id)
+    columns: gathered flat, then read as (..., C, V))."""
+    v = cfg.padded_vocab
+    if cfg.family == "audio":
+        c = cfg.n_codebooks
+        if tuple(t.shape[-2:]) != (c, v):
+            t = spmd.all_gather(t.flatten(-2), part.mesh, "model", t.ndim - 2,
+                                "output_bytes").unflatten(-1, (c, v))
+    elif t.shape[-1] != v and part.tp > 1:
         t = spmd.all_gather(t, part.mesh, "model", t.ndim - 1, "output_bytes")
     return spmd.all_gather(t, part.mesh, part.rows, 0, "output_bytes")
 
 
 def _local_cache(cache, part: spmd.Partition, model: LM, rows: int):
-    """The decode cache as the rank keeps it (``rows`` of them): views of
-    its rows (and KV heads, where they divide ``model``) of a whole cache,
+    """The decode cache as the rank keeps it (``rows`` of them), inside the
+    partition: views of its rows and of the KV heads its query heads read
+    (:func:`repro_torch.models.attention.local_heads`) of a whole cache,
     the cache itself when it holds them already."""
-    cfg = model.cfg
-    heads = cfg.n_kv_heads // part.tp if cfg.n_kv_heads % part.tp == 0 else cfg.n_kv_heads
+    heads = attention.local_heads(transformer.attn_spec(model.cfg))
 
     def local(t):
         if t.shape[1] != rows:
             t = spmd._own_block(t, part.mesh, part.rows, 1)
-        if t.shape[3] != heads:
-            t = spmd._own_block(t, part.mesh, "model", 3)
+        if heads is not None and t.shape[3] != heads[2]:
+            t = t.narrow(3, heads[1], heads[2])
         return t
 
     return {k: local(v) for k, v in cache.items()}
@@ -214,17 +224,18 @@ def make_prefill_step(model: LM, mesh=None, plan=None, partition: bool = True, r
     cache)``; a VLM's patches go in as ``patch_embeds``.  ``partition=False``
     runs whole rows on a mesh (the engine's reference decode)."""
     def prefill_step(params, tokens, *, patch_embeds=None):
-        part = (partition_for(model, mesh, tokens.shape[0], rows)
-                if partition and patch_embeds is None else None)
+        part = partition_for(model, mesh, tokens.shape[0], rows) if partition else None
         if part is None:
             with mesh_context(mesh), use_plan(plan):
                 last_logits, cache = model.prefill(whole_params(params, model, mesh), tokens,
                                                    patch_embeds=patch_embeds)
             return last_logits.argmax(dim=-1), cache
+        given = rows is not None
         with mesh_context(mesh), use_plan(plan), spmd.use_partition(part):
-            last_logits, cache = model.prefill(params, _take_rows(tokens, part,
-                                                                   rows is not None))
-        last = _whole_out(last_logits, part, model.cfg.padded_vocab)
+            last_logits, cache = model.prefill(
+                params, _take_rows(tokens, part, given),
+                patch_embeds=_take_rows(patch_embeds, part, given))
+        last = _whole_out(last_logits, part, model.cfg)
         return last.argmax(dim=-1), cache
 
     return prefill_step
@@ -242,9 +253,9 @@ def make_decode_step(model: LM, mesh=None, plan=None, partition: bool = True, ro
             return logits.argmax(dim=-1), logits, cache
         tokens = _take_rows(tokens, part, rows is not None)
         with mesh_context(mesh), use_plan(plan), spmd.use_partition(part):
-            logits, cache = model.decode_step(
-                params, _local_cache(cache, part, model, tokens.shape[0]), tokens, pos)
-        logits = _whole_out(logits, part, model.cfg.padded_vocab)
+            cache = _local_cache(cache, part, model, tokens.shape[0])
+            logits, cache = model.decode_step(params, cache, tokens, pos)
+        logits = _whole_out(logits, part, model.cfg)
         return logits.argmax(dim=-1), logits, cache
 
     return decode_step

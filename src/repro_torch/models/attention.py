@@ -26,10 +26,14 @@ position, so its rows equal C sequential decode steps by construction.
 In a partitioned step (:func:`repro_torch.runtime.spmd.use_partition`)
 attention runs on the rank's query heads and the KV heads they read
 (:func:`local_heads`): the KV heads' own block where they divide
-``model``, else the whole K and V, computed on every rank and narrowed to
-the group the rank's heads share; where the query heads do not divide
-``model`` (or straddle groups) every rank attends with every head.  The
-cache keeps what the projections give (split KV heads, or whole).
+``model``, else the KV head the rank's query heads share (the columns of
+a whole dense ``wk`` / ``wv``; a packed one's whole output narrowed);
+where the query heads do not divide ``model`` (or straddle groups) every
+rank attends with every head.  The cache keeps the rank's KV heads.
+There, while gradients are recorded, :func:`chunked_attention` keeps each
+query chunk's inputs only and runs its forward again in the backward
+(a rank that attends with every head would otherwise hold every chunk's
+scores at once).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import sod
 from repro_torch.models import layers
@@ -82,9 +87,8 @@ def init_attention(gen: torch.Generator, d_model: int, spec: AttnSpec,
 def _project_qkv(params: Params, x: torch.Tensor, spec: AttnSpec,
                  positions: torch.Tensor):
     """q, k, v after RoPE, (B, S, heads, hd).  In the partitioned program:
-    the rank's query heads, and K and V as the cache keeps them
-    (:func:`local_heads`; :func:`attending` narrows them to the heads the
-    rank reads)."""
+    the rank's query heads and the KV heads they read (:func:`local_heads`),
+    as the cache keeps them."""
     b, s, d = x.shape
     part = spmd.active_partition()
     if part is None:
@@ -94,15 +98,29 @@ def _project_qkv(params: Params, x: torch.Tensor, spec: AttnSpec,
     else:
         hd, heads = spec.head_dim, local_heads(spec)
         q = layers.linear(x, params["wq"], d, spec.n_heads * hd)
-        k = layers.linear(x, params["wk"], d, spec.n_kv_heads * hd)
-        v = layers.linear(x, params["wv"], d, spec.n_kv_heads * hd)
-        kv_block = heads is not None and spec.n_kv_heads % part.tp == 0
         q = layers.to_layout(q, spec.n_heads * hd, heads is not None)
-        k, v = (layers.to_layout(t, spec.n_kv_heads * hd, kv_block) for t in (k, v))
+        k, v = (_local_kv(x, params[n], spec, heads, part) for n in ("wk", "wv"))
         q, k, v = (t.reshape(b, s, -1, hd) for t in (q, k, v))
     q = layers.apply_rope(q, positions, spec.rope_theta)
     k = layers.apply_rope(k, positions, spec.rope_theta)
     return q, k, v
+
+
+def _local_kv(x: torch.Tensor, w, spec: AttnSpec, heads, part) -> torch.Tensor:
+    """K or V (B, S, heads · hd) of the partitioned program: every KV head
+    where the query heads do not split, else the rank's (``heads``, of
+    :func:`local_heads`): the weight's own column block where the KV heads
+    divide ``model``, else the columns of the KV head the rank's query
+    heads share, read from a whole dense weight by
+    :func:`~repro_torch.runtime.spmd.take_block` (two ranks' gradients of
+    one head summed) or narrowed from a whole packed product's output."""
+    d, n = x.shape[-1], spec.n_kv_heads * spec.head_dim
+    if heads is None or spec.n_kv_heads % part.tp == 0:
+        return layers.to_layout(layers.linear(x, w, d, n), n, heads is not None)
+    first, size = heads[1] * spec.head_dim, heads[2] * spec.head_dim
+    if isinstance(w, torch.Tensor):
+        return layers.linear(x, spmd.take_block(w, part.mesh, "model", 1, first, size), d, n)
+    return spmd.take_block(layers.linear(x, w, d, n), part.mesh, "model", -1, first, size)
 
 
 def local_heads(spec: AttnSpec):
@@ -132,26 +150,17 @@ def local_spec(spec: AttnSpec) -> AttnSpec:
     return dataclasses.replace(spec, n_heads=heads[0], n_kv_heads=heads[2])
 
 
-def attending(k: torch.Tensor, v: torch.Tensor, spec: AttnSpec, dim: int = 2):
-    """K and V (heads on ``dim``) narrowed to the KV heads the rank's query
-    heads read, where they hold more (the whole KV heads, replicated): the
-    narrowing's backward sums the ranks' cotangents
-    (:func:`repro_torch.runtime.spmd.take_block`)."""
-    heads = local_heads(spec)
-    if heads is None or k.shape[dim] == heads[2]:
-        return k, v
-    part = spmd.active_partition()
-    return tuple(spmd.take_block(t, part.mesh, "model", dim, heads[1], heads[2])
-                 for t in (k, v))
-
-
 def _groups(q: torch.Tensor) -> torch.Tensor:
     """Query heads grouped (B, Cq, KV, G, hd), with a lone query head a
     group (G = 1) given twice: the einsums then run as for G = 2, where
     cuBLAS keeps a row's bits whatever the batch and the cache length
     (``scripts/serve_probe.py invariance``); callers keep the first copy
-    of the output (``[:, :, :, :G]`` of (B, KV, G, ...) or the G axis)."""
-    return q.expand(-1, -1, -1, 2, -1).contiguous() if q.shape[3] == 1 else q
+    of the output (``[:, :, :, :G]`` of (B, KV, G, ...) or the G axis).
+    In a partitioned step, which no bitwise comparison reads, the lone head
+    stays alone (it would double the attention's work and memory)."""
+    if q.shape[3] == 1 and spmd.active_partition() is None:
+        return q.expand(-1, -1, -1, 2, -1).contiguous()
+    return q
 
 
 def _block_scores(q: torch.Tensor, k: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
@@ -184,7 +193,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       spec: AttnSpec, window: int | None = None) -> torch.Tensor:
     """Causal (optionally sliding-window) attention, O(S) memory.
 
-    q (B, S, H, hd); k, v (B, S, KV, hd).
+    q (B, S, H, hd); k, v (B, S, KV, hd).  A causal query chunk reads the
+    key chunks up to its own (a later one is wholly masked, and its online
+    update would leave the running sums as they are, bit for bit).  In a
+    partitioned step that records gradients each query chunk's work is
+    checkpointed: only its inputs are kept, and its forward runs again
+    before its backward.
     """
     b, s, h, hd = q.shape
     kvh = k.shape[2]
@@ -195,40 +209,55 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"seq {s} not divisible by chunks ({cq},{ck})")
     nq, nk = s // cq, s // ck
     qc = q.reshape(b, nq, cq, kvh, g, hd)
-    gp = max(g, 2)
     n_rel = (window + cq) // ck + 1 if window is not None else None
-    dev = q.device
+    recompute = spmd.active_partition() is not None and torch.is_grad_enabled()
     outs = []
     for i in range(nq):
-        qi = _groups(qc[:, i])
-        q_pos = i * cq + torch.arange(cq, device=dev)
-        carry = (
-            torch.full((b, kvh, gp, cq), NEG_INF, dtype=torch.float32, device=dev),
-            torch.zeros((b, kvh, gp, cq), dtype=torch.float32, device=dev),
-            torch.zeros((b, kvh, gp, cq, hd), dtype=torch.float32, device=dev),
-        )
-        for c in range(n_rel if window is not None else nk):
-            if window is not None:
-                raw = i * cq + cq - (n_rel - c) * ck
-                start = min(max(raw, 0), s - ck)
-            else:
-                raw = start = c * ck
-            k_blk = k[:, start:start + ck]
-            v_blk = v[:, start:start + ck]
-            k_pos = start + torch.arange(ck, device=dev)
-            mask = k_pos[None, :] <= q_pos[:, None]
-            if window is not None:
-                mask &= k_pos[None, :] > q_pos[:, None] - window
-                # clipping can re-slice keys a neighbouring step also covers;
-                # only this step's raw range [raw, raw+ck) may contribute
-                in_range = (k_pos >= raw) & (k_pos < raw + ck)
-                mask &= in_range[None, :]
-            carry = _online_block(carry, _block_scores(qi, k_blk, spec), v_blk,
-                                  mask[None, None, None])
-        _, l, acc = carry
-        out = (acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :g]   # (B,KV,G,Cq,hd)
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, cq, h, hd))
+        n_blocks = n_rel if window is not None else min(nk, ((i + 1) * cq - 1) // ck + 1)
+        args = (qc[:, i], k, v, spec, window, i, n_blocks)
+        outs.append(checkpoint(_query_chunk, *args, use_reentrant=False) if recompute
+                    else _query_chunk(*args))
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _query_chunk(q_i: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: AttnSpec,
+                 window: int | None, i: int, n_blocks: int) -> torch.Tensor:
+    """Query chunk ``i`` (B, Cq, KV, G, hd) of :func:`chunked_attention`
+    over its ``n_blocks`` key chunks (a window's last ``n_blocks``):
+    (B, Cq, H, hd) float32."""
+    b, cq, kvh, g, hd = q_i.shape
+    s = k.shape[1]
+    ck = min(spec.chunk_k, s)
+    dev = q_i.device
+    qi = _groups(q_i)
+    gp = qi.shape[3]
+    q_pos = i * cq + torch.arange(cq, device=dev)
+    carry = (
+        torch.full((b, kvh, gp, cq), NEG_INF, dtype=torch.float32, device=dev),
+        torch.zeros((b, kvh, gp, cq), dtype=torch.float32, device=dev),
+        torch.zeros((b, kvh, gp, cq, hd), dtype=torch.float32, device=dev),
+    )
+    for c in range(n_blocks):
+        if window is not None:
+            raw = i * cq + cq - (n_blocks - c) * ck
+            start = min(max(raw, 0), s - ck)
+        else:
+            raw = start = c * ck
+        k_blk = k[:, start:start + ck]
+        v_blk = v[:, start:start + ck]
+        k_pos = start + torch.arange(ck, device=dev)
+        mask = k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+            # clipping can re-slice keys a neighbouring step also covers;
+            # only this step's raw range [raw, raw+ck) may contribute
+            in_range = (k_pos >= raw) & (k_pos < raw + ck)
+            mask &= in_range[None, :]
+        carry = _online_block(carry, _block_scores(qi, k_blk, spec), v_blk,
+                              mask[None, None, None])
+    _, l, acc = carry
+    out = (acc / torch.clamp(l, min=1e-30)[..., None])[:, :, :g]   # (B,KV,G,Cq,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, cq, kvh * g, hd)
 
 
 def full_attention(params: Params, x: torch.Tensor, spec: AttnSpec,
@@ -236,7 +265,7 @@ def full_attention(params: Params, x: torch.Tensor, spec: AttnSpec,
     """Training / prefill self-attention over a full sequence: x (B, S, D)
     → (B, S, D), through ``wo``."""
     q, k, v = _project_qkv(params, x, spec, positions)
-    out = chunked_attention(q, *attending(k, v, spec), spec, window=window)
+    out = chunked_attention(q, k, v, spec, window=window)
     b, s, d = x.shape
     return layers.linear(out.reshape(b, s, -1), params["wo"], spec.n_heads * spec.head_dim, d)
 
@@ -311,8 +340,7 @@ def decode_attention(params: Params, x: torch.Tensor, cache: Params, pos,
     else:
         cache["k"][:, pos] = k_new[:, 0]
         cache["v"][:, pos] = v_new[:, 0]
-    k, v = attending(cache["k"], cache["v"], spec)
-    out = _attend_cached(q, k, v, pos, local_spec(spec), window)
+    out = _attend_cached(q, cache["k"], cache["v"], pos, local_spec(spec), window)
     return layers.linear(out.to(x.dtype), params["wo"], spec.n_heads * spec.head_dim,
                          d), cache
 

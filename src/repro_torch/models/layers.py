@@ -243,6 +243,58 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool = False,
     return x
 
 
+def codebook_rows(tables: torch.Tensor, tokens: torch.Tensor, first: int) -> torch.Tensor:
+    """(C, ..., d): each codebook stream's ids ``tokens`` (..., C) looked up
+    in its table's block of rows [first, first + rows) (``tables`` (C,
+    rows, d)), zeros for ids outside it."""
+    rows = tables.shape[1]
+    local = tokens - first
+    inside = ((local >= 0) & (local < rows)).to(tables.dtype)
+    local = local.clamp(0, rows - 1)
+    return torch.stack([tables[i][local[..., i]] * inside[..., i, None]
+                        for i in range(tables.shape[0])])
+
+
+def embed_codebooks(tables: torch.Tensor, tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The audio model's input: ``tokens`` (..., C) through one table a
+    codebook stream (``tables`` (C, vocab, d)), the C embeddings added from
+    0 in codebook order, as the reference's ``sum``.  In the partitioned
+    program each table holds the rank's vocabulary block (fewer rows than
+    ``vocab``): the C lookups of :func:`codebook_rows` are summed over
+    ``model`` in one collective before the codebooks are added."""
+    part = spmd.active_partition()
+    c = tables.shape[0]
+    if part is not None and tables.shape[1] != vocab:
+        xs = spmd.psum(codebook_rows(tables, tokens, part.part * tables.shape[1]),
+                       part.mesh, "model")
+    else:
+        xs = [tables[i][tokens[..., i]] for i in range(c)]
+    return sum(xs[i] for i in range(c))
+
+
+def codebook_block(cols: int, n_codebooks: int, vocab: int, index: int | None = None):
+    """Where an audio head's (…, n_codebooks · vocab) logits are split over
+    ``model`` in blocks of ``cols`` (the codebook the slower index):
+    ``(first codebook, codebooks, first id, ids)`` of block ``index`` (the
+    partitioned program's ``model`` position by default), which is whole
+    codebooks where ``cols`` is a multiple of ``vocab`` and part of one
+    where it divides it; None where it is neither or the logits are whole
+    (or outside a partitioned step, unless ``index`` is given)."""
+    if index is None:
+        part = spmd.active_partition()
+        if part is None:
+            return None
+        index = part.part
+    if cols == n_codebooks * vocab:
+        return None
+    start = index * cols
+    if cols % vocab == 0:
+        return start // vocab, cols // vocab, 0, vocab
+    if vocab % cols == 0:
+        return start // vocab, 1, start % vocab, cols
+    return None
+
+
 def lm_head(x: torch.Tensor, table_or_w, tied: bool, cap: float | None = None,
             plan=None, vocab: int | None = None) -> torch.Tensor:
     """Vocabulary logits in float32, soft-capped by ``cap``.
@@ -267,7 +319,8 @@ def lm_head(x: torch.Tensor, table_or_w, tied: bool, cap: float | None = None,
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: torch.Tensor | None = None, vocab: int | None = None) -> torch.Tensor:
+                  mask: torch.Tensor | None = None, vocab: int | None = None,
+                  codebooks: int | None = None) -> torch.Tensor:
     """Mean token cross-entropy: logits (..., V) float32, targets (...) int;
     with ``mask``, the mean over the masked-in tokens (at least one).
 
@@ -276,7 +329,12 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     reduced over ``model`` and the target's logit comes from the rank
     that holds it (float32 throughout); the mean over a batch whose rows
     are split is the sum over the data axes divided by the global count
-    of (masked-in) tokens."""
+    of (masked-in) tokens.  An audio model's logits (..., C, V) with
+    ``codebooks`` = C may be the rank's block of :func:`codebook_block`
+    (..., C_l, V_l): each codebook's max, sum of exponentials and target
+    logit then come from the ranks that hold its columns (every other
+    rank adds the identity) through one reduction over ``model`` of (...,
+    C) statistics."""
     part = spmd.active_partition()
     if part is None:
         logz = torch.logsumexp(logits, dim=-1)
@@ -287,7 +345,9 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         mask = mask.float()
         return (nll * mask).sum() / mask.sum().clamp(min=1.0)
     logits = logits.float()
-    if vocab is not None and logits.shape[-1] != vocab:
+    if codebooks and tuple(logits.shape[-2:]) != (codebooks, vocab):
+        logz, gold = _codebook_stats(logits, targets, part, codebooks, vocab)
+    elif vocab is not None and logits.shape[-1] != vocab:
         mesh, cols = part.mesh, logits.shape[-1]
         top = spmd.pmax(logits.amax(dim=-1), mesh, "model")
         sumexp = spmd.psum(torch.exp(logits - top[..., None]).sum(dim=-1), mesh, "model")
@@ -310,3 +370,39 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
         total = spmd.psum(total, part.mesh, part.rows)
         count = spmd.psum(count, part.mesh, part.rows)
     return total / count.clamp(min=1.0)
+
+
+def codebook_max(logits: torch.Tensor, block: tuple, codebooks: int) -> torch.Tensor:
+    """(..., C): each codebook's largest logit in the rank's block (..., C_l,
+    V_l) of :func:`codebook_block` ``block``, -inf where it holds none of
+    the codebook's columns."""
+    c0, c_l = block[:2]
+    return F.pad(logits.amax(dim=-1), (c0, codebooks - c0 - c_l), value=float("-inf"))
+
+
+def codebook_sums(logits: torch.Tensor, targets: torch.Tensor, block: tuple, codebooks: int,
+                  top: torch.Tensor) -> torch.Tensor:
+    """(2, ..., C): the rank's share of each codebook's sum of
+    ``exp(logit - top)`` and of its target's logit (targets (..., C)),
+    from its block (..., C_l, V_l) of :func:`codebook_block` ``block``; 0
+    where it holds none of the codebook's columns."""
+    c0, c_l, v0, v_l = block
+    sumexp = torch.exp(logits - top[..., c0:c0 + c_l, None]).sum(dim=-1)
+    local = targets[..., c0:c0 + c_l].long() - v0
+    inside = (local >= 0) & (local < v_l)
+    gold = torch.gather(logits, -1, local.clamp(0, v_l - 1)[..., None])[..., 0] * inside
+    return F.pad(torch.stack([sumexp, gold]), (c0, codebooks - c0 - c_l))
+
+
+def _codebook_stats(logits: torch.Tensor, targets: torch.Tensor, part, codebooks: int,
+                    vocab: int):
+    """``(logz, gold)`` (..., C) of an audio head's logits block (..., C_l,
+    V_l) against the targets (..., C), in float32: each codebook's max, then
+    its sum of exponentials and target logit, reduced over ``model`` from
+    the ranks that hold its columns (:func:`codebook_max`,
+    :func:`codebook_sums`: the others add the identity)."""
+    block = codebook_block(logits.shape[-2] * logits.shape[-1], codebooks, vocab)
+    top = spmd.pmax(codebook_max(logits, block, codebooks), part.mesh, "model")
+    sumexp, gold = spmd.psum(codebook_sums(logits, targets, block, codebooks, top),
+                             part.mesh, "model")
+    return top + torch.log(sumexp), gold

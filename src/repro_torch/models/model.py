@@ -85,7 +85,8 @@ class LM:
         if self.cfg.family == "vlm":       # the patches' positions carry no loss
             logits = logits[:, logits.shape[1] - targets.shape[1]:]
         ce = layers.cross_entropy(logits, targets, batch.get("loss_mask"),
-                                  vocab=self.cfg.padded_vocab)
+                                  vocab=self.cfg.padded_vocab,
+                                  codebooks=self.cfg.n_codebooks or None)
         aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         loss = ce + aux
         return loss, {"loss": loss, "ce": ce, "aux": aux}

@@ -41,12 +41,13 @@ group of these two (every block of the attention family).
 
 The attention family's full forward and static decode also run as the
 partitioned program of a mesh step (:func:`repro_torch.runtime.spmd.use_partition`,
-the dense family's train, prefill and decode steps): the residual stream
-is the rank's rows, whole along d_model; attention, the MLP and the head
-run on the rank's share of heads, columns and vocabulary
-(:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.attention`),
-and the KV cache holds the rank's rows and, where they split, its KV
-heads.
+the dense, MoE, VLM and audio families' train, prefill and decode
+steps): the residual stream is the rank's rows, whole along d_model;
+attention, the MLP, the routed experts and the head run on the rank's
+share of heads, columns, experts and vocabulary
+(:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.attention`,
+:mod:`repro_torch.models.moe`), and the KV cache holds the rank's rows
+and the KV heads its query heads read.
 """
 from __future__ import annotations
 
@@ -208,7 +209,7 @@ def attn_block_full(bp: Params, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = attn._project_qkv(bp["attn"], h, spec, positions)
     s = x.shape[1]
     eff_window = None if (window is None or window >= s) else window
-    ao = attn.chunked_attention(q, *attn.attending(k, v, spec), spec, window=eff_window)
+    ao = attn.chunked_attention(q, k, v, spec, window=eff_window)
     ao = layers.linear(ao.reshape(*x.shape[:2], -1), bp["attn"]["wo"],
                        cfg.n_heads * cfg.head_dim, cfg.d_model,
                        plan=plan_mod.active_entry("attn.wo"))
@@ -305,10 +306,12 @@ def embed_inputs(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     working dtype, projected by the dense ``patch_proj`` through
     :func:`repro_torch.core.sod.apply` (float32 sums rounded once to the
     working dtype) and put before the text, so the stream is (B, n_patches
-    + S, d_model)."""
+    + S, d_model).  In the partitioned program ``tokens`` and
+    ``patch_embeds`` are the rank's rows: the tables are vocabulary blocks
+    (:func:`repro_torch.models.layers.embed_codebooks`,
+    :func:`~repro_torch.models.layers.embed`) and ``patch_proj`` is whole."""
     if cfg.family == "audio":
-        x = sum(layers.embed(params["embed"][c], tokens[..., c])
-                for c in range(cfg.n_codebooks))
+        x = layers.embed_codebooks(params["embed"], tokens, cfg.padded_vocab)
     else:
         x = layers.embed(params["embed"], tokens, scale=cfg.embed_scale,
                          vocab=cfg.padded_vocab)
@@ -338,20 +341,29 @@ def _head(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     Audio: the untied head, its (..., n_codebooks · padded vocab) logits
     read as (..., n_codebooks, padded vocab), the codebook the slower index.
     In the partitioned program the logits may be the rank's vocabulary
-    block (:func:`repro_torch.models.layers.lm_head`); the padded ids are
+    block (:func:`repro_torch.models.layers.lm_head`), for audio the
+    rank's block of the flattened (codebook, id) columns read as (...,
+    C_l, V_l) (:func:`repro_torch.models.layers.codebook_block`; whole
+    again where the block cuts codebooks unevenly); the padded ids are
     masked at their global positions.
     """
-    tied = cfg.tie_embeddings and cfg.family != "audio"
+    audio = cfg.family == "audio"
+    tied = cfg.tie_embeddings and not audio
     v = cfg.padded_vocab
+    n = cfg.n_codebooks * v if audio else v
     logits = layers.lm_head(h, params["embed"] if tied else params["head"], tied,
-                            cfg.final_softcap, plan=plan_mod.active_entry("head"),
-                            vocab=v if cfg.family != "audio" else None)
-    if cfg.family == "audio":     # the soft-cap is elementwise: before or after
-        logits = logits.reshape(*h.shape[:-1], cfg.n_codebooks, v)
+                            cfg.final_softcap, plan=plan_mod.active_entry("head"), vocab=n)
+    cols = logits.shape[-1]
+    part = spmd.active_partition()
+    first = part.part * cols if part is not None and cols != n else 0
+    if audio:                     # the soft-cap is elementwise: before or after
+        block = layers.codebook_block(cols, cfg.n_codebooks, v)
+        if block is None:         # whole logits (gathered where they were split)
+            logits = layers.to_layout(logits, n, False)
+            block = (0, cfg.n_codebooks, 0, v)
+        _, c_l, first, cols = block
+        logits = logits.reshape(*h.shape[:-1], c_l, cols)
     if v != cfg.vocab:
-        cols = logits.shape[-1]
-        part = spmd.active_partition()
-        first = part.part * cols if part is not None and cols != v else 0
         pad = torch.arange(first, first + cols, device=logits.device) >= cfg.vocab
         logits = torch.where(pad, -1e30, logits)
     return logits

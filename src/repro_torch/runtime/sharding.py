@@ -25,8 +25,10 @@ names: a packed leaf its tile-grid block (``w.shard`` records where it
 sits), a plain leaf its block of each split dim (the embedding's
 vocabulary, an untied head's or a projection's columns, ``wo``'s and
 ``w_down``'s rows over ``model``; ZeRO-1's moments and masters over the
-data axes), every leaf the spec leaves whole, whole.  The dense family's
-steps then run the partitioned program on those blocks
+data axes), every leaf the spec leaves whole, whole.  The dense, MoE, VLM
+and audio families' steps then run the partitioned program on those
+blocks (the routed experts' stacks split on E, the audio embedding on
+its vocabulary and its head on its flattened (codebook, id) columns)
 (:mod:`repro_torch.launch.steps`); the other steps, which run every plain
 op on the global batch, take the plain leaves whole again
 (:func:`gather_plain` over :func:`layout_specs`, which reads a placed

@@ -49,8 +49,9 @@ block of a replicated tensor and put the blocks back together, each the
 other's transpose under autograd.
 
 The partitioned program (:class:`Partition`, :func:`use_partition`): a
-step of the dense family runs every op on the rank's rows and on its
-share of heads, MLP columns and vocabulary, as GSPMD partitions the
+step of the dense, MoE, VLM or audio family runs every op on the rank's
+rows and on its share of heads, MLP columns, routed experts, vocabulary
+and codebook columns, as GSPMD partitions the
 reference's jitted step.  Packed products then take the local contract
 under the plan of their resident block (:func:`sod_matmul_local`), and
 plain ops move between whole and split layouts with four differentiable
@@ -159,7 +160,8 @@ def count_collectives(counts: dict | None = None):
     of the activation gradient, received), ``reduce_bytes`` (buffers summed
     by ``all_reduce``), ``grad_bytes`` (the weight gradients' gathers and
     sums), ``a2a_bytes`` (MoE's exchanged capacity buffers, received from
-    the other ranks), and ``calls``.
+    the other ranks), ``route_bytes`` (the per-block expert histograms a
+    partitioned MoE dispatch gathers), and ``calls``.
 
     Beside them, per collective in the reference dry-run's kinds
     (``repro.launch.dryrun.collective_bytes``): ``all-gather`` (the

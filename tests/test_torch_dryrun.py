@@ -375,3 +375,22 @@ def test_cli_writes_its_record_under_build(tmp_path, monkeypatch):
     assert set(rec["dispatch_counts"]) == {"cuda_fused[prior]"} and rec["n_devices"] == 256
     skipped = json.loads((tmp_path / "llama3.2-1b__long_500k__16x16__dense.json").read_text())
     assert skipped["status"] == "skipped"
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "musicgen-medium"])
+def test_partitioned_family_train_cell_divides_the_work(arch):
+    """Reduced granite-moe's (``dispatch_blocks`` = the data size, as the
+    dry-run's cells set it) and reduced musicgen's train step at 8 × 32 on
+    rank 0 of DryMesh((4, 2)) against the same step on one rank: the flops
+    at most 1.5 / (data · model) of the one rank's (a rank's rows over
+    ``data``; its experts, heads, MLP columns, vocabulary and codebook
+    columns over ``model``), the argument bytes at most 0.35 of them."""
+    cfg = configs.reduced(configs.get_config(arch))
+    if cfg.family == "moe":
+        cfg = cfg.with_(moe_dispatch_blocks=4)
+    shape = base.ShapeConfig("t", "train", 32, 8)
+    one = dryrun.measure(cfg, shape, mesh_mod.DryMesh((1, 1), ("data", "model")))
+    got = dryrun.measure(cfg, shape, mesh_mod.DryMesh((4, 2), ("data", "model")))
+    assert 0 < got["cost"]["flops"] <= 1.5 / 8 * one["cost"]["flops"]
+    assert 0 < got["memory"]["argument_bytes"] <= 0.35 * one["memory"]["argument_bytes"]
+    assert got["memory"]["peak_bytes"] < one["memory"]["peak_bytes"]

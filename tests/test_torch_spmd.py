@@ -9,7 +9,9 @@ reduced llama3.2-1b's mesh ``loss_and_grads`` and ``train_step``, MoE's
 all-to-all dispatch (``tests/test_spmd.py::test_moe_a2a_matches_block_dispatch``'s
 setup and its t = 17 fallback), the engine on the mesh against a mesh
 static decode, and a checkpoint the reference wrote restored onto the
-mesh), each rank saving what it found.  The reference's unsharded results are computed
+mesh, the partitioned steps of the dense, MoE, VLM and audio families on
+(4, 2), (2, 4) and, for audio, (1, 8) meshes of the same group), each rank
+saving what it found.  The reference's unsharded results are computed
 here from the same numpy inputs (its jnp oracle), and the reference's own
 mesh (``sod_matmul_spmd`` and ``compressed_grad_allreduce`` on 8 forced
 host devices) runs in a subprocess beside the group.
@@ -17,7 +19,9 @@ host devices) runs in a subprocess beside the group.
 Tolerances: ``y`` atol 5e-4 / rtol 1e-4, gradients atol 2e-2 / rtol 1e-3
 (``tests/test_spmd.py``'s); the model's loss 1e-4, its gradients 5e-2 /
 5e-3 (``tests/test_spmd.py::test_sharded_grad_matches_unsharded_step``);
-MoE's y 1e-5, aux 1e-6, gradients 1e-3 (``test_moe_a2a_matches_block_dispatch``'s).
+MoE's y 1e-5, aux 1e-6, gradients 1e-3 (``test_moe_a2a_matches_block_dispatch``'s);
+the partitioned families against one process: the loss 1e-4, gradients
+1e-5 / 1e-4 (``FAMILY_GRAD_TOL``), the state after a step 1e-5.
 Padding slots' value gradients are exactly 0; every rank holds the same
 ``y``.  The group has 300 s and the reference subprocess 300 s; either
 running over fails the tests.
@@ -180,8 +184,9 @@ def _mesh_cases_module():
     return module
 
 
-def _one_process(cfg, params, batch):
-    """One process's results of what ``_partition_runs`` runs on the mesh."""
+def _one_process(cfg, params, batch, serve=None):
+    """One process's results of what ``_steps_on_mesh`` runs on the mesh
+    (``serve``: its prompt, by default the batch's first 16 positions)."""
     from repro_torch.launch import steps
     from repro_torch.models.model import LM
     from repro_torch.optim.adamw import AdamW, AdamWConfig
@@ -194,8 +199,83 @@ def _one_process(cfg, params, batch):
     opt = AdamW(AdamWConfig(lr=_mesh_cases_module().PARTITION_LR))
     p, st, metrics = steps.make_train_step(model, opt)(params, opt.init(params), batch)
     out["train"] = {"state": {"params": p, "opt": st}, "metrics": metrics}
-    out["serve"] = _mesh_cases_module()._serve(model, params, batch["tokens"][:, :16], None)
+    serve = serve or {"tokens": batch["tokens"][:, :16]}
+    out["serve"] = _mesh_cases_module()._serve(model, params, serve["tokens"], None,
+                                               patch_embeds=serve.get("patch_embeds"))
     return out
+
+
+# the MoE, VLM and audio families' partitioned steps (reduced, fp32): name ->
+# (arch, config fields, batch rows, meshes); one arch's cases share weights
+BOTH = ("4x2", "2x4")
+FAMILIES = {
+    "granite_nb1": ("granite-moe-1b-a400m", {}, 4, BOTH),
+    "granite_nb4": ("granite-moe-1b-a400m", {"moe_dispatch_blocks": 4}, 4, BOTH),
+    "granite_a2a": ("granite-moe-1b-a400m",
+                    {"moe_dispatch_blocks": 8, "moe_a2a_axis": "model"}, 4, BOTH),
+    "qwen_nb1": ("qwen2-moe-a2.7b", {}, 4, BOTH),
+    "qwen_nb4": ("qwen2-moe-a2.7b", {"moe_dispatch_blocks": 4}, 4, BOTH),
+    "qwen_a2a": ("qwen2-moe-a2.7b", {"moe_dispatch_blocks": 8, "moe_a2a_axis": "model"},
+                 4, BOTH),
+    "drop": ("granite-moe-1b-a400m", {}, 8, BOTH),
+    "pixtral": ("pixtral-12b", {}, 4, BOTH),
+    "musicgen": ("musicgen-medium", {}, 4, BOTH + ("1x8",)),
+}
+FAMILY_SEQ = 32
+FAMILY_CASES = [(m, name) for name, (*_, meshes) in FAMILIES.items() for m in meshes]
+MOE_CASES = [(m, name) for m, name in FAMILY_CASES
+             if configs.get_config(FAMILIES[name][0]).family == "moe"]
+
+
+def _drop_router(params):
+    """Every layer's router as (v, -v, 0, ...): each token's logits are (a,
+    -a, 0, ...), so its top 2 are one of the first two experts and, among
+    the tied zeros, expert 2 (equal values in index order): all 256
+    assignments of that expert, against a global capacity of 128."""
+    for layer in params["layers"]:
+        router = layer["moe"]["router"]
+        v = router[:, 0].clone()
+        router.zero_()
+        router[:, 0], router[:, 1] = v, -v
+    return params
+
+
+def _family_cases(work):
+    """Each FAMILIES case as the ranks take it (config, the reference's
+    weights converted, a batch of the reference's pipeline, the prompt to
+    serve, the meshes), and the reference's tree and batch of
+    ``granite_nb4`` for its own sharded loss."""
+    cases, arch_params, ref = {}, {}, None
+    for name, (arch, fields, rows, meshes) in FAMILIES.items():
+        jcfg = jconfigs.reduced(jconfigs.get_config(arch)).with_(dtype="float32", **fields)
+        tcfg = configs.reduced(configs.get_config(arch)).with_(dtype="float32", **fields)
+        if arch not in arch_params:
+            arch_params[arch] = jax.tree_util.tree_map(
+                np.asarray, JLM(jcfg).init(jax.random.PRNGKey(len(arch_params) + 20)))
+        np_params = arch_params[arch]
+        params = params_from_numpy(np_params, tcfg, device="cpu")
+        if name == "drop":
+            params = _drop_router(params)
+        jbatch = JData(jcfg, rows, FAMILY_SEQ, seed=2).batch(0)
+        batch = {k: to_torch(np.asarray(v), "cpu") for k, v in jbatch.items()}
+        batch = {k: v if v.is_floating_point() else v.long() for k, v in batch.items()}
+        serve = {"tokens": batch["tokens"][:, :16]}
+        if "patch_embeds" in batch:
+            serve = {"tokens": batch["tokens"][:, :8], "patch_embeds": batch["patch_embeds"]}
+        cases[name] = (tcfg, params, batch, serve, meshes)
+        if name == "granite_nb4":
+            leaves, treedef = jax.tree_util.tree_flatten(
+                jax.tree_util.tree_map(jnp.asarray, np_params))
+            ref = (jcfg, treedef, [np.asarray(a) for a in leaves],
+                   {k: np.asarray(v) for k, v in jbatch.items()})
+    return cases, ref
+
+
+def _one_process_loss(cfg, params, batch) -> float:
+    from repro_torch.launch import steps
+    from repro_torch.models.model import LM
+
+    return float(steps.make_loss_and_grads(LM(cfg))(params, batch)[0])
 
 
 def _vocab_inputs(rng):
@@ -311,14 +391,15 @@ from repro.launch import steps as jsteps
 from repro.models.model import LM as JLM
 from repro.runtime import sharding as jsharding
 with open(sys.argv[3], "rb") as f:
-    jcfg, treedef, leaves, batch = pickle.load(f)
-tree = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(a) for a in leaves])
-batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    trees = pickle.load(f)
 shard = lambda specs: jsharding.to_shardings(specs, mesh)
-loss = jax.jit(jsteps.make_loss_and_grads(JLM(jcfg), mesh=mesh), in_shardings=(
-    shard(jsharding.param_specs(tree, jcfg, mesh)), shard(jsharding.batch_specs(batch, mesh))))(
-    tree, batch)[0]
-out["sharded_loss"] = np.asarray(loss)
+for key, (jcfg, treedef, leaves, batch) in trees.items():
+    tree = jax.tree_util.tree_unflatten(treedef, [jnp.asarray(a) for a in leaves])
+    batch = {k: jnp.asarray(v) for k, v in batch.items()}
+    loss = jax.jit(jsteps.make_loss_and_grads(JLM(jcfg), mesh=mesh), in_shardings=(
+        shard(jsharding.param_specs(tree, jcfg, mesh)),
+        shard(jsharding.batch_specs(batch, mesh))))(tree, batch)[0]
+    out[key] = np.asarray(loss)
 np.savez(sys.argv[2], **out)
 """
 
@@ -376,9 +457,11 @@ def runs(tmp_path_factory):
               for name, (shape, spec) in PADDED.items()}
     jref = _to_reference(tparams, np_params)
     leaves, treedef = jax.tree_util.tree_flatten(jref)
+    families, granite_ref = _family_cases(work)
     with open(work / "ref_tree.pkl", "wb") as f:
-        pickle.dump((jcfg, treedef, [np.asarray(a) for a in leaves],
-                     {k: np.asarray(v) for k, v in jbatch.items()}), f)
+        pickle.dump({"sharded_loss": (jcfg, treedef, [np.asarray(a) for a in leaves],
+                                      {k: np.asarray(v) for k, v in jbatch.items()}),
+                     "sharded_loss_granite_nb4": granite_ref}, f)
     dry = {name: _dry_cell(*args) for name, args in DRY_CELLS.items()}
     JCheckpointer(work / "ref_ckpt").save(0, _port_tree_in_jax(tparams))
     torch.save({"products": products, "planned": planned, "moe": moe_cases,
@@ -387,7 +470,8 @@ def runs(tmp_path_factory):
                 "fsdp": (torch.from_numpy(x_fsdp), _pack(w_fsdp, "tiled_csc", "none")),
                 "grad": (torch.from_numpy(grad), 0.1),
                 "cfg": tcfg, "params": tparams, "batch": tbatch,
-                "partition": partition, "vocab": vocab, "padded": padded}, work / "cases.pt")
+                "partition": partition, "vocab": vocab, "padded": padded,
+                "families": families}, work / "cases.pt")
     np.savez(work / "ref_in.npz", **ref_inputs)
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
@@ -411,6 +495,11 @@ def runs(tmp_path_factory):
             one = {mode: _one_process(cfg, params, tbatch)
                    for mode, (cfg, params) in partition.items()}
             one["vocab"] = _one_process_vocab(vocab)
+            one["families"] = {name: _one_process(cfg, params, batch, serve)
+                               for name, (cfg, params, batch, serve, _) in families.items()}
+            cfg, params, batch = families["drop"][:3]
+            one["drop_nb4_loss"] = _one_process_loss(cfg.with_(moe_dispatch_blocks=4),
+                                                     params, batch)
             one["padded"] = {name: _jax_product(jnp.asarray(x.numpy()), _to_jax(w))
                              for name, (x, w, _) in padded.items()}
             summary = group.result()
@@ -934,3 +1023,131 @@ def test_local_contract_with_a_padded_split(runs, mesh, name):
         np.testing.assert_allclose(_np(got["vals"]), want["vals"], **G_TOL)
         assert torch.all(got["vals"][runs["padded"][name][1].rows < 0] == 0)
         assert got["counts"]["calls"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the MoE, VLM and audio families' partitioned steps on (4, 2), (2, 4), (1, 8)
+# ---------------------------------------------------------------------------
+# measured about 1e-6 apart (fp32 sums in another order)
+FAMILY_GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
+
+
+def _tree_dist(got, want) -> float:
+    """‖got − want‖ / ‖want‖ over every float leaf of two trees at once."""
+    pairs = [(g.float(), w.float()) for (_, g), (_, w) in
+             zip(leaves_with_path(got), leaves_with_path(want)) if w.is_floating_point()]
+    num = sum(float(torch.linalg.vector_norm(g - w)) ** 2 for g, w in pairs)
+    den = sum(float(torch.linalg.vector_norm(w)) ** 2 for _, w in pairs)
+    return (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("mesh,case", FAMILY_CASES)
+def test_partitioned_family_loss_and_grads_match_one_process(runs, mesh, case):
+    """``loss_and_grads`` of the MoE (granite without and qwen with a
+    shared expert; ``dispatch_blocks`` 1 and 4, the all-to-all over
+    ``model``, and the drop case), VLM (patches) and audio (4 codebooks;
+    on (1, 8) a rank holds half a codebook's columns) families'
+    partitioned program on each rank's blocks equals one process's (fp32):
+    the loss, ``ce`` and ``aux`` on every rank, and every gradient after
+    ``unplace``; on the global batch and on 3 rows (the whole-rows rule)."""
+    one = runs["one"]["families"][case]
+    for name in ("batch", "rows3"):
+        first = runs["ranks"][0]["partition"][mesh][case][name]
+        for rank in runs["ranks"]:
+            got = rank["partition"][mesh][case][name]
+            assert float(got["loss"]) == float(first["loss"])
+            for k in ("loss", "ce", "aux"):
+                np.testing.assert_allclose(float(got["metrics"][k]),
+                                           float(one[name]["metrics"][k]), err_msg=k,
+                                           **STEP_LOSS_TOL)
+            _assert_trees_close(got["grads"], one[name]["grads"], f"{mesh} {case} {name}",
+                                **FAMILY_GRAD_TOL)
+
+
+@pytest.mark.parametrize("mesh,case", FAMILY_CASES)
+def test_partitioned_family_train_step_matches_one_process(runs, mesh, case):
+    """One ZeRO-1 train step of the same cases (the routed experts' stacks
+    and the codebook tables among the blocks): the whole state after it
+    (``unplace``) within 1e-5 of one process's, the moments leaf by leaf
+    and the parameters and masters as whole trees (AdamW's first step
+    divides each gradient by its own magnitude, so a zero-initialized norm
+    gain with a gradient near ``eps`` takes a fp32 sum's rounding ×1e4
+    into its relative distance: pixtral's read 1.2e-4 leaf by leaf and
+    granite's 1.6e-5), its step counter equal, the loss and gradient
+    norm the same."""
+    one = runs["one"]["families"][case]["train"]
+    for rank in runs["ranks"]:
+        got = rank["partition"][mesh][case]["train"]
+        assert got["zero_split"] > 0
+        err = state_dist(got["state"], one["state"])
+        assert err["step_equal"] and max(err["m"], err["v"]) <= 1e-5, err
+        for k in ("params", "master"):
+            part = got["state"]["params"] if k == "params" else got["state"]["opt"][k]
+            want = one["state"]["params"] if k == "params" else one["state"]["opt"][k]
+            assert _tree_dist(part, want) <= 1e-5, (k, err)
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(got["metrics"][k]), float(one["metrics"][k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("mesh,case", FAMILY_CASES)
+def test_partitioned_family_prefill_and_decode_match_one_process(runs, mesh, case):
+    """Prefill (a VLM's with its patches) and four greedy decode steps from
+    the prompt's true end through the partitioned steps (the cache the
+    rank's rows and KV heads between them): every step's tokens equal one
+    process's and its logits within the products' tolerance, every rank."""
+    one = runs["one"]["families"][case]["serve"]
+    for rank in runs["ranks"]:
+        got = rank["partition"][mesh][case]["serve"]
+        assert torch.equal(got["tokens"], one["tokens"])
+        np.testing.assert_allclose(_np(got["logits"]), _np(one["logits"]), **Y_TOL)
+
+
+@pytest.mark.parametrize("mesh", BOTH)
+def test_partitioned_moe_dispatch_exchanges(runs, mesh):
+    """Under the partition the all-to-all runs on the rank's rows split
+    over ``model`` (its calls counted; none in the capacity dispatch), and
+    the capacity dispatch's first-come slots cross the data ranks only
+    where a block spans them: one histogram all-gather (``route_bytes``) a
+    layer at ``dispatch_blocks`` 1, none at 4 (a multiple of the data
+    size)."""
+    layers = configs.reduced(configs.get_config("granite-moe-1b-a400m")).n_layers
+    for rank in runs["ranks"]:
+        for case in (c for m, c in MOE_CASES if m == mesh):
+            counts = rank["partition"][mesh][case]["batch"]["counts"]
+            a2a = counts.get("counts", {}).get("all-to-all", 0)
+            assert (a2a > 0) == case.endswith("a2a"), (case, counts)
+            route = counts.get("route_bytes", 0)
+            if case.endswith("nb1") or case == "drop":
+                assert route > 0 and counts["counts"]["all-gather"] >= layers, (case, counts)
+            else:
+                assert route == 0, (case, counts)
+
+
+def test_partitioned_moe_drop_case_drops(runs):
+    """The drop case drops: one process's loss at ``dispatch_blocks`` 1
+    (128 of expert 2's 256 assignments over the global capacity) differs
+    from its loss at 4 (every block's 64 fit), and the mesh's equals the
+    first (held by the family tests), which it would not if a rank ranked
+    and capped its own rows alone (its 64 or 128 tokens fit its own
+    capacity of 128)."""
+    one = runs["one"]
+    assert abs(float(one["families"]["drop"]["batch"]["loss"]) - one["drop_nb4_loss"]) > 1e-4
+    for mesh in BOTH:
+        got = float(runs["ranks"][0]["partition"][mesh]["drop"]["batch"]["loss"])
+        assert abs(got - one["drop_nb4_loss"]) > 1e-4
+
+
+def test_partitioned_moe_loss_matches_reference_sharded_loss(runs):
+    """The reference's own sharded program for reduced granite-moe
+    (``dispatch_blocks`` 4; its step jitted with ``in_shardings`` from
+    ``param_specs`` and ``batch_specs`` on its 8-device (4, 2) mesh) and
+    the port's partitioned step on the same weights and batch give the
+    same loss."""
+    want = float(runs["ref_mesh"]["sharded_loss_granite_nb4"])
+    np.testing.assert_allclose(float(runs["one"]["families"]["granite_nb4"]["batch"]["loss"]),
+                               want, **STEP_LOSS_TOL)
+    for rank in runs["ranks"]:
+        np.testing.assert_allclose(
+            float(rank["partition"]["4x2"]["granite_nb4"]["batch"]["loss"]), want,
+            **STEP_LOSS_TOL)

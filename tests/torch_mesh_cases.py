@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 import pathlib
+import time
 
 import numpy as np
 import torch
@@ -189,23 +190,27 @@ def _dry_cases(cases: dict, mesh) -> dict:
     return out
 
 
-PARTITION_MESHES = {"4x2": (4, 2), "2x4": (2, 4)}
+PARTITION_MESHES = {"4x2": (4, 2), "2x4": (2, 4), "1x8": (1, 8)}
+DENSE_MESHES = ("4x2", "2x4")       # the dense family's cases run on these
 # AdamW's first step moves each parameter by about lr · sign(g): a gradient
 # within rounding of 0 may take the other sign on the mesh (one of 8192
 # elements did, at 1e-3), which at 1e-4 stays within 1e-5 of the leaf
 PARTITION_LR = 1e-4
 
 
-def _serve(model, params, tokens, mesh, n_steps: int = 4) -> dict:
-    """Prefill of ``tokens`` and ``n_steps`` greedy decode steps, each fed
+def _serve(model, params, tokens, mesh, n_steps: int = 4, patch_embeds=None) -> dict:
+    """Prefill of ``tokens`` (a VLM's after its ``patch_embeds``) and
+    ``n_steps`` greedy decode steps from the prompt's true end, each fed
     the step before's tokens: every step's tokens and logits."""
+    start = tokens.shape[1] + (0 if patch_embeds is None else patch_embeds.shape[1])
     with torch.no_grad():
-        nxt, cache = steps.make_prefill_step(model, mesh=mesh)(params, tokens)
-        cache = model.grow_cache(cache, tokens.shape[1] + n_steps + 1)
+        nxt, cache = steps.make_prefill_step(model, mesh=mesh)(params, tokens,
+                                                               patch_embeds=patch_embeds)
+        cache = model.grow_cache(cache, start + n_steps + 1)
         decode = steps.make_decode_step(model, mesh=mesh)
         toks, logits, tok = [nxt], [], nxt[:, None]
         for t in range(n_steps):
-            tok, lg, cache = decode(params, cache, tok, tokens.shape[1] + t)
+            tok, lg, cache = decode(params, cache, tok, start + t)
             toks.append(tok[:, 0])
             logits.append(lg)
     return {"tokens": torch.stack(toks), "logits": torch.stack(logits)}
@@ -257,43 +262,57 @@ def _padded_local(cases: dict, mesh) -> dict:
     return out
 
 
-def _partition_runs(cases: dict, mesh) -> dict:
-    """The dense family's partitioned steps on ``mesh``, reduced llama in
-    fp32 packed (``tiled_csc``) and dense: ``loss_and_grads`` on the
-    global batch and on its first 3 rows (which divide no data axis: the
-    whole-rows rule), every gradient ``unplace``d; one ZeRO-1
+def _steps_on_mesh(cfg, params, batch, mesh, serve: dict) -> dict:
+    """The partitioned steps of ``cfg`` on ``mesh``: ``loss_and_grads`` on
+    the global batch and on its first 3 rows (which divide no data axis:
+    the whole-rows rule), every gradient ``unplace``d; one ZeRO-1
     ``train_step`` (the optimizer state placed by ``opt_state_specs``),
-    the whole state after it; prefill and four decode steps; and the
-    vocab-parallel head, loss and embedding."""
+    the whole state after it; prefill and four decode steps of ``serve``
+    (``tokens``, and a VLM's ``patch_embeds``)."""
+    model = LM(cfg)
+    specs = sharding.param_specs(params, cfg, mesh)
+    placed = sharding.place(params, specs, mesh)
+    row = {}
+    for name, b in (("batch", batch), ("rows3", {k: v[:3] for k, v in batch.items()})):
+        with spmd.count_collectives() as counts, registry.record_dispatches() as log:
+            loss, metrics, grads = steps.make_loss_and_grads(model, mesh=mesh)(placed, b)
+        row[name] = {"loss": loss, "metrics": metrics, "counts": counts,
+                     "grads": sharding.unplace(grads, specs, mesh),
+                     "keys": sorted({r["key"].mesh for r in log})}
+    opt = AdamW(AdamWConfig(lr=PARTITION_LR))
+    whole = opt.init(params)
+    o_specs = sharding.opt_state_specs(whole, specs, mesh, cfg=cfg)
+    state = sharding.place(whole, o_specs, mesh)
+    new_p, new_s, metrics = steps.make_train_step(model, opt, mesh=mesh)(placed, state, batch)
+    row["train"] = {
+        "metrics": metrics,
+        "state": sharding.unplace({"params": new_p, "opt": new_s},
+                                  sharding.train_state_specs(specs, o_specs), mesh),
+        "zero_split": sum(sharding.is_split(a) for a in _spec_leaves(o_specs["m"]))}
+    with spmd.count_collectives() as counts:
+        row["serve"] = _serve(model, placed, serve["tokens"], mesh,
+                              patch_embeds=serve.get("patch_embeds"))
+    row["serve"]["counts"] = counts
+    return row
+
+
+def _partition_runs(cases: dict, mesh, name: str) -> dict:
+    """The partitioned steps on ``mesh`` (``name``, its shape): the dense
+    family's reduced llama in fp32 packed (``tiled_csc``) and dense
+    (:func:`_steps_on_mesh`), and the vocab-parallel head, loss and
+    embedding (on DENSE_MESHES); then each of ``cases["families"]`` whose meshes hold
+    ``name``: the MoE, VLM and audio families (reduced, fp32)."""
     out = {}
-    for mode in ("tiled_csc", "dense"):
-        cfg, params = cases["partition"][mode]
-        model = LM(cfg)
-        specs = sharding.param_specs(params, cfg, mesh)
-        placed = sharding.place(params, specs, mesh)
-        row = {}
-        for name, batch in (("batch", cases["batch"]),
-                            ("rows3", {k: v[:3] for k, v in cases["batch"].items()})):
-            with spmd.count_collectives() as counts, registry.record_dispatches() as log:
-                loss, metrics, grads = steps.make_loss_and_grads(model, mesh=mesh)(placed, batch)
-            row[name] = {"loss": loss, "metrics": metrics, "counts": counts,
-                         "grads": sharding.unplace(grads, specs, mesh),
-                         "keys": sorted({r["key"].mesh for r in log})}
-        opt = AdamW(AdamWConfig(lr=PARTITION_LR))
-        whole = opt.init(params)
-        o_specs = sharding.opt_state_specs(whole, specs, mesh, cfg=cfg)
-        state = sharding.place(whole, o_specs, mesh)
-        new_p, new_s, metrics = steps.make_train_step(model, opt, mesh=mesh)(
-            placed, state, cases["batch"])
-        row["train"] = {
-            "metrics": metrics,
-            "state": sharding.unplace({"params": new_p, "opt": new_s},
-                                      sharding.train_state_specs(specs, o_specs), mesh),
-            "zero_split": sum(sharding.is_split(a) for a in _spec_leaves(o_specs["m"]))}
-        row["serve"] = _serve(model, placed, cases["batch"]["tokens"][:, :16], mesh)
-        out[mode] = row
-    out["vocab"] = _vocab_case(cases["vocab"], mesh)
-    out["padded"] = _padded_local(cases["padded"], mesh)
+    if name in DENSE_MESHES:
+        for mode in ("tiled_csc", "dense"):
+            cfg, params = cases["partition"][mode]
+            out[mode] = _steps_on_mesh(cfg, params, cases["batch"], mesh,
+                                       {"tokens": cases["batch"]["tokens"][:, :16]})
+        out["vocab"] = _vocab_case(cases["vocab"], mesh)
+        out["padded"] = _padded_local(cases["padded"], mesh)
+    for case, (cfg, params, batch, serve, meshes) in cases["families"].items():
+        if name in meshes:
+            out[case] = _steps_on_mesh(cfg, params, batch, mesh, serve)
     return out
 
 
@@ -310,6 +329,7 @@ def _spec_leaves(specs):
 
 def spmd_cases(workdir: str) -> dict:
     """Every case of ``cases.pt``; returns a summary, saves the tensors."""
+    t0 = time.perf_counter()
     workdir = pathlib.Path(workdir)
     cases = torch.load(workdir / "cases.pt", weights_only=False)
     mesh = mesh_mod.make_fake_mesh(device="cpu")
@@ -342,11 +362,15 @@ def spmd_cases(workdir: str) -> dict:
     out["dry"] = _dry_cases(cases["dry"], mesh)
     out["engine"] = _engine_case(cases["cfg"], cases["params"], cases["prompts"], mesh)
     out["restore"] = _restore_case(workdir / "ref_ckpt", cases["cfg"], cases["params"], mesh)
-    out["partition"] = {"4x2": _partition_runs(cases, mesh)}
-    out["partition"]["2x4"] = _partition_runs(
-        cases, mesh_mod.make_test_mesh(PARTITION_MESHES["2x4"], device="cpu"))
+    seconds = {"before_partition": time.perf_counter() - t0}
+    out["partition"] = {}
+    for name, shape in PARTITION_MESHES.items():
+        t0 = time.perf_counter()
+        m = mesh if name == "4x2" else mesh_mod.make_test_mesh(shape, device="cpu")
+        out["partition"][name] = _partition_runs(cases, m, name)
+        seconds[name] = time.perf_counter() - t0
     torch.save(out, workdir / f"rank{rank}.pt")
-    return {"rank": rank, "coords": mesh.coords}
+    return {"rank": rank, "coords": mesh.coords, "seconds": seconds}
 
 
 def card_plans(workdir: str) -> dict:
