@@ -250,18 +250,29 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``model`` (prefill 4 × 32 and 8 decode steps against one process's
    capacity dispatch in 4 blocks, the tokens routed as the one process
    chose: logits within LOGIT_TOL, the all-to-all count above 0 on every
-   rank, (4 · 7 + 1) × 9 launches); the elastic re-mesh (two train steps
+   rank, (4 · 7 + 1) × 9 launches); the recurrent families
+   (``mesh_recurrent``, RECURRENT_MESH_CELLS: zamba2-2.7b at 6 layers, 40
+   Mamba2 and 16 attention heads a rank, and xlstm-125m at 4 layers, 2
+   mLSTM heads a rank; full width, tiled_csc, each rank packing alone), a
+   prompt of 4 × 32 stepped through the partitioned decode step and 8
+   decode steps against one process (logits within LOGIT_TOL, greedy
+   agreement, (6 · 3 + 7 + 1) and (3 · 5 + 1) launches a step × 40 steps),
+   then ``loss_and_grads`` against one process (4 × 128, xlstm 4 × 64:
+   the loss and every gradient after ``unplace``); the elastic re-mesh (two train steps
    on (2, 2) at 4 layers, the whole state saved, ranks 2 and 3 lost, the
    survivors on (1, 2) restore and take a step whose loss is within
    ELASTIC_LOSS_TOL of one process's on the same checkpoint, and whose
    whole state after it is within ELASTIC_STATE_TOL leaf by leaf).  Beside the
-   ranks the host runs one dry-run cell (DRY_CELL, on meta tensors:
-   status ok, nothing launched, the card's kernel dispatched) and prints
-   its flops, argument and peak bytes a rank, collective bytes by kind and
-   dispatches beside the reference's record (DRY_REFERENCE), gated on the
-   peak below DRY_PEAK_LIMIT and the flops within DRY_FLOPS_BAND of the
-   reference's.
-   The phase prints its seconds by part (engine, moe, elastic, dryrun).
+   ranks the host runs the dry-run cells (DRY_CELL, DRY_MOE_CELL and
+   DRY_HYBRID_CELL, on meta tensors: status ok, nothing launched, the
+   card's kernel dispatched) and prints their flops, argument and peak
+   bytes a rank, collective bytes by kind and dispatches beside the
+   reference's record (DRY_REFERENCE) or the whole-rows program's, gated
+   on the peak below DRY_PEAK_LIMIT and the flops within DRY_FLOPS_BAND
+   of the reference's (at most DRY_MOE_FLOPS_LIMIT and
+   DRY_HYBRID_FLOPS_LIMIT for the others).
+   The phase prints its seconds by part (engine, moe, frontends,
+   recurrent, elastic, dryrun).
 
 Each phase prints its seconds.  The last lines are the ``nvidia-smi``
 name/power line, one JSON object with the kernels' numbers (one entry per
@@ -3663,6 +3674,15 @@ MESH_TRAIN_LAYERS, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ = 4, 4, 128
 # sums are added in another order (the column plan's activation gradient
 # sums two ranks' halves), through 4 layers; and the loss, relative
 MESH_GRAD_TOL, MESH_LOSS_TOL = 0.05, 1e-2
+# a recurrent family's leaf is held within MESH_GRAD_TOL of one process's
+# bf16 gradient, or within this many times that gradient's own distance
+# from its float32 one where that is larger: per-head biases and decays,
+# summed over every token with cancellation, are noise in bf16 (on a CPU,
+# reduced, one process's bf16 dt_bias and a_log lay 0.075-0.09 from their
+# float32 ones); two bf16 evaluations each that far from the float32 one
+# lie up to twice it apart, and the mesh's all-reduces round on their own
+# (on a CPU, reduced, the mesh read up to 2.2 times it)
+MESH_GRAD_FLOOR_X = 3.0
 # the elastic step on (1, 2) against one process's on the same checkpoint:
 # its loss, relative, and each leaf of the whole state after it, ‖Δ‖ / ‖x‖
 # (an H100 read 2.5e-5, and 3.4e-3 parameters, 8.2e-3 m, 9.0e-3 v: bf16
@@ -3744,12 +3764,15 @@ def _mesh_ops(layer: dict, kernel: str, mesh) -> dict:
 def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
                 per_forward: int = MESH_SERVE_LAYERS * 7, gen: int = MESH_GEN, plan=None,
                 mesh_model=None, pin_routing: bool = False, patch_embeds=None) -> dict:
-    """Prefill (a VLM's with its ``patch_embeds``) and ``gen`` greedy
-    decode steps from the prompt's true end through the step builders,
+    """Prefill (a VLM's with its ``patch_embeds``; a recurrent family's
+    prompt stepped through the decode step, ``make_stepped_prefill``) and
+    ``gen`` greedy decode steps from the prompt's true end through the
+    step builders,
     one process (the whole weights) and the mesh (the resident blocks, fed
     the one-process run's tokens; ``mesh_model``, if given, runs there):
     logits, greedy agreement, launches (``per_forward`` a forward) and the
-    mesh run's collectives.  With ``pin_routing`` (an MoE model) the mesh
+    mesh run's collectives (a recurrent family's forwards: one a prompt
+    position and one a decode step).  With ``pin_routing`` (an MoE model) the mesh
     run routes every token as the one-process run chose (:func:`_routing`:
     a rounding apart can send a token to another expert, which the gate
     would charge to the mesh), and counts the choices its own router would
@@ -3758,6 +3781,7 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
 
     b, s = tokens.shape[:2]
     start = s + (0 if patch_embeds is None else patch_embeds.shape[1])
+    recurrent = model.cfg.family in ("hybrid", "ssm")
     out, ids, differ = {}, [], []
     with torch.inference_mode():
         logits = {}
@@ -3772,8 +3796,12 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
             pin = (contextlib.nullcontext() if not pin_routing else
                    _routing(record=ids) if run == "one" else _routing(replay=ids, differ=differ))
             with registry.count_dispatches() as counts, spmd.count_collectives() as moved, pin:
-                nxt, cache = prefill(p, tokens, patch_embeds=patch_embeds)
-                cache = mdl.grow_cache(cache, start + gen + 1)
+                if recurrent:         # the prompt stepped through the decode step
+                    nxt, cache = steps_mod.make_stepped_prefill(mdl, mesh=m, plan=plan)(
+                        p, tokens, start + gen + 1)
+                else:
+                    nxt, cache = prefill(p, tokens, patch_embeds=patch_embeds)
+                    cache = mdl.grow_cache(cache, start + gen + 1)
                 toks, logs = [nxt[:, None]], []
                 for t in range(gen):
                     feed = toks[-1] if run == "one" else logits["one_tokens"][t]
@@ -3799,7 +3827,7 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
                 "prefill_tokens_equal": bool(torch.equal(logits["mesh_tokens"][0],
                                                          logits["one_tokens"][0]))})
     want = {"sod_matmul": 0, "block_matmul": 0, "decompress": 0}
-    want[kernel] = per_forward * (1 + gen)
+    want[kernel] = per_forward * ((s if recurrent else 1) + gen)
     if out["mesh"]["launches"] != want:
         raise AssertionError(f"mesh serve launches {out['mesh']['launches']}, want {want}")
     if not (torch.isfinite(mesh_logits).all() and err <= LOGIT_TOL * scale):
@@ -3807,12 +3835,30 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
     return out
 
 
+def _f32(tree):
+    """A parameter tree with its float leaves (a packed leaf's values) in
+    float32."""
+    if isinstance(tree, TiledCSC):
+        return dataclasses.replace(tree, vals=tree.vals.float())
+    if isinstance(tree, BlockCSR):
+        return dataclasses.replace(tree, block_vals=tree.block_vals.float())
+    if isinstance(tree, dict):
+        return {k: _f32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_f32(v) for v in tree)
+    return tree.float() if tree.is_floating_point() else tree
+
+
 def _mesh_grads(mesh, argv=TILED_ARGV, layers: int = MESH_TRAIN_LAYERS,
-                prepared=None) -> dict:
-    """loss_and_grads at full width, ``layers`` layers, batch 4 x 128 (M =
-    512): one process on the whole weights, the mesh on the resident
-    blocks (``prepared``: the model and whole weights, else prepared from
-    ``argv``)."""
+                prepared=None, seq: int = MESH_TRAIN_SEQ, floor: bool = False) -> dict:
+    """loss_and_grads at full width, ``layers`` layers, batch 4 x ``seq``
+    (128 by default, M = 512): one process on the whole weights, the mesh
+    on the resident blocks (``prepared``: the model and whole weights,
+    else prepared from ``argv``), every gradient within MESH_GRAD_TOL of
+    one process's.  With ``floor`` one process also runs the same weights
+    in float32, and a leaf whose bf16 gradient lies further than
+    MESH_GRAD_TOL from its float32 one (its ``floor``) is held within
+    MESH_GRAD_FLOOR_X floors instead."""
     from repro_torch.runtime import sharding, spmd
 
     from repro_torch.core.tree import leaves_with_path
@@ -3824,9 +3870,18 @@ def _mesh_grads(mesh, argv=TILED_ARGV, layers: int = MESH_TRAIN_LAYERS,
     model, params = prepared
     specs = sharding.param_specs(params, model.cfg, mesh)
     placed = sharding.place(params, specs, mesh)
-    batch = to_device(SyntheticLMData(model.cfg, MESH_TRAIN_BATCH, MESH_TRAIN_SEQ,
-                                      seed=0).batch(0), "cuda")
+    batch = to_device(SyntheticLMData(model.cfg, MESH_TRAIN_BATCH, seq, seed=0).batch(0),
+                      "cuda")
     loss1, _, g1 = steps_mod.make_loss_and_grads(model)(params, batch)
+    floors = {}
+    if floor:
+        g32 = steps_mod.make_loss_and_grads(LM(model.cfg.with_(dtype="float32")))(
+            _f32(params), batch)[2]
+        floors = {path: (a.float() - b).abs().max().item()
+                  / max(b.abs().max().item(), 1e-30)
+                  for (path, a), (_, b) in zip(leaves_with_path(g1), leaves_with_path(g32))
+                  if a.is_floating_point()}
+        del g32
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -3837,24 +3892,29 @@ def _mesh_grads(mesh, argv=TILED_ARGV, layers: int = MESH_TRAIN_LAYERS,
     step_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     whole = sharding.unplace(g, specs, mesh)
-    worst, n = 0.0, 0
+    errs = {}
     for (path, got), (path1, want) in zip(leaves_with_path(whole), leaves_with_path(g1)):
         if path != path1 or got.shape != want.shape:
             raise AssertionError(f"mesh grads: {path} {tuple(got.shape)} against "
                                  f"{path1} {tuple(want.shape)}")
         if got.is_floating_point():
             scale = want.float().abs().max().item()
-            worst = max(worst, (got.float() - want.float()).abs().max().item()
-                        / max(scale, 1e-30))
-            n += 1
+            errs[path] = (got.float() - want.float()).abs().max().item() / max(scale, 1e-30)
+    worst, n = max(errs.values()), len(errs)
+    tols = {path: max(MESH_GRAD_TOL, MESH_GRAD_FLOOR_X * floors.get(path, 0.0))
+            for path in errs}
+    over = {path: (e, tols[path]) for path, e in errs.items() if e > tols[path]}
     rel_loss = abs(loss.item() - loss1.item()) / abs(loss1.item())
     row = {"loss": loss.item(), "loss_one_process": loss1.item(), "rel_loss_err": rel_loss,
-           "grad_rel_err": worst, "grads_compared": n, "m": MESH_TRAIN_BATCH * MESH_TRAIN_SEQ,
+           "grad_rel_err": worst, "grads_compared": n, "m": MESH_TRAIN_BATCH * seq,
+           "worst_leaves": [(path, e, floors.get(path)) for path, e in
+                            sorted(errs.items(), key=lambda kv: -kv[1])[:4]],
+           "leaves_past_mesh_grad_tol": sum(e > MESH_GRAD_TOL for e in errs.values()),
            "step_s": step_s, "peak_mem_gb": peak,
            "launches": {k: mod.launches for k, mod in COUNTERS.items()},
            "dispatch": counts, "collective_bytes": moved}
-    if rel_loss > MESH_LOSS_TOL or worst > MESH_GRAD_TOL:
-        raise AssertionError(f"mesh grads: loss {rel_loss}, grads {worst}")
+    if rel_loss > MESH_LOSS_TOL or over:
+        raise AssertionError(f"mesh grads: loss {rel_loss}, grads past their tolerance {over}")
     return row
 
 
@@ -3875,6 +3935,12 @@ MOE_WHOLE_ROWS_S = 16.9
 # arch -> (layers, serve flags): the audio and VLM families on the mesh
 FRONTEND_MESH_CELLS = {"musicgen-medium": (4, ["--batch", "4", "--prompt-len", "32"]),
                        "pixtral-12b": (2, ["--batch", "2", "--prompt-len", "1536"])}
+# arch -> (layers, loss_and_grads seq): the recurrent families on the mesh
+# at full width, one group each (zamba2: 6 Mamba2 blocks and the shared
+# block, 40 Mamba2 and 16 attention heads a rank; xlstm: 3 mLSTM blocks and
+# an sLSTM, 2 mLSTM heads a rank); xlstm's gradient batch cut to 4 x 64,
+# its sLSTM's host time loop setting its time
+RECURRENT_MESH_CELLS = {"zamba2-2.7b": (6, MESH_TRAIN_SEQ), "xlstm-125m": (4, 64)}
 ELASTIC_FAILED = (2, 3)             # the ranks the elastic part loses
 DRY_CELL = ("llama3.2-1b", "train_4k", "tiled_csc")
 # the reference's record of DRY_CELL on a rank of its 16 x 16 mesh (XLA's
@@ -3896,6 +3962,14 @@ DRY_MOE_WHOLE_ROWS = {"flops": 5.81e15, "argument_bytes": 3.15e8, "peak_bytes": 
 # a rank's share: 1.5 × the whole-rows flops over the 256 ranks
 DRY_MOE_FLOPS_LIMIT = 3.4e13
 DRY_FLOPS_BAND = (0.67, 1.5)         # a rank's flops over the reference's
+DRY_HYBRID_CELL = ("zamba2-2.7b", "train_4k", None)
+# the whole-rows program's counts of DRY_HYBRID_CELL, before the hybrid's
+# steps were partitioned (every plain op on the global batch on every rank;
+# counted on a CPU, equal to a card's)
+DRY_HYBRID_WHOLE_ROWS = {"flops": 2.837e16, "argument_bytes": 5.130e8, "peak_bytes": 5.324e12,
+                         "all-gather": 5.145e9}
+# a rank's share: 1.5 × the whole-rows flops over the 256 ranks
+DRY_HYBRID_FLOPS_LIMIT = 1.7e14
 
 
 def _mesh_engine(mesh) -> dict:
@@ -4034,6 +4108,58 @@ def mesh_frontends(mesh) -> dict:
     return out
 
 
+def mesh_recurrent(mesh) -> dict:
+    """The recurrent families' partitioned steps at full width (tiled_csc,
+    phase 11's flags), each rank packing alone: RECURRENT_MESH_CELLS'
+    zamba2-2.7b (6 layers) and xlstm-125m (4 layers), a prompt of 4 × 32
+    stepped through the partitioned decode step and MESH_GEN decode steps
+    against one process (logits within LOGIT_TOL, greedy agreement, the
+    launches phase 11 derives a step times the steps), then
+    ``loss_and_grads`` at batch 4 × the cell's seq against one process
+    (the loss, and every gradient after ``unplace``, within MESH_LOSS_TOL
+    and MESH_GRAD_TOL, or MESH_GRAD_FLOOR_X times the leaf's own bf16
+    distance from its float32 gradient where that is larger); a rank's
+    peak memory and seconds."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import sharding, spmd
+
+    out = {}
+    for arch, (layers, seq) in RECURRENT_MESH_CELLS.items():
+        argv = ["--arch", arch, *FAMILY_BASE, *FAMILY_TILED]
+        cfg = configs.get_config(arch).with_(n_layers=layers)
+        t0 = time.perf_counter()
+        for wave in range(mesh.size):
+            if mesh.rank == wave:
+                prep = serve.prepare(serve.parse_args(argv), None, cfg)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        model, params = prep.model, prep.params
+        placed = sharding.place(params, sharding.param_specs(params, model.cfg, mesh), mesh)
+        pack_s = time.perf_counter() - t0
+        n_heads = (transformer.mamba_spec(model.cfg).n_heads if model.cfg.family == "hybrid"
+                   else model.cfg.n_heads)
+        with spmd.use_partition(spmd.Partition(mesh, ("data",))):
+            heads = spmd.model_block(n_heads)
+        per_step = _recurrent_per_step(model.cfg)
+        t0 = time.perf_counter()
+        row = _mesh_serve(model, params, placed, prep.tokens, "sod_matmul", mesh,
+                          per_forward=per_step, gen=MESH_GEN)
+        serve_s = time.perf_counter() - t0
+        del placed, prep
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        grads = _mesh_grads(mesh, prepared=(model, params), seq=seq, floor=True)
+        out[arch] = {"serve": row, "grads": grads, "layers": layers, "per_step": per_step,
+                     "heads_a_rank": None if heads is None else heads[1],
+                     "pack_s": pack_s, "serve_s": serve_s,
+                     "grads_s": time.perf_counter() - t0}
+        del model, params
+        torch.cuda.empty_cache()
+    return out
+
+
 def _mesh_elastic(mesh, workdir: str) -> dict:
     """Two mesh train steps at full width and MESH_TRAIN_LAYERS layers, the
     whole state saved (``sharding.unplace``); then ranks ELASTIC_FAILED
@@ -4122,21 +4248,32 @@ def _mesh_elastic(mesh, workdir: str) -> dict:
     return row
 
 
-def _dry_cells() -> dict:
-    """The dry-run cells (DRY_CELL, DRY_MOE_CELL) on rank 0 of the 16 × 16
-    counting mesh, one after the other in this process on meta tensors:
-    nothing launches."""
+def _dry_cell(arch: str, shape: str, sod) -> dict:
+    """One dry-run cell on rank 0 of the 16 × 16 counting mesh, on meta
+    tensors: nothing launches."""
     from repro_torch.launch import dryrun
 
-    out = {}
-    for arch, shape, sod in (DRY_CELL, DRY_MOE_CELL):
-        before = {k: mod.launches for k, mod in COUNTERS.items()}
-        t0 = time.perf_counter()
-        rec = dryrun.run_cell(arch, shape, False, sod, DENSITY)
-        rec["wall_s"] = time.perf_counter() - t0
-        rec["launches"] = {k: mod.launches - before[k] for k, mod in COUNTERS.items()}
-        out[arch] = rec
-    return out
+    torch.set_num_threads(1)
+    before = {k: mod.launches for k, mod in COUNTERS.items()}
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(arch, shape, False, sod, DENSITY)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = {k: mod.launches - before[k] for k, mod in COUNTERS.items()}
+    return rec
+
+
+def _dry_cells() -> dict:
+    """The dry-run cells (DRY_CELL, DRY_MOE_CELL, DRY_HYBRID_CELL), each in
+    a spawned process of its own, so they take a host core each beside the
+    rank group (one after the other they took 184 s beside it on an H100's
+    host)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    cells = (DRY_CELL, DRY_MOE_CELL, DRY_HYBRID_CELL)
+    with ProcessPoolExecutor(len(cells), mp_context=multiprocessing.get_context("spawn")) as pool:
+        done = [pool.submit(_dry_cell, *cell) for cell in cells]
+        return {cell[0]: f.result() for cell, f in zip(cells, done)}
 
 
 def mesh_rank(workdir: str, t_launch: str) -> dict:
@@ -4195,6 +4332,10 @@ def mesh_rank(workdir: str, t_launch: str) -> dict:
     seconds["frontends"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    out["recurrent"] = mesh_recurrent(mesh)
+    seconds["recurrent"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     out["elastic"] = _mesh_elastic(mesh, workdir)     # last: it ends the group
     seconds["elastic"] = time.perf_counter() - t0
     out["seconds"] = seconds
@@ -4209,7 +4350,7 @@ def phase_mesh() -> dict:
     torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     t0 = time.perf_counter()
-    # phase 15's dry-run cell runs on the host beside the rank group
+    # phase 15's dry-run cells run on the host beside the rank group
     with ThreadPoolExecutor(max_workers=1) as pool:
         dry = pool.submit(_dry_cells)
         try:
@@ -4255,8 +4396,8 @@ def phase_mesh() -> dict:
 
 def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
     """Phase 15's gates across the ranks and its lines: MoE's partitioned
-    runs, the frontends on the mesh, the engine on the mesh, the elastic
-    re-mesh, the dry-run cells."""
+    runs, the frontends and the recurrent families on the mesh, the engine
+    on the mesh, the elastic re-mesh, the dry-run cells."""
     for r in ranks:
         for run in MOE_MESH_RUNS:
             m = r["moe"][run]
@@ -4286,10 +4427,27 @@ def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
             if "grads" in f:
                 log({"phase": "mesh_frontends_grads", "rank": r["rank"], "arch": arch,
                      **f["grads"]})
+        for arch, f in r["recurrent"].items():
+            sv = f["serve"]
+            log({"phase": "mesh_recurrent", "rank": r["rank"], "arch": arch,
+                 "layers": f["layers"], "heads_a_rank": f["heads_a_rank"],
+                 "pack_s": f["pack_s"], "serve_s": f["serve_s"],
+                 "max_abs_err": sv["max_abs_err"], "tol": sv["tol"],
+                 "greedy_agreement": sv["greedy_agreement"],
+                 "prefill_tokens_equal": sv["prefill_tokens_equal"],
+                 "mesh_serve_s": sv["mesh"]["seconds"],
+                 "peak_mem_gb_a_rank": sv["mesh"]["peak_mem_gb"],
+                 "launches": sv["mesh"]["launches"],
+                 "launches_want": f"{f['per_step']} a step x (32 prompt + {MESH_GEN}) steps",
+                 "dispatch": sv["mesh"]["dispatch"],
+                 "collective_bytes": sv["mesh"]["collectives"]})
+            log({"phase": "mesh_recurrent_grads", "rank": r["rank"], "arch": arch,
+                 "grads_s": f["grads_s"], **f["grads"]})
         log({"phase": "mesh_engine", "rank": r["rank"], **r["engine"]})
         log({"phase": "mesh_elastic", "rank": r["rank"], **r["elastic"]})
-    for key in [("moe", run) for run in MOE_MESH_RUNS] + [("frontends", a)
-                                                          for a in FRONTEND_MESH_CELLS]:
+    for key in ([("moe", run) for run in MOE_MESH_RUNS]
+                + [("frontends", a) for a in FRONTEND_MESH_CELLS]
+                + [("recurrent", a) for a in RECURRENT_MESH_CELLS]):
         errs = {(r[key[0]][key[1]].get("serve") or r[key[0]][key[1]])["max_abs_err"]
                 for r in ranks}
         if len(errs) != 1:
@@ -4301,7 +4459,8 @@ def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
             len({e["loss"] for e in survivors}) != 1 or \
             not any("state_err" in e for e in survivors):
         raise AssertionError(f"elastic re-mesh: {survivors}")
-    for (arch, shape, sod), rec in zip((DRY_CELL, DRY_MOE_CELL), dry.values()):
+    for (arch, shape, sod), rec in zip((DRY_CELL, DRY_MOE_CELL, DRY_HYBRID_CELL),
+                                       dry.values()):
         impls = {k.split("[")[0] for k in rec.get("dispatch_counts", {})}
         if rec.get("status") != "ok" or any(rec["launches"].values()) or \
                 impls != ({"cuda_fused"} if sod else set()):
@@ -4344,9 +4503,24 @@ def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
         raise AssertionError(f"dry-run MoE cell: flops {moe_port['flops']} (limit "
                              f"{DRY_MOE_FLOPS_LIMIT}), peak {moe_port['peak_bytes']} B "
                              f"(limit {DRY_PEAK_LIMIT})")
+    hybrid = dry[DRY_HYBRID_CELL[0]]
+    hybrid_port = {"flops": hybrid["cost"]["flops"],
+                   "argument_bytes": hybrid["memory"]["argument_bytes"],
+                   "peak_bytes": hybrid["memory"]["peak_bytes"],
+                   "all-gather": hybrid["collectives"]["all-gather"]}
+    log({"phase": "dryrun_table", "cell": "zamba2-2.7b__train_4k__16x16__dense",
+         "per_rank": {k: {"port": hybrid_port[k], "whole_rows": DRY_HYBRID_WHOLE_ROWS[k],
+                          "port_over_whole_rows": hybrid_port[k] / DRY_HYBRID_WHOLE_ROWS[k]}
+                      for k in hybrid_port}})
+    if not (hybrid_port["flops"] <= DRY_HYBRID_FLOPS_LIMIT
+            and hybrid_port["peak_bytes"] < DRY_PEAK_LIMIT):
+        raise AssertionError(f"dry-run hybrid cell: flops {hybrid_port['flops']} (limit "
+                             f"{DRY_HYBRID_FLOPS_LIMIT}), peak {hybrid_port['peak_bytes']} B "
+                             f"(limit {DRY_PEAK_LIMIT})")
     log({"phase": "mesh15_seconds",
          "by_rank": {r["rank"]: {k: r["seconds"].get(k) for k in
-                                 ("engine", "moe", "frontends", "elastic")} for r in ranks},
+                                 ("engine", "moe", "frontends", "recurrent", "elastic")}
+                     for r in ranks},
          "dryrun_s": {arch: rec["wall_s"] for arch, rec in dry.items()}})
     elastic = next(e for e in survivors if e["new_rank"] == 0)
     first = ranks[0]
@@ -4354,6 +4528,8 @@ def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
                for run in MOE_MESH_RUNS},
             **{f"mesh_{arch}": first["frontends"][arch]["serve"]["mesh"]["launches"]
                for arch in FRONTEND_MESH_CELLS},
+            **{f"mesh_{arch}": first["recurrent"][arch]["serve"]["mesh"]["launches"]
+               for arch in RECURRENT_MESH_CELLS},
             "mesh_engine": first["engine"]["launches"],
             "mesh_elastic_step": elastic["launches"]}
 

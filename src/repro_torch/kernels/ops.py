@@ -50,19 +50,27 @@ _FORCED = {
 _RESOLVED: dict[tuple, tuple[registry.KernelImpl, dict, str]] = {}
 
 
+# the device types whose 16-bit dense products take the card's path: the
+# card's, and the dry-run's meta tensors, which count the card's program
+_CARD_PATH = ("cuda", "meta")
+
+
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` for 2-D operands, or 3-D ones batched over their first dim,
     as the reference's ``jnp.dot`` / ``jnp.einsum(...,
     preferred_element_type=float32)``: the operands promoted to one dtype,
     products summed in float32, float32 out.  On CUDA with 16-bit operands
     one cuBLAS call keeps the f32 sums (``aten::mm.dtype``,
-    ``aten::bmm.dtype``; never a 16-bit split-K reduction); the CPU build
-    has no such kernel, so there the operands are widened first, which
-    gives the same sums of exact products.  Not differentiable: autograd
-    goes through :func:`dense_matmul`."""
+    ``aten::bmm.dtype``; never a 16-bit split-K reduction), and so on the
+    dry-run's meta tensors; the CPU build has no such kernel, so there the
+    operands are widened first, which gives the same sums of exact
+    products.  Not differentiable: autograd goes through
+    :func:`dense_matmul`."""
     dtype = torch.promote_types(a.dtype, b.dtype)
     mm = torch.bmm if a.ndim == 3 else torch.mm
-    if a.device.type == "cuda" and dtype in (torch.bfloat16, torch.float16):
+    if a.device.type in _CARD_PATH and dtype in (torch.bfloat16, torch.float16):
+        if a.device.type == "meta" and a.ndim == 3:    # FlopCounterMode has no bmm.dtype
+            return mm(a.to(dtype), b.to(dtype)).float()
         return mm(a.to(dtype), b.to(dtype), out_dtype=torch.float32)
     return mm(a.float(), b.float())
 
@@ -93,10 +101,12 @@ def dense_matmul(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype) -> to
     products summed in float32 (:func:`mm_f32`), the sums cast once to
     ``out_dtype``.  A 3-D ``w`` (E, K, N) takes x (E, M, K), one product a
     leading index (the MoE experts' ``ebcd,edf->ebcf``).  Differentiable:
-    under autograd the cuBLAS call goes through :class:`_MmF32`; the CPU
-    path's widening differentiates as it is."""
+    under autograd the cuBLAS call goes through :class:`_MmF32` (which
+    keeps the 16-bit operands; on meta tensors too, so the dry-run counts
+    the card's saved bytes); the CPU path's widening differentiates as it
+    is."""
     x2 = x if w.ndim == 3 else x.reshape(-1, x.shape[-1])
-    on_card = x.device.type == "cuda" and torch.promote_types(
+    on_card = x.device.type in _CARD_PATH and torch.promote_types(
         x.dtype, w.dtype) in (torch.bfloat16, torch.float16)
     if on_card and torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
         y = _MmF32.apply(x2, w)

@@ -34,12 +34,12 @@ launched.  Per cell it:
    buffer; ``counts`` their calls).
 
 These are counts of the port's own eager program, not compile results.
-The dense, MoE, VLM and audio families' steps run the partitioned
-program (the rank's rows, its share of heads, MLP columns, routed
-experts, vocabulary and codebook columns, its ZeRO-1 optimizer blocks;
+Every family's train, prefill and decode steps run the partitioned
+program (the rank's rows, its share of heads, Mamba2 and mLSTM heads,
+MLP columns, routed experts, vocabulary and codebook columns, its ZeRO-1
+optimizer blocks, its rows and heads of a decode cache;
 :mod:`repro_torch.launch.steps`), so rank 0 counts a shard's work as the
-reference's partitioned HLO does; the recurrent families still run plain
-ops on the global batch on every rank (``ROADMAP.md``).  Eager code
+reference's partitioned HLO does.  Eager code
 runs every layer, so nothing is counted once per loop body: the
 reference's ``cost_scan_hlo``, ``collectives_scan_hlo`` and depth probes
 have no counterpart; :func:`_extrapolate` (and :func:`measure` at a cut
@@ -168,8 +168,8 @@ def _step_and_args(cfg, shape, mesh, plan=None, params=None, inputs=None):
     a real mesh.  The rank holds its placed parameters, its ZeRO-1 blocks
     of the optimizer state and, where the step runs the partitioned
     program (``steps.PARTITIONED``), its rows of the batch (a VLM's patches
-    too) and its block of the
-    decode cache (:func:`repro_torch.runtime.sharding.kv_cache_specs`)."""
+    too) and its block of the decode cache, its rows and heads
+    (:func:`repro_torch.runtime.sharding.decode_cache_specs`)."""
     model = LM(cfg)
     if params is None:
         params = specs_mod.abstract_params(model, cfg.sod if cfg.sod.enabled else None,
@@ -207,7 +207,7 @@ def _step_and_args(cfg, shape, mesh, plan=None, params=None, inputs=None):
     cache, tokens = inputs["cache"], inputs["tokens"]
     toks, rows = rows_of({"tokens": tokens})
     if split:
-        cache = shard_mod.place(cache, shard_mod.kv_cache_specs(
+        cache = shard_mod.place(cache, shard_mod.decode_cache_specs(
             cache, cfg, mesh, tokens.shape[0]), mesh)
     step = steps_mod.make_decode_step(model, mesh=mesh, plan=plan, rows=rows)
     # the position the 0-d ``pos`` spec stands for: the cache's last

@@ -10,25 +10,26 @@ Every ``make_*`` function takes an optional ``mesh`` (a
 :class:`repro_torch.launch.mesh.Mesh`, its parameters placed on it by
 :func:`repro_torch.runtime.sharding.place`).  A mesh step takes the
 global batch on every rank and returns what the unsharded step returns,
-on every rank.  Inside, the train, prefill and decode steps of the
-dense, MoE, VLM and audio families (``PARTITIONED``) run the partitioned
-program (:class:`repro_torch.runtime.spmd.
-Partition`), as GSPMD partitions the reference's jitted step: at entry
-each rank takes its rows (:func:`repro_torch.runtime.sharding.
-batch_specs`: over the data axes where they divide, else every row; a
-VLM's patches too), its ops run on its share of heads, MLP columns,
-routed experts, vocabulary and codebook columns, the loss's
-mean is the global batch's, every gradient is summed over the data axes
-(a whole one's in one coalesced all-reduce), and at exit the tokens and
-logits are gathered.  The KV cache between prefill and decode stays the
-rank's: its rows, and the KV heads its query heads read.  The engine's
-steps (``make_prefill_full``, ``make_chunked_prefill_step``,
-``make_paged_decode_step``, ``make_verify_step``), the recurrent
-families' steps and ``partition=False`` run every op on the global batch
-on every rank, each packed product a rank's local problem
-(:mod:`repro_torch.runtime.spmd`), the plain leaves taken whole again
-(:func:`repro_torch.runtime.sharding.gather_plain`; once a parameter
-tree outside autograd).
+on every rank.  Inside, the train, prefill and decode steps of every
+family (``PARTITIONED``) run the partitioned program
+(:class:`repro_torch.runtime.spmd.Partition`), as GSPMD partitions the
+reference's jitted step: at entry each rank takes its rows
+(:func:`repro_torch.runtime.sharding.batch_specs`: over the data axes
+where they divide, else every row; a VLM's patches too), its ops run on
+its share of heads, Mamba2 and mLSTM heads, MLP columns, routed experts,
+vocabulary and codebook columns, the loss's mean is the global batch's,
+every gradient is summed over the data axes (a whole one's in one
+coalesced all-reduce), and at exit the tokens and logits are gathered.
+The decode cache between steps stays the rank's: its rows, the KV heads
+its query heads read, its Mamba2 or mLSTM heads' state
+(:func:`_local_cache`).  A recurrent prompt is served by
+:func:`make_stepped_prefill`, through the partitioned decode step.  The
+engine's steps (``make_prefill_full``, ``make_chunked_prefill_step``,
+``make_paged_decode_step``, ``make_verify_step``) and ``partition=False``
+run every op on the global batch on every rank, each packed product a
+rank's local problem (:mod:`repro_torch.runtime.spmd`), the plain leaves
+taken whole again (:func:`repro_torch.runtime.sharding.gather_plain`;
+once a parameter tree outside autograd).
 Every ``make_*`` function also takes an optional ``plan`` (a
 :class:`repro_torch.core.plan.ModelPlan`): the step body runs inside
 :func:`repro_torch.core.plan.use_plan`, so each packed matmul dispatches
@@ -46,12 +47,13 @@ from repro_torch.core.plan import use_plan
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch.mesh import dp_axes, mesh_context
 from repro_torch.models import attention, transformer
+from repro_torch.models import cache as cache_mod
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime import sharding, spmd
 
 # the families whose mesh steps run the partitioned program
-PARTITIONED = ("dense", "moe", "vlm", "audio")
+PARTITIONED = ("dense", "moe", "vlm", "audio", "hybrid", "ssm")
 
 
 def partition_for(model: LM, mesh, n_rows: int, rows=None) -> spmd.Partition | None:
@@ -92,19 +94,36 @@ def _whole_out(t: torch.Tensor, part: spmd.Partition, cfg) -> torch.Tensor:
 
 def _local_cache(cache, part: spmd.Partition, model: LM, rows: int):
     """The decode cache as the rank keeps it (``rows`` of them), inside the
-    partition: views of its rows and of the KV heads its query heads read
-    (:func:`repro_torch.models.attention.local_heads`) of a whole cache,
-    the cache itself when it holds them already."""
-    heads = attention.local_heads(transformer.attn_spec(model.cfg))
+    partition: views of its rows (at each leaf's batch axis,
+    :meth:`LM.cache_spec`) and of its heads (at the axes
+    :func:`repro_torch.models.transformer.cache_heads` names: its block
+    where the heads divide ``model``, a KV leaf's the KV heads its query
+    heads read, :func:`repro_torch.models.attention.local_heads`) of a
+    whole cache; the cache itself where it holds them already."""
+    kv = attention.local_heads(transformer.attn_spec(model.cfg))
 
-    def local(t):
-        if t.shape[1] != rows:
-            t = spmd._own_block(t, part.mesh, part.rows, 1)
-        if heads is not None and t.shape[3] != heads[2]:
-            t = t.narrow(3, heads[1], heads[2])
+    def local(ax, t, heads):
+        if t.shape[ax.batch] != rows:
+            t = spmd._own_block(t, part.mesh, part.rows, ax.batch)
+        block = _head_block(heads, kv)
+        if block is not None and t.shape[heads.axis] != block[1]:
+            t = t.narrow(heads.axis, *block)
         return t
 
-    return {k: local(v) for k, v in cache.items()}
+    return cache_mod.map_axes(local, model.cache_spec(), cache,
+                              transformer.cache_heads(model.cfg))
+
+
+def _head_block(heads, kv):
+    """``(start, size)`` along a cache leaf's head axis of the rank's
+    heads (:class:`repro_torch.models.cache.HeadAxis` ``heads``), or None
+    where it keeps every head."""
+    if heads is None:
+        return None
+    if heads.kv:
+        return None if kv is None else (kv[1], kv[2])
+    block = spmd.model_block(heads.heads)
+    return None if block is None else (block[0] * heads.width, block[1] * heads.width)
 
 
 def _plain_grads(grads, part: spmd.Partition):
@@ -259,6 +278,34 @@ def make_decode_step(model: LM, mesh=None, plan=None, partition: bool = True, ro
         return logits.argmax(dim=-1), logits, cache
 
     return decode_step
+
+
+def make_stepped_prefill(model: LM, mesh=None, plan=None):
+    """``(params, tokens, max_len) -> (greedy next tokens (B,), cache)``: the
+    prompt served as ``launch/serve.py:prefill_cache`` serves a recurrent
+    family's, stepped through :func:`make_decode_step` from a zeroed cache
+    of ``max_len`` positions (which builds the state exactly); on a mesh
+    through the partitioned decode step, from the rank's own zeroed rows
+    and heads."""
+    decode = make_decode_step(model, mesh=mesh, plan=plan)
+
+    def stepped_prefill(params, tokens, max_len):
+        b = tokens.shape[0]
+        part = partition_for(model, mesh, b)
+        if part is None:
+            cache = model.init_cache(b, max_len, tokens.device)
+        else:
+            rows = b // spmd._axes_size(part.mesh, part.rows)
+            with spmd.use_partition(part):
+                cache = cache_mod.map_axes(
+                    lambda _, t: t.clone(), model.cache_spec(),
+                    _local_cache(model.init_cache(rows, max_len, tokens.device), part,
+                                 model, rows))
+        for t in range(tokens.shape[1]):
+            nxt, _, cache = decode(params, cache, tokens[:, t:t + 1], t)
+        return nxt[:, 0], cache
+
+    return stepped_prefill
 
 
 def make_prefill_full(model: LM, mesh=None, plan=None):

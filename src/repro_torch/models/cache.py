@@ -15,7 +15,7 @@ sequence's state into a slot of the batched cache along the batch axes
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -37,21 +37,35 @@ class CacheAxes:
                          None if self.seq is None else self.seq + lead)
 
 
-def _zip_map(fn: Callable, spec, *trees):
+class HeadAxis(NamedTuple):
+    """Where a cache leaf holds heads, for the partitioned program (the
+    port's own; the reference finds its cache's dims by their sizes):
+    ``axis`` holds ``heads`` heads of ``width`` elements each; ``kv``
+    marks an attention KV leaf, whose rank keeps the KV heads its query
+    heads read (:func:`repro_torch.models.attention.local_heads`)."""
+
+    axis: int
+    heads: int
+    width: int = 1
+    kv: bool = False
+
+
+def map_axes(fn: Callable, spec, *trees):
     """``fn(axes, *leaves)`` at every :class:`CacheAxes` of ``spec``, the
-    trees walked alongside; the spec's structure back."""
+    trees (a cache, or any tree of its structure) walked alongside; the
+    spec's structure back."""
     if isinstance(spec, CacheAxes):
         return fn(spec, *trees)
     if isinstance(spec, dict):
-        return {k: _zip_map(fn, v, *(t[k] for t in trees)) for k, v in spec.items()}
-    return type(spec)(_zip_map(fn, v, *(t[i] for t in trees))
+        return {k: map_axes(fn, v, *(t[k] for t in trees)) for k, v in spec.items()}
+    return type(spec)(map_axes(fn, v, *(t[i] for t in trees))
                       for i, v in enumerate(spec))
 
 
 def shift_axes(spec_tree, lead: int):
     """Shift every :class:`CacheAxes` in a spec tree by ``lead`` leading
     dims — how per-cell specs compose into stacked family specs."""
-    return _zip_map(lambda ax: ax.shifted(lead), spec_tree)
+    return map_axes(lambda ax: ax.shifted(lead), spec_tree)
 
 
 def grow_cache(cache, spec_tree, new_len: int):
@@ -65,7 +79,7 @@ def grow_cache(cache, spec_tree, new_len: int):
         pad_shape[ax.seq] = new_len - t.shape[ax.seq]
         return torch.cat([t, t.new_zeros(pad_shape)], dim=ax.seq)
 
-    return _zip_map(grow, spec_tree, cache)
+    return map_axes(grow, spec_tree, cache)
 
 
 def write_slot(cache, sub, spec_tree, slot: int):
@@ -82,5 +96,5 @@ def write_slot(cache, sub, spec_tree, slot: int):
             dst = dst.narrow(ax.seq, 0, s.shape[ax.seq])
         dst.copy_(s)
 
-    _zip_map(write, spec_tree, cache, sub)
+    map_axes(write, spec_tree, cache, sub)
     return cache

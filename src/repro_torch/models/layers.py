@@ -11,9 +11,11 @@ takes a weight as it lies (a column block, a K block, or whole) and its
 input in the layout that weight reads; :func:`embed` looks up the rank's
 vocabulary block and sums over ``model``; :func:`lm_head` leaves the
 logits vocab-split; :func:`cross_entropy` reduces max and sum-exp over
-``model`` and the mean over the data axes.  A feature dim is split in
-blocks of ``dim / tp``, rank ``part`` holding block ``part``; a tensor's
-layout is read from its width against the global dim the caller names.
+``model`` and the mean over the data axes; :func:`split_rms_norm` sums a
+norm's statistics over ``model`` where its width is split.  A feature
+dim is split in blocks of ``dim / tp``, rank ``part`` holding block
+``part``; a tensor's layout is read from its width against the global dim
+the caller names.
 """
 from __future__ import annotations
 
@@ -75,6 +77,45 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-6) -> torch.T
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
     return (xf * (1.0 + gamma.float())).to(x.dtype)
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """(..., 1): the sum of the float32 squares of each row of ``x`` (of
+    one block of its feature dim), in float64 on the card (as
+    :func:`rms_norm`'s mean: to be rounded once, after the blocks' sums
+    are added), in float32 on the CPU."""
+    xf = x.float()
+    if xf.is_cuda:
+        return torch.sum(xf * xf, dim=-1, keepdim=True, dtype=torch.float64)
+    return torch.sum(xf * xf, dim=-1, keepdim=True)
+
+
+def rms_from_sum(x: torch.Tensor, gamma: torch.Tensor, total: torch.Tensor, width: int,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` of a block ``x`` of a feature dim ``width`` wide,
+    ``total`` (:func:`sum_squares`) summed over every block of the row and
+    ``gamma`` the block's gains: the mean rounded once to float32."""
+    var = (total / width).float()
+    xf = x.float() * torch.rsqrt(var + eps)
+    return (xf * (1.0 + gamma.float())).to(x.dtype)
+
+
+def split_rms_norm(x: torch.Tensor, gamma: torch.Tensor, width: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` over a feature dim of global ``width`` that ``x``
+    may hold as the rank's ``model`` block (in the partitioned program:
+    Mamba2's and mLSTM's gated norms, whose width spans every rank's
+    heads).  A block's row sums its squares (:func:`sum_squares`), the
+    sums are added over ``model`` (float64 on the card, so each row's mean
+    is rounded once, whatever the batch), and the rank's block of the
+    whole gain ``gamma`` scales it.  Whole rows: :func:`rms_norm`."""
+    part = spmd.active_partition()
+    if part is None or x.shape[-1] == width:
+        return rms_norm(x, gamma, eps)
+    gamma = to_layout(gamma, width, True, dim=0)
+    # the mean feeds only the rank's block: its cotangent is summed back
+    total = spmd.grad_sum(spmd.psum(sum_squares(x), part.mesh, "model"), part.mesh, "model")
+    return rms_from_sum(x, gamma, total, width, eps)
 
 
 def einsum_f32(eq: str, *operands: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,15 @@ Every projection goes through :func:`repro_torch.core.sod.apply`; ``w_z``,
 and ``w_dt`` stay dense, as in the reference.  The scan itself is plain
 torch, with the reference's float32 sums and its casts to the working dtype
 where they are.
+
+In a partitioned step (:func:`repro_torch.runtime.spmd.use_partition`)
+the block runs on the rank's rows and, where the heads divide ``model``,
+on its Mamba2 heads (:func:`repro_torch.runtime.spmd.model_block`, the
+reference's column split of ``w_z`` and ``w_x``): its x channels and
+their conv, its heads' SSD and decode state, the gated norm over the
+whole ``d_inner`` with its statistics summed over ``model``, and
+``out_proj`` row-parallel; ``w_b``, ``w_c`` and ``w_dt`` stay whole.
+Where the heads do not divide ``model`` every rank runs every head.
 """
 from __future__ import annotations
 
@@ -25,9 +34,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import sod
 from repro_torch.models import layers
 from repro_torch.models.cache import CacheAxes
+from repro_torch.runtime import spmd
 
 Params = dict[str, Any]
 
@@ -101,25 +110,62 @@ def init_mamba(gen: torch.Generator, spec: MambaSpec, dtype: torch.dtype,
 
 
 _CONV_PARTS = ("x", "b", "c")
+_HEAD_LEAVES = ("dt_bias", "a_log", "d_skip")
 
 
-def _project(params: Params, x: torch.Tensor, conv_states: Params | None):
+def _head_params(params: Params, spec: MambaSpec) -> Params:
+    """The per-head and per-channel leaves the rank's heads read: the whole
+    leaves, or in the partitioned program the blocks of the rank's heads
+    (:func:`repro_torch.runtime.spmd.model_block`) of ``dt_bias``,
+    ``a_log``, ``d_skip`` and of the x channels' ``conv_x`` /
+    ``conv_x_b``, each through
+    :func:`~repro_torch.runtime.spmd.take_block` (its gradient summed over
+    ``model``, so every rank holds the whole leaf's)."""
+    names = _HEAD_LEAVES + ("conv_x", "conv_x_b")
+    heads = spmd.model_block(spec.n_heads)
+    if heads is None:
+        return {k: params[k] for k in names}
+    mesh, (first, n), hd = spmd.active_partition().mesh, heads, spec.headdim
+    out = {k: spmd.take_block(params[k], mesh, "model", 0, first, n) for k in _HEAD_LEAVES}
+    out["conv_x"] = spmd.take_block(params["conv_x"], mesh, "model", 1, first * hd, n * hd)
+    out["conv_x_b"] = spmd.take_block(params["conv_x_b"], mesh, "model", 0, first * hd,
+                                      n * hd)
+    return out
+
+
+def _project(params: Params, x: torch.Tensor, conv_states: Params | None,
+             spec: MambaSpec, hp: Params):
     """``(z, xh, b, c, dt_raw, new conv states)``.  The three depthwise
     convs (over x, B and C) run as one over their concatenated channels:
     every op is per channel, so each part's values are the reference's
-    per-part conv's, in a third of the operator calls."""
-    z = sod.apply(x, params["w_z"])
-    parts = [sod.apply(x, params["w_x"]), sod.apply(x, params["w_b"]),
-             sod.apply(x, params["w_c"])]
-    dt = sod.apply(x, params["w_dt"])
+    per-part conv's, in a third of the operator calls; the widths come
+    from the parts.  In the partitioned program ``z``, ``xh`` and ``dt``
+    are the rank's heads (``hp``: :func:`_head_params`): the column
+    blocks of ``w_z`` and ``w_x`` as :func:`repro_torch.models.layers.
+    to_layout` lays their products (whole where the heads do not split),
+    ``dt`` narrowed from the whole ``w_dt``'s; ``b`` and ``c`` are whole,
+    from the whole ``w_b`` and ``w_c``, and float32 (the values the scan
+    reads), their cotangents (each the rank's heads' share) summed over
+    ``model``."""
+    part = spmd.active_partition()
+    d, di, ds, nh = x.shape[-1], spec.d_inner, spec.d_state, spec.n_heads
+    heads = spmd.model_block(spec.n_heads)
+    z = layers.to_layout(layers.linear(x, params["w_z"], d, di), di, heads is not None)
+    parts = [layers.to_layout(layers.linear(x, params["w_x"], d, di), di, heads is not None),
+             layers.linear(x, params["w_b"], d, ds), layers.linear(x, params["w_c"], d, ds)]
+    dt = layers.linear(x, params["w_dt"], d, nh)
+    if heads is not None:
+        dt = spmd.take_block(dt, part.mesh, "model", dt.ndim - 1, *heads)
     widths = [t.shape[-1] for t in parts]
     state = (None if conv_states is None else
              torch.cat([conv_states[k] for k in _CONV_PARTS], -1))
     y, new = _causal_conv(
         torch.cat(parts, -1),
-        torch.cat([params[f"conv_{k}"] for k in _CONV_PARTS], -1),
-        torch.cat([params[f"conv_{k}_b"] for k in _CONV_PARTS], -1), state)
+        torch.cat([hp["conv_x"], params["conv_b"], params["conv_c"]], -1),
+        torch.cat([hp["conv_x_b"], params["conv_b_b"], params["conv_c_b"]], -1), state)
     xh, b, c = y.split(widths, -1)
+    if heads is not None:       # float32: each rank's share summed before one rounding
+        b, c = (spmd.grad_sum(t.float(), part.mesh, "model") for t in (b, c))
     return z, xh, b, c, dt, dict(zip(_CONV_PARTS, new.split(widths, -1)))
 
 
@@ -149,15 +195,17 @@ def mamba_forward(params: Params, x: torch.Tensor, spec: MambaSpec) -> torch.Ten
     if s % lc:
         raise ValueError(f"seq {s} not divisible by chunk {lc}")
     nc = s // lc
-    nh, hd, ds = spec.n_heads, spec.headdim, spec.d_state
+    hd, ds = spec.headdim, spec.d_state
 
-    z, xh, b, c, dt, _ = _project(params, x, None)
+    hp = _head_params(params, spec)
+    z, xh, b, c, dt, _ = _project(params, x, None, spec, hp)
+    nh = xh.shape[-1] // hd                                       # the rank's heads
     xh = xh.reshape(bsz, nc, lc, nh, hd)
     b = b.reshape(bsz, nc, lc, ds)
     c = c.reshape(bsz, nc, lc, ds)
-    dt = softplus(dt.float() + params["dt_bias"][None, None, :]
+    dt = softplus(dt.float() + hp["dt_bias"][None, None, :]
                   ).reshape(bsz, nc, lc, nh)                     # (B,NC,L,H)
-    a = -torch.exp(params["a_log"])                               # (H,)
+    a = -torch.exp(hp["a_log"])                                   # (H,)
     adt = a[None, None, None, :] * dt                             # decay logs ≤ 0
     alpha = torch.cumsum(adt, dim=2)                              # (B,NC,L,H)
 
@@ -184,11 +232,19 @@ def mamba_forward(params: Params, x: torch.Tensor, spec: MambaSpec) -> torch.Ten
                        * torch.exp(alpha[:, n])[..., None])
         state = state * chunk_decay[:, n, :, None, None] + bx[:, n]
     y = y_intra + torch.stack(y_inter, 1)                         # (B,NC,L,H,P)
-    y = y + params["d_skip"][None, None, None, :, None] * xh.float()
-    y = y.reshape(bsz, s, spec.d_inner).to(x.dtype)
-    y = y * F.silu(z.float()).to(x.dtype)
-    y = layers.rms_norm(y, params["norm"])
-    return sod.apply(y, params["out_proj"])
+    y = y + hp["d_skip"][None, None, None, :, None] * xh.float()
+    return _gated_out(params, y.reshape(bsz, s, nh * hd).to(x.dtype), z, spec)
+
+
+def _gated_out(params: Params, y: torch.Tensor, z: torch.Tensor,
+               spec: MambaSpec) -> torch.Tensor:
+    """``out_proj(norm(y · silu(z)))``: in the partitioned program ``y``
+    and ``z`` the rank's heads, the gated norm's statistics summed over
+    ``model`` (:func:`repro_torch.models.layers.split_rms_norm`) and
+    ``out_proj`` row-parallel (its float32 partials summed)."""
+    y = y * F.silu(z.float()).to(y.dtype)
+    y = layers.split_rms_norm(y, params["norm"], spec.d_inner)
+    return layers.linear(y, params["out_proj"], spec.d_inner, spec.d_model)
 
 
 # ---------------------------------------------------------------------------
@@ -221,19 +277,19 @@ def mamba_decode_step(params: Params, x: torch.Tensor, cache: Params,
                       spec: MambaSpec):
     """x (B, 1, D) → ((B, 1, D), new state ``{"ssm", "conv"}``)."""
     bsz = x.shape[0]
-    nh, hd, ds = spec.n_heads, spec.headdim, spec.d_state
-    z, xh, b, c, dt, conv_state = _project(params, x, cache["conv"])
+    hd, ds = spec.headdim, spec.d_state
+    hp = _head_params(params, spec)
+    z, xh, b, c, dt, conv_state = _project(params, x, cache["conv"], spec, hp)
+    nh = xh.shape[-1] // hd                                       # the rank's heads
     xh = xh.reshape(bsz, nh, hd)
     b = b.reshape(bsz, ds)
     c = c.reshape(bsz, ds)
-    dt = softplus(dt[:, 0].float() + params["dt_bias"])           # (B,H)
-    decay = torch.exp(-torch.exp(params["a_log"]) * dt)            # (B,H)
+    dt = softplus(dt[:, 0].float() + hp["dt_bias"])               # (B,H)
+    decay = torch.exp(-torch.exp(hp["a_log"]) * dt)                # (B,H)
     update = (b.float()[:, None, :, None] * xh.float()[:, :, None, :]
               * dt[:, :, None, None])                              # (B,H,S,P)
     state = cache["ssm"] * decay[:, :, None, None] + update
     y = torch.einsum("bs,bhsp->bhp", c.float(), state)
-    y = y + params["d_skip"][:, None] * xh.float()
-    y = y.reshape(bsz, 1, spec.d_inner).to(x.dtype)
-    y = y * F.silu(z.float()).to(x.dtype)
-    y = layers.rms_norm(y, params["norm"])
-    return sod.apply(y, params["out_proj"]), {"ssm": state, "conv": conv_state}
+    y = y + hp["d_skip"][:, None] * xh.float()
+    y = _gated_out(params, y.reshape(bsz, 1, nh * hd).to(x.dtype), z, spec)
+    return y, {"ssm": state, "conv": conv_state}

@@ -39,15 +39,17 @@ prompt through the decode step, as the reference does).  Under
 ``cfg.remat`` a forward that records gradients checkpoints every layer
 group of these two (every block of the attention family).
 
-The attention family's full forward and static decode also run as the
+Every family's full forward and static decode also run as the
 partitioned program of a mesh step (:func:`repro_torch.runtime.spmd.use_partition`,
-the dense, MoE, VLM and audio families' train, prefill and decode
-steps): the residual stream is the rank's rows, whole along d_model;
-attention, the MLP, the routed experts and the head run on the rank's
-share of heads, columns, experts and vocabulary
-(:mod:`repro_torch.models.layers`, :mod:`repro_torch.models.attention`,
-:mod:`repro_torch.models.moe`), and the KV cache holds the rank's rows
-and the KV heads its query heads read.
+the train, prefill and decode steps): the residual stream is the rank's
+rows, whole along d_model; attention, the MLP, the routed experts, the
+Mamba2 and mLSTM blocks and the head run on the rank's share of heads,
+columns, experts and vocabulary (:mod:`repro_torch.models.layers`,
+:mod:`repro_torch.models.attention`, :mod:`repro_torch.models.moe`,
+:mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.xlstm`), and the
+decode cache holds the rank's rows, the KV heads its query heads read
+and its Mamba2 or mLSTM heads' state (:func:`cache_heads`), each layer's
+slice going in and coming out as the rank holds it.
 """
 from __future__ import annotations
 
@@ -442,6 +444,30 @@ def transformer_cache_spec(cfg: ModelConfig) -> Params:
     """Axis roles of :func:`transformer_init_cache`'s leaves: batch axis 1,
     sequence axis 2."""
     kv = cache_mod.CacheAxes(batch=1, seq=2)
+    return {"k": kv, "v": kv}
+
+
+def cache_heads(cfg: ModelConfig) -> Params:
+    """The decode cache's tree (as :meth:`repro_torch.models.model.LM.
+    cache_spec`) with a :class:`repro_torch.models.cache.HeadAxis` at each
+    leaf that holds heads, None elsewhere: the KV leaves' KV heads (axis
+    3); the hybrid's Mamba2 state at its heads and its x conv state at
+    their channels (``conv.b`` and ``conv.c`` hold none); the xLSTM's
+    mLSTM ``c``, ``n`` and ``m`` at its heads (its conv state holds the
+    whole u, sLSTM's state every head: the partitioned program runs them
+    whole)."""
+    kv = cache_mod.HeadAxis(3, cfg.n_kv_heads, kv=True)
+    if cfg.family == "hybrid":
+        m = mamba_spec(cfg)
+        return {"ssm": cache_mod.HeadAxis(3, m.n_heads),
+                "conv": {"x": cache_mod.HeadAxis(4, m.n_heads, m.headdim), "b": None,
+                         "c": None}, "k": kv, "v": kv}
+    if cfg.family == "ssm":
+        heads = cache_mod.HeadAxis(3, cfg.n_heads)
+        out: Params = {"mlstm": {"c": heads, "n": heads, "m": heads, "conv": None}}
+        if cfg.slstm_every:
+            out["slstm"] = (None,) * 4
+        return out
     return {"k": kv, "v": kv}
 
 

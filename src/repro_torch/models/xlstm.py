@@ -16,6 +16,12 @@ the reference.  sLSTM's recurrent product goes through
 float32 cuBLAS changed every row's bits between the engine's batch of 4
 and static serving's 1 (fault C8 in ``ROADMAP.md``;
 ``scripts/serve_probe.py invariance``).
+
+In a partitioned step (:func:`repro_torch.runtime.spmd.use_partition`)
+the blocks run on the rank's rows; mLSTM runs on its heads where they
+divide ``model`` (:func:`mlstm_block`), sLSTM on every head (``r_gates``
+whole, ``w_gates``' column block's product gathered whole) with
+``w_out`` row-parallel.
 """
 from __future__ import annotations
 
@@ -26,11 +32,11 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import sod
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models.cache import CacheAxes
 from repro_torch.models.ssm import _causal_conv, softplus
+from repro_torch.runtime import spmd
 
 Params = dict[str, Any]
 
@@ -155,17 +161,34 @@ def mlstm_chunked(q, k, v, li, lf, chunk: int, state=None):
 def mlstm_block(params: Params, x: torch.Tensor, spec: XLSTMSpec,
                 cache: Params | None = None, decode: bool = False):
     """The mLSTM residual branch.  x (B, S, D) → ((B, S, D), new cache with
-    ``decode``, else None)."""
-    b, s, _ = x.shape
-    h, hd = spec.n_heads, spec.head_dim
-    up = sod.apply(x, params["w_up"])
-    u, g = up[..., :spec.d_inner].contiguous(), up[..., spec.d_inner:]
+    ``decode``, else None).
+
+    In the partitioned program: ``up`` whole (its column block mixes u and
+    the gate g, and q, k, v contract over the whole u: one all-gather over
+    ``model``), the conv on the whole u, then the rank's heads
+    (:func:`repro_torch.runtime.spmd.model_block`) of q, k and v (the
+    column blocks of ``wq``, ``wk``, ``wv``, or narrowed from a whole
+    weight's product), of the
+    gates and of g; the norm over the whole ``d_inner`` with its
+    statistics summed over ``model``, ``w_down`` row-parallel.  Where the
+    heads do not divide ``model`` every rank runs every head."""
+    b, s, d = x.shape
+    h, hd, di = spec.n_heads, spec.head_dim, spec.d_inner
+    heads = spmd.model_block(spec.n_heads)
+    block = heads is not None
+    up = layers.to_layout(layers.linear(x, params["w_up"], d, 2 * di), 2 * di, False)
+    u, g = up[..., :di].contiguous(), up[..., di:]
     conv_state = cache["conv"] if cache is not None else None
     uc, new_conv = _causal_conv(u, params["conv_w"], params["conv_b"], conv_state)
-    q = sod.apply(uc, params["wq"]).reshape(b, s, h, hd)
-    k = sod.apply(uc, params["wk"]).reshape(b, s, h, hd)
-    v = sod.apply(u, params["wv"]).reshape(b, s, h, hd)
+    h_l = heads[1] if block else h
+    q, k, v = (layers.to_layout(layers.linear(t, params[n], di, di), di, block
+                                ).reshape(b, s, h_l, hd)
+               for t, n in ((uc, "wq"), (uc, "wk"), (u, "wv")))
     li, lf = _mlstm_gates(uc, params, h)
+    if block:
+        mesh = spmd.active_partition().mesh
+        li, lf = (spmd.take_block(t, mesh, "model", t.ndim - 1, *heads) for t in (li, lf))
+        g = spmd.take_block(g, mesh, "model", g.ndim - 1, heads[0] * hd, h_l * hd)
     if decode:
         y, (c_f, n_f, m_f) = mlstm_chunked(q, k, v, li, lf, chunk=1,
                                            state=(cache["c"], cache["n"], cache["m"]))
@@ -173,10 +196,10 @@ def mlstm_block(params: Params, x: torch.Tensor, spec: XLSTMSpec,
     else:
         y, _ = mlstm_chunked(q, k, v, li, lf, chunk=spec.chunk)
         new_cache = None
-    y = y.reshape(b, s, spec.d_inner).to(x.dtype)
-    y = layers.rms_norm(y, params["norm"])
+    y = y.reshape(b, s, h_l * hd).to(x.dtype)
+    y = layers.split_rms_norm(y, params["norm"], di)
     y = y * F.silu(g.float()).to(x.dtype)
-    return sod.apply(y, params["w_down"]), new_cache
+    return layers.linear(y, params["w_down"], di, d), new_cache
 
 
 def init_mlstm_cache(batch: int, spec: XLSTMSpec, dtype: torch.dtype,
@@ -227,7 +250,11 @@ def slstm_scan(params: Params, x: torch.Tensor, spec: XLSTMSpec, state=None):
     b, s, d = x.shape
     nh = spec.n_heads
     hd = d // nh
-    wx = ops.dense_matmul(x, params["w_gates"].to(x.dtype), torch.float32)  # (B,S,4D)
+    # (B,S,4D); in the partitioned program w_gates is the reference's column
+    # block (its rule for ``w_gate`` matches it), gathered whole: the time
+    # loop runs every head on the rank's rows
+    wx = layers.to_layout(layers.linear(x, params["w_gates"].to(x.dtype), d, 4 * d,
+                                        out_dtype=torch.float32), 4 * d, False)
     if state is None:
         zeros = torch.zeros((b, nh, hd), dtype=torch.float32, device=x.device)
         state = (zeros, zeros, zeros + 1e-6, zeros + NEG_INIT)
@@ -253,7 +280,7 @@ def slstm_scan(params: Params, x: torch.Tensor, spec: XLSTMSpec, state=None):
         hs.append(h_prev)
     y = torch.stack(hs, 1).reshape(b, s, d).to(x.dtype)
     y = layers.rms_norm(y, params["norm"])
-    return sod.apply(y, params["w_out"]), (h_prev, c_prev, n_prev, m_prev)
+    return layers.linear(y, params["w_out"], d, d), (h_prev, c_prev, n_prev, m_prev)
 
 
 def init_slstm_cache(batch: int, spec: XLSTMSpec, device: torch.device) -> tuple:

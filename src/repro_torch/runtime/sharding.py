@@ -25,12 +25,13 @@ names: a packed leaf its tile-grid block (``w.shard`` records where it
 sits), a plain leaf its block of each split dim (the embedding's
 vocabulary, an untied head's or a projection's columns, ``wo``'s and
 ``w_down``'s rows over ``model``; ZeRO-1's moments and masters over the
-data axes), every leaf the spec leaves whole, whole.  The dense, MoE, VLM
-and audio families' steps then run the partitioned program on those
-blocks (the routed experts' stacks split on E, the audio embedding on
-its vocabulary and its head on its flattened (codebook, id) columns)
-(:mod:`repro_torch.launch.steps`); the other steps, which run every plain
-op on the global batch, take the plain leaves whole again
+data axes), every leaf the spec leaves whole, whole.  Every family's
+steps then run the partitioned program on those blocks (the routed
+experts' stacks split on E, the audio embedding on its vocabulary and
+its head on its flattened (codebook, id) columns, the recurrent blocks'
+projections on their heads' columns or rows)
+(:mod:`repro_torch.launch.steps`); the engine's steps, which run every
+plain op on the global batch, take the plain leaves whole again
 (:func:`gather_plain` over :func:`layout_specs`, which reads a placed
 tree's layout from the config's whole shapes).  :func:`packed_matmul_plans` gives the planner the
 :class:`~repro_torch.runtime.spmd.SpmdPlan` each lead-less packed leaf's
@@ -55,7 +56,7 @@ from repro_torch.runtime import spmd
 from repro_torch.runtime.spmd import _axes_of, all_gather
 
 __all__ = ["param_specs", "opt_state_specs", "train_state_specs", "batch_specs",
-           "cache_specs", "kv_cache_specs", "packed_matmul_plans", "place", "unplace",
+           "cache_specs", "decode_cache_specs", "packed_matmul_plans", "place", "unplace",
            "whole", "split_axes", "layout_specs", "split_plain", "gather_plain", "is_split"]
 
 Params = Any
@@ -316,25 +317,36 @@ def cache_specs(cache: Params, cfg, mesh, batch_size: int,
     return _map_leaves(one, cache)
 
 
-def kv_cache_specs(cache: Params, cfg, mesh, batch_size: int) -> Params:
-    """The attention family's decode cache as a partitioned step keeps it:
-    :func:`cache_specs`' batch dim (rows over the data axes where they
-    divide) and the KV heads over ``model`` where they divide it; the
-    sequence dim whole (the reference's sequence split over ``model`` is
-    not ported)."""
-    specs = cache_specs(cache, cfg, mesh, batch_size, seq_shard=False)
+def decode_cache_specs(cache: Params, cfg, mesh, batch_size: int) -> Params:
+    """A decode cache as a partitioned step keeps it, read from the
+    family's own axes, never from a size (a cache's L, G, P or n_m can
+    equal the batch, which the reference's :func:`cache_specs` would
+    take): each leaf's batch axis (:meth:`repro_torch.models.model.LM.
+    cache_spec`) over the data axes where ``batch_size`` divides them, and
+    its heads (:func:`repro_torch.models.transformer.cache_heads`) over
+    ``model`` where they divide it: a KV cache's KV heads, the hybrid's
+    Mamba2 ``ssm`` state at its heads and ``conv.x`` at their channels,
+    the xLSTM's mLSTM ``c``, ``n`` and ``m`` at its heads; ``conv.b``,
+    ``conv.c``, the mLSTM conv and sLSTM's state take rows only.  The
+    sequence dim stays whole (the reference's sequence split over
+    ``model`` is not ported)."""
+    from repro_torch.models import cache as cache_mod  # deferred: rules over models
+    from repro_torch.models import transformer
+    from repro_torch.models.model import LM
+
+    dp = dp_axes(mesh)
+    dp_ax = dp if len(dp) > 1 else dp[0]
+    rows = dp_ax if batch_size % _axis_size(mesh, dp_ax) == 0 else None
     tp = mesh.shape.get("model", 1)
-    if tp == 1 or cfg.n_kv_heads % tp:
-        return specs
 
-    def heads(c, spec):
-        if isinstance(c, dict):
-            return {k: heads(c[k], spec[k]) for k in c}
-        if isinstance(c, (list, tuple)):
-            return type(c)(heads(a, b) for a, b in zip(c, spec))
-        return spec[:3] + ("model",) + spec[4:] if len(spec) == 5 else spec
+    def one(ax, leaf, heads):
+        spec = [None] * leaf.ndim
+        spec[ax.batch] = rows
+        if heads is not None and tp > 1 and heads.heads % tp == 0:
+            spec[heads.axis] = "model"
+        return tuple(spec)
 
-    return heads(cache, specs)
+    return cache_mod.map_axes(one, LM(cfg).cache_spec(), cache, transformer.cache_heads(cfg))
 
 
 # ---------------------------------------------------------------------------

@@ -49,11 +49,11 @@ block of a replicated tensor and put the blocks back together, each the
 other's transpose under autograd.
 
 The partitioned program (:class:`Partition`, :func:`use_partition`): a
-step of the dense, MoE, VLM or audio family runs every op on the rank's
-rows and on its share of heads, MLP columns, routed experts, vocabulary
-and codebook columns, as GSPMD partitions the
-reference's jitted step.  Packed products then take the local contract
-under the plan of their resident block (:func:`sod_matmul_local`), and
+step of every family runs every op on the rank's rows and on its share
+of heads (:func:`model_block`), MLP columns, routed experts, vocabulary
+and codebook columns, as GSPMD partitions the reference's jitted step.
+Packed products then take the local contract under the plan of their
+resident block (:func:`sod_matmul_local`), and
 plain ops move between whole and split layouts with four differentiable
 collectives, each the other's transpose in pairs: :func:`psum` (a sum of
 partials; the cotangent flows back whole) and :func:`grad_sum` (the
@@ -98,6 +98,7 @@ __all__ = [
     "Partition",
     "use_partition",
     "active_partition",
+    "model_block",
     "psum",
     "pmax",
     "grad_sum",
@@ -372,12 +373,13 @@ def all_gather(t: torch.Tensor, mesh, axes, dim: int, kind: str) -> torch.Tensor
 
 def all_reduce(t: torch.Tensor, mesh, axes, kind: str = "reduce_bytes") -> torch.Tensor:
     """Sum of every rank's ``t`` over the line of ``axes``, summed in
-    float32 for a float tensor and returned in its dtype (every rank gets
-    the same bits)."""
+    float32 for a float tensor (float64 for a float64 one) and returned in
+    its dtype (every rank gets the same bits)."""
     axes = _axes_of(axes)
     if _axes_size(mesh, axes) == 1:
         return t
-    buf = t.to(torch.float32, copy=True) if t.is_floating_point() else t.clone()
+    wide = torch.float64 if t.dtype == torch.float64 else torch.float32
+    buf = t.to(wide, copy=True) if t.is_floating_point() else t.clone()
     nbytes = buf.numel() * buf.element_size()
     _note(kind, nbytes, "all-reduce", 2 * nbytes)
     if not mesh.dry:
@@ -513,6 +515,18 @@ class Partition:
         """This rank's position on ``model``: its block of every split
         feature dim."""
         return self.mesh.index("model") if self.tp > 1 else 0
+
+
+def model_block(n: int) -> tuple[int, int] | None:
+    """In the partitioned program, ``(first, count)`` of the rank's block
+    of ``n`` units (heads) split over ``model``; None where ``n`` does not
+    divide ``model`` (every rank keeps every unit) or outside a
+    partitioned step."""
+    part = active_partition()
+    if part is None or part.tp == 1 or n % part.tp:
+        return None
+    count = n // part.tp
+    return part.part * count, count
 
 
 def active_partition() -> Partition | None:

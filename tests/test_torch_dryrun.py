@@ -377,14 +377,17 @@ def test_cli_writes_its_record_under_build(tmp_path, monkeypatch):
     assert skipped["status"] == "skipped"
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "musicgen-medium"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "musicgen-medium", "zamba2-2.7b",
+                                  "xlstm-125m"])
 def test_partitioned_family_train_cell_divides_the_work(arch):
     """Reduced granite-moe's (``dispatch_blocks`` = the data size, as the
-    dry-run's cells set it) and reduced musicgen's train step at 8 × 32 on
-    rank 0 of DryMesh((4, 2)) against the same step on one rank: the flops
-    at most 1.5 / (data · model) of the one rank's (a rank's rows over
-    ``data``; its experts, heads, MLP columns, vocabulary and codebook
-    columns over ``model``), the argument bytes at most 0.35 of them."""
+    dry-run's cells set it), musicgen's, zamba2's and xlstm's train step at
+    8 × 32 on rank 0 of DryMesh((4, 2)) against the same step on one rank:
+    the flops at most 1.5 / (data · model) of the one rank's (a rank's
+    rows over ``data``; its experts, heads, Mamba2 and mLSTM heads, MLP
+    columns, vocabulary and codebook columns over ``model``), the argument
+    bytes at most 0.35 of them.  The recurrent families ran whole rows
+    before their steps were partitioned, 8 / 8 of the flops."""
     cfg = configs.reduced(configs.get_config(arch))
     if cfg.family == "moe":
         cfg = cfg.with_(moe_dispatch_blocks=4)

@@ -12,7 +12,8 @@ reference's checkpoint onto the mesh.  :func:`_partition_runs` runs the
 dense family's partitioned steps on a (4, 2) and a (2, 4) mesh of the
 same group: loss and gradients, one ZeRO-1 train step, prefill and four
 decode steps, a batch whose rows do not divide the data axes, and the
-vocab-parallel head and loss.
+vocab-parallel head and loss; then every other family's (a recurrent
+family's prompt stepped through the partitioned decode step).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from repro_torch.kernels import autotune, ops, registry
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import steps
 from repro_torch.models import layers, moe
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, RECURRENT
 from repro_torch.optim.adamw import AdamW, AdamWConfig, state_dist
 from repro_torch.runtime import sharding, sod_fsdp, spmd
 
@@ -199,14 +200,19 @@ PARTITION_LR = 1e-4
 
 
 def _serve(model, params, tokens, mesh, n_steps: int = 4, patch_embeds=None) -> dict:
-    """Prefill of ``tokens`` (a VLM's after its ``patch_embeds``) and
-    ``n_steps`` greedy decode steps from the prompt's true end, each fed
-    the step before's tokens: every step's tokens and logits."""
+    """Prefill of ``tokens`` (a VLM's after its ``patch_embeds``; a
+    recurrent family's stepped through the decode step from a zeroed
+    cache) and ``n_steps`` greedy decode steps from the prompt's true end,
+    each fed the step before's tokens: every step's tokens and logits."""
     start = tokens.shape[1] + (0 if patch_embeds is None else patch_embeds.shape[1])
     with torch.no_grad():
-        nxt, cache = steps.make_prefill_step(model, mesh=mesh)(params, tokens,
-                                                               patch_embeds=patch_embeds)
-        cache = model.grow_cache(cache, start + n_steps + 1)
+        if model.cfg.family in RECURRENT:     # stepped, as prefill_cache does
+            nxt, cache = steps.make_stepped_prefill(model, mesh=mesh)(
+                params, tokens, start + n_steps + 1)
+        else:
+            nxt, cache = steps.make_prefill_step(model, mesh=mesh)(
+                params, tokens, patch_embeds=patch_embeds)
+            cache = model.grow_cache(cache, start + n_steps + 1)
         decode = steps.make_decode_step(model, mesh=mesh)
         toks, logits, tok = [nxt], [], nxt[:, None]
         for t in range(n_steps):
@@ -301,7 +307,8 @@ def _partition_runs(cases: dict, mesh, name: str) -> dict:
     family's reduced llama in fp32 packed (``tiled_csc``) and dense
     (:func:`_steps_on_mesh`), and the vocab-parallel head, loss and
     embedding (on DENSE_MESHES); then each of ``cases["families"]`` whose meshes hold
-    ``name``: the MoE, VLM and audio families (reduced, fp32)."""
+    ``name``: the MoE, VLM, audio, hybrid and xLSTM families (reduced,
+    fp32)."""
     out = {}
     if name in DENSE_MESHES:
         for mode in ("tiled_csc", "dense"):
