@@ -233,15 +233,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``collective_savings``), then at MESH_SERVE_LAYERS (8) layers prefill
    and 8 decode steps through the step builders with ``mesh=`` on its
    resident blocks, the partitioned program (each rank its rows, its
-   heads, MLP columns and vocabulary, the KV cache its rows and KV
-   heads), fed the single-process run's tokens: decode logits within
+   heads, MLP columns and vocabulary; the KV cache, its length rounded up
+   to a multiple of ``model`` and given to the decode step, its rows and
+   its block of positions of every KV head, the softmax combined across
+   ranks), fed the single-process run's tokens: decode logits within
    LOGIT_TOL of one process's, the greedy agreement printed, (8 · 7) × 9 =
-   504 launches a rank, the mesh run's seconds and a rank's peak memory
-   beside the whole-rows program's (WHOLE_ROWS).  Last, ``loss_and_grads`` at full width and 4 layers,
+   504 launches a rank, the KV leaf's layout, the mesh run's seconds and a
+   rank's peak memory beside the whole-rows program's (WHOLE_ROWS);
+   ``mesh_block_csr`` is served again with no length given, at the
+   unrounded 41 positions (the cache every position of the rank's KV
+   heads).  ``mesh_long``: llama3.2-1b at 8 layers, batch 4, 8 greedy
+   steps at the last positions of a seeded 32,768-position cache (v with
+   an offset a 4,096 positions), each rank on its 2 rows × 16,384
+   positions, against one process: logits within LOGIT_TOL, 448 launches,
+   a quarter of the cache a rank, and a control (one process with v zero
+   on one rank's block) that must move the logits past LOGIT_TOL.  Last,
+   ``loss_and_grads`` at full width and 4 layers,
    batch 4 × 128, against one process (the loss, and every gradient after
    ``runtime.sharding.unplace``) with each rank's peak memory and step
    seconds beside the whole-rows program's.  The phase prints its seconds by part (start,
-   pack, ops, serve, grads);
+   pack, ops, serve, long, grads);
 15. the rest of the distributed runtime, in phase 14's ranks after its
    parts: the engine on the mesh (``Engine(mesh=)``, llama3.2-1b tiled_csc
    at 4 layers, four requests of 8 tokens, every one bit-equal to the mesh
@@ -3659,6 +3670,9 @@ def _paper_entry(name: str, qmode: str, paper: dict) -> dict:
 MESH_SHAPE = (2, 2)                  # (data, model)
 MESH_CELLS = {"mesh_tiled_csc": (TILED_ARGV, None, "sod_matmul"),
               "mesh_block_csr": (BASE_ARGV, _block_sod(), "block_matmul")}
+# the cell also served with no length given to the decode step, at the
+# unrounded length: the cache keeps every position of the rank's KV heads
+MESH_WHOLE_SEQ_CELL = "mesh_block_csr"
 MESH_PLANS = {"dp": {"batch_axes": ("data",)},
               "col": {"batch_axes": ("data",), "col_axis": "model"},
               "row": {"batch_axes": ("data",), "row_axis": "model"},
@@ -3763,7 +3777,8 @@ def _mesh_ops(layer: dict, kernel: str, mesh) -> dict:
 
 def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
                 per_forward: int = MESH_SERVE_LAYERS * 7, gen: int = MESH_GEN, plan=None,
-                mesh_model=None, pin_routing: bool = False, patch_embeds=None) -> dict:
+                mesh_model=None, pin_routing: bool = False, patch_embeds=None,
+                seq_shard: bool = True) -> dict:
     """Prefill (a VLM's with its ``patch_embeds``; a recurrent family's
     prompt stepped through the decode step, ``make_stepped_prefill``) and
     ``gen`` greedy decode steps from the prompt's true end through the
@@ -3776,19 +3791,26 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
     run routes every token as the one-process run chose (:func:`_routing`:
     a rounding apart can send a token to another expert, which the gate
     would charge to the mesh), and counts the choices its own router would
-    have made otherwise (``routing_differs``)."""
+    have made otherwise (``routing_differs``).  With ``seq_shard`` the
+    cache's length is rounded up to a multiple of ``model`` and given to
+    the decode step, which splits its sequence over ``model``; without, it
+    is what the steps need and the mesh's cache keeps every position of
+    the rank's KV heads (:func:`_kv_layout` gates either)."""
     from repro_torch.runtime import spmd
 
     b, s = tokens.shape[:2]
     start = s + (0 if patch_embeds is None else patch_embeds.shape[1])
     recurrent = model.cfg.family in ("hybrid", "ssm")
+    tp = mesh.shape["model"] if seq_shard else 1
+    max_len = -(-(start + gen + 1) // tp) * tp
+    seq_len = max_len if seq_shard else None
     out, ids, differ = {}, [], []
     with torch.inference_mode():
         logits = {}
         for run, p, m, mdl in (("one", params, None, model),
                                ("mesh", placed, mesh, mesh_model or model)):
             prefill = steps_mod.make_prefill_step(mdl, mesh=m, plan=plan)
-            decode = steps_mod.make_decode_step(mdl, mesh=m, plan=plan)
+            decode = steps_mod.make_decode_step(mdl, mesh=m, plan=plan, seq_len=seq_len)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -3797,11 +3819,11 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
                    _routing(record=ids) if run == "one" else _routing(replay=ids, differ=differ))
             with registry.count_dispatches() as counts, spmd.count_collectives() as moved, pin:
                 if recurrent:         # the prompt stepped through the decode step
-                    nxt, cache = steps_mod.make_stepped_prefill(mdl, mesh=m, plan=plan)(
-                        p, tokens, start + gen + 1)
+                    nxt, cache = steps_mod.make_stepped_prefill(
+                        mdl, mesh=m, plan=plan, seq_shard=seq_shard)(p, tokens, max_len)
                 else:
                     nxt, cache = prefill(p, tokens, patch_embeds=patch_embeds)
-                    cache = mdl.grow_cache(cache, start + gen + 1)
+                    cache = mdl.grow_cache(cache, max_len)
                 toks, logs = [nxt[:, None]], []
                 for t in range(gen):
                     feed = toks[-1] if run == "one" else logits["one_tokens"][t]
@@ -3815,6 +3837,12 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
                         "dispatch": counts, "collectives": dict(moved),
                         "seconds": time.perf_counter() - t0,
                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+            if "k" in cache:          # the KV leaf as the rank keeps it
+                out[run]["kv_shape"] = list(cache["k"].shape)
+    if "kv_shape" in out["mesh"]:
+        out["kv_layout"] = _kv_layout((mesh_model or model).cfg, mesh, b, max_len, seq_shard,
+                                      out["mesh"]["kv_shape"])
+    out["max_len"] = max_len
     ref_logits, mesh_logits = logits["one"], logits["mesh"]
     err = (mesh_logits - ref_logits).abs().max().item()
     scale = ref_logits.abs().max().item()
@@ -3832,6 +3860,145 @@ def _mesh_serve(model, params, placed, tokens, kernel: str, mesh, *,
         raise AssertionError(f"mesh serve launches {out['mesh']['launches']}, want {want}")
     if not (torch.isfinite(mesh_logits).all() and err <= LOGIT_TOL * scale):
         raise AssertionError(f"mesh logits {err} > {LOGIT_TOL} x {scale}")
+    return out
+
+
+def _kv_layout(cfg, mesh, batch: int, max_len: int, seq_shard: bool, shape: list) -> str:
+    """Gate a rank's KV leaf ``shape`` after the mesh's decode steps: its
+    rows, and with ``seq_shard`` its block of ``max_len`` positions of
+    every KV head (the sequence split over ``model``), without it every
+    position of the KV heads its query heads read (``local_heads``).
+    Returns the layout's name."""
+    from repro_torch.models import attention
+    from repro_torch.runtime import spmd
+
+    ax = LM(cfg).cache_spec()["k"]
+    heads_ax = transformer.cache_heads(cfg)["k"].axis
+    data = mesh.shape["data"]
+    rows = batch // data if batch % data == 0 else batch
+    if seq_shard:
+        name, want = "sequence block", (rows, max_len // mesh.shape["model"], cfg.n_kv_heads)
+    else:
+        with spmd.use_partition(spmd.Partition(mesh)):
+            local = attention.local_heads(transformer.attn_spec(cfg))
+        name, want = "every position", (rows, max_len,
+                                        cfg.n_kv_heads if local is None else local[2])
+    got = (shape[ax.batch], shape[ax.seq], shape[heads_ax])
+    if got != want:
+        raise AssertionError(f"mesh serve: the KV cache {shape} is not the rank's {name} "
+                             f"(rows, positions, KV heads) {want}")
+    return name
+
+
+# mesh_long: llama3.2-1b at MESH_SERVE_LAYERS and batch 4 over a KV cache
+# of decode_32k's length filled from a seed, LONG_STEPS greedy steps at its
+# last positions, so every rank's block of positions is read; v carries a
+# seeded offset a LONG_SEGMENT positions, so each block's p · v partial is
+# far from 0 (with zero-mean v the output would be a near-zero mean of
+# noise, and a lost block would not move the logits past LOGIT_TOL)
+LONG_LEN, LONG_STEPS, LONG_BATCH, LONG_SEED, LONG_SEGMENT = 32_768, 8, 4, 1234, 4_096
+
+
+def _long_cache(cfg, mesh=None, drop: int = 0) -> dict:
+    """The whole seeded bf16 KV cache (L, LONG_BATCH, LONG_LEN, KV, hd),
+    built a layer at a time: k standard normal, v standard normal plus a
+    standard normal offset for each LONG_SEGMENT positions (of each layer,
+    KV head and channel); with ``drop``, v zero at the first ``drop``
+    positions (what a rank whose ``p · v`` partial was lost would
+    contribute); on ``mesh`` the rank's block of it as the partitioned
+    decode step keeps it (``sharding.decode_cache_specs``: its rows and
+    its positions of every KV head)."""
+    from repro_torch.runtime import sharding
+
+    shape = (1, LONG_BATCH, LONG_LEN, cfg.n_kv_heads, cfg.head_dim)
+    segments = (1, 1, LONG_LEN // LONG_SEGMENT, 1, cfg.n_kv_heads, cfg.head_dim)
+    specs = None if mesh is None else sharding.decode_cache_specs(
+        {n: torch.empty(shape, device="meta") for n in ("k", "v")}, cfg, mesh, LONG_BATCH)
+    layers = {"k": [], "v": []}
+    for i in range(cfg.n_layers):
+        gen = torch.Generator(device="cuda").manual_seed(LONG_SEED + i)
+        k = torch.randn(shape, generator=gen, device="cuda")
+        v = torch.randn(shape, generator=gen, device="cuda")
+        offset = torch.randn(segments, generator=gen, device="cuda")
+        v = (v.unflatten(2, (segments[2], LONG_SEGMENT)) + offset).flatten(2, 3)
+        v[:, :, :drop] = 0
+        layer = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+        del k, v
+        if specs is not None:
+            layer = sharding.place(layer, specs, mesh)
+        for n in layers:
+            layers[n].append(layer[n])
+        del layer
+    return {n: torch.cat(ts) for n, ts in layers.items()}
+
+
+def _mesh_long(model, params, placed, mesh) -> dict:
+    """mesh_long: LONG_STEPS greedy decode steps at positions LONG_LEN -
+    LONG_STEPS onwards over the seeded LONG_LEN-position cache, one
+    process on the whole cache and the mesh on each rank's block (fed the
+    one-process run's tokens): logits within LOGIT_TOL, greedy agreement,
+    MESH_SERVE_LAYERS · 7 launches a step, a rank's cache bytes against
+    the whole cache's (a quarter on (2, 2)), seconds, peak, collective
+    bytes by kind.  The control ``drop``, one process with v zero on the
+    first ``model`` rank's block of positions (that rank's ``p · v``
+    partial lost), must move the logits past LOGIT_TOL, so the gate sees
+    a lost block."""
+    from repro_torch.runtime import spmd
+
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(LONG_SEED)
+    feeds = [torch.randint(0, cfg.vocab, (LONG_BATCH, 1), generator=gen, device="cuda")]
+    start, out, logits, tokens = LONG_LEN - LONG_STEPS, {}, {}, {}
+    block = LONG_LEN // mesh.shape["model"]
+    with torch.inference_mode():
+        for run, p, m, drop in (("one", params, None, 0), ("drop", params, None, block),
+                                ("mesh", placed, mesh, 0)):
+            cache = _long_cache(cfg, m, drop)
+            cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+            decode = steps_mod.make_decode_step(model, mesh=m, seq_len=LONG_LEN)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            logs, toks = [], []
+            with spmd.count_collectives() as moved:
+                for t in range(LONG_STEPS):
+                    nxt, lg, cache = decode(p, cache, feeds[t], start + t)
+                    if run == "one":
+                        feeds.append(nxt.reshape(LONG_BATCH, 1))
+                    toks.append(nxt.reshape(-1))
+                    logs.append(lg[..., :cfg.vocab].float())
+            torch.cuda.synchronize()
+            logits[run], tokens[run] = torch.stack(logs), torch.stack(toks)
+            out[run] = {"launches": {k: mod.launches for k, mod in COUNTERS.items()},
+                        "seconds": time.perf_counter() - t0, "cache_bytes": cache_bytes,
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+                        "collective_bytes": {k: v for k, v in moved.items()
+                                             if k in ("all-gather", "all-reduce", "all-to-all")},
+                        "collective_counts": moved.get("counts", {})}
+            del cache
+            torch.cuda.empty_cache()
+    err = (logits["mesh"] - logits["one"]).abs().max().item()
+    scale = logits["one"].abs().max().item()
+    drop_err = (logits["drop"] - logits["one"]).abs().max().item()
+    out.update({"max_abs_err": err, "max_abs_logit": scale, "tol": LOGIT_TOL * scale,
+                "drop_abs_err": drop_err,
+                "greedy_agreement": (tokens["mesh"] == tokens["one"]).float().mean().item(),
+                "drop_greedy_agreement": (tokens["drop"] == tokens["one"]).float().mean().item(),
+                "positions": [start, LONG_LEN - 1]})
+    want = {"sod_matmul": MESH_SERVE_LAYERS * 7 * LONG_STEPS, "block_matmul": 0,
+            "decompress": 0}
+    if out["mesh"]["launches"] != want:
+        raise AssertionError(f"mesh_long launches {out['mesh']['launches']}, want {want}")
+    quarter = out["one"]["cache_bytes"] // math.prod(MESH_SHAPE)
+    if out["mesh"]["cache_bytes"] != quarter:
+        raise AssertionError(f"mesh_long: a rank's cache {out['mesh']['cache_bytes']} B, "
+                             f"want {quarter}")
+    if not (torch.isfinite(logits["mesh"]).all() and err <= LOGIT_TOL * scale):
+        raise AssertionError(f"mesh_long logits {err} > {LOGIT_TOL} x {scale}")
+    if not drop_err > LOGIT_TOL * scale:
+        raise AssertionError(f"mesh_long: a lost block moved the logits {drop_err}, within "
+                             f"{LOGIT_TOL} x {scale}: the gate cannot see it")
     return out
 
 
@@ -3970,6 +4137,14 @@ DRY_HYBRID_WHOLE_ROWS = {"flops": 2.837e16, "argument_bytes": 5.130e8, "peak_byt
                          "all-gather": 5.145e9}
 # a rank's share: 1.5 × the whole-rows flops over the 256 ranks
 DRY_HYBRID_FLOPS_LIMIT = 1.7e14
+# the decode cell, counted with the KV cache's sequence over ``model`` (the
+# reference's dry-run default) and with SOD_SEQ_SHARD_CACHE=0 (every
+# position on the rank, the rows-and-heads layout: 8.76e9 argument bytes a
+# rank)
+DRY_DECODE_CELL = ("llama3.2-1b", "decode_32k", "tiled_csc")
+DRY_DECODE_WHOLE_SEQ_ARGS = 8.76e9
+DRY_DECODE_ARG_LIMIT = 1e9
+DRY_DECODE_STATS_LIMIT = 1e8         # collective bytes the split may add
 
 
 def _mesh_engine(mesh) -> dict:
@@ -4248,11 +4423,13 @@ def _mesh_elastic(mesh, workdir: str) -> dict:
     return row
 
 
-def _dry_cell(arch: str, shape: str, sod) -> dict:
+def _dry_cell(arch: str, shape: str, sod, seq_shard: str = "1") -> dict:
     """One dry-run cell on rank 0 of the 16 × 16 counting mesh, on meta
-    tensors: nothing launches."""
+    tensors: nothing launches.  ``seq_shard`` is the cell's
+    ``SOD_SEQ_SHARD_CACHE`` (its own process's)."""
     from repro_torch.launch import dryrun
 
+    os.environ["SOD_SEQ_SHARD_CACHE"] = seq_shard
     torch.set_num_threads(1)
     before = {k: mod.launches for k, mod in COUNTERS.items()}
     t0 = time.perf_counter()
@@ -4263,17 +4440,26 @@ def _dry_cell(arch: str, shape: str, sod) -> dict:
 
 
 def _dry_cells() -> dict:
-    """The dry-run cells (DRY_CELL, DRY_MOE_CELL, DRY_HYBRID_CELL), each in
-    a spawned process of its own, so they take a host core each beside the
+    """The dry-run cells (DRY_CELL, DRY_MOE_CELL, DRY_HYBRID_CELL, keyed by
+    arch; DRY_DECODE_CELL with the sequence split, ``decode_32k``, and
+    without, ``decode_32k_whole_seq``, one after the other), each in a
+    spawned process of its own, so they take a host core each beside the
     rank group (one after the other they took 184 s beside it on an H100's
     host)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     cells = (DRY_CELL, DRY_MOE_CELL, DRY_HYBRID_CELL)
-    with ProcessPoolExecutor(len(cells), mp_context=multiprocessing.get_context("spawn")) as pool:
+    with ProcessPoolExecutor(len(cells) + 1,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
         done = [pool.submit(_dry_cell, *cell) for cell in cells]
-        return {cell[0]: f.result() for cell, f in zip(cells, done)}
+        decode = pool.submit(_dry_decode_cells)
+        return {**{cell[0]: f.result() for cell, f in zip(cells, done)}, **decode.result()}
+
+
+def _dry_decode_cells() -> dict:
+    return {"decode_32k": _dry_cell(*DRY_DECODE_CELL),
+            "decode_32k_whole_seq": _dry_cell(*DRY_DECODE_CELL, seq_shard="0")}
 
 
 def mesh_rank(workdir: str, t_launch: str) -> dict:
@@ -4307,7 +4493,14 @@ def mesh_rank(workdir: str, t_launch: str) -> dict:
         seconds["ops"] = seconds.get("ops", 0.0) + time.perf_counter() - t0
         t0 = time.perf_counter()
         serve_row = _mesh_serve(model, params, placed, tokens, kernel, mesh)
+        if cell == MESH_WHOLE_SEQ_CELL:   # and at the unrounded length, unsplit
+            out["whole_seq"] = _mesh_serve(model, params, placed, tokens, kernel, mesh,
+                                           seq_shard=False)
         seconds["serve"] = seconds.get("serve", 0.0) + time.perf_counter() - t0
+        if cell == "mesh_tiled_csc":
+            t0 = time.perf_counter()
+            out["long"] = _mesh_long(model, params, placed, mesh)
+            seconds["long"] = time.perf_counter() - t0
         out["cells"][cell] = {
             "kernel": kernel, "ops": ops_row, "serve": serve_row,
             "resident_bytes": sum(w.nbytes_compressed() for w in resident),
@@ -4382,14 +4575,40 @@ def phase_mesh() -> dict:
                  "prefill_tokens_equal": row["serve"]["prefill_tokens_equal"],
                  "resident_bytes": row["resident_bytes"], "whole_bytes": row["whole_bytes"],
                  "ops": row["ops"]})
+        ws = r["whole_seq"]
+        log({"phase": "mesh_whole_seq", "rank": r["rank"], "cell": MESH_WHOLE_SEQ_CELL,
+             "max_len": ws["max_len"], "kv_shape": ws["mesh"]["kv_shape"],
+             "kv_layout": ws["kv_layout"], "launches": ws["mesh"]["launches"],
+             "mesh_serve_s": ws["mesh"]["seconds"], "max_abs_err": ws["max_abs_err"],
+             "tol": ws["tol"], "greedy_agreement": ws["greedy_agreement"],
+             "prefill_tokens_equal": ws["prefill_tokens_equal"]})
+        lg = r["long"]
+        log({"phase": "mesh_long", "rank": r["rank"], "arch": "llama3.2-1b",
+             "layers": MESH_SERVE_LAYERS, "batch": LONG_BATCH, "cache_len": LONG_LEN,
+             "positions": lg["positions"], "max_abs_err": lg["max_abs_err"], "tol": lg["tol"],
+             "greedy_agreement": lg["greedy_agreement"],
+             "lost_block_abs_err": lg["drop_abs_err"],
+             "lost_block_greedy_agreement": lg["drop_greedy_agreement"],
+             "cache_bytes_a_rank": lg["mesh"]["cache_bytes"],
+             "whole_cache_bytes": lg["one"]["cache_bytes"],
+             "mesh_s": lg["mesh"]["seconds"], "one_process_s": lg["one"]["seconds"],
+             "peak_mem_gb_a_rank": lg["mesh"]["peak_mem_gb"],
+             "one_process_peak_mem_gb": lg["one"]["peak_mem_gb"],
+             "launches": lg["mesh"]["launches"],
+             "collective_bytes": lg["mesh"]["collective_bytes"],
+             "collective_counts": lg["mesh"]["collective_counts"]})
         log({"phase": "mesh_grads", "rank": r["rank"], **r["grads"]})
         log({"phase": "mesh_seconds", "rank": r["rank"], **r["seconds"]})
     first = ranks[0]["cells"]
     for cell in first:     # every rank holds the same logits: the same error
         if len({r["cells"][cell]["serve"]["max_abs_err"] for r in ranks}) != 1:
             raise AssertionError(f"{cell}: the ranks' logits differ")
+    for key in ("long", "whole_seq"):
+        if len({r[key]["max_abs_err"] for r in ranks}) != 1:
+            raise AssertionError(f"mesh {key}: the ranks' logits differ")
     log({"phase": "mesh", "wall_s": wall, "ranks": len(ranks)})
     out = {cell: first[cell]["serve"]["mesh"]["launches"] for cell in first}
+    out["mesh_long"] = ranks[0]["long"]["mesh"]["launches"]
     out.update(_phase15(ranks, dry, dry_s))
     return out
 
@@ -4517,6 +4736,7 @@ def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
         raise AssertionError(f"dry-run hybrid cell: flops {hybrid_port['flops']} (limit "
                              f"{DRY_HYBRID_FLOPS_LIMIT}), peak {hybrid_port['peak_bytes']} B "
                              f"(limit {DRY_PEAK_LIMIT})")
+    _dry_decode_table(dry["decode_32k"], dry["decode_32k_whole_seq"])
     log({"phase": "mesh15_seconds",
          "by_rank": {r["rank"]: {k: r["seconds"].get(k) for k in
                                  ("engine", "moe", "frontends", "recurrent", "elastic")}
@@ -4532,6 +4752,47 @@ def _phase15(ranks: list, dry: dict, dry_s: float) -> dict:
                for arch in RECURRENT_MESH_CELLS},
             "mesh_engine": first["engine"]["launches"],
             "mesh_elastic_step": elastic["launches"]}
+
+
+def _dry_decode_table(split: dict, whole: dict) -> None:
+    """The decode cell's ``dryrun_table`` line, the sequence split beside
+    every position on the rank, and its gates: argument bytes under
+    DRY_DECODE_ARG_LIMIT with the split and within 1 % of
+    DRY_DECODE_WHOLE_SEQ_ARGS without, the split's extra collective bytes
+    under DRY_DECODE_STATS_LIMIT, nothing launched."""
+    cfg = configs.get_config(DRY_DECODE_CELL[0])
+    shape = configs.SHAPES[DRY_DECODE_CELL[1]]
+    # the reference's layout: rows over data (16), positions over model (16)
+    ref_cache = (2 * cfg.n_layers * shape.global_batch // 16 * shape.seq_len // 16
+                 * cfg.n_kv_heads * cfg.head_dim * 2)
+    for name, rec in (("split", split), ("whole_seq", whole)):
+        impls = {k.split("[")[0] for k in rec.get("dispatch_counts", {})}
+        if rec.get("status") != "ok" or any(rec["launches"].values()) or \
+                impls != {"cuda_fused"}:
+            raise AssertionError(f"dry-run decode cell ({name}): {rec.get('status')} "
+                                 f"{rec.get('traceback', '')[-2000:]} launches "
+                                 f"{rec.get('launches')}, dispatched {impls}")
+    row = {k: {"split": rec_s, "whole_seq": rec_w} for k, rec_s, rec_w in (
+        ("flops", split["cost"]["flops"], whole["cost"]["flops"]),
+        ("argument_bytes", split["memory"]["argument_bytes"],
+         whole["memory"]["argument_bytes"]),
+        ("peak_bytes", split["memory"]["peak_bytes"], whole["memory"]["peak_bytes"]),
+        ("all-gather", split["collectives"]["all-gather"], whole["collectives"]["all-gather"]),
+        ("all-reduce", split["collectives"]["all-reduce"], whole["collectives"]["all-reduce"]),
+        ("total", split["collectives"]["total"], whole["collectives"]["total"]))}
+    log({"phase": "dryrun_table", "cell": "__".join(DRY_DECODE_CELL), "mesh": "16x16",
+         "per_rank": row, "reference_layout_cache_bytes": ref_cache,
+         "rows_and_heads_argument_bytes": DRY_DECODE_WHOLE_SEQ_ARGS,
+         "collective_counts": {"split": split["collectives"]["counts"],
+                               "whole_seq": whole["collectives"]["counts"]},
+         "wall_s": {"split": split["wall_s"], "whole_seq": whole["wall_s"]}})
+    args = row["argument_bytes"]
+    added = row["total"]["split"] - row["total"]["whole_seq"]
+    if not (args["split"] < DRY_DECODE_ARG_LIMIT
+            and abs(args["whole_seq"] / DRY_DECODE_WHOLE_SEQ_ARGS - 1) <= 0.01
+            and 0 < added < DRY_DECODE_STATS_LIMIT):
+        raise AssertionError(f"dry-run decode cell: argument bytes {args}, the split's "
+                             f"collectives {added} B more")
 
 
 def main() -> None:

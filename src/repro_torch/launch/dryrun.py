@@ -168,7 +168,9 @@ def _step_and_args(cfg, shape, mesh, plan=None, params=None, inputs=None):
     a real mesh.  The rank holds its placed parameters, its ZeRO-1 blocks
     of the optimizer state and, where the step runs the partitioned
     program (``steps.PARTITIONED``), its rows of the batch (a VLM's patches
-    too) and its block of the decode cache, its rows and heads
+    too) and its block of the decode cache, its rows and a KV leaf's
+    positions (the reference's dry-run default; ``SOD_SEQ_SHARD_CACHE=0``
+    keeps every position) or heads
     (:func:`repro_torch.runtime.sharding.decode_cache_specs`)."""
     model = LM(cfg)
     if params is None:
@@ -206,10 +208,12 @@ def _step_and_args(cfg, shape, mesh, plan=None, params=None, inputs=None):
         return step, (placed, batch)
     cache, tokens = inputs["cache"], inputs["tokens"]
     toks, rows = rows_of({"tokens": tokens})
+    seq_shard = os.environ.get("SOD_SEQ_SHARD_CACHE", "1") == "1"
     if split:
         cache = shard_mod.place(cache, shard_mod.decode_cache_specs(
-            cache, cfg, mesh, tokens.shape[0]), mesh)
-    step = steps_mod.make_decode_step(model, mesh=mesh, plan=plan, rows=rows)
+            cache, cfg, mesh, tokens.shape[0], seq_shard=seq_shard), mesh)
+    step = steps_mod.make_decode_step(model, mesh=mesh, plan=plan, rows=rows,
+                                      seq_len=shape.seq_len if seq_shard else None)
     # the position the 0-d ``pos`` spec stands for: the cache's last
     return step, (placed, cache, toks["tokens"], shape.seq_len - 1)
 

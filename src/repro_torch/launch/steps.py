@@ -22,7 +22,11 @@ every gradient is summed over the data axes (a whole one's in one
 coalesced all-reduce), and at exit the tokens and logits are gathered.
 The decode cache between steps stays the rank's: its rows, the KV heads
 its query heads read, its Mamba2 or mLSTM heads' state
-(:func:`_local_cache`).  A recurrent prompt is served by
+(:func:`_local_cache`); a decode step given its KV cache's length
+(``seq_len``) splits that cache's sequence over ``model`` where the
+length divides it, as the reference's ``cache_specs`` lays it out: the
+rank keeps its block of positions of every KV head, and attention
+combines its softmax across ranks.  A recurrent prompt is served by
 :func:`make_stepped_prefill`, through the partitioned decode step.  The
 engine's steps (``make_prefill_full``, ``make_chunked_prefill_step``,
 ``make_paged_decode_step``, ``make_verify_step``) and ``partition=False``
@@ -38,6 +42,7 @@ with its layer's :class:`~repro_torch.core.plan.PackPlan`.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import weakref
 
 import torch
@@ -99,10 +104,14 @@ def _local_cache(cache, part: spmd.Partition, model: LM, rows: int):
     :func:`repro_torch.models.transformer.cache_heads` names: its block
     where the heads divide ``model``, a KV leaf's the KV heads its query
     heads read, :func:`repro_torch.models.attention.local_heads`) of a
-    whole cache; the cache itself where it holds them already."""
+    whole cache; the cache itself where it holds them already.  Where the
+    sequence splits (``part.seq``), a KV leaf as :func:`_seq_local` keeps
+    it."""
     kv = attention.local_heads(transformer.attn_spec(model.cfg))
 
     def local(ax, t, heads):
+        if part.seq is not None and ax.seq is not None:
+            return _seq_local(ax, t, heads, part, rows)
         if t.shape[ax.batch] != rows:
             t = spmd._own_block(t, part.mesh, part.rows, ax.batch)
         block = _head_block(heads, kv)
@@ -112,6 +121,37 @@ def _local_cache(cache, part: spmd.Partition, model: LM, rows: int):
 
     return cache_mod.map_axes(local, model.cache_spec(), cache,
                               transformer.cache_heads(model.cfg))
+
+
+def _seq_local(ax, t, heads, part: spmd.Partition, rows: int):
+    """A KV leaf under the sequence split, whose whole length the step was
+    given (``part.seq``): the leaf itself where it holds the rank's block
+    of positions (as this step returns it, or :func:`~repro_torch.runtime.
+    sharding.place` of :func:`~repro_torch.runtime.sharding.
+    decode_cache_specs` leaves it); from a leaf of every position (a whole
+    cache, or the rank's rows and the KV heads its query heads read, as
+    the partitioned prefill returns it), its rows, every KV head
+    all-gathered over ``model``, then a copy of its block of positions
+    (:func:`repro_torch.runtime.spmd.seq_block`).  Any other length
+    raises."""
+    first, size = spmd.seq_block()
+    n = t.shape[ax.seq]
+    if n == size:
+        if t.shape[ax.batch] != rows or t.shape[heads.axis] != heads.heads:
+            raise ValueError(f"a block of {n} positions of shape {tuple(t.shape)}: want "
+                             f"{rows} rows and {heads.heads} KV heads")
+        return t
+    if n != part.seq:
+        raise ValueError(f"a KV leaf of {n} positions on a decode step over {part.seq}: "
+                         f"neither every position nor a rank's block of {size}")
+    if t.shape[ax.batch] != rows:
+        t = spmd._own_block(t, part.mesh, part.rows, ax.batch)
+    if t.shape[heads.axis] != heads.heads:
+        t = spmd.all_gather(t, part.mesh, "model", heads.axis, "reshard_bytes")
+        if t.shape[heads.axis] != heads.heads:   # each rank held the one its heads share
+            step = part.tp // heads.heads
+            t = t.index_select(heads.axis, torch.arange(0, part.tp, step, device=t.device))
+    return t.narrow(ax.seq, first, size).clone(memory_format=torch.contiguous_format)
 
 
 def _head_block(heads, kv):
@@ -260,9 +300,22 @@ def make_prefill_step(model: LM, mesh=None, plan=None, partition: bool = True, r
     return prefill_step
 
 
-def make_decode_step(model: LM, mesh=None, plan=None, partition: bool = True, rows=None):
+def make_decode_step(model: LM, mesh=None, plan=None, partition: bool = True, rows=None,
+                     seq_len: int | None = None):
     """``(params, cache, tokens, pos) -> (greedy tokens (B, 1), logits,
-    cache)``.  ``partition=False`` runs whole rows on a mesh."""
+    cache)``; ``pos`` an int or (B,).  ``partition=False`` runs whole rows
+    on a mesh.  ``seq_len`` is the whole length of the KV cache the step
+    serves, given where its sequence is to split over ``model``, as the
+    reference's ``cache_specs(seq_len=, seq_shard=True)`` is given it: in
+    the partitioned step, where it divides ``model``
+    (:func:`repro_torch.runtime.sharding.seq_split`), the step takes a
+    cache of every position (whole, or the one the partitioned prefill
+    returned, grown to ``seq_len``) or the rank's block of it, and returns
+    the rank's block of positions of every KV head (:func:`_seq_local`);
+    otherwise the cache keeps the rank's rows and KV heads of every
+    position."""
+    seq = None if mesh is None else sharding.seq_split(model.cfg, mesh, seq_len)
+
     def decode_step(params, cache, tokens, pos):
         part = partition_for(model, mesh, tokens.shape[0], rows) if partition else None
         if part is None:
@@ -271,6 +324,10 @@ def make_decode_step(model: LM, mesh=None, plan=None, partition: bool = True, ro
                                                   tokens, pos)
             return logits.argmax(dim=-1), logits, cache
         tokens = _take_rows(tokens, part, rows is not None)
+        if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+            pos = _take_rows(pos, part, rows is not None)
+        if seq is not None:
+            part = dataclasses.replace(part, seq=seq)
         with mesh_context(mesh), use_plan(plan), spmd.use_partition(part):
             cache = _local_cache(cache, part, model, tokens.shape[0])
             logits, cache = model.decode_step(params, cache, tokens, pos)
@@ -280,27 +337,30 @@ def make_decode_step(model: LM, mesh=None, plan=None, partition: bool = True, ro
     return decode_step
 
 
-def make_stepped_prefill(model: LM, mesh=None, plan=None):
+def make_stepped_prefill(model: LM, mesh=None, plan=None, seq_shard: bool = True):
     """``(params, tokens, max_len) -> (greedy next tokens (B,), cache)``: the
     prompt served as ``launch/serve.py:prefill_cache`` serves a recurrent
     family's, stepped through :func:`make_decode_step` from a zeroed cache
     of ``max_len`` positions (which builds the state exactly); on a mesh
     through the partitioned decode step, from the rank's own zeroed rows
-    and heads."""
-    decode = make_decode_step(model, mesh=mesh, plan=plan)
-
+    and heads, a KV leaf's block of positions where ``seq_shard`` splits
+    its sequence (the decode step to follow is then given ``seq_len =
+    max_len``)."""
     def stepped_prefill(params, tokens, max_len):
+        seq_len = max_len if seq_shard else None
+        decode = make_decode_step(model, mesh=mesh, plan=plan, seq_len=seq_len)
         b = tokens.shape[0]
         part = partition_for(model, mesh, b)
         if part is None:
             cache = model.init_cache(b, max_len, tokens.device)
         else:
             rows = b // spmd._axes_size(part.mesh, part.rows)
+            part = dataclasses.replace(part, seq=sharding.seq_split(model.cfg, mesh, seq_len))
+            zero = model.init_cache(rows, max_len // (part.tp if part.seq else 1),
+                                    tokens.device)
             with spmd.use_partition(part):
-                cache = cache_mod.map_axes(
-                    lambda _, t: t.clone(), model.cache_spec(),
-                    _local_cache(model.init_cache(rows, max_len, tokens.device), part,
-                                 model, rows))
+                cache = cache_mod.map_axes(lambda _, t: t.clone(), model.cache_spec(),
+                                           _local_cache(zero, part, model, rows))
         for t in range(tokens.shape[1]):
             nxt, _, cache = decode(params, cache, tokens[:, t:t + 1], t)
         return nxt[:, 0], cache

@@ -29,7 +29,12 @@ attention runs on the rank's query heads and the KV heads they read
 ``model``, else the KV head the rank's query heads share (the columns of
 a whole dense ``wk`` / ``wv``; a packed one's whole output narrowed);
 where the query heads do not divide ``model`` (or straddle groups) every
-rank attends with every head.  The cache keeps the rank's KV heads.
+rank attends with every head.  The cache keeps the rank's KV heads.  A
+decode step whose KV cache splits its sequence over ``model`` (the
+reference's ``cache_specs``; :func:`repro_torch.runtime.spmd.seq_block`)
+instead scores every head on the rank's block of positions and combines
+the softmax across ranks (:func:`_attend_block`): only max and sum
+statistics and the float32 partial outputs cross, never the cache.
 There, while gradients are recorded, :func:`chunked_attention` keeps each
 query chunk's inputs only and runs its forward again in the backward
 (a rank that attends with every head would otherwise hold every chunk's
@@ -85,10 +90,11 @@ def init_attention(gen: torch.Generator, d_model: int, spec: AttnSpec,
 
 
 def _project_qkv(params: Params, x: torch.Tensor, spec: AttnSpec,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, every_head: bool = False):
     """q, k, v after RoPE, (B, S, heads, hd).  In the partitioned program:
     the rank's query heads and the KV heads they read (:func:`local_heads`),
-    as the cache keeps them."""
+    as the cache keeps them; with ``every_head`` every head, put together
+    over ``model``."""
     b, s, d = x.shape
     part = spmd.active_partition()
     if part is None:
@@ -96,7 +102,7 @@ def _project_qkv(params: Params, x: torch.Tensor, spec: AttnSpec,
         k = sod.apply(x, params["wk"]).reshape(b, s, spec.n_kv_heads, spec.head_dim)
         v = sod.apply(x, params["wv"]).reshape(b, s, spec.n_kv_heads, spec.head_dim)
     else:
-        hd, heads = spec.head_dim, local_heads(spec)
+        hd, heads = spec.head_dim, None if every_head else local_heads(spec)
         q = layers.linear(x, params["wq"], d, spec.n_heads * hd)
         q = layers.to_layout(q, spec.n_heads * hd, heads is not None)
         k, v = (_local_kv(x, params[n], spec, heads, part) for n in ("wk", "wv"))
@@ -329,8 +335,23 @@ def decode_attention(params: Params, x: torch.Tensor, cache: Params, pos,
     ``pos`` is an int (every row at the same position — the static serve
     path) or a (B,) int64 tensor (ragged continuous batching: each row
     writes its new KV at its own position and gets its own causal / window
-    mask).  Returns (output (B, 1, D), cache)."""
+    mask).  Returns (output (B, 1, D), cache).
+
+    Where the partitioned step splits the cache's sequence over ``model``
+    (:func:`repro_torch.runtime.spmd.seq_block`), ``cache`` holds the
+    rank's block of positions of every KV head: the new token's q, k and
+    v are put together whole on every rank, the rank that holds ``pos``
+    writes k and v, and every head attends on the block
+    (:func:`_attend_block`)."""
     b, _, d = x.shape
+    block = spmd.seq_block()
+    if block is not None:
+        q, k_new, v_new = _project_qkv(params, x, spec, _decode_positions(pos, b, x.device),
+                                       every_head=True)
+        _write_block(cache, k_new, v_new, pos, *block)
+        out = _attend_block(q, cache["k"], cache["v"], pos, spec, window, block[0])
+        return layers.linear(out.to(x.dtype), params["wo"], spec.n_heads * spec.head_dim,
+                             d), cache
     q, k_new, v_new = _project_qkv(params, x, spec,
                                    _decode_positions(pos, b, x.device))
     if isinstance(pos, torch.Tensor):
@@ -343,6 +364,54 @@ def decode_attention(params: Params, x: torch.Tensor, cache: Params, pos,
     out = _attend_cached(q, cache["k"], cache["v"], pos, local_spec(spec), window)
     return layers.linear(out.to(x.dtype), params["wo"], spec.n_heads * spec.head_dim,
                          d), cache
+
+
+def _write_block(cache: Params, k_new: torch.Tensor, v_new: torch.Tensor, pos,
+                 first: int, size: int) -> None:
+    """Write the new token's k and v (B, 1, KV, hd) into a rank's block of
+    positions ``[first, first + size)``, in place: a row whose ``pos`` (an
+    int or (B,)) lies outside the block keeps what the block held."""
+    if not isinstance(pos, torch.Tensor):
+        if first <= pos < first + size:
+            cache["k"][:, pos - first] = k_new[:, 0]
+            cache["v"][:, pos - first] = v_new[:, 0]
+        return
+    local = pos - first
+    inside = ((local >= 0) & (local < size))[:, None, None]
+    rows, at = torch.arange(pos.shape[0], device=pos.device), local.clamp(0, size - 1)
+    for name, new in (("k", k_new), ("v", v_new)):
+        t = cache[name]
+        t[rows, at] = torch.where(inside, new[:, 0].to(t.dtype), t[rows, at])
+
+
+def _attend_block(q, k_block, v_block, pos, spec: AttnSpec, window: int | None,
+                  first: int) -> torch.Tensor:
+    """:func:`_attend_cached` over a cache whose positions split over
+    ``model``: q (B, 1, H, hd) every head; the blocks (B, size, KV, hd)
+    hold positions ``first + arange(size)``, masked by those global
+    positions.  In the reference's rounding order: the scores' max over
+    ``model``; ``exp(s - m)`` summed over ``model``; ``p = exp(s - m) /
+    l`` in the cache's dtype; the float32 partial ``p · v`` summed over
+    ``model``.  A rank whose block is wholly masked adds exactly 0
+    (``NEG_INF`` is finite).  Returns (B, 1, H · hd) float32, every head."""
+    part = spmd.active_partition()
+    b, size = q.shape[0], k_block.shape[1]
+    kvh = spec.n_kv_heads
+    scores = _block_scores(q.reshape(b, 1, kvh, spec.n_heads // kvh, spec.head_dim),
+                           k_block, spec)                       # (B,KV,G,1,size)
+    k_pos = first + torch.arange(size, device=q.device)
+    at = pos[:, None] if isinstance(pos, torch.Tensor) else pos
+    mask = k_pos <= at
+    if window is not None:
+        mask &= k_pos > at - window
+    if isinstance(pos, torch.Tensor):
+        mask = mask[:, None, None, None, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    m = spmd.pmax(scores.amax(dim=-1, keepdim=True), part.mesh, "model")
+    e = torch.exp(scores - m)
+    p = e / spmd.all_reduce(e.sum(dim=-1, keepdim=True), part.mesh, "model")
+    out = torch.einsum("bkgqc,bckh->bqkgh", p.to(v_block.dtype).float(), v_block.float())
+    return spmd.all_reduce(out, part.mesh, "model").reshape(b, 1, spec.n_heads * spec.head_dim)
 
 
 # ---------------------------------------------------------------------------

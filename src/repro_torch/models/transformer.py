@@ -49,7 +49,13 @@ columns, experts and vocabulary (:mod:`repro_torch.models.layers`,
 :mod:`repro_torch.models.ssm`, :mod:`repro_torch.models.xlstm`), and the
 decode cache holds the rank's rows, the KV heads its query heads read
 and its Mamba2 or mLSTM heads' state (:func:`cache_heads`), each layer's
-slice going in and coming out as the rank holds it.
+slice going in and coming out as the rank holds it.  Where the decode
+step splits a KV cache's sequence over ``model`` (the reference's
+``cache_specs``; :func:`repro_torch.runtime.spmd.seq_block`), a KV leaf
+holds the rank's block of positions of every KV head instead, and the
+attention of every family that keeps one (the hybrid's shared block too)
+combines its softmax over ``model``
+(:func:`repro_torch.models.attention.decode_attention`).
 """
 from __future__ import annotations
 
@@ -447,16 +453,17 @@ def transformer_cache_spec(cfg: ModelConfig) -> Params:
     return {"k": kv, "v": kv}
 
 
-def cache_heads(cfg: ModelConfig) -> Params:
+def cache_heads(cfg: ModelConfig, seq_split: bool = False) -> Params:
     """The decode cache's tree (as :meth:`repro_torch.models.model.LM.
     cache_spec`) with a :class:`repro_torch.models.cache.HeadAxis` at each
-    leaf that holds heads, None elsewhere: the KV leaves' KV heads (axis
-    3); the hybrid's Mamba2 state at its heads and its x conv state at
-    their channels (``conv.b`` and ``conv.c`` hold none); the xLSTM's
-    mLSTM ``c``, ``n`` and ``m`` at its heads (its conv state holds the
-    whole u, sLSTM's state every head: the partitioned program runs them
-    whole)."""
-    kv = cache_mod.HeadAxis(3, cfg.n_kv_heads, kv=True)
+    leaf that holds heads a rank may split, None elsewhere: the KV
+    leaves' KV heads (axis 3; None under ``seq_split``, where a rank
+    keeps its block of positions of every KV head); the hybrid's Mamba2
+    state at its heads and its x conv state at their channels
+    (``conv.b`` and ``conv.c`` hold none); the xLSTM's mLSTM ``c``, ``n``
+    and ``m`` at its heads (its conv state holds the whole u, sLSTM's
+    state every head: the partitioned program runs them whole)."""
+    kv = None if seq_split else cache_mod.HeadAxis(3, cfg.n_kv_heads, kv=True)
     if cfg.family == "hybrid":
         m = mamba_spec(cfg)
         return {"ssm": cache_mod.HeadAxis(3, m.n_heads),

@@ -56,8 +56,9 @@ from repro_torch.runtime import spmd
 from repro_torch.runtime.spmd import _axes_of, all_gather
 
 __all__ = ["param_specs", "opt_state_specs", "train_state_specs", "batch_specs",
-           "cache_specs", "decode_cache_specs", "packed_matmul_plans", "place", "unplace",
-           "whole", "split_axes", "layout_specs", "split_plain", "gather_plain", "is_split"]
+           "cache_specs", "decode_cache_specs", "seq_split", "packed_matmul_plans",
+           "place", "unplace", "whole", "split_axes", "layout_specs", "split_plain",
+           "gather_plain", "is_split"]
 
 Params = Any
 
@@ -317,19 +318,25 @@ def cache_specs(cache: Params, cfg, mesh, batch_size: int,
     return _map_leaves(one, cache)
 
 
-def decode_cache_specs(cache: Params, cfg, mesh, batch_size: int) -> Params:
+def decode_cache_specs(cache: Params, cfg, mesh, batch_size: int,
+                       seq_shard: bool = True) -> Params:
     """A decode cache as a partitioned step keeps it, read from the
     family's own axes, never from a size (a cache's L, G, P or n_m can
-    equal the batch, which the reference's :func:`cache_specs` would
-    take): each leaf's batch axis (:meth:`repro_torch.models.model.LM.
-    cache_spec`) over the data axes where ``batch_size`` divides them, and
-    its heads (:func:`repro_torch.models.transformer.cache_heads`) over
-    ``model`` where they divide it: a KV cache's KV heads, the hybrid's
-    Mamba2 ``ssm`` state at its heads and ``conv.x`` at their channels,
-    the xLSTM's mLSTM ``c``, ``n`` and ``m`` at its heads; ``conv.b``,
+    equal the batch, and a reduced config's ``head_dim`` its length, which
+    the reference's :func:`cache_specs` would take): each leaf's batch
+    axis (:meth:`repro_torch.models.model.LM.cache_spec`) over the data
+    axes where ``batch_size`` divides them; a KV leaf's sequence axis over
+    ``model`` where the reference's ``seq_shard`` splits it
+    (:func:`seq_split` of the length the leaf holds, a whole cache's:
+    it divides ``model``), every KV head whole; else the leaf's heads
+    (:func:`repro_torch.models.transformer.cache_heads`) over ``model``
+    where they divide it: a KV cache's KV heads, the hybrid's Mamba2
+    ``ssm`` state at its heads and ``conv.x`` at their channels, the
+    xLSTM's mLSTM ``c``, ``n`` and ``m`` at its heads; ``conv.b``,
     ``conv.c``, the mLSTM conv and sLSTM's state take rows only.  The
-    sequence dim stays whole (the reference's sequence split over
-    ``model`` is not ported)."""
+    recurrent state's heads split over ``model``, where the reference's
+    rule places it by rows only: the partitioned step runs those heads
+    on their own rank."""
     from repro_torch.models import cache as cache_mod  # deferred: rules over models
     from repro_torch.models import transformer
     from repro_torch.models.model import LM
@@ -338,15 +345,50 @@ def decode_cache_specs(cache: Params, cfg, mesh, batch_size: int) -> Params:
     dp_ax = dp if len(dp) > 1 else dp[0]
     rows = dp_ax if batch_size % _axis_size(mesh, dp_ax) == 0 else None
     tp = mesh.shape.get("model", 1)
+    split = seq_split(cfg, mesh, _kv_length(cache, cfg), seq_shard) is not None
 
     def one(ax, leaf, heads):
         spec = [None] * leaf.ndim
         spec[ax.batch] = rows
+        if split and ax.seq is not None:
+            spec[ax.seq] = "model"
         if heads is not None and tp > 1 and heads.heads % tp == 0:
             spec[heads.axis] = "model"
         return tuple(spec)
 
-    return cache_mod.map_axes(one, LM(cfg).cache_spec(), cache, transformer.cache_heads(cfg))
+    return cache_mod.map_axes(one, LM(cfg).cache_spec(), cache,
+                              transformer.cache_heads(cfg, seq_split=split))
+
+
+def _kv_length(cache: Params, cfg) -> int | None:
+    """The length of ``cache``'s KV leaves at the sequence axis
+    :meth:`repro_torch.models.model.LM.cache_spec` names; None for a cache
+    without one (the xLSTM's)."""
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models.model import LM
+
+    found: list = []
+    cache_mod.map_axes(lambda ax, t: found.append(t.shape[ax.seq]) if ax.seq is not None
+                       else None, LM(cfg).cache_spec(), cache)
+    return found[0] if found else None
+
+
+def seq_split(cfg, mesh, seq_len: int | None, seq_shard: bool = True) -> int | None:
+    """``seq_len`` where a decode step on ``mesh`` splits a
+    ``seq_len``-position KV cache's sequence over ``model`` (the
+    reference's ``cache_specs(seq_len=, seq_shard=True)``, its dry-run's
+    default: ``model`` > 1 and the length divides it), else None; None too
+    for a family without a KV leaf (the xLSTM's) and for no ``seq_len``,
+    as the reference's rule splits nothing without one."""
+    from repro_torch.models import cache as cache_mod
+    from repro_torch.models.model import LM
+
+    tp = mesh.shape.get("model", 1)
+    if not (seq_shard and seq_len and tp > 1 and seq_len % tp == 0):
+        return None
+    kv: list = []
+    cache_mod.map_axes(lambda ax: kv.append(ax.seq is not None), LM(cfg).cache_spec())
+    return seq_len if any(kv) else None
 
 
 # ---------------------------------------------------------------------------

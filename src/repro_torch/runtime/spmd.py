@@ -51,7 +51,11 @@ other's transpose under autograd.
 The partitioned program (:class:`Partition`, :func:`use_partition`): a
 step of every family runs every op on the rank's rows and on its share
 of heads (:func:`model_block`), MLP columns, routed experts, vocabulary
-and codebook columns, as GSPMD partitions the reference's jitted step.
+and codebook columns, as GSPMD partitions the reference's jitted step; a
+decode step whose KV cache splits its sequence over ``model`` (the
+reference's ``cache_specs``) attends on the rank's block of positions
+(:func:`seq_block`), the softmax's max (:func:`pmax`) and sums
+(:func:`all_reduce`) taken over ``model``.
 Packed products then take the local contract under the plan of their
 resident block (:func:`sod_matmul_local`), and
 plain ops move between whole and split layouts with four differentiable
@@ -99,6 +103,7 @@ __all__ = [
     "use_partition",
     "active_partition",
     "model_block",
+    "seq_block",
     "psum",
     "pmax",
     "grad_sum",
@@ -500,10 +505,12 @@ class Partition:
     reference's sharded step: the batch rows split over ``rows`` (the data
     axes where they divide the batch; none, every rank holding every row,
     where they do not), and heads, MLP columns and vocabulary over
-    ``model``."""
+    ``model``; in a decode step whose KV cache splits its sequence over
+    ``model``, ``seq`` is the whole cache's length (None otherwise)."""
 
     mesh: object
     rows: tuple[str, ...] = ()
+    seq: int | None = None
 
     @property
     def tp(self) -> int:
@@ -526,6 +533,17 @@ def model_block(n: int) -> tuple[int, int] | None:
     if part is None or part.tp == 1 or n % part.tp:
         return None
     count = n // part.tp
+    return part.part * count, count
+
+
+def seq_block() -> tuple[int, int] | None:
+    """In a partitioned decode step whose KV cache splits its sequence
+    over ``model``, ``(first, count)`` of the rank's block of positions;
+    None otherwise."""
+    part = active_partition()
+    if part is None or part.seq is None:
+        return None
+    count = part.seq // part.tp
     return part.part * count, count
 
 
@@ -569,7 +587,8 @@ def psum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 def pmax(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The largest of every rank's ``t`` over ``axes`` (no gradient): every
-    rank's gathered, then the largest taken (exact in any order)."""
+    rank's gathered, then the largest taken (exact in any order; counted
+    as an ``all-gather``)."""
     n = _axes_size(mesh, _axes_of(axes))
     if n == 1:
         return t.detach()

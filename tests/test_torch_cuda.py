@@ -1858,3 +1858,33 @@ def test_mesh_elastic_on_card(mesh_phase15):
         assert abs(e["loss"] - e["loss_one_process"]) <= 1e-4 * abs(e["loss_one_process"])
         err = dict(e["state_err"])
         assert err.pop("step_equal") and max(err.values()) <= 2e-2, err
+
+
+@pytest.fixture(scope="module")
+def mesh_seq_decode(tmp_path_factory):
+    """The partitioned decode step over a KV cache whose sequence splits
+    over ``model``, on a (2, 2) mesh of four ranks on the one card
+    (``tests/torch_mesh_cases.py:card_seq_decode``), run once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import pathlib
+
+    from repro_torch.launch import mesh as mesh_mod
+
+    work = tmp_path_factory.mktemp("mesh_seq")
+    cases = pathlib.Path(__file__).resolve().parent / "torch_mesh_cases.py"
+    return mesh_mod.run_ranks(4, f"{cases}:card_seq_decode", work, args=(work,), timeout=300)
+
+
+@pytest.mark.cuda
+def test_mesh_sequence_split_decode_on_card(mesh_seq_decode):
+    """Reduced llama (fp32, tiled_csc) served into a 48-position cache on
+    (2, 2): every rank keeps 4 rows × 24 positions × both KV heads, its
+    greedy tokens equal one process's on the card and its logits lie
+    within the fp32 tolerance of them (a fraction of the largest logit);
+    each rank launched its local ``sod_matmul`` 2 layers × 7 projections
+    × (the prefill + 4 steps) times."""
+    for r in mesh_seq_decode:
+        assert r["kv_shape"] == [2, 4, 24, 2, 32]
+        assert r["tokens_equal"] and r["rel_err"] <= TOL[torch.float32], r
+        assert r["launches"] == 2 * 7 * 5

@@ -397,3 +397,88 @@ def test_partitioned_family_train_cell_divides_the_work(arch):
     assert 0 < got["cost"]["flops"] <= 1.5 / 8 * one["cost"]["flops"]
     assert 0 < got["memory"]["argument_bytes"] <= 0.35 * one["memory"]["argument_bytes"]
     assert got["memory"]["peak_bytes"] < one["memory"]["peak_bytes"]
+
+
+# ---------------------------------------------------------------------------
+# the decode cache's sequence over ``model``
+# ---------------------------------------------------------------------------
+def _block_bytes(shape, spec, sizes, itemsize) -> int:
+    """Bytes of one rank's block of a leaf of ``shape`` under ``spec``."""
+    n = itemsize
+    for d, ax in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        n *= d // (sizes[ax] if ax is not None else 1)
+    return n
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "gemma2-27b", "zamba2-2.7b"])
+def test_decode_cache_blocks_match_reference_cache_specs(arch):
+    """At ``decode_32k`` on the 16 × 16 mesh each KV leaf's rank block
+    (``decode_cache_specs``, its axes read from ``LM.cache_spec``) holds
+    the bytes of the reference's shard under its ``cache_specs`` on
+    ``AbstractMesh((16, 16))``, the same roles split: the rows over
+    ``data``, the sequence over ``model`` (the two packages stack layers
+    differently, so roles and bytes are compared, not the tuples)."""
+    from repro.launch import specs as jspecs_mod
+    from repro.runtime import sharding as jsharding
+    from repro_torch.runtime import sharding
+
+    shape = base.SHAPES["decode_32k"]
+    cfg, jcfg = configs.get_config(arch), jconfigs.get_config(arch)
+    sizes = {"data": 16, "model": 16}
+    cache = specs.input_specs(cfg, shape)["cache"]
+    jcache = jspecs_mod.input_specs(jcfg, jbase.SHAPES["decode_32k"])["cache"]
+    mesh = mesh_mod.AbstractMesh((16, 16), ("data", "model"))
+    got = sharding.decode_cache_specs(cache, cfg, mesh, shape.global_batch)
+    want = jsharding.cache_specs(jcache, jcfg, JAbstractMesh((16, 16), ("data", "model")),
+                                 shape.global_batch, seq_len=shape.seq_len, seq_shard=True)
+    axes = dryrun.LM(cfg).cache_spec()
+    for name in ("k", "v"):
+        t, jt = cache[name], jcache[name]
+        port = _block_bytes(t.shape, got[name], sizes, t.element_size())
+        ref = _block_bytes(jt.shape, tuple(want[name]), sizes, jt.dtype.itemsize)
+        assert port == ref == t.numel() * t.element_size() // 256
+        roles = {ax: i for i, ax in enumerate(got[name]) if ax is not None}
+        assert roles == {"data": axes[name].batch, "model": axes[name].seq}
+        jroles = {ax: jt.shape[i] for i, ax in enumerate(tuple(want[name])) if ax is not None}
+        assert jroles == {"data": shape.global_batch, "model": shape.seq_len}
+
+
+def _decode_32k(monkeypatch, seq_shard: str):
+    monkeypatch.setenv("SOD_SEQ_SHARD_CACHE", seq_shard)
+    return dryrun.build_cell("llama3.2-1b", "decode_32k", False, None, 0.3, n_layers=2)
+
+
+@pytest.mark.parametrize("seq_shard, share", [("1", 256), ("0", 16)])
+def test_decode_32k_rank_holds_its_share_of_the_cache(monkeypatch, seq_shard, share):
+    """llama3.2-1b's ``decode_32k`` cell at 2 layers: rank 0's cache holds
+    exactly 1/256 of the whole cache (rows over ``data``, positions over
+    ``model``: the reference's dry-run default), and 1/16 under
+    ``SOD_SEQ_SHARD_CACHE=0`` (rows only: the 8 KV heads do not divide
+    ``model`` = 16)."""
+    cfg, shape, mesh, plan = _decode_32k(monkeypatch, seq_shard)
+    _, args = dryrun._step_and_args(cfg, shape, mesh, plan)
+    whole = specs.input_specs(cfg, shape)["cache"]
+    for name in ("k", "v"):
+        assert args[1][name].numel() * share == whole[name].numel()
+
+
+def test_decode_32k_split_moves_only_statistics(monkeypatch):
+    """The same cell counted with and without the split: with it, each
+    layer adds two all-reduces (the softmax's sum and the partial outputs)
+    and two all-gathers (the scores' maxima and the query heads), under
+    1e6 bytes in all, where the whole cache's argument bytes fall by
+    15/16 of the cache; a rank's flops stay within 10 % (it scored its
+    2 query heads over every position, and now every head over its
+    2,048)."""
+    split = dryrun.measure(*_decode_32k(monkeypatch, "1"))
+    rows = dryrun.measure(*_decode_32k(monkeypatch, "0"))
+    cfg, shape, *_ = _decode_32k(monkeypatch, "1")
+    cache = specs.input_specs(cfg, shape)["cache"]
+    cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size() // 16
+    c1, c0 = split["collectives"], rows["collectives"]
+    assert c1["counts"]["all-reduce"] - c0["counts"]["all-reduce"] == 2 * cfg.n_layers
+    assert c1["counts"]["all-gather"] - c0["counts"]["all-gather"] == 2 * cfg.n_layers
+    assert 0 < c1["total"] - c0["total"] < 1e6
+    assert rows["memory"]["argument_bytes"] - split["memory"]["argument_bytes"] == \
+        cache_bytes * 15 // 16
+    assert abs(split["cost"]["flops"] / rows["cost"]["flops"] - 1) < 0.1

@@ -58,30 +58,34 @@ CASES = {
 def test_decode_cache_specs_read_the_family_axes(case):
     """Rows over ``data`` at the batch axis ``cache_spec()`` names (where
     the batch divides it), heads over ``model`` where they divide it: the
-    Mamba2 state at H and ``conv.x`` at its channels, the shared block's
-    KV at its KV heads, mLSTM's ``c``, ``n``, ``m`` at H; ``conv.b``,
-    ``conv.c``, the mLSTM conv and sLSTM's state rows only."""
+    Mamba2 state at H and ``conv.x`` at its channels, mLSTM's ``c``, ``n``,
+    ``m`` at H; ``conv.b``, ``conv.c``, the mLSTM conv and sLSTM's state
+    rows only.  A KV leaf's 16 positions divide ``model``, so its sequence
+    axis splits over ``model`` (the reference's ``seq_shard``); with
+    ``seq_shard=False`` its KV heads do where they divide it."""
     arch, fields, batch, shape = CASES[case]
     cfg, cache = _cache(arch, batch, **fields)
     mesh = mesh_mod.AbstractMesh(shape, ("data", "model"))
     specs = sharding.decode_cache_specs(cache, cfg, mesh, batch)
+    whole_seq = sharding.decode_cache_specs(cache, cfg, mesh, batch, seq_shard=False)
     rows = "data" if batch % shape[0] == 0 else None
     tp = shape[1]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "hybrid"):
         kv = "model" if cfg.n_kv_heads % tp == 0 else None
-        assert specs["k"] == specs["v"] == (None, rows, None, kv, None)
+        assert specs["k"] == specs["v"] == (None, rows, "model", None, None)
+        assert whole_seq["k"] == whole_seq["v"] == (None, rows, None, kv, None)
+    if cfg.family == "dense":
         assert cache["k"].shape[0] == batch
         return
     if cfg.family == "hybrid":
         heads = "model" if (2 * cfg.d_model // cfg.ssm_headdim) % tp == 0 else None
-        kv = "model" if cfg.n_kv_heads % tp == 0 else None
-        assert specs["ssm"] == (None, None, rows, heads, None, None)
-        assert specs["conv"] == {"x": (None, None, rows, None, heads),
-                                 "b": (None, None, rows, None, None),
-                                 "c": (None, None, rows, None, None)}
-        assert specs["k"] == specs["v"] == (None, rows, None, kv, None)
+        assert specs["ssm"] == whole_seq["ssm"] == (None, None, rows, heads, None, None)
+        assert specs["conv"] == whole_seq["conv"] == {"x": (None, None, rows, None, heads),
+                                                      "b": (None, None, rows, None, None),
+                                                      "c": (None, None, rows, None, None)}
     else:
         heads = "model" if cfg.n_heads % tp == 0 else None
+        assert specs == whole_seq
         assert specs["mlstm"] == {"c": (None, None, rows, heads, None, None),
                                   "n": (None, None, rows, heads, None),
                                   "m": (None, None, rows, heads),

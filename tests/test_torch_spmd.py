@@ -957,14 +957,38 @@ def test_partitioned_train_step_matches_one_process(runs, mesh, mode):
 @pytest.mark.parametrize("mesh,mode", PARTITION_CASES)
 def test_partitioned_prefill_and_decode_match_one_process(runs, mesh, mode):
     """Prefill and four greedy decode steps through the partitioned steps
-    (the cache the rank's rows and KV heads between them): every step's
-    tokens equal one process's and its logits within the products'
-    tolerance, on every rank."""
+    (the cache between them the rank's rows and, tiled_csc's, its block of
+    positions of every KV head; the dense weights', every position of its
+    KV heads): every step's tokens equal one process's and its logits
+    within the products' tolerance, on every rank."""
     one = runs["one"][mode]["serve"]
     for rank in runs["ranks"]:
         got = rank["partition"][mesh][mode]["serve"]
         assert torch.equal(got["tokens"], one["tokens"])
         np.testing.assert_allclose(_np(got["logits"]), _np(one["logits"]), **Y_TOL)
+
+
+@pytest.mark.parametrize("mesh,mode", PARTITION_CASES)
+def test_partitioned_decode_cache_layout(runs, mesh, mode):
+    """The KV leaf (L, B, S, KV, hd) a rank keeps after the decode steps.
+    tiled_csc's decode step is given the cache's length, 16 + 4 + 1
+    positions rounded up to a multiple of ``model``: the rank's rows and
+    its block of positions of both KV heads.  The dense weights' is given
+    none, at the unrounded 21 positions: the rank's rows, every position
+    and the one KV head its query heads read (``local_heads``), the
+    layout where the sequence does not split."""
+    d, tp = int(mesh[0]), int(mesh[2])
+    rows = runs["one"][mode]["serve"]["tokens"].shape[1] // d
+    n_kv = configs.reduced(configs.get_config("llama3.2-1b")).n_kv_heads
+    for rank in runs["ranks"]:
+        got = rank["partition"][mesh][mode]["serve"]
+        if mode == "tiled_csc":
+            assert got["max_len"] == -(-21 // tp) * tp
+            want = (rows, got["max_len"] // tp, n_kv)
+        else:
+            assert got["max_len"] == 21
+            want = (rows, 21, 1)
+        assert got["kv_shape"][1:4] == want, (got["kv_shape"], want)
 
 
 @pytest.mark.parametrize("mesh", ["4x2", "2x4"])
@@ -1122,8 +1146,9 @@ def test_partitioned_family_prefill_and_decode_match_one_process(runs, mesh, cas
     """Prefill (a VLM's with its patches; a recurrent family's prompt
     stepped through the partitioned decode step from a zeroed cache) and
     four greedy decode steps from the prompt's true end through the
-    partitioned steps (the cache the rank's rows and KV heads, and its
-    Mamba2 or mLSTM heads' state, between them): every step's tokens equal
+    partitioned steps (the cache the rank's rows and block of positions
+    of every KV head, and its Mamba2 or mLSTM heads' state, between them):
+    every step's tokens equal
     one process's and its logits within the products' tolerance, every
     rank."""
     one = runs["one"]["families"][case]["serve"]

@@ -199,27 +199,73 @@ DENSE_MESHES = ("4x2", "2x4")       # the dense family's cases run on these
 PARTITION_LR = 1e-4
 
 
-def _serve(model, params, tokens, mesh, n_steps: int = 4, patch_embeds=None) -> dict:
+def _serve(model, params, tokens, mesh, n_steps: int = 4, patch_embeds=None,
+           max_len: int | None = None, offsets=None, seq_shard: bool = True) -> dict:
     """Prefill of ``tokens`` (a VLM's after its ``patch_embeds``; a
     recurrent family's stepped through the decode step from a zeroed
-    cache) and ``n_steps`` greedy decode steps from the prompt's true end,
-    each fed the step before's tokens: every step's tokens and logits."""
+    cache) into a cache of ``max_len`` positions and ``n_steps`` greedy
+    decode steps from the prompt's true end, each fed the step before's
+    tokens, at ``start + t`` or, with ``offsets`` (B,), at ``start +
+    offsets + t`` a row: every step's tokens and logits, the cache's
+    length and the KV leaf's shape as the rank keeps it (or None).  With
+    ``seq_shard`` the decode step is given ``max_len`` (by default what
+    the steps need, rounded up to a multiple of ``model`` on a mesh), so
+    it splits the cache's sequence; without, ``max_len`` is what the steps
+    need and the cache keeps every position."""
     start = tokens.shape[1] + (0 if patch_embeds is None else patch_embeds.shape[1])
+    far = start + n_steps + 1 + (0 if offsets is None else int(offsets.max()))
+    tp = 1 if mesh is None or not seq_shard else mesh.shape["model"]
+    max_len = max_len or -(-far // tp) * tp
     with torch.no_grad():
         if model.cfg.family in RECURRENT:     # stepped, as prefill_cache does
-            nxt, cache = steps.make_stepped_prefill(model, mesh=mesh)(
-                params, tokens, start + n_steps + 1)
+            nxt, cache = steps.make_stepped_prefill(model, mesh=mesh, seq_shard=seq_shard)(
+                params, tokens, max_len)
         else:
             nxt, cache = steps.make_prefill_step(model, mesh=mesh)(
                 params, tokens, patch_embeds=patch_embeds)
-            cache = model.grow_cache(cache, start + n_steps + 1)
-        decode = steps.make_decode_step(model, mesh=mesh)
+            cache = model.grow_cache(cache, max_len)
+        decode = steps.make_decode_step(model, mesh=mesh,
+                                        seq_len=max_len if seq_shard else None)
         toks, logits, tok = [nxt], [], nxt[:, None]
         for t in range(n_steps):
-            tok, lg, cache = decode(params, cache, tok, start + t)
+            pos = start + t if offsets is None else start + offsets + t
+            tok, lg, cache = decode(params, cache, tok, pos)
             toks.append(tok[:, 0])
             logits.append(lg)
-    return {"tokens": torch.stack(toks), "logits": torch.stack(logits)}
+    kv = cache.get("k") if isinstance(cache, dict) else None
+    return {"tokens": torch.stack(toks), "logits": torch.stack(logits), "max_len": max_len,
+            "kv_shape": None if kv is None else tuple(kv.shape)}
+
+
+def _seq_runs(cases: dict, mesh) -> dict:
+    """Each sequence-split decode case on ``mesh``: its weights placed,
+    :func:`_serve` of its prompt into its cache length."""
+    out = {}
+    for name, case in cases.items():
+        placed = sharding.place(case["params"],
+                                sharding.param_specs(case["params"], case["cfg"], mesh), mesh)
+        with spmd.count_collectives() as counts:
+            out[name] = _serve(LM(case["cfg"]), placed, case["tokens"], mesh,
+                               n_steps=case["n_steps"], max_len=case["max_len"],
+                               offsets=case.get("offsets"))
+        out[name]["counts"] = counts
+    return out
+
+
+def seq_cases(workdir: str) -> dict:
+    """The cases of ``seq_cases.pt`` (``tests/test_torch_seq_partition.py``)
+    on each of PARTITION_MESHES over the 8 ranks; saves each rank's
+    results to ``seq_rank<r>.pt``."""
+    t0 = time.perf_counter()
+    workdir = pathlib.Path(workdir)
+    cases = torch.load(workdir / "seq_cases.pt", weights_only=False)
+    mesh = mesh_mod.make_fake_mesh(device="cpu")
+    out = {}
+    for name, shape in PARTITION_MESHES.items():
+        m = mesh if name == "4x2" else mesh_mod.make_test_mesh(shape, device="cpu")
+        out[name] = _seq_runs(cases, m)
+    torch.save(out, workdir / f"seq_rank{mesh.rank}.pt")
+    return {"rank": mesh.rank, "seconds": time.perf_counter() - t0}
 
 
 def _vocab_case(case: dict, mesh) -> dict:
@@ -268,13 +314,14 @@ def _padded_local(cases: dict, mesh) -> dict:
     return out
 
 
-def _steps_on_mesh(cfg, params, batch, mesh, serve: dict) -> dict:
+def _steps_on_mesh(cfg, params, batch, mesh, serve: dict, seq_shard: bool = True) -> dict:
     """The partitioned steps of ``cfg`` on ``mesh``: ``loss_and_grads`` on
     the global batch and on its first 3 rows (which divide no data axis:
     the whole-rows rule), every gradient ``unplace``d; one ZeRO-1
     ``train_step`` (the optimizer state placed by ``opt_state_specs``),
     the whole state after it; prefill and four decode steps of ``serve``
-    (``tokens``, and a VLM's ``patch_embeds``)."""
+    (``tokens``, and a VLM's ``patch_embeds``), the cache's sequence split
+    over ``model`` where ``seq_shard`` (:func:`_serve`)."""
     model = LM(cfg)
     specs = sharding.param_specs(params, cfg, mesh)
     placed = sharding.place(params, specs, mesh)
@@ -297,7 +344,7 @@ def _steps_on_mesh(cfg, params, batch, mesh, serve: dict) -> dict:
         "zero_split": sum(sharding.is_split(a) for a in _spec_leaves(o_specs["m"]))}
     with spmd.count_collectives() as counts:
         row["serve"] = _serve(model, placed, serve["tokens"], mesh,
-                              patch_embeds=serve.get("patch_embeds"))
+                              patch_embeds=serve.get("patch_embeds"), seq_shard=seq_shard)
     row["serve"]["counts"] = counts
     return row
 
@@ -313,8 +360,11 @@ def _partition_runs(cases: dict, mesh, name: str) -> dict:
     if name in DENSE_MESHES:
         for mode in ("tiled_csc", "dense"):
             cfg, params = cases["partition"][mode]
+            # the dense weights serve at the length the steps need, every
+            # position kept: the layout where the sequence does not split
             out[mode] = _steps_on_mesh(cfg, params, cases["batch"], mesh,
-                                       {"tokens": cases["batch"]["tokens"][:, :16]})
+                                       {"tokens": cases["batch"]["tokens"][:, :16]},
+                                       seq_shard=mode == "tiled_csc")
         out["vocab"] = _vocab_case(cases["vocab"], mesh)
         out["padded"] = _padded_local(cases["padded"], mesh)
     for case, (cfg, params, batch, serve, meshes) in cases["families"].items():
@@ -569,3 +619,34 @@ def card_phase15(workdir: str) -> dict:
                       "loss_one_process": float(m1["loss"]),
                       "state_err": state_dist(after, {"params": p1, "opt": s1})}
     return out
+
+
+def card_seq_decode(workdir: str) -> dict:
+    """On the card, a (2, 2) mesh: reduced llama3.2-1b (fp32, tiled_csc), a
+    22-token prompt of 8 rows into a 48-position cache and 4 greedy steps,
+    the partitioned decode step on each rank's block of positions against
+    one process on the card: the largest logit error as a fraction of the
+    largest logit, tokens equal, the rank's KV leaf's shape and its
+    ``sod_matmul`` launches."""
+    from repro_torch import configs
+    from repro_torch.kernels import sod_matmul as sm
+
+    mesh = mesh_mod.make_test_mesh((2, 2), device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = configs.reduced(configs.get_config("llama3.2-1b")).with_(
+        dtype="float32", sod=sod.SoDConfig(mode="tiled_csc", density=0.5, min_dim=64))
+    model = LM(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = sod.sodify_params(model.init(gen, "cuda"), cfg.sod)
+    placed = sharding.place(params, sharding.param_specs(params, cfg, mesh), mesh)
+    tokens = torch.randint(0, cfg.vocab, (8, 22), generator=gen, device="cuda")
+    one = _serve(model, params, tokens, None, max_len=48)
+    before = sm.launches
+    got = _serve(model, placed, tokens, mesh, max_len=48)
+    torch.cuda.synchronize()
+    scale = one["logits"].abs().max().item()
+    return {"rank": mesh.rank,
+            "rel_err": (got["logits"] - one["logits"]).abs().max().item() / scale,
+            "tokens_equal": bool(torch.equal(got["tokens"], one["tokens"])),
+            "kv_shape": list(got["kv_shape"]),
+            "launches": sm.launches - before}
